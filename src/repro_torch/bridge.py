@@ -12,14 +12,20 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def to_torch(tree: Any, device: torch.device | str = "cpu",
+
+def to_torch(tree: Any, device: torch.device | str = "cuda",
              dtype: Optional[torch.dtype] = None) -> Any:
-    """Nested dict of numpy arrays -> the same dict of tensors.  ``dtype``
-    casts floating-point leaves only; integer leaves (positions) keep
-    theirs."""
+    """Nested dict of numpy arrays -> the same dict of tensors on ``device``
+    (the card unless the caller names the CPU).  ``dtype`` casts
+    floating-point leaves only; integer leaves (positions) keep theirs."""
+    return _to_torch(tree, resolve_device(device), dtype)
+
+
+def _to_torch(tree: Any, device: torch.device, dtype: Optional[torch.dtype]) -> Any:
     if isinstance(tree, dict):
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree))  # a writable copy
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)

@@ -1,6 +1,6 @@
-"""Batched speculative decoding (paper §3, Algorithm 1) on a contiguous
-ring KV cache: the port of ``repro.core.spec_decode`` for the contiguous
-pool, greedy verification and no chunked prefill.
+"""Batched speculative decoding (paper §3, Algorithm 1): the port of
+``repro.core.spec_decode`` for greedy verification, without chunked
+prefill, the prefix cache or sharded pools.
 
 One speculative step at speculation length ``s`` for a batch of ``b``
 ragged requests:
@@ -18,31 +18,50 @@ PyTorch runs eagerly, so there is no per-(batch, s) compile cache; the
 caches are updated in place instead of being donated.  The step's only
 device-to-host reads are the accept and commit counts, read once at the
 step boundary for ``StepStats``.
+
+Slot pool (continuous batching, serving/scheduler.py): a fixed-capacity
+:class:`DecodeState` whose empty rows are ``done``, so the same step serves
+every occupancy level.  :meth:`SpecDecodeEngine.init_slots` allocates it,
+:meth:`~SpecDecodeEngine.prefill_into` injects one request (a B = 1
+prefill, then a copy into the slot's rows) and
+:meth:`~SpecDecodeEngine.retire_slot` frees a row.
+
+Paged KV: ``init_slots(block_size=...)`` replaces the per-slot target rings
+with one pool of fixed-size blocks (``DecoderLM.init_paged_cache``) plus a
+block table ``bt [capacity, max_blocks]`` in ``DecodeState.tcache``; the
+host half is the :class:`~repro_torch.serving.slots.PagedKVTables` on
+``DecodeState.paged``.  ``prefill_into`` claims ``ceil(prompt / block)``
+blocks and copies the prefill rows block by block; every ``step`` first
+grows each live slot's table to cover ``seq_len + s`` rows, uploads ``bt``
+only when a table grew, sends ``cu_blocks`` (``host_cu_blocks`` of the same
+host tables) so the target's verify runs the ragged kernel K3, and
+afterwards advances the host token mirror by the commit counts;
+``retire_slot`` frees the blocks and wipes their ``pos`` rows, so a
+recycled block never leaks stale keys.  The draft's small cache
+stays a ring at the per-slot logical length.  ``warm=True`` on these
+methods only loads the kernels and leaves the state as it is: there is no
+compile to warm, and the state is written in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.kernels.tuning import host_cu_blocks
 from repro_torch.models.transformer import DecoderLM
+
+if TYPE_CHECKING:  # the real import is lazy: serving/ imports this module
+    from repro_torch.serving.slots import PagedKVTables
 
 # headroom rows in the per-request output buffer: one speculative step can
 # commit up to s + 1 tokens past max_new.  Also the ceiling on s.
 S_MAX = 8
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The entry points' device rule: CUDA unless the caller names the CPU,
-    and no silent move to the CPU when CUDA is missing."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain versions on the CPU")
-    return device
 
 
 @dataclasses.dataclass
@@ -55,6 +74,9 @@ class DecodeState:
     out: torch.Tensor           # [B, max_new + S_MAX + 1] generated tokens
     n_generated: torch.Tensor   # [B]
     done: torch.Tensor          # [B] bool
+    # host half of the paged KV pool (block free list + per-slot tables);
+    # None for contiguous per-slot ring caches
+    paged: Optional["PagedKVTables"] = None
 
 
 @dataclasses.dataclass
@@ -120,25 +142,166 @@ class SpecDecodeEngine:
             done=torch.zeros((B,), dtype=torch.bool, device=self.device),
         )
 
-    def step(self, tparams, dparams, state: DecodeState,
-             s: int) -> Tuple[DecodeState, StepStats]:
+    # ------------------------------------------------------------------
+    # slot pool (continuous batching; serving/scheduler.py drives this)
+
+    def load_kernels(self, paged: bool = False) -> None:
+        """Build and load the CUDA kernels this engine's steps launch (a
+        no-op on the CPU), so that a timed region never includes a build."""
+        if self.device.type == "cuda":
+            names = ["spec_verify_attn"] + (["paged_verify_attn"] if paged else [])
+            build.build(names)                  # one nvcc per source, in parallel
+            for name in names:
+                build.load(name)
+
+    def init_slots(self, capacity: int, cache_len: int, *,
+                   block_size: Optional[int] = None,
+                   num_blocks: Optional[int] = None,
+                   mesh: Any = None) -> DecodeState:
+        """Blank fixed-capacity slot pool: every row is an empty slot
+        (``done``), ready to be claimed via :meth:`prefill_into`.
+
+        With ``block_size`` set, the target KV lives in a paged block pool:
+        ``cache_len`` becomes the per-slot logical cap (rounded up to whole
+        blocks) and ``num_blocks`` (default: the worst case, ``capacity *
+        blocks_per_slot``) sizes the shared pool; undersize it to trade
+        memory for scheduler preemptions."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded slot pools are not ported yet (ROADMAP queue 1, item 14)")
+        dev = self.device
+        if block_size is None:
+            tcache, dcache = self._init_caches(capacity, cache_len)
+            paged = None
+        else:
+            from repro_torch.serving.slots import PagedKVTables
+            max_blocks = -(-cache_len // block_size)
+            if num_blocks is None:
+                num_blocks = capacity * max_blocks
+            paged = PagedKVTables(num_blocks, block_size, capacity, max_blocks)
+            tcache = self.target.init_paged_cache(num_blocks, block_size,
+                                                  self.dtype, dev)
+            tcache["bt"] = torch.full((capacity, max_blocks), -1,
+                                      dtype=torch.int32, device=dev)
+            dcache = (self.draft.init_cache(capacity, paged.logical_len,
+                                            self.dtype, dev)
+                      if self.draft is not None else None)
+        return DecodeState(
+            tcache=tcache, dcache=dcache,
+            # seq_lens = 2 keeps the masked step's positions non-negative
+            seq_lens=torch.full((capacity,), 2, dtype=torch.int32, device=dev),
+            last2=torch.zeros((capacity, 2), dtype=torch.int32, device=dev),
+            out=torch.zeros((capacity, self.max_new + S_MAX + 1),
+                            dtype=torch.int32, device=dev),
+            n_generated=torch.zeros((capacity,), dtype=torch.int32, device=dev),
+            done=torch.ones((capacity,), dtype=torch.bool, device=dev),
+            paged=paged)
+
+    def prefill_into(self, tparams, dparams, state: DecodeState, slot: int,
+                     tokens, prompt_len: int, cache_len: int,
+                     warm: bool = False) -> DecodeState:
+        """Inject one new request into row ``slot`` of a live slot pool: a
+        B = 1 prefill of the (padded) prompt, then a copy of every per-slot
+        leaf into the pool, in place.  A paged pool allocates
+        ``ceil(prompt_len / block_size)`` blocks and copies the prefill rows
+        block by block through the slot's new table row."""
+        if warm:
+            self.load_kernels(state.paged is not None)
+            return state
+        tokens = np.asarray(tokens, np.int32).reshape(1, -1)
+        pk = state.paged
+        if pk is not None:
+            cache_len = pk.logical_len
+        one = self.prefill(tparams, dparams, tokens,
+                           np.array([prompt_len], np.int32), cache_len)
+        if pk is None:
+            self._copy_ring(state.tcache, one.tcache, slot)
+        else:
+            pk.prefill(slot, prompt_len)
+            ids = pk.table(slot)
+            n, bs = len(ids), pk.block_size
+            blocks = self._tensor(ids, torch.long)
+            tc, t1 = state.tcache, one.tcache
+            for name in ("k", "v"):
+                rows = t1[name][:, 0, :n * bs]               # [nL, n*bs, KVH, hd]
+                tc[name][:, blocks] = rows.reshape(rows.shape[0], n, bs,
+                                                   *rows.shape[2:])
+            tc["pos"][blocks] = t1["pos"][0, :n * bs].reshape(n, bs)
+            tc["bt"][slot] = -1
+            tc["bt"][slot, :n] = blocks.to(torch.int32)
+        if self.draft is not None:
+            self._copy_ring(state.dcache, one.dcache, slot)
+        for name in ("seq_lens", "last2", "out", "n_generated", "done"):
+            getattr(state, name)[slot] = getattr(one, name)[0]
+        return state
+
+    @staticmethod
+    def _copy_ring(pool: Dict, one: Dict, slot: int) -> None:
+        """Copy a B = 1 ring cache into row ``slot`` of a pool of rings."""
+        pool["k"][:, slot] = one["k"][:, 0]
+        pool["v"][:, slot] = one["v"][:, 0]
+        pool["pos"][slot] = one["pos"][0]
+
+    def retire_slot(self, state: DecodeState, slot: int) -> DecodeState:
+        """Free a slot (mark it done), in place and with no host read: the
+        step stops committing for it and the row can be claimed again.  A
+        paged pool also frees the slot's blocks and wipes their ``pos``
+        rows, so a recycled block never leaks stale attendable keys."""
+        state.done[slot] = True
+        if state.paged is not None:
+            freed = state.paged.release(slot)
+            if freed:
+                state.tcache["pos"][self._tensor(freed, torch.long)] = -1
+            state.tcache["bt"][slot] = -1
+        return state
+
+    def step(self, tparams, dparams, state: DecodeState, s: int, *,
+             warm: bool = False) -> Tuple[DecodeState, StepStats]:
         """One speculative step at length ``s`` for the whole batch.  The
         returned state shares (and has updated in place) the input state's
-        caches; the input state must not be stepped again."""
+        caches; the input state must not be stepped again.
+
+        Paged pool: before the device step each live slot's table grows to
+        cover its worst-case writes (``seq_len + s`` rows), ``bt`` is
+        uploaded only if a table grew, and ``cu_blocks`` comes from the
+        same host tables; afterwards the host token mirror advances by the
+        commit counts.  ``warm=True`` only loads the kernels and returns the
+        state untouched with zero counts."""
         if not 0 <= s <= S_MAX:
             raise ValueError(
                 f"s={s} outside [0, {S_MAX}]: the step's output buffer is "
                 f"sized for at most S_MAX={S_MAX} speculative tokens")
         B = state.seq_lens.shape[0]
+        pk = state.paged
+        if warm:
+            self.load_kernels(pk is not None)
+            zero = np.zeros(B, np.int32)
+            return state, StepStats(accepted=zero, committed=zero.copy())
         fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
-                            max_new=self.max_new)
-        (tc, dc, seq_lens, last2, out, n_gen, done, a, n_commit) = fn(
-            tparams, dparams, state.tcache, state.dcache, state.seq_lens,
-            state.last2, state.out, state.n_generated, state.done)
+                            max_new=self.max_new, paged=pk is not None)
+        args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
+                state.last2, state.out, state.n_generated, state.done)
+        if pk is not None:
+            grew = False
+            for slot in pk.active_slots():
+                if not pk.is_pending(slot):
+                    grew |= bool(pk.ensure(slot, pk.tokens(slot) + s))
+            # the device table and the kernel's cu_blocks describe the same
+            # blocks: both come from these host tables
+            tables = pk.device_tables(exclude_pending=True)
+            if grew:
+                state.tcache["bt"].copy_(torch.from_numpy(tables))
+            args = (*args, torch.from_numpy(host_cu_blocks(tables)).to(self.device))
+        (tc, dc, seq_lens, last2, out, n_gen, done, a, n_commit) = fn(*args)
         # step-boundary host read: the accept and commit counts, in one copy
         counts = torch.stack([a, n_commit]).cpu().numpy()
-        return (DecodeState(tc, dc, seq_lens, last2, out, n_gen, done),
-                StepStats(accepted=counts[0], committed=counts[1]))
+        stats = StepStats(accepted=counts[0], committed=counts[1])
+        if pk is not None:
+            for slot in pk.active_slots():
+                if not pk.is_pending(slot):
+                    pk.commit(slot, int(stats.committed[slot]))
+        return (DecodeState(tc, dc, seq_lens, last2, out, n_gen, done, paged=pk),
+                stats)
 
     def generate(self, tparams, dparams, tokens, prompt_lens, *, s: int,
                  cache_len: int, max_new: Optional[int] = None,
@@ -171,19 +334,21 @@ class SpecDecodeEngine:
 
 
 def make_spec_step(tgt: DecoderLM, drf: Optional[DecoderLM], B: int, s: int, *,
-                   eos_id: int = -1, max_new: int = 128):
-    """One greedy speculative step (paper Algorithm 1, batched) for the
-    contiguous pool: the port of ``repro.core.spec_decode.make_spec_step``.
+                   eos_id: int = -1, max_new: int = 128, paged: bool = False):
+    """One greedy speculative step (paper Algorithm 1, batched): the port of
+    ``repro.core.spec_decode.make_spec_step``.
 
     Signature: fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-    n_generated, done) -> (tcache', dcache', seq_lens', last2', out',
-    n_generated', done', accepted, n_commit).  The caches are written in
-    place, and nothing is read back to the host.
+    n_generated, done[, cu_blocks]) -> (tcache', dcache', seq_lens', last2',
+    out', n_generated', done', accepted, n_commit).  ``paged=True`` adds the
+    ``cu_blocks [B + 1]`` operand, which the target's verify passes to the
+    paged attention (the ragged kernel K3 on the card).  The caches are
+    written in place, and nothing is read back to the host.
     """
     eos = eos_id
 
     def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-           n_generated, done):
+           n_generated, done, cu_blocks=None):
         dev = seq_lens.device
         # ---- 1. draft phase ----
         if s > 0:
@@ -203,7 +368,8 @@ def make_spec_step(tgt: DecoderLM, drf: Optional[DecoderLM], B: int, s: int, *,
 
         # ---- 2. verify: [t_{n-1}, d_1..d_s] ----
         feed = torch.cat([last2[:, 1:], drafts], dim=1)              # [B, s+1]
-        vlogits, tcache_out = tgt.decode_step(tparams, feed, tcache, seq_lens)
+        vlogits, tcache_out = tgt.decode_step(tparams, feed, tcache, seq_lens,
+                                              cu_blocks if paged else None)
         bidx = torch.arange(B, device=dev)
 
         # ---- 3. acceptance (argmax verification) ----

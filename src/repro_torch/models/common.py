@@ -34,8 +34,7 @@ def _iter_defs(defs: Dict, prefix=()):
 
 
 def init_params(defs: Dict, generator: torch.Generator, n_layers: int,
-                dtype: torch.dtype = torch.float32,
-                device: torch.device | str = "cpu") -> Dict:
+                dtype: torch.dtype, device: torch.device | str) -> Dict:
     """Seeded init with the JAX package's distributions (normal x
     1/sqrt(fan_in) unless the def gives a scale; ones for norms).  The
     numbers differ from JAX's.  Draws in float32 one layer at a time, on the

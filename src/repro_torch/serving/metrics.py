@@ -1,5 +1,5 @@
-"""Latency metrics & timeline grouping for the serving experiments: the part
-of ``repro.serving.metrics`` that run-to-completion serving can feed."""
+"""Latency metrics & timeline grouping for the serving experiments (a copy
+of ``repro.serving.metrics``)."""
 from __future__ import annotations
 
 import warnings
@@ -84,8 +84,27 @@ def speedup(base: ServeResult, new: ServeResult) -> float:
 
 
 # ---------------------------------------------------------------------------
-# occupancy (TTFT / ITL / goodput / admission gaps need the iteration-level
-# scheduler, which is not ported yet)
+# iteration-level (continuous batching) metrics: TTFT / ITL / occupancy
+# — only schedulers that commit at step granularity fill these in
+
+
+def ttft_summary(result: ServeResult) -> LatencySummary:
+    """Time-to-first-token distribution (arrival -> first committed token)."""
+    vals = [r.ttft for r in result.requests if r.ttft is not None]
+    if not vals:
+        raise ValueError("no per-request first-token times recorded "
+                         "(run an iteration-level scheduler)")
+    return LatencySummary.of(vals, name="ttft",
+                             n_skipped=len(result.requests) - len(vals))
+
+
+def itl_summary(result: ServeResult) -> LatencySummary:
+    """Mean inter-token-latency distribution across requests."""
+    vals = [r.itl for r in result.requests if r.itl is not None]
+    if not vals:
+        raise ValueError("no per-request inter-token latencies recorded")
+    return LatencySummary.of(vals, name="itl",
+                             n_skipped=len(result.requests) - len(vals))
 
 
 def occupancy_timeline(result: ServeResult) -> List[Tuple[float, int]]:
@@ -104,3 +123,42 @@ def mean_occupancy(result: ServeResult) -> float:
         raise ValueError("mean_occupancy: executed batches carry zero total "
                          "duration")
     return num / den
+
+
+def goodput(result: ServeResult) -> float:
+    """Committed tokens per second of makespan (first arrival to last
+    finish), counting finished requests only."""
+    done, _ = _finished(result)
+    if not done:
+        raise ValueError("goodput: no finished requests")
+    t0 = min(r.arrival for r in result.requests)
+    t1 = max(r.finish for r in done)
+    if t1 <= t0:
+        raise ValueError("goodput: zero makespan")
+    return sum(r.n_generated for r in done) / (t1 - t0)
+
+
+def admission_gaps(result: ServeResult) -> List[float]:
+    """Per-iteration wall time of iterations that performed admission work
+    (whole-prompt prefills or prefill chunks) while a decode batch was
+    already running — i.e. the inter-token gap those admissions impose on
+    every running request.
+
+    ``StepTrace.occupancy`` is recorded *after* admission, so it counts
+    the just-admitted slots themselves; an admission into an idle pool
+    stalls nobody and must not count as a gap.  A request is "running"
+    here once it has decoded in an earlier iteration.
+    """
+    if result.trace is None:
+        raise ValueError("no StepTrace recorded "
+                         "(run an iteration-level scheduler)")
+    gaps = []
+    seen_decoding: set = set()
+    for t in result.trace:
+        work = (sum(dt for dt in t.prefill_s if dt > 0)
+                + sum(t.chunk_s))
+        stalled = [rid for rid in t.rids if rid in seen_decoding]
+        if work > 0 and stalled:
+            gaps.append(t.duration + work)
+        seen_decoding.update(t.rids)
+    return gaps

@@ -16,14 +16,19 @@ Two execution backends:
 
 Both backends answer ``run_batch(requests, s) -> (duration_s, BatchRecord)``;
 the server's virtual clock advances by the returned duration, so the loop is
-deterministic and backend-agnostic.  A copy of ``repro.serving.server``
-without ``serve_continuous``, which needs the iteration-level scheduler.
+deterministic and backend-agnostic.  A copy of ``repro.serving.server``.
+
+Iteration-level (continuous-batching) scheduling lives in
+:mod:`repro_torch.serving.scheduler`: :func:`serve_continuous` below runs
+that scheduler over the simulated step backend, and
+:func:`~repro_torch.serving.scheduler.serve_continuous_live` runs the
+identical scheduling code on a live engine's KV slot pool.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -141,6 +146,8 @@ class SimBackend:
 class ServeResult:
     requests: List[Request]
     batches: List[BatchRecord]
+    # iteration-level schedulers attach their per-step StepTrace list here
+    trace: Optional[list] = None
 
     @property
     def latencies(self) -> np.ndarray:
@@ -149,6 +156,29 @@ class ServeResult:
     @property
     def mean_latency(self) -> float:
         return float(self.latencies.mean())
+
+
+def serve_continuous(requests: Sequence[Request], model: LatencyModel,
+                     controller: AdaptiveController, max_batch: int = 16,
+                     seed: int = 0, policy=None,
+                     telemetry=None) -> ServeResult:
+    """Iteration-level (Orca-style) continuous batching x speculation,
+    simulated from a fitted latency model: requests join and leave the
+    running batch at speculative-step granularity and the controller
+    re-chooses s every iteration from the current batch size.
+
+    This is the :class:`~repro_torch.serving.scheduler.ContinuousScheduler`
+    that drives the live engine, run over
+    :class:`~repro_torch.serving.scheduler.SimStepBackend`.  ``telemetry``
+    is not ported yet and raises.
+    """
+    from repro_torch.serving.scheduler import ContinuousScheduler, SimStepBackend
+    backend = SimStepBackend(model, capacity=max_batch, seed=seed)
+    sched = ContinuousScheduler(backend, controller, policy,
+                                telemetry=telemetry)
+    result = sched.run(requests)
+    result.trace = sched.trace
+    return result
 
 
 def serve(requests: Sequence[Request], backend, controller: AdaptiveController,

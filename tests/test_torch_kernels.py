@@ -24,6 +24,17 @@ from repro_torch.kernels import spec_verify_attn as K1
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Tiny CPU ops: one intra-op thread, so that parallel test workers do
+    not oversubscribe the cores (results do not depend on it).  The other
+    port test modules import it, which makes it autouse there too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(B, T, L, H, KVH, hd=32, *, seed=0, masked_rows=False, quant=False):
     """Ring-cache inputs: per request a context length, T queries ending
     there, cache rows holding the newest positions (-1 = unwritten)."""

@@ -22,6 +22,7 @@ from repro_torch import bridge
 from repro_torch.configs import registry as TR
 from repro_torch.models import common as tcm
 from repro_torch.models.transformer import DecoderLM
+from test_torch_kernels import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -36,7 +37,7 @@ def _pair(arch, **cfg_kw):
         tcfg = tcfg.with_(attn=dataclasses.replace(tcfg.attn, **cfg_kw))
     jm, tm = JDecoderLM(jcfg), DecoderLM(tcfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = bridge.to_torch(jax.tree.map(np.asarray, jp))
+    tp = bridge.to_torch(jax.tree.map(np.asarray, jp), "cpu")
     return jm, jp, tm, tp
 
 
@@ -103,7 +104,7 @@ def test_embed_unembed_match_jax():
 def test_param_tree_matches_jax_layout(arch):
     """Same keys, same stacked shapes, and the JAX package's distributions."""
     jm, jp, tm, _ = _pair(arch)
-    tp = tm.init(torch.Generator().manual_seed(0))
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
     jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
     tshapes = {k: ({kk: tuple(vv.shape) for kk, vv in v.items()} if isinstance(v, dict)
                    else tuple(v.shape)) for k, v in tp.items()}
@@ -112,14 +113,14 @@ def test_param_tree_matches_jax_layout(arch):
     assert abs(float(tp["embed"].std()) - 0.02) < 0.002
     assert abs(float(tp["layers"]["wq"].std()) - d ** -0.5) < 0.1 * d ** -0.5
     assert (tp["layers"]["attn_norm"] == 1).all() and (tp["final_norm"] == 1).all()
-    again = tm.init(torch.Generator().manual_seed(0))
+    again = tm.init(torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["layers"]["w_up"], tp["layers"]["w_up"])
 
 
 def test_bridge_round_trip_keeps_dtypes():
     tree = {"a": np.arange(6, dtype=np.int32).reshape(2, 3),
             "b": {"c": np.ones((2,), np.float32)}}
-    t = bridge.to_torch(tree, dtype=torch.bfloat16)
+    t = bridge.to_torch(tree, "cpu", dtype=torch.bfloat16)
     assert t["a"].dtype == torch.int32 and t["b"]["c"].dtype == torch.bfloat16
     back = bridge.to_numpy(t)
     np.testing.assert_array_equal(back["a"], tree["a"])
@@ -137,7 +138,7 @@ def _prefill_both(arch, B=3, P=12, L=40, seed=0, **cfg_kw):
     lens = np.array([P, P - 5, P - 3][:B], np.int32)
     jl, jc, jt = jax.jit(jm.prefill)(jp, jnp.asarray(toks), jm.init_cache(B, L),
                                      jnp.asarray(lens))
-    tl, tc, tt = tm.prefill(tp, torch.from_numpy(toks), tm.init_cache(B, L),
+    tl, tc, tt = tm.prefill(tp, torch.from_numpy(toks), tm.init_cache(B, L, device="cpu"),
                             torch.from_numpy(lens))
     return (jm, jp, jl, jc, jt), (tm, tp, tl, tc, tt), rng
 

@@ -34,6 +34,7 @@ from repro_torch.serving import acceptance as tacc
 from repro_torch.serving import metrics as tmet
 from repro_torch.serving import server as tsrv
 from repro_torch.serving import traffic as ttr
+from test_torch_kernels import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _model(an):
@@ -159,7 +160,8 @@ def test_engine_backend_returns_the_jax_engine_tokens():
     jt = jax.tree.map(np.asarray, JDecoderLM(jcfg).init(jax.random.PRNGKey(0)))
     jdw = jax.tree.map(np.asarray, JDecoderLM(jd).init(jax.random.PRNGKey(1)))
     eng = SpecDecodeEngine(tcfg, td, max_new=6, device="cpu")
-    backend = tsrv.EngineBackend(eng, bridge.to_torch(jt), bridge.to_torch(jdw),
+    backend = tsrv.EngineBackend(eng, bridge.to_torch(jt, "cpu"),
+                                 bridge.to_torch(jdw, "cpu"),
                                  cache_len=64)
     reqs = ttr.uniform_traffic(3, 0.1, 1.0, tcfg.vocab_size, seed=1, max_new=6)
     dt, rec = backend.run_batch(reqs, 2)

@@ -22,6 +22,7 @@ from repro.models.transformer import DecoderLM as JDecoderLM
 from repro_torch import bridge
 from repro_torch.configs import registry as TR
 from repro_torch.core.spec_decode import S_MAX, SpecDecodeEngine
+from test_torch_kernels import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ARCHS = ["opt-6.7b", "yi-9b"]
 
@@ -56,7 +57,8 @@ def _engines(arch, draft, max_new=12):
     je = JEngine(jcfg, jdc, max_new=max_new)
     te = SpecDecodeEngine(tcfg, tdc, max_new=max_new, device="cpu")
     jt, jd = _weights(arch, draft)
-    return je, jt, jd, te, bridge.to_torch(jt), bridge.to_torch(jd), tcfg
+    return (je, jt, jd, te, bridge.to_torch(jt, "cpu"), bridge.to_torch(jd, "cpu"),
+            tcfg)
 
 
 def _prompts(vocab, seed=3):
@@ -71,7 +73,7 @@ def test_spec_equals_greedy(arch, s):
     tcfg = TR.get_smoke_config(arch)
     eng = SpecDecodeEngine(tcfg, _small_draft(TR, tcfg), max_new=16, device="cpu")
     gen = torch.Generator().manual_seed(0)
-    tp, dp = eng.target.init(gen), eng.draft.init(gen)
+    tp, dp = eng.target.init(gen, device="cpu"), eng.draft.init(gen, device="cpu")
     toks, lens = _prompts(tcfg.vocab_size)
     ref, _, _ = eng.generate(tp, dp, toks, lens, s=0, cache_len=96)
     out, _, _ = eng.generate(tp, dp, toks, lens, s=s, cache_len=96)
@@ -124,7 +126,8 @@ def _small_engine(max_new, seed=0):
     tcfg = TR.get_smoke_config("yi-9b")
     eng = SpecDecodeEngine(tcfg, _small_draft(TR, tcfg), max_new=max_new, device="cpu")
     gen = torch.Generator().manual_seed(seed)
-    return eng, eng.target.init(gen), eng.draft.init(gen), tcfg
+    return (eng, eng.target.init(gen, device="cpu"), eng.draft.init(gen, device="cpu"),
+            tcfg)
 
 
 def test_eos_stops_request():
