@@ -21,6 +21,13 @@ Phases, one report line each (the last line is the JSON verdict):
             full pool of 192 blocks), GQA at yi-9b widths, window,
             prefix, int8 + scales, block size 8 and all slots empty, in
             fp32 and bf16; K3 must equal K2 bit for bit.
+2c. train kernels  K4 (flash attention) and K5 (RMSNorm), forward and
+            backward, held against their plain versions and autograd through
+            the plain forward at the training shapes (internlm2-1.8b, the
+            OPT-125M draft), the teacher's and ``prefill_flash``'s forward
+            shapes in bf16, G = 8, a window, a prefix, padded and fully
+            masked rows and T not a multiple of the tile; with the times of
+            the plain version, a library call and the card's bound.
 3. parity   full-width target and draft cut to 2 layers, fp32: prefill + 8
             greedy steps on the card (kernel) against the same on the CPU
             (plain version), and speculative generate(s) == generate(0).
@@ -43,6 +50,17 @@ Phases, one report line each (the last line is the JSON verdict):
             that runs short as requests grow, so running requests are
             preempted and re-prefilled; 32 requests; the ragged kernel's
             launches read around it.
+7.  train   the training path: the full-width OPT-125M draft distilled for
+            20 steps against phase 4's OPT-6.7B teacher (the KL must fall;
+            acceptance at s = 4 before and after); the internlm2-1.8b
+            trainer (``repro_torch.launch.train``) at full width and depth,
+            fp32, 20 steps, loss falling, K4/K5 launched and no plain
+            version, peak memory and the device-busy share; one train step
+            of internlm2 cut to 2 layers on the card against the CPU; and
+            ``prefill_flash`` against ``prefill`` on OPT-6.7B in bf16.
+
+Every serving phase now runs K5 (every norm), and phases 4 and 6b gate its
+launches; phase 5 records its time per step.
 
 Exits non-zero, printing no verdict, without CUDA or when any phase fails.
 Everything it prints also goes to ``chiprun_out/chip_smoke.log`` beside it,
@@ -470,6 +488,237 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: K4 (flash attention) and K5 (RMSNorm), forward and backward,
+# against their plain versions
+
+
+GRAD_TOL = 1e-4   # fp32 grads: the same math, sums over up to 1024 rows in another order
+
+
+def within(torch, got, want, tol):
+    """Max abs error and whether |got - want| <= tol + tol * |want| holds
+    everywhere; -inf (a fully masked row's logsumexp) must match exactly."""
+    got, want = got.float(), want.float()
+    inf = torch.isinf(want)
+    ok = bool(torch.equal(torch.isinf(got), inf)) and bool((got[inf] == want[inf]).all())
+    err = (got[~inf] - want[~inf]).abs()
+    ok &= bool((err <= tol + tol * want[~inf].abs()).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, lens=None, window=None,
+                    prefix_len=0, grads=True, seed=0):
+    """Self-attention inputs as the training forward and ``prefill_flash``
+    give them: q [B,T,H,hd], k/v [B,T,KVH,hd], positions 0..T-1 per row, and
+    with ``lens`` the rows at or past a row's length set to -1 (a length of 0
+    makes every row of that batch entry fully masked)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dt)
+
+    pos = torch.arange(T, device="cuda", dtype=torch.int32).expand(B, T).contiguous()
+    if lens is not None:
+        n = torch.tensor(lens, device="cuda", dtype=torch.int32)[:, None]
+        pos = torch.where(pos < n, pos, -1).contiguous()
+    return dict(name=name, q=rnd(B, T, H, hd), k=rnd(B, T, KVH, hd), v=rnd(B, T, KVH, hd),
+                do=rnd(B, T, H, hd), pos=pos, window=window, prefix_len=prefix_len,
+                dtype=dtype, grads=grads,
+                shape=f"B{B} T{T} H{H}/{KVH}x{hd}" + (f" lens {lens}" if lens else "")
+                      + (f" window {window}" if window else "")
+                      + (f" prefix {prefix_len}" if prefix_len else ""))
+
+
+def flash_bound(torch, c, backward):
+    """Least time: the bytes moved once (forward: q, k, v, positions in;
+    out and lse out; backward: q, k, v, o, dO, lse, positions in; dq, dk,
+    dv out) against the operations on the visible (query, key) pairs: 4
+    flop per pair, head and hd forward (QK^T, PV), 10 backward (QK^T and
+    dO V^T recomputed, dV, dQ, dK)."""
+    q, k = c["q"], c["k"]
+    B, T, H, hd = q.shape
+    ok = visible(torch, dict(c, q_pos=c["pos"], k_pos=c["pos"]))
+    pairs = int(ok.sum())
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    pos_b = 8 * c["pos"].numel()
+    if backward:
+        nbytes = 3 * qb + 4 * kb + 4 * B * H * T + qb + pos_b   # q o dO dq; k v dk dv; lse
+        ops = 10 * pairs * H * hd
+    else:
+        nbytes = 2 * qb + 2 * kb + 4 * B * H * T + pos_b      # q out; k v; lse
+        ops = 4 * pairs * H * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[c["dtype"]]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_flash_case(torch, K4, ref, c):
+    import torch.nn.functional as F
+    kw = dict(window=c["window"], prefix_len=c["prefix_len"])
+    q, k, v, do, pos = c["q"], c["k"], c["v"], c["do"], c["pos"]
+    G = q.shape[2] // k.shape[2]
+    tol = TOL[c["dtype"]]
+    out, lse = K4.flash_attn_fwd_cuda(q, k, v, pos, pos, save_lse=True, **kw)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v, do)]
+    want, want_lse = ref.flash_attn_fwd_lse_ref(f32[0], f32[1], f32[2], pos, pos, **kw)
+    err, ok = within(torch, out, want, tol)
+    lse_err, lse_ok = within(torch, lse, want_lse, tol)
+    zero = pos < 0 if not c["prefix_len"] else torch.zeros_like(pos, dtype=torch.bool)
+    ok &= lse_ok and bool((out[zero] == 0).all())                 # masked rows give zeros
+    row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=err,
+               lse_max_abs_err=lse_err, tol=tol)
+    case_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, do, out))
+    copies = min(64, max(2, math.ceil(2 * 50e6 / case_bytes)))
+    sets = [tuple(x.clone() for x in (q, k, v, pos, out, do, lse)) for _ in range(copies)]
+    mask = lambda p: visible(torch, dict(c, q_pos=p, k_pos=p))[:, None]  # noqa: E731
+    row["ms"] = device_ms(torch, lambda q, k, v, p, *_: K4.flash_attn_fwd_cuda(
+        q, k, v, p, p, save_lse=True, **kw), sets)
+    row["plain_ms"] = device_ms(torch, lambda q, k, v, p, *_: ref.flash_attn_fwd_lse_ref(
+        q, k, v, p, p, **kw), sets)
+    lib_sets = [(s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
+                 mask(s[3])) for s in sets]
+    row["library_ms"] = device_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=G > 1), lib_sets)
+    row["bound_ms"], row["bound_by"] = flash_bound(torch, c, False)
+    if c["grads"]:
+        dq, dk, dv = K4.flash_attn_bwd_cuda(q, k, v, out, do, lse, pos, pos, **kw)
+        torch.cuda.synchronize()
+        explicit = ref.flash_attn_bwd_ref(*f32[:3], want, f32[3], want_lse, pos, pos, **kw)
+        leaf = [x.clone().requires_grad_(True) for x in f32[:3]]
+        auto = torch.autograd.grad(ref.gqa_masked_ref(*leaf, pos, pos, **kw), leaf, f32[3])
+        errs = []
+        for name, got, e, a in zip(("dq", "dk", "dv"), (dq, dk, dv), explicit, auto):
+            e1, ok1 = within(torch, got, e, GRAD_TOL)
+            e2, ok2 = within(torch, got, a, GRAD_TOL)
+            errs.append(max(e1, e2))
+            ok &= ok1 and ok2
+        row["grad_max_abs_err"] = max(errs)
+        row["grad_tol"] = GRAD_TOL
+        row["bwd_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: K4.flash_attn_bwd_cuda(
+            q, k, v, o, d, l, p, p, **kw), sets)
+        row["bwd_plain_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: ref.flash_attn_bwd_ref(
+            q, k, v, o, d, l, p, p, **kw), sets)
+
+        def sdpa_fwd_bwd(q, k, v, m, d):
+            leaf = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaf, attn_mask=m, enable_gqa=G > 1)
+            return torch.autograd.grad(o, leaf, d)
+        row["bwd_library_ms"] = device_ms(torch, sdpa_fwd_bwd, [
+            (*ls, s[5].transpose(1, 2)) for ls, s in zip(lib_sets, sets)])
+        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(torch, c, True)
+    row["ok"] = ok
+    del sets, lib_sets
+    return row
+
+
+def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (3 * torch.randn((n, d), generator=g, device="cuda")).to(dt)
+    gamma = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")).to(dt)
+    dy = torch.randn((n, d), generator=g, device="cuda").to(dt)
+    tol = TOL[dtype]
+    y, rstd = K5.rmsnorm_fwd_cuda(x, gamma, save_rstd=True)
+    torch.cuda.synchronize()
+    # the plain version in the kernel's dtype: the cast before gamma is part
+    # of the contract, so bf16 is held against the bf16 plain run
+    err, ok = within(torch, y, ref.rmsnorm_ref(x, gamma), tol)
+    row = dict(case=name, dtype=dtype, shape=f"n{n} d{d}", max_abs_err=err, tol=tol)
+    nb = x.element_size()
+    copies = min(64, max(2, math.ceil(2 * 50e6 / (3 * n * d * nb))))
+    sets = [tuple(t.clone() for t in (x, gamma, dy, rstd)) for _ in range(copies)]
+    row["ms"] = device_ms(torch, lambda x, gm, *_: K5.rmsnorm_fwd_cuda(x, gm, save_rstd=True),
+                          sets)
+    row["plain_ms"] = device_ms(torch, lambda x, gm, *_: ref.rmsnorm_ref(x, gm), sets)
+    row["library_ms"] = device_ms(torch, lambda x, gm, *_: F.rms_norm(x, (d,), gm, 1e-6), sets)
+    t_bytes = (2 * n * d + d) * nb / HBM_BYTES_PER_S + 4 * n / HBM_BYTES_PER_S
+    t_ops = 4 * n * d / PEAK_OPS["float32"]
+    row["bound_ms"], row["bound_by"] = 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations")
+    if grads:
+        dx, dgamma = K5.rmsnorm_bwd_cuda(x, gamma, dy, rstd)
+        torch.cuda.synchronize()
+        x32, g32, dy32 = x.float(), gamma.float(), dy.float()
+        explicit = ref.rmsnorm_bwd_ref(x32, g32, dy32)
+        leaf = [x32.clone().requires_grad_(True), g32.clone().requires_grad_(True)]
+        auto = torch.autograd.grad(ref.rmsnorm_ref(*leaf), leaf, dy32)
+        gtol = GRAD_TOL if dtype == "float32" else tol
+        errs = []
+        for got, e, a in zip((dx, dgamma), explicit, auto):
+            e1, ok1 = within(torch, got, e, gtol)
+            e2, ok2 = within(torch, got, a, gtol)
+            errs.append(max(e1, e2))
+            ok &= ok1 and ok2
+        row["grad_max_abs_err"], row["grad_tol"] = max(errs), gtol
+        row["bwd_ms"] = device_ms(torch, lambda x, gm, d_, r: K5.rmsnorm_bwd_cuda(x, gm, d_, r),
+                                  sets)
+        row["bwd_plain_ms"] = device_ms(torch, lambda x, gm, d_, r: ref.rmsnorm_bwd_ref(
+            x, gm, d_), sets)
+
+        def lib_fwd_bwd(x, gm, d_, r):
+            leaf = [x.detach().requires_grad_(True), gm.detach().requires_grad_(True)]
+            return torch.autograd.grad(F.rms_norm(leaf[0], (d,), leaf[1], 1e-6), leaf, d_)
+        row["bwd_library_ms"] = device_ms(torch, lib_fwd_bwd, sets)
+        t_bytes = ((3 * n * d + 2 * d) * nb + 4 * n) / HBM_BYTES_PER_S   # x dy dx; gamma dgamma
+        t_ops = 8 * n * d / PEAK_OPS["float32"]
+        row["bwd_bound_ms"], row["bwd_bound_by"] = 1e3 * max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "operations")
+    row["ok"] = ok
+    del sets
+    return row
+
+
+def phase_train_kernels(torch, K4, K5, ref):
+    flash = [
+        # internlm2-1.8b training and the card-vs-CPU step (fwd + bwd)
+        ("internlm2_train", dict(B=8, T=128, H=16, KVH=8, hd=128, dtype="float32")),
+        ("internlm2_cpu_step", dict(B=2, T=64, H=16, KVH=8, hd=128, dtype="float32")),
+        # OPT-125M distillation (fwd + bwd), OPT-6.7B teacher (fwd, bf16)
+        ("opt125m_distill", dict(B=8, T=128, H=12, KVH=12, hd=64, dtype="float32")),
+        ("opt67b_teacher", dict(B=8, T=128, H=32, KVH=32, hd=128, dtype="bfloat16",
+                                grads=False)),
+        # prefill_flash: prompts right-padded with -1 rows (bf16, fwd)
+        ("prefill_flash_t512", dict(B=4, T=512, H=32, KVH=32, hd=128, dtype="bfloat16",
+                                    lens=[512, 400, 301, 77], grads=False)),
+        ("prefill_flash_draft", dict(B=2, T=200, H=12, KVH=12, hd=64, dtype="bfloat16",
+                                     lens=[200, 133], grads=False)),
+        # contract cases: G = 8 (yi-9b), window, prefix, padding and a fully
+        # masked batch entry, T not a multiple of the 64-row tile
+        ("gqa_g8", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="float32")),
+        ("gqa_g8_bf16", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="bfloat16",
+                             grads=False)),
+        ("window_48", dict(B=2, T=160, H=16, KVH=8, hd=128, dtype="float32", window=48)),
+        ("prefix_16", dict(B=2, T=96, H=16, KVH=8, hd=128, dtype="float32", prefix_len=16)),
+        ("padded_masked", dict(B=3, T=128, H=12, KVH=12, hd=64, dtype="float32",
+                               lens=[128, 0, 70])),
+        ("ragged_t100", dict(B=3, T=100, H=16, KVH=8, hd=128, dtype="float32",
+                             lens=[100, 93, 41])),
+    ]
+    rows = []
+    for i, (name, kw) in enumerate(flash):
+        r = run_flash_case(torch, K4, ref, make_flash_case(torch, "flash_" + name,
+                                                           seed=200 + i, **kw))
+        rows.append(r)
+        print("  " + json.dumps(r), flush=True)
+    norms = [("internlm2_train", 1024, 2048, "float32", True),
+             ("opt125m_distill", 1024, 768, "float32", True),
+             ("internlm2_train_bf16", 1024, 2048, "bfloat16", False),
+             ("opt67b_teacher", 1024, 4096, "bfloat16", False),
+             ("opt67b_serve_b8_t4", 32, 4096, "bfloat16", False),
+             ("opt125m_serve_b16_t1", 16, 768, "bfloat16", False),
+             ("opt67b_prefill_t256", 256, 4096, "bfloat16", False)]
+    for i, (name, n, d, dtype, grads) in enumerate(norms):
+        r = run_norm_case(torch, K5, ref, "rmsnorm_" + name, n, d, dtype, grads, 300 + i)
+        rows.append(r)
+        print("  " + json.dumps(r), flush=True)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"K4/K5 disagree with their plain versions: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: full width, 2 layers, fp32: card against CPU
 
 
@@ -589,6 +838,10 @@ def phase_profile(torch, np, R, SpecDecodeEngine):
             k1_ms=sum(t for k, t in dev.items()
                       if "verify_kernel" in k and "paged" not in k),
             paged_kernel_ms=sum(t for k, t in dev.items() if "paged_verify_kernel" in k),
+            k5_ms=sum(t for k, t in dev.items() if "rmsnorm" in k),
+            k5_launches=sum(1 for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and "rmsnorm" in e.name) / steps,
             device_kernels=sum(1 for e in prof.events()
                                if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
             top_device_ms={k[:60]: t for k, t in top_dev},
@@ -738,7 +991,8 @@ def phase_continuous_serve(torch, np, R, m, lut_table):
     eng.load_kernels(paged=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (m.K1.KERNEL, m.K23.DENSE, m.K23.RAGGED, m.ops.PLAIN, m.paged.PLAIN):
+    for c in (m.K1.KERNEL, m.K23.DENSE, m.K23.RAGGED, m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN,
+              m.ops.PLAIN_RMSNORM):
         c.launches = 0
     t0 = time.perf_counter()
     res = m.serve_continuous_live(reqs, eng, tp, dp, ctrl, capacity=16, cache_len=512,
@@ -746,8 +1000,9 @@ def phase_continuous_serve(torch, np, R, m, lut_table):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(k1=m.K1.KERNEL.launches, k2=m.K23.DENSE.launches,
-                    k3=m.K23.RAGGED.launches,
-                    plain=m.ops.PLAIN.launches + m.paged.PLAIN.launches)
+                    k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+                    plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                           + m.ops.PLAIN_RMSNORM.launches))
     done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
     busy = sum(b.duration for b in res.batches)
     n_pre = sum(len(t.preempted) for t in res.trace)
@@ -767,8 +1022,245 @@ def phase_continuous_serve(torch, np, R, m, lut_table):
     check(n_pre > 0, "the paged pool never ran short: no request was preempted")
     check(launches["k3"] > 0, "the paged serving path never launched K3")
     check(launches["k1"] > 0, "the paged serving path never launched K1")
+    check(launches["k5"] > 0, "the paged serving path never launched K5")
     check(launches["plain"] == 0, "a plain version ran on the card")
     return line
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def phase_distill(torch, np, R, m):
+    """The OPT-125M draft, full width, fp32, distilled for 20 steps of
+    ``make_distill_step`` against the OPT-6.7B target in bf16 (phase 4's
+    weights: the same seed and draw order; the draft keeps its fp32 draws),
+    the teacher's logits computed under ``torch.no_grad``, on the markov2
+    stream ``benchmarks/common.py`` trains its pair on.  The KL must fall;
+    the mean accepted run at s = 4 before and after is reported."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, f32, "cuda")
+    dc = m.DataConfig(vocab_size=tcfg.vocab_size, batch=8, seq_len=128, kind="markov2",
+                      alphabet=48, skew=0.9, seed=0)
+    prompts = m.batch_at(dc, 1000)["tokens"][:, :32]
+    lens = np.full((8,), 32, np.int32)
+
+    def accepted():
+        runs = m.measure_acceptance(eng, tp, tree_map(lambda t: t.to(bf16), dp), prompts, lens,
+                                    s=4, gen_tokens=16, cache_len=256)
+        return float(np.mean(runs))
+
+    before = accepted()
+    step = m.make_distill_step(eng.draft, dcfg, m.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                             total_steps=20))
+    state = m.init_adamw(dp)
+    kls, t_teacher, t_step = [], 0.0, 0.0
+    counters = dict(k4_fwd=m.K4.FWD, k4_bwd=m.K4.BWD, k5_fwd=m.K5.FWD, k5_bwd=m.K5.BWD,
+                    plain_flash=m.ops.PLAIN_FLASH, plain_rmsnorm=m.ops.PLAIN_RMSNORM)
+    for c in counters.values():
+        c.launches = 0
+    for i in range(20):
+        toks = torch.from_numpy(m.batch_at(dc, i)["tokens"]).cuda()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            teacher, _ = eng.target.forward(tp, toks[:, :-1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dp, state, met = step(dp, state, {"tokens": toks, "teacher_logits": teacher})
+        kls.append(float(met["kl"].cpu()))
+        t2 = time.perf_counter()
+        if i:
+            t_teacher += t1 - t0
+            t_step += t2 - t1
+        del teacher
+    launches = {k: c.launches for k, c in counters.items()}
+    after = accepted()
+    line = dict(kl_first=kls[0], kl_last=kls[-1], kl=kls, launches=launches,
+                teacher_forward_ms=1e3 * t_teacher / 19,
+                distill_step_ms=1e3 * t_step / 19, mean_accepted_s4_before=before,
+                mean_accepted_s4_after=after)
+    print("  " + json.dumps(line), flush=True)
+    check(all(math.isfinite(k) for k in kls), "the KL is not finite")
+    check(kls[-1] < kls[0], f"the distillation KL did not fall: {kls[0]} -> {kls[-1]}")
+    check(min(launches[k] for k in ("k4_fwd", "k4_bwd", "k5_fwd", "k5_bwd")) > 0
+          and launches["plain_flash"] + launches["plain_rmsnorm"] == 0,
+          f"the distillation did not run on K4 and K5 alone: {launches}")
+    return line
+
+
+def phase_train(torch, m):
+    """The internlm2-1.8b trainer at full width and depth, fp32, batch 8,
+    seq 128, 20 steps on the markov stream (``repro_torch.launch.train``'s
+    defaults), every launch count zeroed before it and read after; then
+    ``torch.profiler`` over two more steps for the device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = (m.K4.FWD, m.K4.BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN_FLASH,
+                m.ops.PLAIN_RMSNORM, m.ops.PLAIN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = m.train.main(["--arch", "internlm2-1.8b", "--device", "cuda", "--steps", "20"])
+    torch.cuda.synchronize()
+    launches = dict(k4_fwd=m.K4.FWD.launches, k4_bwd=m.K4.BWD.launches,
+                    k5_fwd=m.K5.FWD.launches, k5_bwd=m.K5.BWD.launches,
+                    plain=sum(c.launches for c in counters[4:]))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["launches"] = launches
+
+    cfg = m.R.get_config("internlm2-1.8b")
+    model = m.DecoderLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1), torch.float32, "cuda")
+    state = m.init_adamw(params)
+    step = m.make_train_step(model, cfg, m.AdamWConfig(warmup_steps=2, total_steps=20))
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=8, seq_len=128, seed=0)
+    batches = [{"tokens": torch.from_numpy(m.batch_at(dc, i)["tokens"]).cuda()}
+               for i in range(3)]
+    params, state, _ = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            params, state, met = step(params, state, b)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3 / 2
+    busy = sum(by.values())
+    res["profile"] = dict(
+        wall_ms_profiled=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
+        k4_ms=sum(t for k, t in by.items() if "dq_kernel" in k or "dkv_kernel" in k
+                  or ("fwd_kernel" in k and "rmsnorm" not in k)),
+        k5_ms=sum(t for k, t in by.items() if "rmsnorm" in k or "dgamma" in k),
+        device_kernels=sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
+        top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
+                                                     reverse=True)[:6]})
+    del params, state, batches
+    print("  " + json.dumps(res), flush=True)
+    check(res["losses"][-1] < res["losses"][0], "the trainer's loss did not fall")
+    check(all(launches[k] > 0 for k in ("k4_fwd", "k4_bwd", "k5_fwd", "k5_bwd")),
+          f"the trainer did not launch every kernel of its path: {launches}")
+    check(launches["plain"] == 0, "a plain version ran on the card")
+    check(res["peak_memory_gb"] < 80, "the trainer does not fit one 80 GB card")
+    check(res["profile"]["device_busy_ms"] > 0, "the profiler saw no device time")
+    return res
+
+
+def phase_train_parity(torch, np, m, tree_to):
+    """One fp32 train step of internlm2-1.8b cut to 2 layers (widths kept),
+    B 2, T 64, on the card (K4, K5) and on the CPU (plain versions): the
+    loss within 1e-5 relative, each gradient within 1e-4 of its tensor's
+    largest entry, and the step's grad norm within 1e-5 relative."""
+    cfg = m.R.get_config("internlm2-1.8b").with_(n_layers=2)
+    model = m.DecoderLM(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(5), torch.float32, "cpu")
+    p_gpu = tree_to(p_cpu, "cuda")
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=64, seed=3)
+    toks = torch.from_numpy(m.batch_at(dc, 0)["tokens"])
+    loss_fn = m.make_loss_fn(model, cfg)
+    met_g, gr_g = m.value_and_grad(loss_fn, p_gpu, {"tokens": toks.cuda()})
+    met_c, gr_c = m.value_and_grad(loss_fn, p_cpu, {"tokens": toks})
+    loss_g, loss_c = float(met_g["loss"].cpu()), float(met_c["loss"])
+
+    # each gradient's largest difference, relative to its tensor's largest entry
+    def items(tree, prefix=""):
+        for k, v in tree.items():
+            yield from items(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    cpu = dict(items(gr_c))
+    rel = {k: float((g.cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+           for k, g in items(gr_g)}
+    worst_name = max(rel, key=rel.get)
+    worst = rel[worst_name]
+
+    opt = m.AdamWConfig(warmup_steps=1, total_steps=10)
+    _, _, gn_g = m.adamw_update(opt, gr_g, m.init_adamw(p_gpu), p_gpu)
+    _, _, gn_c = m.adamw_update(opt, gr_c, m.init_adamw(p_cpu), p_cpu)
+    line = dict(loss_card=loss_g, loss_cpu=loss_c, loss_rel_err=abs(loss_g - loss_c) / loss_c,
+                worst_grad_rel_err=worst, worst_grad=worst_name,
+                grad_norm_card=float(gn_g.cpu()), grad_norm_cpu=float(gn_c))
+    print("  " + json.dumps(line), flush=True)
+    check(line["loss_rel_err"] <= 1e-5, f"card vs CPU loss differs: {line}")
+    check(worst <= 1e-4, f"card vs CPU gradient {worst_name} differs by {worst} of its max")
+    check(abs(line["grad_norm_card"] - line["grad_norm_cpu"]) <= 1e-5 * line["grad_norm_cpu"],
+          "card vs CPU grad norm differs")
+    return line
+
+
+def phase_prefill_flash(torch, np, R, m):
+    """``prefill_flash`` (attention by K4 over the prompt) against
+    ``prefill`` (K1 over the ring) on the full-width OPT-6.7B in bf16 with
+    phase 4's weights: B 4, prompts of 512, 400, 301 and 77 tokens padded to
+    512, a 512-row ring.  Last-token logits within 2e-3, and every cache row
+    written with a position identical."""
+    bf16 = torch.bfloat16
+    model = m.DecoderLM(R.get_config("opt-6.7b"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), bf16, "cuda")
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 512))).cuda()
+    lens = torch.tensor([512, 400, 301, 77], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        m.K4.FWD.launches = 0
+        lf, cf, sf = model.prefill_flash(params, toks, model.init_cache(4, 512, bf16, "cuda"),
+                                         lens)
+        k4 = m.K4.FWD.launches
+        lp, cp, sp = model.prefill(params, toks, model.init_cache(4, 512, bf16, "cuda"), lens)
+    torch.cuda.synchronize()
+    tol = 2e-3
+    err = (lf.float() - lp.float()).abs()
+    written = cp["pos"] >= 0
+    cache_equal = all(bool(torch.equal(cf[k][:, written], cp[k][:, written])) for k in ("k", "v"))
+    line = dict(logits_max_abs_err=float(err.max()), tol=tol,
+                logits_bitwise_equal=bool(torch.equal(lf, lp)),
+                cache_rows_equal=cache_equal, pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
+                seq_lens_equal=bool(torch.equal(sf, sp)), k4_launches=k4)
+    print("  " + json.dumps(line), flush=True)
+    check(bool((err <= tol + tol * lp.float().abs()).all()),
+          f"prefill_flash logits differ from prefill's by {float(err.max())}")
+    check(cache_equal and line["pos_equal"] and line["seq_lens_equal"],
+          "prefill_flash wrote other cache rows than prefill")
+    check(k4 == model.cfg.n_layers, f"prefill_flash launched K4 {k4} times")
+    return line
+
+
+def train_kernel_rows(trows, launches, k5_serve, k5_live, distill):
+    """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
+    trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches."""
+    flash = next(r for r in trows if r["case"] == "flash_internlm2_train")
+    norm = next(r for r in trows if r["case"] == "rmsnorm_internlm2_train")
+    out = []
+    for name, r, src, rep, lib in (
+            ("flash_attn", flash, "flash_attn.cu", "src/repro/kernels/flash_attn.py:71", "SDPA"),
+            ("rmsnorm", norm, "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
+             "torch.nn.functional.rms_norm")):
+        key = "k4" if name == "flash_attn" else "k5"
+        common = {"route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+                  "replaces": rep, "launches_from": "phase 7, the internlm2-1.8b trainer "
+                                                    "(20 steps)"}
+        out.append({"name": f"{name}_fwd", **common, "launches": launches[f"{key}_fwd"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "library": lib,
+                    "shape": f"{r['shape']}, fp32"})
+        out.append({"name": f"{name}_bwd", **common, "launches": launches[f"{key}_bwd"],
+                    "max_abs_err": r["grad_max_abs_err"], "ms": r["bwd_ms"],
+                    "plain_ms": r["bwd_plain_ms"], "bound_ms": r["bwd_bound_ms"],
+                    "bound_by": r["bwd_bound_by"], "library_ms": r["bwd_library_ms"],
+                    "library": lib + " forward + backward (autograd)",
+                    "shape": f"{r['shape']}, fp32"})
+    out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
+    out[0]["launches_distill"] = distill["launches"]["k4_fwd"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -794,18 +1286,22 @@ def main() -> int:
     from repro_torch.configs import registry as R
     from repro_torch.core import adaptive, analytical
     from repro_torch.core.spec_decode import SpecDecodeEngine
+    from repro_torch import training
     from repro_torch.kernels import build, ops, paged, ref, tuning
+    from repro_torch.kernels import flash_attn as K4
     from repro_torch.kernels import paged_verify_attn as K23
+    from repro_torch.kernels import rmsnorm as K5
     from repro_torch.kernels import spec_verify_attn as K1
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import metrics, scheduler
     from repro_torch.serving.request import Request
+    from repro_torch.training import train_step
 
-    # what phase 6 drives, under one name
+    # what phases 6 and 7 drive, under one name
     m = types.SimpleNamespace(
-        SpecDecodeEngine=SpecDecodeEngine, Request=Request, K1=K1, K23=K23, ops=ops,
-        paged=paged, host_cu_blocks=tuning.host_cu_blocks,
+        SpecDecodeEngine=SpecDecodeEngine, Request=Request, K1=K1, K23=K23, K4=K4, K5=K5,
+        ops=ops, paged=paged, host_cu_blocks=tuning.host_cu_blocks,
         grid_steps_ragged=tuning.grid_steps_ragged,
         grid_steps_dense=tuning.grid_steps_dense,
         AdaptiveController=adaptive.AdaptiveController,
@@ -816,12 +1312,16 @@ def main() -> int:
         SimStepBackend=scheduler.SimStepBackend, replay_sources=scheduler.replay_sources,
         serve_continuous_live=scheduler.serve_continuous_live,
         ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
-        goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy)
+        goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy,
+        R=R, DecoderLM=DecoderLM, train=train, measure_acceptance=adaptive.measure_acceptance,
+        DataConfig=training.DataConfig, batch_at=training.batch_at,
+        AdamWConfig=training.AdamWConfig, init_adamw=training.init_adamw,
+        adamw_update=training.adamw_update, make_train_step=training.make_train_step,
+        make_loss_fn=training.make_loss_fn, make_distill_step=training.make_distill_step,
+        value_and_grad=train_step.value_and_grad)
 
     def tree_to(tree, device):
-        if isinstance(tree, dict):
-            return {k: tree_to(v, device) for k, v in tree.items()}
-        return tree.to(device)
+        return tree_map(lambda t: t.to(device), tree)
 
     t_all = time.perf_counter()
     # ---- 1. device + build ----
@@ -829,7 +1329,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build.build(["spec_verify_attn", "paged_verify_attn"])
+    libs = build.build(["spec_verify_attn", "paged_verify_attn", "flash_attn", "rmsnorm"])
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for p in libs.values()
              for ln in p.with_suffix(".log").read_text().splitlines()
@@ -850,6 +1350,11 @@ def main() -> int:
     print(json.dumps({"phase": "paged_kernels", "cases": len(prows), "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 2c. K4 and K5, forward and backward ----
+    trows = phase_train_kernels(torch, K4, K5, ref)
+    print(json.dumps({"phase": "train_kernels", "cases": len(trows), "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 3. fp32 parity, card against CPU ----
     phase_parity(torch, np, R, DecoderLM, SpecDecodeEngine, tree_to)
     print(json.dumps({"phase": "parity", "ok": True}), flush=True)
@@ -857,20 +1362,23 @@ def main() -> int:
 
     # ---- 4. the main path ----
     torch.cuda.reset_peak_memory_stats()
-    K1.KERNEL.launches = 0
-    ops.PLAIN.launches = 0
+    for c in (K1.KERNEL, K5.FWD, ops.PLAIN, ops.PLAIN_RMSNORM):
+        c.launches = 0
     res = serve.main(["--arch", "opt-6.7b", "--device", "cuda", "--dtype", "bfloat16",
                       "--max-batch", "8", "--cache-len", "256", "--profile-bs", "1,2,4,8",
                       "--s-max", "6", "--requests", "16", "--interval", "0.1",
                       "--max-new", "32"])
     torch.cuda.synchronize()
-    launches, plain_launches = K1.KERNEL.launches, ops.PLAIN.launches
+    launches, k5_serve = K1.KERNEL.launches, K5.FWD.launches
+    plain_launches = ops.PLAIN.launches + ops.PLAIN_RMSNORM.launches
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["kernel_launches"] = launches
+    res["k5_launches"] = k5_serve
     res["plain_launches"] = plain_launches
     print(json.dumps({"phase": "serve", **res}), flush=True)
     check(launches > 0, "the serving path never launched the verify kernel")
-    check(plain_launches == 0, "the plain version ran on the card")
+    check(k5_serve > 0, "the serving path never launched K5")
+    check(plain_launches == 0, "a plain version ran on the card")
     grid = [t for d in res["grid_s_per_token"].values() for t in d.values()]
     check(all(math.isfinite(t) and t > 0 for t in grid), "profiling grid not finite")
     check(res["adaptive"]["n"] == 16 and res["no_spec"]["n"] == 16,
@@ -892,6 +1400,20 @@ def main() -> int:
     # ---- 6b. the continuous main path, bf16, full depth ----
     live = phase_continuous_serve(torch, np, R, m, res["lut"])
     print(json.dumps({"phase": "continuous_serve", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----
+    distill = phase_distill(torch, np, R, m)
+    print(json.dumps({"phase": "distill", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    trained = phase_train(torch, m)
+    print(json.dumps({"phase": "train", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, np, m, tree_to)
+    print(json.dumps({"phase": "train_parity", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    phase_prefill_flash(torch, np, R, m)
+    print(json.dumps({"phase": "prefill_flash", "ok": True}), flush=True)
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
@@ -921,7 +1443,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_verify_attn.py:445",
         "launches": live["launches"]["k3"], "ms": phead["ms"],
         "launches_from": "phase 6b, serve_continuous_live on the paged pool",
-        **paged_common}]}), flush=True)
+        **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
+                                             live["launches"]["k5"], distill)}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

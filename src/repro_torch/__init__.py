@@ -2,8 +2,8 @@
 with the adaptive b -> s controller), for one NVIDIA H100.
 
 The layout mirrors ``src/repro/``: ``configs``, ``kernels`` (hand-written
-CUDA sources under ``kernels/csrc``), ``models``, ``core``, ``serving`` and
-``launch``.  Parameters and caches are nested dicts of tensors with the same
+CUDA sources under ``kernels/csrc``), ``models``, ``core``, ``serving``,
+``training`` and ``launch``.  Parameters and caches are nested dicts of tensors with the same
 keys and the same stacked ``[n_layers, ...]`` layer layout as the JAX
 package, so ``bridge.py`` carries weights across as a tree map.
 

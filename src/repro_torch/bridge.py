@@ -1,7 +1,8 @@
 """Carry parameters and caches between the JAX package and the port.
 
 Both packages use the same nested keys and the same stacked ``[n_layers,
-...]`` layer layout, so a conversion is a tree map.  The JAX side hands its
+...]`` layer layout, so a conversion is a tree map; the optimizer state
+crosses the same way (``adamw_state_to_torch``).  The JAX side hands its
 trees over as nested numpy arrays (``jax.tree.map(np.asarray, tree)``); this
 module never imports JAX.
 """
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.training.optimizer import AdamWState
 
 
 def to_torch(tree: Any, device: torch.device | str = "cuda",
@@ -39,3 +41,16 @@ def to_numpy(tree: Any) -> Any:
         return {k: to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     return (t.float() if t.is_floating_point() else t).numpy()
+
+
+def adamw_state_to_torch(step: Any, m: Any, v: Any,
+                         device: torch.device | str = "cuda"):
+    """The JAX ``AdamWState`` handed over as numpy (the step scalar and the
+    m and v trees) -> the port's ``AdamWState`` on ``device``: an int32 0-d
+    step and fp32 moments, so one optimizer step can be compared across the
+    packages."""
+    device = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                        device=device),
+                      m=_to_torch(m, device, torch.float32),
+                      v=_to_torch(v, device, torch.float32))

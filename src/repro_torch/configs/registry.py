@@ -1,4 +1,5 @@
-"""``--arch <id>`` resolution for the port: the paper's OPT pair and yi-9b."""
+"""``--arch <id>`` resolution for the port: the paper's OPT pair, yi-9b and
+internlm2-1.8b (the training launcher's default)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +10,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES: Dict[str, str] = {
     "opt-6.7b": "repro_torch.configs.opt_pair",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
 }
 
 

@@ -1,5 +1,7 @@
 """Shared model layers (copies of ``repro.models.common``): the seeded
-parameter init, norms, RoPE, position masks and embeddings.
+parameter init, norms, RoPE, position masks and embeddings.  The JAX
+module's ``flash_attention_tri`` and ``flash_attention_train`` have one
+counterpart, ``kernels.ops.flash_attn``.
 
 Parameters are nested dicts of tensors with the JAX package's keys; layer
 parameters are stacked along a leading ``n_layers`` axis.
@@ -12,6 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 
 @dataclass(frozen=True)
@@ -61,10 +65,10 @@ def init_params(defs: Dict, generator: torch.Generator, n_layers: int,
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """fp32 reduction; the normalized row is cast to x's dtype before the
-    multiply by gamma, as the JAX package does."""
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+    multiply by gamma, as the JAX package does.  Runs ``kernels.ops.rmsnorm``:
+    the kernel K5 on the card (forward and backward), its plain version on
+    the CPU."""
+    return ops.rmsnorm(x, gamma, eps)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

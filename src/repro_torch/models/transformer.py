@@ -1,11 +1,16 @@
 """Dense GQA decoder on a contiguous ring KV cache or a paged KV pool: the
-dense branch of ``repro.models.transformer.DecoderLM`` (the OPT pair and
-the yi family).
+dense branch of ``repro.models.transformer.DecoderLM`` (the OPT pair, the
+yi family and internlm2).
 
-Two entry points:
-  ``prefill``      full-prompt forward that also populates a ring cache
-  ``decode_step``  incremental forward of T new tokens against the cache
-                   (T = 1 for plain decode, T = s+1 for speculative verify)
+Entry points:
+  ``forward``        full-sequence forward for training and scoring
+                     (attention through ``kernels.ops.flash_attn``, K4,
+                     differentiable)
+  ``prefill``        full-prompt forward that also populates a ring cache
+  ``prefill_flash``  the same contract, attention through K4 over the
+                     prompt's own K/V, then one cache write per layer
+  ``decode_step``    incremental forward of T new tokens against the cache
+                     (T = 1 for plain decode, T = s+1 for speculative verify)
 
 The ring cache is indexed by absolute position modulo cache length, with a
 per-row absolute-position array ``pos`` driving the attention mask, so
@@ -26,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, pad_vocab
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import spec_verify_attn
+from repro_torch.kernels.ops import flash_attn, spec_verify_attn
 from repro_torch.kernels.paged import paged_verify_attn
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
@@ -38,7 +43,8 @@ class DecoderLM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family != "dense" or cfg.attn is None:
             raise NotImplementedError(
-                f"{cfg.name}: the port covers dense GQA decoders only")
+                f"{cfg.name}: the port covers dense GQA decoders only; MLA, MoE "
+                "and the other families are not ported yet (ROADMAP queue 1, item 12)")
         self.cfg = cfg
         self.padded_vocab = pad_vocab(cfg.vocab_size)
 
@@ -114,10 +120,6 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # layers
 
-    @staticmethod
-    def _layer(params: Dict, i: int) -> Dict:
-        return {k: v[i] for k, v in params["layers"].items()}
-
     def _qkv(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, rope):
         """x: [B,T,d] -> q [B,T,H,hd], k/v [B,T,KVH,hd] with RoPE applied
         (``rope`` is the forward's ``cm.rope_table``)."""
@@ -163,6 +165,18 @@ class DecoderLM:
                                 window=a.window, cu_blocks=cu_blocks)
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
+    def _attn_full(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                   prefix_len: int, rope) -> torch.Tensor:
+        """Full-sequence self attention of the training forward (the GQA
+        branch of the JAX ``_attn_full(train=True)``; the port's configs
+        hold no MLA).  ``positions`` [B,T] serve as query and key positions."""
+        a = self.cfg.attn
+        B, T, _ = x.shape
+        q, k, v = self._qkv(lp, x, positions, rope)
+        out = flash_attn(q, k, v, positions, positions, window=a.window,
+                         prefix_len=prefix_len)
+        return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
+
     def _mlp(self, lp: Dict, x: torch.Tensor) -> torch.Tensor:
         return cm.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
 
@@ -172,8 +186,12 @@ class DecoderLM:
         block of one layer (ring or paged)."""
         c = self.cfg
         rope = cm.rope_table(positions, c.attn.head_dim, c.attn.rope_theta)
+        # one unbind per stacked weight: its backward stacks the layers'
+        # gradients once, where indexing layer by layer would add a
+        # full-size zero-padded gradient per layer
+        layers = {k: v.unbind(0) for k, v in params["layers"].items()}
         for i in range(c.n_layers):
-            lp = self._layer(params, i)
+            lp = {k: v[i] for k, v in layers.items()}
             hn = cm.rms_norm(x, lp["attn_norm"], c.norm_eps)
             x = x + attn(lp, hn, i, rope)
             x = x + self._mlp(lp, cm.rms_norm(x, lp["mlp_norm"], c.norm_eps))
@@ -186,6 +204,27 @@ class DecoderLM:
 
     def _unembed(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         return cm.unembed(x, params["unembed"], self.cfg.vocab_size)
+
+    # ------------------------------------------------------------------
+    # full-sequence forward (training / scoring)
+
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the zero
+        fp32 scalar of a dense model (the JAX model's MoE aux loss).  No
+        per-layer recompute: every layer's activations are kept for the
+        backward."""
+        if prefix_embeds is not None:
+            raise NotImplementedError(
+                "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
+        B, T = tokens.shape
+        dev = tokens.device
+        positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
+                         lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, 0, rope))
+        return (self._unembed(params, x),
+                torch.zeros((), dtype=torch.float32, device=dev))
 
     # ------------------------------------------------------------------
     # prefill: forward + cache population
@@ -209,6 +248,41 @@ class DecoderLM:
                                                positions, -1)
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
                          self._ring_attn(cache, positions, rows))
+        last = x[torch.arange(B, device=dev), (total_lens - 1).long()]
+        return self._unembed(params, last), cache, total_lens
+
+    def prefill_flash(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                      prompt_lens: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+        """:meth:`prefill` with the attention of each layer run by K4 over
+        the prompt's own K/V (padded rows at position -1, never attended)
+        instead of over the cache; the K/V rows are then written to the ring
+        once.  Same contract and results as :meth:`prefill`."""
+        if "bt" in cache or "k_scale" in cache:
+            raise NotImplementedError(
+                "prefill_flash covers the contiguous ring without int8 K/V; the "
+                "int8 cache is not ported yet (ROADMAP queue 1, item 2)")
+        c = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        L = cache["pos"].shape[1]
+        if prompt_lens is None:
+            prompt_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+        total_lens = prompt_lens.to(torch.int32)
+        positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        qk_pos = torch.where(positions < total_lens[:, None], positions, -1)
+        rows = (positions % L).long()
+        bidx = torch.arange(B, device=dev)[:, None]
+        cache["pos"][bidx, rows] = qk_pos
+
+        def attn(lp, hn, i, rope):
+            q, k, v = self._qkv(lp, hn, positions, rope)
+            out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window)
+            cache["k"][i][bidx, rows] = k.to(cache["k"].dtype)
+            cache["v"][i][bidx, rows] = v.to(cache["v"].dtype)
+            return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, c.d_model)
+
+        x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
         last = x[torch.arange(B, device=dev), (total_lens - 1).long()]
         return self._unembed(params, last), cache, total_lens
 

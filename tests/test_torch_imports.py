@@ -30,6 +30,12 @@ def test_port_has_modules():
     assert "core/spec_decode.py" in FILES and "kernels/ops.py" in FILES
 
 
+def test_port_has_the_training_path():
+    assert {"training/optimizer.py", "training/train_step.py", "training/data.py",
+            "training/checkpoint.py", "launch/train.py", "kernels/flash_attn.py",
+            "kernels/rmsnorm.py", "configs/internlm2_1_8b.py"} <= set(FILES)
+
+
 @pytest.mark.parametrize("rel", FILES)
 def test_file_imports_neither_jax_nor_repro(rel):
     tree = ast.parse((PORT / rel).read_text(), filename=rel)

@@ -200,3 +200,61 @@ def test_decoder_rejects_families_it_does_not_cover():
     cfg = TR.get_smoke_config("opt-6.7b").with_(family="moe")
     with pytest.raises(NotImplementedError):
         DecoderLM(cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill_flash: the prompt's attention by K4 (its plain version here)
+
+
+def _flash_both(arch, B=3, P=12, L=40, seed=0, **cfg_kw):
+    jm, jp, tm, tp = _pair(arch, **cfg_kw)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, jm.cfg.vocab_size, (B, P)).astype(np.int32)
+    lens = np.array([P, P - 5, P - 3][:B], np.int32)
+    jout = jax.jit(jm.prefill_flash)(jp, jnp.asarray(toks), jm.init_cache(B, L),
+                                     jnp.asarray(lens))
+    tout = tm.prefill_flash(tp, torch.from_numpy(toks), tm.init_cache(B, L, device="cpu"),
+                            torch.from_numpy(lens))
+    return (tm, tp, toks, lens), jout, tout
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("arch", ARCHS + ["internlm2-1.8b"])
+def test_prefill_flash_matches_jax(arch, window):
+    kw = {"window": window} if window else {}
+    _, (jl, jc, jt), (tl, tc, tt) = _flash_both(arch, **kw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
+    _assert_cache_equal(tc, jc)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_flash_matches_prefill(arch):
+    """The same contract as ``prefill``: last-token logits, the positions
+    and every cache row written with one (padded rows differ: ``prefill``
+    lets them attend, ``prefill_flash`` masks them, and neither is read)."""
+    (tm, tp, toks, lens), _, (tl, tc, tt) = _flash_both(arch, seed=3)
+    pl, pc, pt = tm.prefill(tp, torch.from_numpy(toks), tm.init_cache(3, 40, device="cpu"),
+                            torch.from_numpy(lens))
+    np.testing.assert_allclose(tl.numpy(), pl.numpy(), **MODEL_TOL)
+    assert torch.equal(tc["pos"], pc["pos"]) and torch.equal(tt, pt)
+    written = pc["pos"] >= 0
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key][:, written].numpy(), pc[key][:, written].numpy(),
+                                   **MODEL_TOL)
+
+
+def test_prefill_flash_takes_the_contiguous_ring_only():
+    tm = DecoderLM(TR.get_smoke_config("yi-9b"))
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    pool = tm.init_paged_cache(4, 8, device="cpu")
+    pool["bt"] = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        tm.prefill_flash(tp, torch.zeros((1, 4), dtype=torch.int32), pool)
+
+
+def test_forward_rejects_modality_prefixes():
+    tm = DecoderLM(TR.get_smoke_config("opt-6.7b"))
+    tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tm.forward(tp, torch.zeros((1, 4), dtype=torch.int32), prefix_embeds=torch.zeros(1))
