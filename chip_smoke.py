@@ -59,8 +59,28 @@ Phases, one report line each (the last line is the JSON verdict):
             of internlm2 cut to 2 layers on the card against the CPU; and
             ``prefill_flash`` against ``prefill`` on OPT-6.7B in bf16.
 
-Every serving phase now runs K5 (every norm), and phases 4 and 6b gate its
-launches; phase 5 records its time per step.
+2d. ssd kernel  K6 (the Mamba-2 SSD scan) held against its plain version at
+            mamba2-1.3b's widths (64 heads, P 64, N 128, chunk 256): a
+            B 4, T 2048 prefill with ragged dt masks (8 chunks), the
+            one-chunk contract with a nonzero h0, T 300 (Q 150) and the
+            prime T 257 (Q 1), the serving prefills (B 8, T 16; B 1, T 64,
+            128, 256), strong decay (A 16, dt 0.1; outputs must be finite)
+            and the smoke widths, in fp32 and bf16, with its time beside
+            the plain version's and the bound (no library call computes it).
+8.  mamba2  Mamba-2 served by speculative decoding: mamba2-1.3b cut to 2
+            layers (widths kept) with its draft cut to 2 layers, fp32, card
+            against CPU (prefill of prompts padded to 512, 8 greedy steps),
+            the chunked forward (K6) against the token-by-token recurrence,
+            and speculative generate(s) == generate(0); then the serve loop
+            of phase 4 on mamba2-1.3b at full width and depth in bf16 (K6,
+            K5 and K1 counted, no plain version); then
+            ``serve_continuous_live`` on a contiguous pool of 8 slots, 16
+            requests of 64-256 prompt tokens, with that loop's LUT (K6
+            counted inside ``prefill_into``), and one step of that pair at
+            B = 8, s = 0 and 3 under ``torch.profiler``.
+
+Every serving phase now runs K5 (every norm), and phases 4, 6b and 8 gate
+its launches; phase 5 records its time per step.
 
 Exits non-zero, printing no verdict, without CUDA or when any phase fails.
 Everything it prints also goes to ``chiprun_out/chip_smoke.log`` beside it,
@@ -719,11 +739,138 @@ def phase_train_kernels(torch, K4, K5, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: K6 (the Mamba-2 SSD scan) against its plain version
+
+
+SSD_TOL = {"float32": 2e-4,    # the JAX package's own K6 tolerance (tests/test_kernels.py)
+           "bfloat16": 1e-2}   # bf16 inputs; both sides compute in fp32
+
+
+def make_ssd_case(torch, name, *, B, T, H=64, P=64, G=1, N=128, dtype, chunk=256, lens=None,
+                  strong=False, h0=False, contract=False, seed=0):
+    """Inputs as a Mamba-2 prefill gives them to the scan: xh [B,T,H,P] and
+    B/C [B,T,G,N] of conv-and-SiLU magnitude, dt = softplus(noise + the
+    init's dt_bias) (1e-3 to 1e-1 over the heads), A = 1 .. 16 over the
+    heads, and dt = 0 at or past a row's length (``lens``).  ``strong``:
+    A = 16 and dt = 0.1 everywhere (cs falls to about -410 over 256 rows).
+    ``contract``: the one-chunk contract [B*H, T, ...] with an explicit
+    log-decay; ``h0``: a nonzero carried-in state."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32)
+
+    xh = F.silu(rnd(B, T, H, P)).to(dt_)
+    Bm, Cm = (F.silu(rnd(B, T, G, N)).to(dt_) for _ in range(2))
+    bias = torch.log(torch.expm1(torch.exp(torch.linspace(
+        math.log(1e-3), math.log(1e-1), H, device="cuda"))))
+    dt = F.softplus(0.5 * rnd(B, T, H) + bias)
+    A = torch.linspace(1.0, 16.0, H, device="cuda")
+    if strong:
+        dt, A = torch.full_like(dt, 0.1), torch.full_like(A, 16.0)
+    if lens is not None:
+        n = torch.tensor(lens, device="cuda")[:, None, None]
+        dt = torch.where(torch.arange(T, device="cuda")[None, :, None] < n, dt, 0.0)
+    hinit = (0.5 * rnd(B, H, P, N)) if h0 else torch.zeros((B, H, P, N), device="cuda")
+    return dict(name=name, xh=xh, B=Bm, C=Cm, dt=dt.contiguous(), A=A, h0=hinit, chunk=chunk,
+                dtype=dtype, contract=contract,
+                shape=f"B{B} T{T} H{H} P{P} G{G} N{N} chunk {chunk}"
+                      + (f" lens {lens}" if lens else "") + (" strong decay" if strong else "")
+                      + (" h0" if h0 else "") + (" one-chunk contract" if contract else ""))
+
+
+def ssd_bound(torch, ref, c):
+    """Least time for the scan: every input read once and y and the final
+    state written once, against the operations of the causal half,
+    2 Q(Q+1)/2 (N+P) + 4 Q P N per (batch, head, chunk), at the fp32 rate
+    (the kernel computes in fp32 whatever its inputs)."""
+    xh, Bm = c["xh"], c["B"]
+    Bsz, T, H, P = xh.shape
+    N = Bm.shape[3]
+    Q = ref.ssd_chunk_len(T, c["chunk"])
+    ops = Bsz * H * (T // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
+    es = xh.element_size()
+    nbytes = (xh.numel() * es + 2 * Bm.numel() * es + 4 * c["dt"].numel() + 4 * H
+              + 2 * 4 * c["h0"].numel() + 4 * xh.numel())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_ssd_case(torch, K6, ref, c):
+    """K6 against the plain scan on the same inputs (the one-chunk contract
+    through ``ssd_chunk_cuda`` and ``ssd_chunk_ref``), with its time beside
+    the plain version's and the bound; there is no library call for it."""
+    if c["contract"]:
+        Bsz, T, H, P = c["xh"].shape
+        fold = lambda t: t.transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
+        rep = H // c["B"].shape[2]
+        x, b, cc = fold(c["xh"]), fold(c["B"].repeat_interleave(rep, 2)), \
+            fold(c["C"].repeat_interleave(rep, 2))
+        dt = c["dt"].transpose(1, 2).reshape(Bsz * H, T).contiguous()
+        l = (-dt * c["A"].repeat(Bsz)[:, None]).contiguous()
+        h0 = c["h0"].reshape(Bsz * H, P, -1)
+        args = (x.contiguous(), b.contiguous(), cc.contiguous(), dt, l, h0)
+        kernel, plain = K6.ssd_chunk_cuda, ref.ssd_chunk_ref
+    else:
+        args = (c["xh"], c["B"], c["C"], c["dt"], c["A"], c["h0"])
+        kernel = lambda *a: K6.ssd_chunked_cuda(*a, c["chunk"])  # noqa: E731
+        plain = lambda *a: ref.ssd_chunked_ref(*a, c["chunk"])   # noqa: E731
+    y, h = kernel(*args)
+    torch.cuda.synchronize()
+    wy, wh = plain(*args)
+    tol = SSD_TOL[c["dtype"]]
+    ey, oky = within(torch, y, wy, tol)
+    eh, okh = within(torch, h, wh, tol)
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max(ey, eh),
+               y_max_abs_err=ey, h_max_abs_err=eh, tol=tol, finite=finite,
+               ok=oky and okh and finite)
+    case_bytes = sum(t.numel() * t.element_size() for t in args) + 4 * y.numel()
+    copies = min(16, max(2, math.ceil(2 * 50e6 / case_bytes)))
+    sets = [tuple(t.clone() for t in args) for _ in range(copies)]
+    row["ms"] = device_ms(torch, kernel, sets)
+    row["plain_ms"] = device_ms(torch, plain, sets, iters=5)
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = ssd_bound(torch, ref, c)
+    del sets
+    return row
+
+
+def phase_ssd_kernels(torch, K6, ref):
+    full = [   # mamba2-1.3b's heads: H 64, P 64, N 128, one group, chunk 256
+        ("prefill_b4_t2048_ragged", dict(B=4, T=2048, lens=[2048, 1500, 777, 64])),
+        ("contract_q256_h0", dict(B=1, T=256, h0=True, contract=True)),
+        ("t300_q150", dict(B=2, T=300, lens=[300, 211])),
+        ("t257_q1", dict(B=2, T=257, lens=[257, 100])),
+        ("serve_b8_t16", dict(B=8, T=16, lens=[15, 12, 9, 15, 7, 10, 13, 11])),
+        ("serve_b1_t64", dict(B=1, T=64, lens=[59])),
+        ("serve_b1_t128", dict(B=1, T=128, lens=[101])),
+        ("serve_b1_t256", dict(B=1, T=256, lens=[213])),
+        ("strong_decay_t512", dict(B=2, T=512, strong=True, h0=True)),
+        ("smoke_widths_t24", dict(B=2, T=24, H=8, P=32, N=16, chunk=8, h0=True)),
+    ]
+    rows = []
+    for i, (name, kw) in enumerate(full):
+        for dtype in ("float32", "bfloat16"):
+            c = make_ssd_case(torch, f"ssd_{name}_{'f32' if dtype == 'float32' else 'bf16'}",
+                              dtype=dtype, seed=400 + i, **kw)
+            r = run_ssd_case(torch, K6, ref, c)
+            rows.append(r)
+            print("  " + json.dumps(r), flush=True)
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, f"K6 disagrees with its plain version or is not finite: {bad}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: full width, 2 layers, fp32: card against CPU
 
 
 def greedy_logits(torch, model, params, tokens, lens, steps, cache_len, device):
-    """Prefill, then ``steps`` one-token decode steps feeding the argmax."""
+    """Prefill, then ``steps`` one-token decode steps feeding the argmax,
+    each committed (a Mamba-2 cache takes its checkpoint)."""
     cache = model.init_cache(tokens.shape[0], cache_len, torch.float32, device)
     toks = tokens.to(device)
     logits, cache, seq = model.prefill(params, toks, cache, lens.to(device))
@@ -732,8 +879,8 @@ def greedy_logits(torch, model, params, tokens, lens, steps, cache_len, device):
     seq = seq + 1
     for _ in range(steps):
         out_t.append(nxt.cpu())
-        logits, cache = model.decode_step(params, nxt[:, None].to(torch.int32), cache,
-                                          seq)
+        logits, out = model.decode_step(params, nxt[:, None].to(torch.int32), cache, seq)
+        cache = model.commit(out, torch.zeros_like(seq))   # the ring's is a no-op
         out_l.append(logits[:, 0].cpu())
         nxt = torch.argmax(logits[:, 0], -1)
         seq = seq + 1
@@ -792,22 +939,12 @@ def phase_parity(torch, np, R, DecoderLM, SpecDecodeEngine, tree_to):
 # phase 5: where one serving step's time goes
 
 
-def phase_profile(torch, np, R, SpecDecodeEngine):
-    """Full-width pair, bf16: the wall time of one engine step at B = 8,
-    s = 0 and s = 3 on the ring cache, and at B = 16, s = 0 on a paged pool
-    of 16 x 8 blocks, against the device time that ``torch.profiler`` sees,
-    with the verify kernels' share and the host's most expensive ops."""
+def profile_step(torch, eng, tp, dp, name, state, s, steps=4):
+    """One engine step at length ``s`` from ``state``: the wall time of an
+    unprofiled run of ``steps`` steps against the device time that
+    ``torch.profiler`` sees over as many more, with the kernels' shares and
+    the host's most expensive ops."""
     from torch.profiler import ProfilerActivity, profile
-    bf16 = torch.bfloat16
-    eng = SpecDecodeEngine(R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b"),
-                           max_new=64, dtype=bf16, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    tp = eng.target.init(gen, bf16, "cuda")
-    dp = eng.draft.init(gen, bf16, "cuda")
-    rng = np.random.default_rng(5)
-    toks = rng.integers(0, eng.tcfg.vocab_size, (8, 16)).astype(np.int32)
-    lens = np.full((8,), 16, np.int32)
-    steps = 4
 
     def kernels(prof):
         """Device activity (kernels, copies) by name, in ms per step."""
@@ -817,48 +954,62 @@ def phase_profile(torch, np, R, SpecDecodeEngine):
                 by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
         return by
 
-    def measure(name, state, s):
+    state, _ = eng.step(tp, dp, state, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
         state, _ = eng.step(tp, dp, state, s)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = eng.step(tp, dp, state, s)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                state, _ = eng.step(tp, dp, state, s)
-        dev = kernels(prof)
-        busy_ms = sum(dev.values())
-        top_dev = sorted(dev.items(), key=lambda kv: kv[1], reverse=True)[:6]
-        top_cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                         reverse=True)[:6]
-        row = dict(
-            wall_ms=wall_ms, device_busy_ms=busy_ms,
-            idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-            k1_ms=sum(t for k, t in dev.items()
-                      if "verify_kernel" in k and "paged" not in k),
-            paged_kernel_ms=sum(t for k, t in dev.items() if "paged_verify_kernel" in k),
-            k5_ms=sum(t for k, t in dev.items() if "rmsnorm" in k),
-            k5_launches=sum(1 for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA
-                            and "rmsnorm" in e.name) / steps,
-            device_kernels=sum(1 for e in prof.events()
-                               if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
-            top_device_ms={k[:60]: t for k, t in top_dev},
-            top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
-                         for e in top_cpu})
-        print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
-        return row
+    dev = kernels(prof)
+    busy_ms = sum(dev.values())
+    top_dev = sorted(dev.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    top_cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:6]
+    row = dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        k1_ms=sum(t for k, t in dev.items()
+                  if "verify_kernel" in k and "paged" not in k),
+        paged_kernel_ms=sum(t for k, t in dev.items() if "paged_verify_kernel" in k),
+        k5_ms=sum(t for k, t in dev.items() if "rmsnorm" in k),
+        k5_launches=sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "rmsnorm" in e.name) / steps,
+        device_kernels=sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
+        top_device_ms={k[:60]: t for k, t in top_dev},
+        top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
+                     for e in top_cpu})
+    print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
+    return row
 
+
+def phase_profile(torch, np, R, SpecDecodeEngine):
+    """Full-width pair, bf16: the wall time of one engine step at B = 8,
+    s = 0 and s = 3 on the ring cache, and at B = 16, s = 0 on a paged pool
+    of 16 x 8 blocks, against the device time that ``torch.profiler`` sees,
+    with the verify kernels' share and the host's most expensive ops."""
+    bf16 = torch.bfloat16
+    eng = SpecDecodeEngine(R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b"),
+                           max_new=64, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, eng.tcfg.vocab_size, (8, 16)).astype(np.int32)
+    lens = np.full((8,), 16, np.int32)
     out = {}
     for s in (0, 3):
-        out[f"ring_b8_s{s}"] = measure(f"ring_b8_s{s}",
-                                       eng.prefill(tp, dp, toks, lens, 256), s)
+        out[f"ring_b8_s{s}"] = profile_step(torch, eng, tp, dp, f"ring_b8_s{s}",
+                                            eng.prefill(tp, dp, toks, lens, 256), s)
     state = eng.init_slots(16, 512, block_size=16, num_blocks=192)
     ptoks = rng.integers(0, eng.tcfg.vocab_size, (16, 128)).astype(np.int32)
     for slot in range(16):
         state = eng.prefill_into(tp, dp, state, slot, ptoks[slot], 128, 512)
-    out["paged_b16_s0"] = measure("paged_b16_s0", state, 0)
+    out["paged_b16_s0"] = profile_step(torch, eng, tp, dp, "paged_b16_s0", state, 0)
     check(all(v["device_busy_ms"] > 0 for v in out.values()),
           "the profiler saw no device time")
     check(out["paged_b16_s0"]["paged_kernel_ms"] > 0,
@@ -1233,6 +1384,172 @@ def phase_prefill_flash(torch, np, R, m):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Mamba-2 (mamba2-1.3b) served by speculative decoding, K6 on the path
+
+
+def phase_mamba_parity(torch, np, m, tree_to):
+    """fp32, mamba2-1.3b cut to 2 layers (widths kept) with its draft cut to
+    2 layers: prefill of 3 ragged prompts padded to 512 (K6: 2 chunks of
+    256) and 8 greedy steps on the card against the CPU; the chunked
+    forward (K6) against the same prompts fed token by token through
+    decode_step + commit; speculative generate(s) == generate(0)."""
+    R = m.R
+    tcfg = R.get_config("mamba2-1.3b").with_(n_layers=2)
+    dcfg = R.get_draft_config("mamba2-1.3b").with_(n_layers=2)
+    tgt = R.build_model(tcfg)
+    gen = torch.Generator().manual_seed(17)
+    tp_cpu = tgt.init(gen, torch.float32, "cpu")
+    dp_cpu = R.build_model(dcfg).init(gen, torch.float32, "cpu")
+    tp_gpu, dp_gpu = tree_to(tp_cpu, "cuda"), tree_to(dp_cpu, "cuda")
+    rng = np.random.default_rng(19)
+    tokens = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (3, 512)).astype(np.int64))
+    lens = torch.tensor([512, 300, 77], dtype=torch.int32)
+    k6_0, plain_0 = m.K6.KERNEL.launches, m.ops.PLAIN_SSD.launches
+    lg_gpu, tk_gpu = greedy_logits(torch, tgt, tp_gpu, tokens, lens, 8, 0, "cuda")
+    torch.cuda.synchronize()
+    k6_prefill = m.K6.KERNEL.launches - k6_0
+    plain_gpu = m.ops.PLAIN_SSD.launches - plain_0
+    lg_cpu, tk_cpu = greedy_logits(torch, tgt, tp_cpu, tokens, lens, 8, 0, "cpu")
+    tol = 2e-3   # fp32 both sides; as phase 3
+    err = (lg_gpu - lg_cpu).abs()
+    ok_logits = bool((err <= tol + tol * lg_cpu.abs()).all())
+    same = bool((tk_gpu == tk_cpu).all())
+    # chunked (K6, 2 chunks of 256 over 512 rows) against the recurrence
+    toks = tokens.to("cuda")
+    with torch.no_grad():
+        full, _ = tgt.forward(tp_gpu, toks)
+    cache = tgt.init_cache(3, 0, torch.float32, "cuda")
+    seq = torch.ones(3, dtype=torch.int32, device="cuda")
+    steps = []
+    for t in range(toks.shape[1]):
+        lg, out = tgt.decode_step(tp_gpu, toks[:, t:t + 1].to(torch.int32), cache, seq)
+        cache = tgt.commit(out, torch.zeros_like(seq))
+        steps.append(lg[:, 0])
+        seq = seq + 1
+    rec = torch.stack(steps, 1)
+    rerr = (full - rec).abs()
+    ok_rec = bool((rerr <= tol + tol * rec.abs()).all())
+    del full, rec, steps
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=12, dtype=torch.float32, device="cuda")
+    toks_np, lens_np = tokens.numpy().astype(np.int32), lens.numpy()
+    ref, _, _ = eng.generate(tp_gpu, dp_gpu, toks_np, lens_np, s=0, cache_len=544)
+    spec_equal = {}
+    for s in (1, 2, 4):
+        out, _, _ = eng.generate(tp_gpu, dp_gpu, toks_np, lens_np, s=s, cache_len=544)
+        spec_equal[s] = bool((out == ref).all())
+    line = dict(logits_max_abs_err=float(err.max()), tol=tol, greedy_tokens_equal=same,
+                min_top2_margin=top2_margin(torch, lg_cpu), k6_launches_prefill=k6_prefill,
+                plain_ssd_on_card=plain_gpu, chunked_vs_recurrent_max_abs_err=float(rerr.max()),
+                spec_equals_greedy=spec_equal)
+    print("  " + json.dumps(line), flush=True)
+    check(k6_prefill == tcfg.n_layers, f"the card's prefill launched K6 {k6_prefill} times")
+    check(plain_gpu == 0, "the plain SSD scan ran on the card")
+    check(ok_logits, f"card vs CPU logits differ by {float(err.max())} > {tol}")
+    check(same, "card vs CPU greedy tokens differ")
+    check(ok_rec, f"chunked forward vs recurrence differ by {float(rerr.max())} > {tol}")
+    check(all(spec_equal.values()), f"speculative tokens differ from greedy: {spec_equal}")
+    return line
+
+
+def phase_mamba_serve(torch, m):
+    """The paper's profile -> LUT -> adaptive loop on mamba2-1.3b at full
+    width and depth with its dense_draft, bf16, phase 4's other flags; K6,
+    K5 and K1 (the draft) counted around it and no plain version."""
+    counters = (m.K1.KERNEL, m.K5.FWD, m.K6.KERNEL, m.ops.PLAIN, m.ops.PLAIN_RMSNORM,
+                m.ops.PLAIN_SSD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = m.serve.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--dtype", "bfloat16",
+                        "--max-batch", "8", "--cache-len", "256", "--profile-bs", "1,2,4,8",
+                        "--s-max", "6", "--requests", "16", "--interval", "0.1",
+                        "--max-new", "32"])
+    torch.cuda.synchronize()
+    launches = dict(k1=m.K1.KERNEL.launches, k5=m.K5.FWD.launches, k6=m.K6.KERNEL.launches,
+                    plain=m.ops.PLAIN.launches, plain_rmsnorm=m.ops.PLAIN_RMSNORM.launches,
+                    plain_ssd=m.ops.PLAIN_SSD.launches)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["launches"] = launches
+    print(json.dumps({"phase": "mamba_serve", **res}), flush=True)
+    check(launches["k6"] > 0, "the Mamba-2 serving path never launched K6")
+    check(launches["k5"] > 0, "the Mamba-2 serving path never launched K5")
+    check(launches["k1"] > 0, "the Mamba-2 serving path never launched K1 (the draft)")
+    check(launches["plain"] + launches["plain_rmsnorm"] + launches["plain_ssd"] == 0,
+          "a plain version ran on the card")
+    grid = [t for d in res["grid_s_per_token"].values() for t in d.values()]
+    check(all(math.isfinite(t) and t > 0 for t in grid), "profiling grid not finite")
+    check(res["adaptive"]["n"] == 16 and res["no_spec"]["n"] == 16,
+          "not every request finished")
+    return res
+
+
+def phase_mamba_continuous(torch, np, m, lut_table):
+    """bf16, full width and depth: serve_continuous_live on a contiguous
+    pool of 8 slots, 16 requests of 64-256 prompt tokens and 32 new, with
+    the LUT of the Mamba-2 serve loop; K6 counted inside prefill_into."""
+    R, bf16 = m.R, torch.bfloat16
+    tcfg, dcfg = R.get_config("mamba2-1.3b"), R.get_draft_config("mamba2-1.3b")
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    ctrl = m.AdaptiveController(lut=m.SpeculationLUT({int(b): int(v)
+                                                      for b, v in lut_table.items()}))
+    reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 16, (64, 256), 32, 0.05, 29)
+    in_prefill = {"k6": 0, "prefills": 0}
+    prefill_into = eng.prefill_into
+
+    def counted_prefill(*a, **kw):   # K6's launches inside prefill_into
+        k0 = m.K6.KERNEL.launches
+        out = prefill_into(*a, **kw)
+        if not kw.get("warm"):
+            in_prefill["k6"] += m.K6.KERNEL.launches - k0
+            in_prefill["prefills"] += 1
+        return out
+    eng.prefill_into = counted_prefill
+    eng.load_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (m.K1.KERNEL, m.K5.FWD, m.K6.KERNEL, m.ops.PLAIN, m.ops.PLAIN_RMSNORM,
+              m.ops.PLAIN_SSD):
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = m.serve_continuous_live(reqs, eng, tp, dp, ctrl, capacity=8, cache_len=512)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k1=m.K1.KERNEL.launches, k5=m.K5.FWD.launches, k6=m.K6.KERNEL.launches,
+                    k6_in_prefill_into=in_prefill["k6"], prefills=in_prefill["prefills"],
+                    plain=(m.ops.PLAIN.launches + m.ops.PLAIN_RMSNORM.launches
+                           + m.ops.PLAIN_SSD.launches))
+    done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+    busy = sum(b.duration for b in res.batches)
+    line = dict(
+        requests=len(reqs), finished=len(done), wall_s=wall,
+        ttft=dataclasses.asdict(m.ttft_summary(res)), itl=dataclasses.asdict(m.itl_summary(res)),
+        tokens_per_s=sum(r.n_generated for r in res.requests) / busy,
+        goodput=m.goodput(res), steps=len(res.batches),
+        mean_occupancy=m.mean_occupancy(res), s_used=sorted({b.s_used for b in res.batches}),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    print("  " + json.dumps(line), flush=True)
+    # where one step's time goes (after the run: its launches are not counted)
+    rng = np.random.default_rng(31)
+    toks = rng.integers(0, tcfg.vocab_size, (8, 16)).astype(np.int32)
+    lens = np.full((8,), 16, np.int32)
+    line["profile"] = {f"b8_s{s}": profile_step(torch, eng, tp, dp, f"mamba_b8_s{s}",
+                                                eng.prefill(tp, dp, toks, lens, 256), s)
+                       for s in (0, 3)}
+    check(all(v["device_busy_ms"] > 0 for v in line["profile"].values()),
+          "the profiler saw no device time")
+    check(len(done) == len(reqs), f"{len(reqs) - len(done)} requests did not finish")
+    check(launches["k6"] > 0 and launches["k6_in_prefill_into"] == launches["k6"],
+          f"K6 did not run in prefill_into only: {launches}")
+    check(launches["k1"] > 0 and launches["k5"] > 0, f"K1 or K5 never launched: {launches}")
+    check(launches["plain"] == 0, "a plain version ran on the card")
+    return line
+
+
 def train_kernel_rows(trows, launches, k5_serve, k5_live, distill):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
     trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches."""
@@ -1261,6 +1578,21 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill):
     out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
     out[0]["launches_distill"] = distill["launches"]["k4_fwd"]
     return out
+
+
+def ssd_kernel_row(srows, launches, launches_live):
+    """The ``kernels`` line's K6 row at the continuous path's largest
+    prefill (B 1, T 256, bf16), with the launches of phase 8's serve loop
+    (the main path) and of its continuous run."""
+    r = next(r for r in srows if r["case"] == "ssd_serve_b1_t256_bf16")
+    return {"name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:52", "launches": launches,
+            "launches_from": "phase 8, the mamba2-1.3b serve loop",
+            "launches_continuous": launches_live,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "library": "none", "shape": r["shape"] + ", bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -1292,6 +1624,7 @@ def main() -> int:
     from repro_torch.kernels import paged_verify_attn as K23
     from repro_torch.kernels import rmsnorm as K5
     from repro_torch.kernels import spec_verify_attn as K1
+    from repro_torch.kernels import ssd_chunk as K6
     from repro_torch.launch import serve, train
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import metrics, scheduler
@@ -1301,6 +1634,7 @@ def main() -> int:
     # what phases 6 and 7 drive, under one name
     m = types.SimpleNamespace(
         SpecDecodeEngine=SpecDecodeEngine, Request=Request, K1=K1, K23=K23, K4=K4, K5=K5,
+        K6=K6, serve=serve,
         ops=ops, paged=paged, host_cu_blocks=tuning.host_cu_blocks,
         grid_steps_ragged=tuning.grid_steps_ragged,
         grid_steps_dense=tuning.grid_steps_dense,
@@ -1329,11 +1663,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build.build(["spec_verify_attn", "paged_verify_attn", "flash_attn", "rmsnorm"])
+    libs = build.build(["spec_verify_attn", "paged_verify_attn", "flash_attn", "rmsnorm",
+                        "ssd_chunk"])
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for p in libs.values()
+    ptxas = [f"{name}: {ln.strip()}" for name, p in libs.items()
              for ln in p.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "smem" in ln]
     print(json.dumps({"phase": "device", "nvidia_smi": card,
                       "kind": torch.cuda.get_device_name(0),
                       "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1353,6 +1688,11 @@ def main() -> int:
     # ---- 2c. K4 and K5, forward and backward ----
     trows = phase_train_kernels(torch, K4, K5, ref)
     print(json.dumps({"phase": "train_kernels", "cases": len(trows), "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 2d. K6, the SSD scan ----
+    srows = phase_ssd_kernels(torch, K6, ref)
+    print(json.dumps({"phase": "ssd_kernels", "cases": len(srows), "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
     # ---- 3. fp32 parity, card against CPU ----
@@ -1414,6 +1754,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_prefill_flash(torch, np, R, m)
     print(json.dumps({"phase": "prefill_flash", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 8. Mamba-2: card vs CPU, the serve loop and the continuous runtime ----
+    phase_mamba_parity(torch, np, m, tree_to)
+    print(json.dumps({"phase": "mamba_parity", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    mserve = phase_mamba_serve(torch, m)
+    torch.cuda.empty_cache()
+    mlive = phase_mamba_continuous(torch, np, m, mserve["lut"])
+    print(json.dumps({"phase": "mamba_continuous", "ok": True}), flush=True)
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
@@ -1444,7 +1794,9 @@ def main() -> int:
         "launches": live["launches"]["k3"], "ms": phead["ms"],
         "launches_from": "phase 6b, serve_continuous_live on the paged pool",
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
-                                             live["launches"]["k5"], distill)}), flush=True)
+                                             live["launches"]["k5"], distill)
+        + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),
+        flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

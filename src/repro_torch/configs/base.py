@@ -1,8 +1,9 @@
-"""Configuration dataclasses for the dense decoder family the port covers.
+"""Configuration dataclasses for the families the port covers: dense GQA
+decoders and Mamba-2 (SSD).
 
-The dense-GQA part of ``repro.configs.base``, cut to the fields the port's
-model, engine and launcher read (untied embeddings, no q/k norm, no
-modality prefix; the dtype is the caller's).  Configs are frozen
+The dense-GQA and SSM parts of ``repro.configs.base``, cut to the fields
+the port's models, engine and launchers read (untied embeddings, no q/k
+norm, no modality prefix; the dtype is the caller's).  Configs are frozen
 dataclasses.
 """
 from __future__ import annotations
@@ -22,14 +23,26 @@ class AttnConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD parameters."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 256               # SSD chunk length
+    d_conv: int = 4
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only "dense" is ported
+    family: str                    # "dense" or "ssm" (the families ported)
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttnConfig] = None
+    ssm: Optional[SSMConfig] = None
     norm_eps: float = 1e-6
     source: str = ""               # citation of the published widths
 

@@ -1,5 +1,7 @@
 """Draft ("small speculative model") config builder: a small dense GQA
-decoder sharing the target's vocabulary, as ``repro.configs.drafts``."""
+decoder sharing the target's vocabulary, as ``repro.configs.drafts``.  Next
+to a recurrent target the draft inherits a sliding window, so long-context
+decode stays sub-quadratic end to end."""
 from __future__ import annotations
 
 from repro_torch.configs.base import AttnConfig, ModelConfig
@@ -9,6 +11,8 @@ def dense_draft(target: ModelConfig, *, n_layers: int = 4, d_model: int = 512,
                 n_heads: int = 8, d_ff: int = 2048, window=None) -> ModelConfig:
     if window is None and target.attn is not None:
         window = target.attn.window
+    if window is None and target.family in ("ssm", "hybrid"):
+        window = 4096  # keep the draft sub-quadratic next to an O(1) target
     return ModelConfig(
         name=f"{target.name}-draft",
         family="dense",

@@ -26,6 +26,12 @@ every occupancy level.  :meth:`SpecDecodeEngine.init_slots` allocates it,
 prefill, then a copy into the slot's rows) and
 :meth:`~SpecDecodeEngine.retire_slot` frees a row.
 
+A Mamba-2 target (``family="ssm"``) takes the same step: its verify
+``decode_step`` checkpoints the recurrent state after every fed position
+and its ``commit`` picks each request's checkpoint at the accept index;
+the slot pool copies every cache leaf on its slot axis, and a paged pool
+is refused, as in the JAX engine.
+
 Paged KV: ``init_slots(block_size=...)`` replaces the per-slot target rings
 with one pool of fixed-size blocks (``DecoderLM.init_paged_cache``) plus a
 block table ``bt [capacity, max_blocks]`` in ``DecodeState.tcache``; the
@@ -51,10 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import build_model
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.tuning import host_cu_blocks
-from repro_torch.models.transformer import DecoderLM
 
 if TYPE_CHECKING:  # the real import is lazy: serving/ imports this module
     from repro_torch.serving.slots import PagedKVTables
@@ -62,6 +68,15 @@ if TYPE_CHECKING:  # the real import is lazy: serving/ imports this module
 # headroom rows in the per-request output buffer: one speculative step can
 # commit up to s + 1 tokens past max_new.  Also the ceiling on s.
 S_MAX = 8
+
+
+def _slot_axis(full_shape, single_shape) -> Optional[int]:
+    """The one axis where a B = 1 leaf differs from the pool's leaf (None
+    when they are the same shape: a pool of capacity 1)."""
+    diff = [i for i, (f, g) in enumerate(zip(full_shape, single_shape)) if f != g]
+    assert len(full_shape) == len(single_shape) and len(diff) <= 1, \
+        (full_shape, single_shape)
+    return diff[0] if diff else None
 
 
 @dataclasses.dataclass
@@ -97,8 +112,8 @@ class SpecDecodeEngine:
                  device: torch.device | str = "cuda"):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
-        self.target = DecoderLM(target_cfg)
-        self.draft = DecoderLM(draft_cfg) if draft_cfg is not None else None
+        self.target = build_model(target_cfg)
+        self.draft = build_model(draft_cfg) if draft_cfg is not None else None
         self.max_new = max_new
         self.eos_id = eos_id
         self.dtype = dtype
@@ -108,6 +123,8 @@ class SpecDecodeEngine:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     def _init_caches(self, B: int, cache_len: int):
+        # an SSM target's recurrent cache takes the same arguments and
+        # ignores cache_len: its state does not grow
         tcache = self.target.init_cache(B, cache_len, self.dtype, self.device)
         dcache = (self.draft.init_cache(B, cache_len, self.dtype, self.device)
                   if self.draft is not None else None)
@@ -118,7 +135,8 @@ class SpecDecodeEngine:
         """Right-padded prompts [B, P] (numpy or tensor) -> a fresh state.
         The target is prefilled with ``prompt_lens - 1`` tokens and the
         draft with ``prompt_lens - 2``; the last two prompt tokens seed the
-        first step."""
+        first step.  Both models return the committed lengths as they are
+        (an SSM its ``prompt_lens``)."""
         lens_host = np.asarray(prompt_lens)
         if int(lens_host.min()) < 3:
             raise ValueError("prompts need >= 3 tokens")
@@ -147,9 +165,13 @@ class SpecDecodeEngine:
 
     def load_kernels(self, paged: bool = False) -> None:
         """Build and load the CUDA kernels this engine's steps launch (a
-        no-op on the CPU), so that a timed region never includes a build."""
+        no-op on the CPU), so that a timed region never includes a build:
+        K1 (the draft, or a dense target), K5 (every norm), K2/K3 for a
+        paged pool, K6 for an SSM target's prefill."""
         if self.device.type == "cuda":
-            names = ["spec_verify_attn"] + (["paged_verify_attn"] if paged else [])
+            names = (["spec_verify_attn", "rmsnorm"]
+                     + (["paged_verify_attn"] if paged else [])
+                     + (["ssd_chunk"] if self.tcfg.family == "ssm" else []))
             build.build(names)                  # one nvcc per source, in parallel
             for name in names:
                 build.load(name)
@@ -165,7 +187,8 @@ class SpecDecodeEngine:
         ``cache_len`` becomes the per-slot logical cap (rounded up to whole
         blocks) and ``num_blocks`` (default: the worst case, ``capacity *
         blocks_per_slot``) sizes the shared pool; undersize it to trade
-        memory for scheduler preemptions."""
+        memory for scheduler preemptions.  Only an attention target has one:
+        an SSM target raises, as in the JAX engine."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharded slot pools are not ported yet (ROADMAP queue 1, item 14)")
@@ -175,6 +198,9 @@ class SpecDecodeEngine:
             paged = None
         else:
             from repro_torch.serving.slots import PagedKVTables
+            if not hasattr(self.target, "init_paged_cache"):
+                raise NotImplementedError(
+                    f"paged KV is not supported for family '{self.tcfg.family}'")
             max_blocks = -(-cache_len // block_size)
             if num_blocks is None:
                 num_blocks = capacity * max_blocks
@@ -201,8 +227,8 @@ class SpecDecodeEngine:
                      tokens, prompt_len: int, cache_len: int,
                      warm: bool = False) -> DecodeState:
         """Inject one new request into row ``slot`` of a live slot pool: a
-        B = 1 prefill of the (padded) prompt, then a copy of every per-slot
-        leaf into the pool, in place.  A paged pool allocates
+        B = 1 prefill of the (padded) prompt, then a copy of every cache leaf
+        into the slot's row of the pool, in place.  A paged pool allocates
         ``ceil(prompt_len / block_size)`` blocks and copies the prefill rows
         block by block through the slot's new table row."""
         if warm:
@@ -215,7 +241,7 @@ class SpecDecodeEngine:
         one = self.prefill(tparams, dparams, tokens,
                            np.array([prompt_len], np.int32), cache_len)
         if pk is None:
-            self._copy_ring(state.tcache, one.tcache, slot)
+            self._copy_slot(state.tcache, one.tcache, slot)
         else:
             pk.prefill(slot, prompt_len)
             ids = pk.table(slot)
@@ -230,17 +256,23 @@ class SpecDecodeEngine:
             tc["bt"][slot] = -1
             tc["bt"][slot, :n] = blocks.to(torch.int32)
         if self.draft is not None:
-            self._copy_ring(state.dcache, one.dcache, slot)
+            self._copy_slot(state.dcache, one.dcache, slot)
         for name in ("seq_lens", "last2", "out", "n_generated", "done"):
             getattr(state, name)[slot] = getattr(one, name)[0]
         return state
 
     @staticmethod
-    def _copy_ring(pool: Dict, one: Dict, slot: int) -> None:
-        """Copy a B = 1 ring cache into row ``slot`` of a pool of rings."""
-        pool["k"][:, slot] = one["k"][:, 0]
-        pool["v"][:, slot] = one["v"][:, 0]
-        pool["pos"][slot] = one["pos"][0]
+    def _copy_slot(pool: Dict, one: Dict, slot: int) -> None:
+        """Copy every leaf of a B = 1 cache (ring k/v/pos, or SSM state and
+        conv buffers) into row ``slot`` of the pool's leaf, on its slot axis
+        (``_slot_axis``); a pool of capacity 1 is the slot itself."""
+        for name, full in pool.items():
+            single = one[name]
+            ax = _slot_axis(full.shape, single.shape)
+            if ax is None:
+                full.copy_(single)
+            else:
+                full.select(ax, slot).copy_(single.select(ax, 0))
 
     def retire_slot(self, state: DecodeState, slot: int) -> DecodeState:
         """Free a slot (mark it done), in place and with no host read: the
@@ -333,7 +365,7 @@ class SpecDecodeEngine:
                 self.step(tparams, dparams, state, s)
 
 
-def make_spec_step(tgt: DecoderLM, drf: Optional[DecoderLM], B: int, s: int, *,
+def make_spec_step(tgt, drf, B: int, s: int, *,
                    eos_id: int = -1, max_new: int = 128, paged: bool = False):
     """One greedy speculative step (paper Algorithm 1, batched): the port of
     ``repro.core.spec_decode.make_spec_step``.
@@ -342,8 +374,11 @@ def make_spec_step(tgt: DecoderLM, drf: Optional[DecoderLM], B: int, s: int, *,
     n_generated, done[, cu_blocks]) -> (tcache', dcache', seq_lens', last2',
     out', n_generated', done', accepted, n_commit).  ``paged=True`` adds the
     ``cu_blocks [B + 1]`` operand, which the target's verify passes to the
-    paged attention (the ragged kernel K3 on the card).  The caches are
-    written in place, and nothing is read back to the host.
+    paged attention (the ragged kernel K3 on the card).  ``tgt`` and ``drf``
+    are models of ``build_model`` (the draft a ``DecoderLM``; the target a
+    ``DecoderLM`` or a ``Mamba2LM``, whose ``commit`` picks the state
+    checkpoint at each accept count).  The caches are written in place, and
+    nothing is read back to the host.
     """
     eos = eos_id
 

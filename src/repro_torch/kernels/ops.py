@@ -6,7 +6,9 @@ fallback between the two and no switch to force either.  Each path keeps a
 launch count, so a run can show which one carried it.
 
 ``spec_verify_attn`` is K1; ``rmsnorm`` (K5) and ``flash_attn`` (K4) are
-``torch.autograd.Function``s whose backward dispatches the same way.
+``torch.autograd.Function``s whose backward dispatches the same way;
+``ssd_chunk`` and ``ssd_chunked`` (K6) are the Mamba-2 SSD scan, forward
+only.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.kernels import flash_attn as K4
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as K5
+from repro_torch.kernels import ssd_chunk as K6
 from repro_torch.kernels.spec_verify_attn import LaunchCount, spec_verify_attn_cuda
 
 PLAIN = LaunchCount()    # calls of the plain version of spec_verify_attn
@@ -144,3 +147,34 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     PLAIN_FLASH.launches += 1
     return _ref.gqa_masked_ref(q, k, v, q_pos, k_pos, window, prefix_len, scale)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 SSD scan (K6), forward only
+
+PLAIN_SSD = LaunchCount()       # calls of ssd_chunk's or ssd_chunked's plain version
+
+
+def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
+              l: torch.Tensor, h0: torch.Tensor):
+    """One SSD chunk for a batch of (batch*head) slices
+    (``repro.kernels.ops.ssd_chunk``): x [BH,Q,P]; b/c [BH,Q,N]; dt/l [BH,Q];
+    h0 [BH,P,N] -> (y [BH,Q,P], h_new [BH,P,N]) in fp32."""
+    if x.is_cuda:
+        return K6.ssd_chunk_cuda(x, b, c, dt.float().contiguous(), l.float().contiguous(),
+                                 h0.float().contiguous())
+    PLAIN_SSD.launches += 1
+    return _ref.ssd_chunk_ref(x, b, c, dt, l, h0)
+
+
+def ssd_chunked(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor, dt: torch.Tensor,
+                A: torch.Tensor, h0: torch.Tensor, chunk: int):
+    """The whole chunked scan of a Mamba-2 layer (the model's
+    ``_ssd_chunked``): xh [B,T,H,P]; B_/C_ [B,T,G,N]; dt [B,T,H] fp32; A [H]
+    fp32 (log-decay -dt*A); h0 [B,H,P,N] fp32; chunks of the largest divisor
+    of T at most ``chunk``.  Returns (y [B,T,H,P], h_final [B,H,P,N]) in
+    fp32.  One launch of K6 on the card, however many chunks."""
+    if xh.is_cuda:
+        return K6.ssd_chunked_cuda(xh, B_, C_, dt, A, h0, chunk)
+    PLAIN_SSD.launches += 1
+    return _ref.ssd_chunked_ref(xh, B_, C_, dt, A, h0, chunk)

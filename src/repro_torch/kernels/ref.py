@@ -153,3 +153,69 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * scale
     dk = torch.einsum("bkgts,btkgh->bskh", ds, q.float().reshape(B, T, KVH, G, hd)) * scale
     return (dq.reshape(B, T, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunk (K6): one chunk, and the model's whole chunk loop
+
+
+def ssd_chunk_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  dt: torch.Tensor, l: torch.Tensor, h0: torch.Tensor):
+    """One SSD chunk for a batch of (batch*head) slices, all math in fp32
+    (``repro.kernels.ref.ssd_chunk_ref``, batched).  x: [BH, Q, P]; b/c:
+    [BH, Q, N]; dt: [BH, Q] (>= 0); l: [BH, Q] log-decay (<= 0); h0: [BH,
+    P, N].  With cs = cumsum(l) and M = tril(c b^T * exp(cs_i - cs_j)):
+    y = (M * dt_j) x + (c * exp(cs)) h0^T and h_new = exp(cs_Q) h0 +
+    (x * dt exp(cs_Q - cs))^T b.  Returns (y [BH, Q, P], h_new [BH, P, N])."""
+    x, b, c, dt, l, h0 = (t.float() for t in (x, b, c, dt, l, h0))
+    Q = x.shape[1]
+    cs = torch.cumsum(l, dim=1)                                   # [BH, Q]
+    cb = torch.einsum("zin,zjn->zij", c, b)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    dec = torch.where(mask, cs[:, :, None] - cs[:, None, :], 0.0)  # masked before exp
+    M = torch.where(mask, cb * torch.exp(dec), 0.0)
+    y_in = torch.einsum("zij,zjp->zip", M * dt[:, None, :], x)
+    y_h = torch.einsum("zin,zpn->zip", c * torch.exp(cs)[:, :, None], h0)
+    w = dt * torch.exp(cs[:, -1:] - cs)                           # [BH, Q]
+    contrib = torch.einsum("zjp,zjn->zpn", x * w[:, :, None], b)
+    h_new = torch.exp(cs[:, -1])[:, None, None] * h0 + contrib
+    return y_in + y_h, h_new
+
+
+def ssd_chunk_len(T: int, chunk: int) -> int:
+    """The chunk length Q of a T-row scan: the largest divisor of T that is
+    at most ``chunk`` (``repro.models.mamba2._ssd_chunked``), so that every
+    chunk is whole."""
+    Q = min(chunk, T)
+    while T % Q:
+        Q -= 1
+    return Q
+
+
+def ssd_chunked_ref(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                    dt: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                    chunk: int):
+    """The chunked SSD scan of ``repro.models.mamba2.Mamba2LM._ssd_chunked``
+    in fp32: xh [B,T,H,P]; B_/C_ [B,T,G,N] (group g serves heads g*H/G ..);
+    dt [B,T,H] (>= 0, zero on padding); A [H] (> 0, the decay rate, so the
+    log-decay is -dt*A); h0 [B,H,P,N].  Chunks of Q = ``ssd_chunk_len(T,
+    chunk)`` rows run in order, each carrying h into the next.  Returns (y
+    [B,T,H,P] fp32, h_final [B,H,P,N] fp32)."""
+    Bsz, T, H, Pd = xh.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Q = ssd_chunk_len(T, chunk)
+    rep = H // G
+    fold = lambda t: t.float().transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
+    x = fold(xh)                                                  # [BH, T, P]
+    b = fold(B_.repeat_interleave(rep, dim=2))                    # [BH, T, N]
+    c = fold(C_.repeat_interleave(rep, dim=2))
+    dtf = dt.float().transpose(1, 2).reshape(Bsz * H, T)
+    l = -dtf * A.float().repeat(Bsz)[:, None]
+    h = h0.float().reshape(Bsz * H, Pd, N)
+    ys = []
+    for i in range(0, T, Q):
+        y, h = ssd_chunk_ref(x[:, i:i + Q], b[:, i:i + Q], c[:, i:i + Q],
+                             dtf[:, i:i + Q], l[:, i:i + Q], h)
+        ys.append(y)
+    y = torch.cat(ys, dim=1).reshape(Bsz, H, T, Pd).transpose(1, 2)
+    return y, h.reshape(Bsz, H, Pd, N)

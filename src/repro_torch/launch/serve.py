@@ -7,6 +7,11 @@ config and ``--device cpu`` the CPU (plain kernels):
 
   python -m repro_torch.launch.serve --arch opt-6.7b --requests 16
   python -m repro_torch.launch.serve --smoke --device cpu --dtype float32
+  python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke --device cpu \
+      --dtype float32 --requests 6 --max-new 8 --profile-bs 1,2 --s-max 2
+
+``--arch mamba2-1.3b`` serves the Mamba-2 target (its prefill through the
+SSD kernel K6) with its dense draft.
 
 ``main`` returns what it printed as a dict: the profiled per-token latency
 grid, the LUT, the adaptive and ``s = 0`` summaries and throughputs, and the

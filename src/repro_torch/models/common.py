@@ -21,7 +21,7 @@ from repro_torch.kernels import ops
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"              # normal | ones
+    init: str = "normal"              # normal | ones | zeros
     scale: Optional[float] = None     # stddev for "normal" (default 1/sqrt(fan_in))
     stacked: bool = False             # leading n_layers dim added implicitly
 
@@ -40,7 +40,8 @@ def _iter_defs(defs: Dict, prefix=()):
 def init_params(defs: Dict, generator: torch.Generator, n_layers: int,
                 dtype: torch.dtype, device: torch.device | str) -> Dict:
     """Seeded init with the JAX package's distributions (normal x
-    1/sqrt(fan_in) unless the def gives a scale; ones for norms).  The
+    1/sqrt(fan_in) unless the def gives a scale; ones for norms, zeros
+    where the def says so).  The
     numbers differ from JAX's.  Draws in float32 one layer at a time, on the
     generator's device, then casts, so the float32 copy of a stacked weight
     never exists in full.  The generator must live on ``device``."""
@@ -49,6 +50,8 @@ def init_params(defs: Dict, generator: torch.Generator, n_layers: int,
         shape = d.full_shape(n_layers)
         if d.init == "ones":
             arr = torch.ones(shape, dtype=dtype, device=device)
+        elif d.init == "zeros":
+            arr = torch.zeros(shape, dtype=dtype, device=device)
         else:
             fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[-1], 1)
             scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)

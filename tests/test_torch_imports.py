@@ -36,6 +36,11 @@ def test_port_has_the_training_path():
             "kernels/rmsnorm.py", "configs/internlm2_1_8b.py"} <= set(FILES)
 
 
+def test_port_has_the_mamba2_path():
+    assert {"models/mamba2.py", "configs/mamba2_1_3b.py", "kernels/ssd_chunk.py"} <= set(FILES)
+    assert (PORT / "kernels" / "csrc" / "ssd_chunk.cu").is_file()
+
+
 @pytest.mark.parametrize("rel", FILES)
 def test_file_imports_neither_jax_nor_repro(rel):
     tree = ast.parse((PORT / rel).read_text(), filename=rel)
