@@ -25,9 +25,11 @@ Phases, one report line each (the last line is the JSON verdict):
             backward, held against their plain versions and autograd through
             the plain forward at the training shapes (internlm2-1.8b, the
             OPT-125M draft), the teacher's and ``prefill_flash``'s forward
-            shapes in bf16, G = 8, a window, a prefix, padded and fully
-            masked rows and T not a multiple of the tile; with the times of
-            the plain version, a library call and the card's bound.
+            shapes in bf16, G = 7, 8 and 10, a window, a prefix, padded and
+            fully masked rows and T not a multiple of the tile; with the
+            times of the plain version, a library call (and the device
+            kernels it runs) and the card's bound, K4's fp32 forward bound
+            counted for its route (three tf32 products).
 3. parity   full-width target and draft cut to 2 layers, fp32: prefill + 8
             greedy steps on the card (kernel) against the same on the CPU
             (plain version), and speculative generate(s) == generate(0).
@@ -57,7 +59,9 @@ Phases, one report line each (the last line is the JSON verdict):
             fp32, 20 steps, loss falling, K4/K5 launched and no plain
             version, peak memory and the device-busy share; one train step
             of internlm2 cut to 2 layers on the card against the CPU; and
-            ``prefill_flash`` against ``prefill`` on OPT-6.7B in bf16.
+            ``prefill_flash`` against ``prefill`` on OPT-6.7B, in fp32 (the
+            bf16 weights cast: logits, every K/V row, K4 once per layer) and
+            in bf16 (no further from the fp32 logits than ``prefill``).
 
 2d. ssd kernel  K6 (the Mamba-2 SSD scan) held against its plain version at
             mamba2-1.3b's widths (64 heads, P 64, N 128, chunk 256): a
@@ -99,7 +103,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"float32": 67e12,        # fp32 outside the tensor cores
-            "bfloat16": 989e12}      # dense bf16 tensor cores
+            "bfloat16": 989e12,      # dense bf16 tensor cores
+            "tf32": 495e12}          # dense tf32 tensor cores (K4's fp32 forward: 3 products)
 TOL = {"float32": 1e-5,   # same inputs, fp32 math; only the summation order differs
        "bfloat16": 1e-2}  # bf16 output rounding (2^-9 relative) against an fp32 plain run
 
@@ -126,6 +131,24 @@ class Tee:
 def check(cond, msg):
     if not cond:
         raise PhaseFailed(msg)
+
+
+def ptxas_report(text):
+    """One line per kernel of an ``nvcc -Xptxas -v`` report: its name (the
+    mangled name without its anonymous namespace) and its registers,
+    spills, stack and shared memory."""
+    out, name, facts = [], None, []
+    for ln in text.splitlines() + ["Compiling entry function '' "]:
+        if "Compiling entry function" in ln:
+            if name:
+                out.append(f"{name}: " + "; ".join(facts))
+            name, facts = ln.split("'")[1], []
+            if name.startswith("_ZN") and name[3:4].isdigit():   # skip _ZN<n><namespace>
+                digits = len(name[3:]) - len(name[3:].lstrip("0123456789"))
+                name = name[3 + digits + int(name[3:3 + digits]):]
+        elif name and ("registers" in ln or "spill" in ln or "smem" in ln):
+            facts.append(ln.split(":", 1)[-1].strip() if "ptxas info" in ln else ln.strip())
+    return out
 
 
 def smi() -> str:
@@ -226,6 +249,19 @@ def device_ms(torch, fn, arg_sets, iters=20):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_kernels(torch, fn, args):
+    """The names of the device kernels one call of ``fn`` launches
+    (``torch.profiler``), in order, each once."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return list(dict.fromkeys(names))
 
 
 def run_kernel_case(torch, K1, ref, c):
@@ -551,25 +587,41 @@ def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, lens=None, window=N
 
 
 def flash_bound(torch, c, backward):
-    """Least time: the bytes moved once (forward: q, k, v, positions in;
-    out and lse out; backward: q, k, v, o, dO, lse, positions in; dq, dk,
-    dv out) against the operations on the visible (query, key) pairs: 4
-    flop per pair, head and hd forward (QK^T, PV), 10 backward (QK^T and
-    dO V^T recomputed, dV, dQ, dK)."""
+    """Least time, as the row's ``bound_ms``/``bound_by`` (``bwd_``-prefixed
+    for the backward): the bytes moved once against the operations on the
+    visible (query, key) pairs.  Bytes: q (with o and dO backward) only of
+    query rows that see some key, k and v only of key rows some query sees
+    (no other row changes the result), positions, and every output row
+    (out and lse; dq, dk, dv) with lse read backward.  Operations: 4 flop
+    per pair, head and hd forward (QK^T, PV), 10 backward (QK^T and dO V^T
+    recomputed, dV, dQ, dK), at the dtype's peak; the fp32 forward counts
+    its route, three tf32 products at the tf32 peak, with the fp32 SIMT
+    figure beside it as ``bound_simt_ms``."""
     q, k = c["q"], c["k"]
     B, T, H, hd = q.shape
-    ok = visible(torch, dict(c, q_pos=c["pos"], k_pos=c["pos"]))
+    KVH = k.shape[2]
+    ok = visible(torch, dict(c, q_pos=c["pos"], k_pos=c["pos"]))      # [B, T, L]
     pairs = int(ok.sum())
-    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
-    pos_b = 8 * c["pos"].numel()
+    es = q.element_size()
+    q_need = int(ok.any(2).sum()) * H * hd * es
+    kv_need = 2 * int(ok.any(1).sum()) * KVH * hd * es
+    qb, kb, lse_b, pos_b = q.numel() * es, k.numel() * es, 4 * B * H * T, 8 * c["pos"].numel()
     if backward:
-        nbytes = 3 * qb + 4 * kb + 4 * B * H * T + qb + pos_b   # q o dO dq; k v dk dv; lse
+        nbytes = 3 * q_need + kv_need + lse_b + qb + 2 * kb + pos_b   # in; dq dk dv out
         ops = 10 * pairs * H * hd
     else:
-        nbytes = 2 * qb + 2 * kb + 4 * B * H * T + pos_b      # q out; k v; lse
+        nbytes = q_need + kv_need + qb + lse_b + pos_b                 # in; out, lse out
         ops = 4 * pairs * H * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[c["dtype"]]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+
+    def least(t_ops, label):
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else label)
+    pre = "bwd_" if backward else ""
+    simt = least(ops / PEAK_OPS[c["dtype"]], "operations")
+    if backward or c["dtype"] != "float32":
+        return {pre + "bound_ms": simt[0], pre + "bound_by": simt[1]}
+    ms, by = least(3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)")
+    return {"bound_ms": ms, "bound_by": by, "bound_simt_ms": simt[0]}
 
 
 def run_flash_case(torch, K4, ref, c):
@@ -598,9 +650,11 @@ def run_flash_case(torch, K4, ref, c):
         q, k, v, p, p, **kw), sets)
     lib_sets = [(s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
                  mask(s[3])) for s in sets]
-    row["library_ms"] = device_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m, enable_gqa=G > 1), lib_sets)
-    row["bound_ms"], row["bound_by"] = flash_bound(torch, c, False)
+    sdpa = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=m, enable_gqa=G > 1)
+    row["library_ms"] = device_ms(torch, sdpa, lib_sets)
+    row["library_kernels"] = [n[:90] for n in device_kernels(torch, sdpa, lib_sets[0])]
+    row.update(flash_bound(torch, c, False))
     if c["grads"]:
         dq, dk, dv = K4.flash_attn_bwd_cuda(q, k, v, out, do, lse, pos, pos, **kw)
         torch.cuda.synchronize()
@@ -626,7 +680,7 @@ def run_flash_case(torch, K4, ref, c):
             return torch.autograd.grad(o, leaf, d)
         row["bwd_library_ms"] = device_ms(torch, sdpa_fwd_bwd, [
             (*ls, s[5].transpose(1, 2)) for ls, s in zip(lib_sets, sets)])
-        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(torch, c, True)
+        row.update(flash_bound(torch, c, True))
     row["ok"] = ok
     del sets, lib_sets
     return row
@@ -690,34 +744,43 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
     return row
 
 
+# K4's phase 2c cases: (name, make_flash_case arguments)
+FLASH_CASES = [
+    # internlm2-1.8b training and the card-vs-CPU step (fwd + bwd)
+    ("internlm2_train", dict(B=8, T=128, H=16, KVH=8, hd=128, dtype="float32")),
+    ("internlm2_cpu_step", dict(B=2, T=64, H=16, KVH=8, hd=128, dtype="float32")),
+    # OPT-125M distillation (fwd + bwd), OPT-6.7B teacher (fwd, bf16)
+    ("opt125m_distill", dict(B=8, T=128, H=12, KVH=12, hd=64, dtype="float32")),
+    ("opt67b_teacher", dict(B=8, T=128, H=32, KVH=32, hd=128, dtype="bfloat16",
+                            grads=False)),
+    # prefill_flash: prompts right-padded with -1 rows (bf16, fwd)
+    ("prefill_flash_t512", dict(B=4, T=512, H=32, KVH=32, hd=128, dtype="bfloat16",
+                                lens=[512, 400, 301, 77], grads=False)),
+    ("prefill_flash_draft", dict(B=2, T=200, H=12, KVH=12, hd=64, dtype="bfloat16",
+                                 lens=[200, 133], grads=False)),
+    # contract cases: G = 8 (yi-9b), window, prefix, padding and a fully
+    # masked batch entry, T not a multiple of the 64-row tile
+    ("gqa_g8", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="float32")),
+    ("gqa_g8_bf16", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="bfloat16",
+                         grads=False)),
+    ("window_48", dict(B=2, T=160, H=16, KVH=8, hd=128, dtype="float32", window=48)),
+    ("prefix_16", dict(B=2, T=96, H=16, KVH=8, hd=128, dtype="float32", prefix_len=16)),
+    ("padded_masked", dict(B=3, T=128, H=12, KVH=12, hd=64, dtype="float32",
+                           lens=[128, 0, 70])),
+    ("ragged_t100", dict(B=3, T=100, H=16, KVH=8, hd=128, dtype="float32",
+                         lens=[100, 93, 41])),
+    # G = 7 (yi-34b's grouping: a 64-row tile holds parts of two heads) and
+    # G = 10, each fp32 with grads and bf16 forward only
+    ("gqa_g7", dict(B=2, T=100, H=56, KVH=8, hd=128, dtype="float32")),
+    ("gqa_g7_bf16", dict(B=2, T=100, H=56, KVH=8, hd=128, dtype="bfloat16", grads=False)),
+    ("gqa_g10", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="float32")),
+    ("gqa_g10_bf16", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="bfloat16", grads=False)),
+]
+
+
 def phase_train_kernels(torch, K4, K5, ref):
-    flash = [
-        # internlm2-1.8b training and the card-vs-CPU step (fwd + bwd)
-        ("internlm2_train", dict(B=8, T=128, H=16, KVH=8, hd=128, dtype="float32")),
-        ("internlm2_cpu_step", dict(B=2, T=64, H=16, KVH=8, hd=128, dtype="float32")),
-        # OPT-125M distillation (fwd + bwd), OPT-6.7B teacher (fwd, bf16)
-        ("opt125m_distill", dict(B=8, T=128, H=12, KVH=12, hd=64, dtype="float32")),
-        ("opt67b_teacher", dict(B=8, T=128, H=32, KVH=32, hd=128, dtype="bfloat16",
-                                grads=False)),
-        # prefill_flash: prompts right-padded with -1 rows (bf16, fwd)
-        ("prefill_flash_t512", dict(B=4, T=512, H=32, KVH=32, hd=128, dtype="bfloat16",
-                                    lens=[512, 400, 301, 77], grads=False)),
-        ("prefill_flash_draft", dict(B=2, T=200, H=12, KVH=12, hd=64, dtype="bfloat16",
-                                     lens=[200, 133], grads=False)),
-        # contract cases: G = 8 (yi-9b), window, prefix, padding and a fully
-        # masked batch entry, T not a multiple of the 64-row tile
-        ("gqa_g8", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="float32")),
-        ("gqa_g8_bf16", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="bfloat16",
-                             grads=False)),
-        ("window_48", dict(B=2, T=160, H=16, KVH=8, hd=128, dtype="float32", window=48)),
-        ("prefix_16", dict(B=2, T=96, H=16, KVH=8, hd=128, dtype="float32", prefix_len=16)),
-        ("padded_masked", dict(B=3, T=128, H=12, KVH=12, hd=64, dtype="float32",
-                               lens=[128, 0, 70])),
-        ("ragged_t100", dict(B=3, T=100, H=16, KVH=8, hd=128, dtype="float32",
-                             lens=[100, 93, 41])),
-    ]
     rows = []
-    for i, (name, kw) in enumerate(flash):
+    for i, (name, kw) in enumerate(FLASH_CASES):
         r = run_flash_case(torch, K4, ref, make_flash_case(torch, "flash_" + name,
                                                            seed=200 + i, **kw))
         rows.append(r)
@@ -1350,37 +1413,92 @@ def phase_train_parity(torch, np, m, tree_to):
 
 def phase_prefill_flash(torch, np, R, m):
     """``prefill_flash`` (attention by K4 over the prompt) against
-    ``prefill`` (K1 over the ring) on the full-width OPT-6.7B in bf16 with
-    phase 4's weights: B 4, prompts of 512, 400, 301 and 77 tokens padded to
-    512, a 512-row ring.  Last-token logits within 2e-3, and every cache row
-    written with a position identical."""
-    bf16 = torch.bfloat16
+    ``prefill`` (K1 over the ring) on the full-width OPT-6.7B with phase 4's
+    bf16-initialised weights: B 4, prompts of 512, 400, 301 and 77 tokens
+    padded to 512, a 512-row ring.
+
+    K4's forward sums on the tensor cores in another order than K1, so the
+    two paths differ by rounding, which 32 bf16 layers carry past one bf16
+    ulp of the logits.  The check is therefore made in two runs:
+
+    (a) fp32, the same weights cast to fp32: last-token logits within 2e-3
+        absolute plus relative, every written K/V row of every layer within
+        1e-4 of its tensor's largest entry, layer 0's rows (before any
+        attention), ``pos`` and ``seq_lens`` equal, K4 launched once per
+        layer;
+    (b) bf16, as served: ``prefill_flash``'s logits no further from (a)'s
+        fp32 ``prefill`` logits, in relative RMS, than 1.5x ``prefill``'s
+        own bf16 logits are."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
     model = m.DecoderLM(R.get_config("opt-6.7b"))
+    n_layers = model.cfg.n_layers
     params = model.init(torch.Generator(device="cuda").manual_seed(0), bf16, "cuda")
     rng = np.random.default_rng(9)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (4, 512))).cuda()
     lens = torch.tensor([512, 400, 301, 77], dtype=torch.int32, device="cuda")
-    with torch.no_grad():
-        m.K4.FWD.launches = 0
-        lf, cf, sf = model.prefill_flash(params, toks, model.init_cache(4, 512, bf16, "cuda"),
-                                         lens)
-        k4 = m.K4.FWD.launches
-        lp, cp, sp = model.prefill(params, toks, model.init_cache(4, 512, bf16, "cuda"), lens)
-    torch.cuda.synchronize()
+
+    V = model.cfg.vocab_size    # the padded vocabulary's logits are -1e30 on both paths
+
+    def run(dtype):
+        with torch.no_grad():
+            m.K4.FWD.launches = 0
+            lf, cf, sf = model.prefill_flash(params, toks,
+                                             model.init_cache(4, 512, dtype, "cuda"), lens)
+            k4 = m.K4.FWD.launches
+            lp, cp, sp = model.prefill(params, toks, model.init_cache(4, 512, dtype, "cuda"),
+                                       lens)
+        torch.cuda.synchronize()
+        return lf[:, :V].float(), cf, sf, lp[:, :V].float(), cp, sp, k4
+
+    lf_b, _, _, lp_b, _, _, k4_b = run(bf16)
+
+    def cast(tree):       # leaf by leaf, so that the two copies never coexist whole
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                cast(v)
+            else:
+                tree[k] = v.to(f32)
+    cast(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lf, cf, sf, lp, cp, sp, k4 = run(f32)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+
     tol = 2e-3
-    err = (lf.float() - lp.float()).abs()
+    err = (lf - lp).abs()
     written = cp["pos"] >= 0
-    cache_equal = all(bool(torch.equal(cf[k][:, written], cp[k][:, written])) for k in ("k", "v"))
-    line = dict(logits_max_abs_err=float(err.max()), tol=tol,
-                logits_bitwise_equal=bool(torch.equal(lf, lp)),
-                cache_rows_equal=cache_equal, pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
-                seq_lens_equal=bool(torch.equal(sf, sp)), k4_launches=k4)
+    kv_rel = max(float((cf[k][i][written] - cp[k][i][written]).abs().max()
+                       / cp[k][i][written].abs().max())
+                 for k in ("k", "v") for i in range(n_layers))
+    layer0 = all(bool(torch.equal(cf[k][0][written], cp[k][0][written])) for k in ("k", "v"))
+
+    def rel_rms(x):
+        return float((x - lp).pow(2).mean().sqrt() / lp.pow(2).mean().sqrt())
+    check(bool(torch.isfinite(lp).all() and torch.isfinite(lf_b).all()
+               and torch.isfinite(lp_b).all()), "prefill logits are not finite")
+    line = dict(held_before_gb=held, fp32_peak_memory_gb=peak,
+                fp32_logits_max_abs_err=float(err.max()), tol=tol, fp32_kv_max_rel_err=kv_rel,
+                fp32_layer0_rows_equal=layer0,
+                pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
+                seq_lens_equal=bool(torch.equal(sf, sp)), k4_launches=k4,
+                k4_launches_bf16=k4_b, bf16_flash_rel_rms_err=rel_rms(lf_b),
+                bf16_prefill_rel_rms_err=rel_rms(lp_b),
+                logits_bitwise_equal=bool(torch.equal(lf_b, lp_b)))
+    del cf, cp
     print("  " + json.dumps(line), flush=True)
-    check(bool((err <= tol + tol * lp.float().abs()).all()),
-          f"prefill_flash logits differ from prefill's by {float(err.max())}")
-    check(cache_equal and line["pos_equal"] and line["seq_lens_equal"],
+    check(bool((err <= tol + tol * lp.abs()).all()),
+          f"fp32 prefill_flash logits differ from prefill's by {float(err.max())}")
+    check(kv_rel <= 1e-4, f"fp32 prefill_flash K/V rows differ from prefill's by {kv_rel} of max")
+    check(layer0 and line["pos_equal"] and line["seq_lens_equal"],
           "prefill_flash wrote other cache rows than prefill")
-    check(k4 == model.cfg.n_layers, f"prefill_flash launched K4 {k4} times")
+    check(k4 == n_layers and k4_b == n_layers,
+          f"prefill_flash launched K4 {k4} (fp32) and {k4_b} (bf16) times")
+    check(line["bf16_flash_rel_rms_err"] <= 1.5 * line["bf16_prefill_rel_rms_err"],
+          f"bf16 prefill_flash is further from fp32 than prefill: {line}")
     return line
 
 
@@ -1550,11 +1668,15 @@ def phase_mamba_continuous(torch, np, m, lut_table):
     return line
 
 
-def train_kernel_rows(trows, launches, k5_serve, k5_live, distill):
+def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
-    trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches."""
+    trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches,
+    and K4's bf16 forward at ``prefill_flash``'s shape with phase 7's
+    ``prefill_flash`` launches.  A K4 fp32 forward bound is counted for its
+    route, three tf32 products (``bound_route``), beside the SIMT figure."""
     flash = next(r for r in trows if r["case"] == "flash_internlm2_train")
     norm = next(r for r in trows if r["case"] == "rmsnorm_internlm2_train")
+    pre = next(r for r in trows if r["case"] == "flash_prefill_flash_t512")
     out = []
     for name, r, src, rep, lib in (
             ("flash_attn", flash, "flash_attn.cu", "src/repro/kernels/flash_attn.py:71", "SDPA"),
@@ -1575,8 +1697,17 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill):
                     "bound_by": r["bwd_bound_by"], "library_ms": r["bwd_library_ms"],
                     "library": lib + " forward + backward (autograd)",
                     "shape": f"{r['shape']}, fp32"})
+    k4f = out[0]
+    k4f["bound_by"] = "bytes" if flash["bound_by"] == "bytes" else "operations"
+    k4f["bound_route"], k4f["bound_simt_ms"] = "3xTF32", flash["bound_simt_ms"]
     out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
     out[0]["launches_distill"] = distill["launches"]["k4_fwd"]
+    out.insert(1, {"name": "flash_attn_fwd_bf16", **{k: out[0][k] for k in (
+        "route", "source", "replaces")}, "launches": pflash["k4_launches_bf16"],
+        "launches_from": "phase 7, prefill_flash on OPT-6.7B in bf16 (one per layer)",
+        "max_abs_err": pre["max_abs_err"], "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"], "library": "SDPA", "shape": f"{pre['shape']}, bf16"})
     return out
 
 
@@ -1666,15 +1797,17 @@ def main() -> int:
     libs = build.build(["spec_verify_attn", "paged_verify_attn", "flash_attn", "rmsnorm",
                         "ssd_chunk"])
     build_s = time.perf_counter() - t0
-    ptxas = [f"{name}: {ln.strip()}" for name, p in libs.items()
-             for ln in p.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    ptxas = [f"{name}: {ln}" for name, p in libs.items()
+             for ln in ptxas_report(p.with_suffix(".log").read_text())]
     print(json.dumps({"phase": "device", "nvidia_smi": card,
                       "kind": torch.cuda.get_device_name(0),
                       "count": torch.cuda.device_count(), "torch": torch.__version__,
                       "cuda": torch.version.cuda, "build_s": build_s}), flush=True)
     for ln in ptxas:
         print("  ptxas: " + ln)
+    print("  k4 forward occupancy: " + json.dumps({
+        f"{dt}_hd{hd}": K4.fwd_occupancy(getattr(torch, dt), hd)
+        for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
 
     # ---- 2. kernels ----
     rows = phase_kernels(torch, K1, ref)
@@ -1752,7 +1885,7 @@ def main() -> int:
     phase_train_parity(torch, np, m, tree_to)
     print(json.dumps({"phase": "train_parity", "ok": True}), flush=True)
     torch.cuda.empty_cache()
-    phase_prefill_flash(torch, np, R, m)
+    pflash = phase_prefill_flash(torch, np, R, m)
     print(json.dumps({"phase": "prefill_flash", "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
@@ -1794,7 +1927,7 @@ def main() -> int:
         "launches": live["launches"]["k3"], "ms": phead["ms"],
         "launches_from": "phase 6b, serve_continuous_live on the paged pool",
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
-                                             live["launches"]["k5"], distill)
+                                             live["launches"]["k5"], distill, pflash)
         + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),
         flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)

@@ -24,9 +24,8 @@
 //
 // What bounds it on an H100: at the training shapes (T = 128, hd 64-128)
 // operations, not bytes: a (q-tile, k-tile) pair does 64 x 64 x hd x 2 FMA
-// for 2 x 64 x hd elements loaded.  This first version runs them as fp32
-// FMA from shared memory, not on the tensor cores, so it sits far above
-// that bound; what the design does:
+// for 2 x 64 x hd elements loaded.  What the design does about it, both
+// directions:
 //   * q, k and v are read in their [B, T, heads, hd] layout through strides,
 //     with no folded copy;
 //   * one block folds the G query heads of a kv-head into its rows
@@ -34,8 +33,13 @@
 //   * a tile pair that no (query, key) pair of it can see is skipped before
 //     it is loaded (the causal upper triangle, tiles outside the window),
 //     so causal attention does about half the square's work;
-//   * ragged tails (T or L not a multiple of 64) are masked in the kernel.
-// wgmma or mma.sync tiles, TMA and a multi-stage pipeline are later work.
+//   * ragged tails (T or L not a multiple of the tile) are masked in the
+//     kernel.
+// The forward runs its products on the tensor cores (mma.sync: bf16, and
+// fp32 as three tf32 products), warps owning rows, behind a double-buffered
+// cp.async pipeline, at two (fp32) or four (bf16) blocks an SM at hd 128
+// (its section below).  The backward still runs fp32 FMA from shared
+// memory, far above the bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -44,10 +48,9 @@
 
 namespace {
 
-constexpr int NT_F = 128;  // forward threads per block
 constexpr int NT_B = 256;  // backward threads per block
-constexpr int BQ = 64;     // folded query rows per tile
-constexpr int BK = 64;     // key rows per tile
+constexpr int BQ = 64;     // backward: folded query rows per tile
+constexpr int BK = 64;     // backward: key rows per tile
 constexpr int kMaxDevices = 64;
 
 struct Params {
@@ -80,12 +83,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -154,165 +151,478 @@ __device__ __forceinline__ void load_kv(const Params& p, int b, int kvh, int j0,
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (q-tile, kv-head, b); online softmax over key tiles
+// forward: one block of FWD_WARPS warps per (q-tile of FBQ folded rows,
+// kv-head, b).  Each warp owns 16 folded rows and runs the whole key loop
+// for them: S = Q K^T and O += P V are mma.sync tiles with fp32
+// accumulators in registers, and the online softmax runs on the
+// accumulator fragments (a row lives on the 4 lanes of a quad).  K/V tiles
+// are double-buffered in shared memory by 16-byte cp.async copies, the next
+// visible tile in flight while the current one computes.
+//
+// bf16: m16n8k16 with Q and K fragments by ldmatrix and V by
+// ldmatrix.trans; P is packed to bf16 in registers and fed back as the A
+// operand of P V.
+// fp32: m16n8k8 tf32 as three products per tile, big*big + big*small +
+// small*big with big = tf32(x), small = tf32(x - big) (about 21 bits;
+// one tf32 product keeps 10 and misses the fp32 tolerance).  The k index
+// of Q K^T is permuted within each step of 8 (slot t <-> d 2t, slot t+4 <->
+// d 2t+1) so that each lane reads its A and B pairs as float2; P V takes
+// the same permutation over keys, which is the layout the S accumulator
+// already has, so P is split in registers and never leaves them.
 
-template <int HD>
+constexpr int FWD_WARPS = 4;
+constexpr int FWD_NT = 32 * FWD_WARPS;  // forward threads per block
+constexpr int FBQ = 16 * FWD_WARPS;     // folded query rows per forward block
+
+// key rows per tile, row padding (elements) of the Q/K and V tiles, and
+// blocks an SM (registers and shared memory allow at hd 128).  The
+// padding makes the fragment loads free of bank conflicts: fp32 Q/K rows
+// at 8 mod 32 words (float2 per lane), fp32 V rows at 4 mod 16 words (rows
+// 2t and 2t+1 per lane), bf16 rows at 4 mod 32 words (ldmatrix).  bf16
+// reads its Q fragments from shared memory at each step and runs four
+// blocks an SM, within 128 registers a thread: more warps to cover the
+// latency between a tile's softmax and its products.
+template <typename T> struct Fwd;
+template <> struct Fwd<float> {
+  static constexpr int BK = 32, PADK = 8, PADV = 4, MIN_BLOCKS = 2;
+};
+template <> struct Fwd<__nv_bfloat16> {
+  static constexpr int BK = 32, PADK = 8, PADV = 8, MIN_BLOCKS = 4;
+};
+
+template <typename T, int HD>
 constexpr size_t fwd_smem() {
-  // Qs [BQ][HD], Ks [BK][HD+4], Vs [BK][HD+4], Ps [BQ][BK], M/L/C [BQ]; QP, KP
-  return sizeof(float) * (BQ * HD + 2 * BK * (HD + 4) + BQ * BK + 3 * BQ) +
-         sizeof(int) * (BQ + BK);
+  // Qs [FBQ][HD+PADK], Ks [2][BK][HD+PADK], Vs [2][BK][HD+PADV], KP [2][BK]
+  return sizeof(T) * ((FBQ + 2 * Fwd<T>::BK) * (HD + Fwd<T>::PADK) +
+                      2 * Fwd<T>::BK * (HD + Fwd<T>::PADV)) +
+         sizeof(int) * 2 * Fwd<T>::BK;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16-byte global -> shared copy; zeros when !valid (nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(ptr))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(ptr))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x ~ big + small, both tf32; x - big is exact in fp32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// c += a * b in three tf32 products (the small*small term is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Which key tiles of a window of SCAN tiles some query of the block may
+// see (key_maybe_visible), and which every query of the block sees whole
+// (then the tile needs no mask).  qmin is the least position of the
+// block's rows, -1 if one of them is never attended.  Every lane of every
+// warp computes the same bits, so the block's loop stays uniform.
+constexpr int SCAN = 8;
+
+struct TileScan {
+  int base;            // first tile of the window
+  unsigned vis, full;  // bit t: tile base + t
+};
+
+template <int BK>
+__device__ __forceinline__ void scan_tiles(const Params& p, int b, int base, int qmin, int qlo,
+                                           int qhi, int lane, TileScan& sc) {
+  constexpr int KPL = BK / 32;
+  int kp[SCAN][KPL];
+#pragma unroll
+  for (int t = 0; t < SCAN; ++t)
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int jj = (base + t) * BK + lane + 32 * i;
+      kp[t][i] = jj < p.L ? p.k_pos[b * p.kp_sb + jj] : -1;
+    }
+  sc.base = base;
+  sc.vis = sc.full = 0;
+#pragma unroll
+  for (int t = 0; t < SCAN; ++t) {
+    bool v = false, f = qmin >= 0;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int x = kp[t][i];
+      v |= key_maybe_visible(p, x, qlo, qhi);
+      f &= x >= 0 && x <= qmin && (!p.has_window || x > qhi - p.window);
+    }
+    if (__any_sync(0xffffffffu, v)) sc.vis |= 1u << t;
+    if (__all_sync(0xffffffffu, f)) sc.full |= 1u << t;
+  }
+}
+
+// The first tile at or after jt that may be visible, or ntiles; `full` as
+// above.  Positions are read a window at a time, so a run of invisible
+// tiles costs one round trip per SCAN tiles.
+template <int BK>
+__device__ __forceinline__ int next_tile(const Params& p, int b, int jt, int ntiles, int qmin,
+                                         int qlo, int qhi, int lane, TileScan& sc, bool& full) {
+  while (jt < ntiles) {
+    if (jt >= sc.base + SCAN) scan_tiles<BK>(p, b, jt, qmin, qlo, qhi, lane, sc);
+    const unsigned v = sc.vis >> (jt - sc.base);
+    if (v) {
+      jt += __ffs(v) - 1;
+      full = (sc.full >> (jt - sc.base)) & 1u;
+      return jt;
+    }
+    jt = sc.base + SCAN;
+  }
+  full = false;
+  return ntiles;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 0 at -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT_F) fwd_kernel(const Params p) {
-  constexpr int NT = NT_F;
-  constexpr int KS = HD + 4;
-  constexpr int SG = NT / BK;      // score-phase row groups
-  constexpr int RSC = BQ / SG;     // score rows per thread
-  constexpr int RS = NT / HD;      // PV-phase row groups
-  constexpr int RA = BQ / RS;      // accumulator rows per thread
+__global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const Params p) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int BK = Fwd<T>::BK;
+  constexpr int RK = HD + Fwd<T>::PADK;  // Q and K row stride (elements)
+  constexpr int RV = HD + Fwd<T>::PADV;  // V row stride
+  constexpr int EPC = 16 / sizeof(T);    // elements per 16-byte copy
+  constexpr int CPR = HD / EPC;          // copies per row
+  constexpr int NS = BK / 8;             // n8 tiles of a score row
+  constexpr int NO = HD / 8;             // n8 tiles of an output row
 
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * HD;
-  float* Vs = Ks + BK * KS;
-  float* Ps = Vs + BK * KS;
-  float* Mr = Ps + BQ * BK;
-  float* Lr = Mr + BQ;
-  float* Cr = Lr + BQ;
-  int* QP = reinterpret_cast<int*>(Cr + BQ);
-  int* KP = QP + BQ;
+  extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
+  T* Qs = reinterpret_cast<T*>(fwd_smem_raw);
+  T* Ks = Qs + FBQ * RK;
+  T* Vs = Ks + 2 * BK * RK;
+  int* KP = reinterpret_cast<int*>(Vs + 2 * BK * RV);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // fragment row group, lane in quad
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.KVH;
-  const int r0 = blockIdx.x * BQ;
-  const int nr = min(BQ, G * p.T - r0);
+  // the last row tiles, which see the most keys under a causal mask, first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * FBQ;
+  const int nr = min(FBQ, G * p.T - r0);
+  const int ntiles = (p.L + BK - 1) / BK;
+  const T* qg = static_cast<const T*>(p.q);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
 
-  const T* q = static_cast<const T*>(p.q);
-  for (int e = tid; e < BQ * HD; e += NT) {
-    const int r = e / HD, d = e % HD;
-    Qs[e] = r < nr ? to_f(q[q_off(p, b, kvh, r0 + r, HD) + d]) : 0.f;
-  }
-  if (tid < BQ) {
-    QP[tid] = tid < nr ? p.q_pos[b * p.qp_sb + (r0 + tid) % p.T] : -1;
-    Mr[tid] = -INFINITY;
-    Lr[tid] = 0.f;
-  }
-  __syncthreads();
+  // each thread copies 16-byte chunk c of rows jr, jr + RPC, ...
+  constexpr int RPC = FWD_NT / CPR;  // rows per pass of the block
+  static_assert(FWD_NT % CPR == 0 && BK % RPC == 0 && FBQ % RPC == 0, "copy layout");
+  const int c = tid % CPR, jr = tid / CPR;
 
-  int qhi = -1, qlo = INT_MAX;
-  for (int r = 0; r < nr; ++r) {
-    const int x = QP[r];
+  // Q, once, zeros past nr
+#pragma unroll
+  for (int i = 0; i < FBQ / RPC; ++i) {
+    const int r = jr + i * RPC;
+    const bool ok = r < nr;
+    cp_async16(Qs + r * RK + c * EPC, qg + (ok ? q_off(p, b, kvh, r0 + r, HD) : 0) + c * EPC,
+               ok);
+  }
+  cp_async_commit();
+
+  // positions of this lane's two fragment rows, and the span of the block's
+  // valid positions (every warp computes the same)
+  int qp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    qp[h] = r < nr ? p.q_pos[b * p.qp_sb + (r0 + r) % p.T] : -1;
+  }
+  int qhi = -1, qlo = INT_MAX, qmin = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < FBQ / 32; ++i) {
+    const int r = lane + 32 * i;
+    if (r >= nr) break;
+    const int x = p.q_pos[b * p.qp_sb + (r0 + r) % p.T];
     qhi = max(qhi, x);
+    qmin = min(qmin, x);
     if (x >= 0) qlo = min(qlo, x);
   }
-
-  const int jc = tid % BK, sg = tid / BK;
-  const int dc = tid % HD, rg = tid / HD;
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[RA];
 #pragma unroll
-  for (int i = 0; i < RA; ++i) acc[i] = 0.f;
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, sh));
+    qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, sh));
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, sh));
+  }
 
-  for (int j0 = 0; j0 < p.L; j0 += BK) {
-    int vis = 0;
-    if (tid < BK) {
-      const int j = j0 + tid;
-      vis = key_maybe_visible(p, j < p.L ? p.k_pos[b * p.kp_sb + j] : -1, qlo, qhi);
+  // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
+  // past L are zeros (V must be finite where P is 0) at position -1
+  const T* kc = kg + b * p.k_sb + kvh * HD + c * EPC;
+  const T* vc = vg + b * p.v_sb + kvh * HD + c * EPC;
+  const long long k_step = RPC * p.k_sl, v_step = RPC * p.v_sl;
+  auto load_tile = [&](int jt, int st) {
+    const int j0 = jt * BK + jr;
+    const T* kr = kc + j0 * p.k_sl;
+    const T* vr = vc + j0 * p.v_sl;
+    T* ks = Ks + st * BK * RK + jr * RK + c * EPC;
+    T* vs = Vs + st * BK * RV + jr * RV + c * EPC;
+#pragma unroll
+    for (int i = 0; i < BK / RPC; ++i) {
+      const bool ok = j0 + i * RPC < p.L;
+      cp_async16(ks + i * RPC * RK, ok ? kr : kg, ok);
+      cp_async16(vs + i * RPC * RV, ok ? vr : vg, ok);
+      kr += k_step;
+      vr += v_step;
     }
-    if (!__syncthreads_or(vis)) continue;
-    load_kv<T, HD, NT>(p, b, kvh, j0, Ks, Vs, KP);
-    __syncthreads();
+    if (tid < BK) {
+      const int jj = jt * BK + tid;
+      if (jj < p.L)
+        cp_async4(KP + st * BK + tid, p.k_pos + b * p.kp_sb + jj);
+      else
+        KP[st * BK + tid] = -1;
+    }
+  };
 
-    {  // scores: thread (sg, jc) computes rows sg, sg+SG, ... against key jc
-      float s[RSC];
+  TileScan scan = {-SCAN, 0u, 0u};
+  bool full;
+  int jt = next_tile<BK>(p, b, 0, ntiles, qmin, qlo, qhi, lane, scan, full);
+  if (jt < ntiles) load_tile(jt, 0);
+  cp_async_commit();
+
+  float o[NO][4];
 #pragma unroll
-      for (int i = 0; i < RSC; ++i) s[i] = 0.f;
-      const float4* kr = reinterpret_cast<const float4*>(Ks + jc * KS);
-#pragma unroll 4
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 kx = kr[d4];
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's part of the row sums
+  const T* qw = Qs + warp * 16 * RK;
+
+  for (int st = 0; jt < ntiles; st ^= 1) {
+    bool full_n;
+    const int jn = next_tile<BK>(p, b, jt + 1, ntiles, qmin, qlo, qhi, lane, scan, full_n);
+    cp_async_wait<0>();
+    __syncthreads();  // tile jt landed; every warp is done with stage st^1
+    if (jn < ntiles) load_tile(jn, st ^ 1);
+    cp_async_commit();
+    const T* ks = Ks + st * BK * RK;
+    const T* vs = Vs + st * BK * RV;
+    const int* kp = KP + st * BK;
+
+    // S = Q K^T: element e of tile n is row g + 8*(e/2), key 8n + 2*tig + e%2
+    float s[NS][4];
 #pragma unroll
-        for (int i = 0; i < RSC; ++i) {
-          const float4 qx = reinterpret_cast<const float4*>(Qs + (sg + i * SG) * HD)[d4];
-          s[i] = fmaf(qx.x, kx.x, s[i]);
-          s[i] = fmaf(qx.y, kx.y, s[i]);
-          s[i] = fmaf(qx.z, kx.z, s[i]);
-          s[i] = fmaf(qx.w, kx.w, s[i]);
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * RK + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RK + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
         }
       }
-#pragma unroll
-      for (int i = 0; i < RSC; ++i) {
-        const int r = sg + i * SG;
-        if (r < nr) Ps[r * BK + jc] = s[i] * p.scale;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row, two keys per lane
-    for (int r = warp; r < nr; r += NT / 32) {
-      const int qp = QP[r];
-      float sv[2];
-      bool ok[2];
-      float mt = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        ok[c] = visible(p, qp, KP[lane + 32 * c]);
-        sv[c] = Ps[r * BK + lane + 32 * c];
-        if (ok[c]) mt = fmaxf(mt, sv[c]);
-      }
-      mt = warp_max(mt);
-      const float m_prev = Mr[r];
-      const float m_new = fmaxf(m_prev, mt);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float pv = ok[c] ? expf(sv[c] - m_safe) : 0.f;
-        Ps[r * BK + lane + 32 * c] = pv;
-        ps += pv;
-      }
-      ps = warp_sum(ps);
-      if (lane == 0) {
-        const float corr = m_prev == -INFINITY ? 0.f : expf(m_prev - m_safe);
-        Mr[r] = m_new;
-        Lr[r] = Lr[r] * corr + ps;
-        Cr[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P @ V; rows past nr compute garbage that is never stored
-#pragma unroll
-    for (int i = 0; i < RA; ++i) acc[i] *= Cr[rg + i * RS];
+    } else {
 #pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      const float v0 = Vs[(j + 0) * KS + dc], v1 = Vs[(j + 1) * KS + dc];
-      const float v2 = Vs[(j + 2) * KS + dc], v3 = Vs[(j + 3) * KS + dc];
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const int d = kk * 8 + 2 * tig;
+        const float2 q0 = *reinterpret_cast<const float2*>(qw + g * RK + d);
+        const float2 q1 = *reinterpret_cast<const float2*>(qw + (g + 8) * RK + d);
+        uint32_t ab[4], as[4];
+        split_tf32(q0.x, ab[0], as[0]);
+        split_tf32(q1.x, ab[1], as[1]);
+        split_tf32(q0.y, ab[2], as[2]);
+        split_tf32(q1.y, ab[3], as[3]);
 #pragma unroll
-      for (int i = 0; i < RA; ++i) {
-        const float4 pr = reinterpret_cast<const float4*>(Ps + (rg + i * RS) * BK + j)[0];
-        float a = acc[i];
-        a = fmaf(pr.x, v0, a);
-        a = fmaf(pr.y, v1, a);
-        a = fmaf(pr.z, v2, a);
-        a = fmaf(pr.w, v3, a);
-        acc[i] = a;
+        for (int n = 0; n < NS; ++n) {
+          const float2 kx = *reinterpret_cast<const float2*>(ks + (n * 8 + g) * RK + d);
+          mma_3xtf32(s[n], ab, as, kx.x, kx.y);
+        }
       }
     }
-    __syncthreads();
-  }
 
-  T* o = static_cast<T*>(p.out);
+    // mask (unless every key of the tile is seen), online softmax on the
+    // fragments; a row's max over its quad.  fp32 keeps m in scaled units
+    // and uses expf; bf16 keeps m in raw units and folds the scale into
+    // exp2 (one FFMA and one MUFU a score).
+    const float sm = kBf16 ? 1.f : p.scale;
+    float mt[2] = {-INFINITY, -INFINITY};
+    if (full) {
 #pragma unroll
-  for (int i = 0; i < RA; ++i) {
-    const int r = rg + i * RS;
-    if (r < nr) o[o_off(p, b, kvh, r0 + r, HD) + dc] = from_f<T>(acc[i] / fmaxf(Lr[r], 1e-30f));
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!kBf16) s[n][e] *= sm;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = visible(p, qp[e >> 1], kp[n * 8 + 2 * tig + (e & 1)])
+                              ? s[n][e] * sm
+                              : -INFINITY;
+          s[n][e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+    }
+    const float c2 = p.scale * 1.4426950408889634f;  // bf16: scale * log2(e)
+    float ms[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(m[h], mt[h]);
+      ms[h] = m_new == -INFINITY ? 0.f : m_new;
+      corr[h] = m[h] == -INFINITY ? 0.f
+                                  : (kBf16 ? ex2((m[h] - ms[h]) * c2) : expf(m[h] - ms[h]));
+      m[h] = m_new;
+      l[h] *= corr[h];
+      if (kBf16) ms[h] *= c2;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // 0 at masked keys (-inf)
+        const float pv =
+            kBf16 ? ex2(fmaf(s[n][e], c2, -ms[e >> 1])) : expf(s[n][e] - ms[e >> 1]);
+        s[n][e] = pv;
+        l[e >> 1] += pv;
+      }
+    if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+    }
+
+    // O += P V
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          uint32_t vb[4];
+          ldsm_x4_t(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RV + np * 16 +
+                            (lane >> 4) * 8);
+          mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        // A slot tig <-> key 8kk + 2tig, slot tig+4 <-> key 8kk + 2tig + 1
+        uint32_t pb[4], ps[4];
+        split_tf32(s[kk][0], pb[0], ps[0]);
+        split_tf32(s[kk][2], pb[1], ps[1]);
+        split_tf32(s[kk][1], pb[2], ps[2]);
+        split_tf32(s[kk][3], pb[3], ps[3]);
+        const T* v0 = vs + (kk * 8 + 2 * tig) * RV + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) mma_3xtf32(o[n], pb, ps, v0[n * 8], v0[RV + n * 8]);
+      }
+    }
+    jt = jn;
+    full = full_n;
   }
-  if (p.lse != nullptr && tid < nr) {
-    const float l = Lr[tid];
-    p.lse[row_idx(p, b, kvh, r0 + tid)] = l > 0.f ? Mr[tid] + logf(l) : -INFINITY;
+  cp_async_wait<0>();
+
+  T* og = static_cast<T*>(p.out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    const int r = warp * 16 + g + 8 * h;
+    if (r >= nr) continue;
+    const float den = fmaxf(lh, 1e-30f);
+    T* orow = og + o_off(p, b, kvh, r0 + r, HD) + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) store2(orow + n * 8, o[n][2 * h] / den, o[n][2 * h + 1] / den);
+    if (p.lse != nullptr && tig == 0)
+      p.lse[row_idx(p, b, kvh, r0 + r)] =
+          lh > 0.f ? (kBf16 ? m[h] * p.scale : m[h]) + logf(lh) : -INFINITY;
   }
 }
 
@@ -594,8 +904,9 @@ __global__ void __launch_bounds__(NT_B) dkv_kernel(const Params p) {
 // launch
 
 template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes, bool* configured) {
-  // above 48 KB only as opted-in dynamic shared memory, set once per device
+cudaError_t allow_smem(K kern, size_t bytes, bool* configured, int carveout = -1) {
+  // above 48 KB only as opted-in dynamic shared memory, and the carveout
+  // (percent of the SM's memory as shared) when one is given, set once per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -603,19 +914,38 @@ cudaError_t allow_smem(K kern, size_t bytes, bool* configured) {
   if (!configured[dev]) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
+    if (carveout >= 0) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+      if (e != cudaSuccess) return e;
+    }
     configured[dev] = true;
   }
   return cudaSuccess;
 }
 
+// the forward takes the largest carveout, room for Fwd<T>::MIN_BLOCKS blocks an SM
+template <typename T, int HD>
+cudaError_t fwd_attributes() {
+  static bool configured[kMaxDevices] = {};
+  return allow_smem(fwd_kernel<T, HD>, fwd_smem<T, HD>(), configured,
+                    (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int HD>
+cudaError_t fwd_occupancy(int* blocks, int* smem_bytes) {
+  cudaError_t e = fwd_attributes<T, HD>();
+  if (e != cudaSuccess) return e;
+  *smem_bytes = (int)fwd_smem<T, HD>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd_kernel<T, HD>, FWD_NT,
+                                                       fwd_smem<T, HD>());
+}
+
 template <typename T, int HD>
 cudaError_t launch_fwd(const Params& p, cudaStream_t s) {
-  static bool configured[kMaxDevices] = {};
-  constexpr size_t smem = fwd_smem<HD>();
-  cudaError_t e = allow_smem(fwd_kernel<T, HD>, smem, configured);
+  cudaError_t e = fwd_attributes<T, HD>();
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.T * (p.H / p.KVH) + BQ - 1) / BQ, p.KVH, p.B);
-  fwd_kernel<T, HD><<<grid, NT_F, smem, s>>>(p);
+  const dim3 grid((p.T * (p.H / p.KVH) + FBQ - 1) / FBQ, p.KVH, p.B);
+  fwd_kernel<T, HD><<<grid, FWD_NT, fwd_smem<T, HD>(), s>>>(p);
   return cudaGetLastError();
 }
 
@@ -682,6 +1012,17 @@ extern "C" int flash_attn_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, hd, false, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(p, hd, false, s);
+  return cudaErrorInvalidValue;
+}
+
+// The forward's blocks per SM and dynamic shared memory per block at
+// (dtype, hd), into *blocks and *smem_bytes: the runtime's occupancy
+// calculator, which also counts register granularity and the carveout.
+extern "C" int flash_attn_fwd_occupancy(int dtype, int hd, int* blocks, int* smem_bytes) {
+  if (dtype == 0 && hd == 64) return fwd_occupancy<float, 64>(blocks, smem_bytes);
+  if (dtype == 0 && hd == 128) return fwd_occupancy<float, 128>(blocks, smem_bytes);
+  if (dtype == 1 && hd == 64) return fwd_occupancy<__nv_bfloat16, 64>(blocks, smem_bytes);
+  if (dtype == 1 && hd == 128) return fwd_occupancy<__nv_bfloat16, 128>(blocks, smem_bytes);
   return cudaErrorInvalidValue;
 }
 

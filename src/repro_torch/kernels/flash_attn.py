@@ -15,7 +15,8 @@ recomputes the probabilities from it and returns ``dq``, ``dk``, ``dv``
 The kernels take q ``[B,T,H,hd]`` and k/v ``[B,L,KVH,hd]`` of one dtype,
 float32 or bfloat16, read in place through their (b, t) strides with heads
 and hd contiguous; int32 ``q_pos [B,T]`` / ``k_pos [B,L]``; hd in {64, 128}.
-Anything else raises.
+The forward copies q, k and v rows 16 bytes at a time, so their addresses
+and (b, t) strides must be multiples of 16 bytes.  Anything else raises.
 """
 from __future__ import annotations
 
@@ -44,8 +45,11 @@ def _lib():
         tail = [i] * 6 + [ll] * 8 + [ctypes.c_float, i, i, i, p]
         lib.flash_attn_fwd.argtypes = [i] + [p] * 7 + tail
         lib.flash_attn_bwd.argtypes = [i] + [p] * 12 + tail
+        lib.flash_attn_fwd_occupancy.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.flash_attn_fwd.restype = lib.flash_attn_bwd.restype = ctypes.c_int
-        _fns.update(fwd=lib.flash_attn_fwd, bwd=lib.flash_attn_bwd)
+        lib.flash_attn_fwd_occupancy.restype = ctypes.c_int
+        _fns.update(fwd=lib.flash_attn_fwd, bwd=lib.flash_attn_bwd,
+                    occupancy=lib.flash_attn_fwd_occupancy)
     return _fns
 
 
@@ -93,6 +97,28 @@ def _geometry(q, k, v, q_pos, k_pos, scale, window, prefix_len):
             int(window is not None), int(window or 0), int(prefix_len))
 
 
+def _check_aligned(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        es = t.element_size()
+        _check(t.data_ptr() % 16 == 0
+               and all(t.shape[d] == 1 or (t.stride(d) * es) % 16 == 0 for d in (0, 1)),
+               f"{name} must start and have (b, t) strides at multiples of 16 bytes")
+
+
+def fwd_occupancy(dtype: torch.dtype, hd: int) -> dict:
+    """The forward kernel's blocks per SM of the current card and its
+    dynamic shared memory per block, at (dtype, hd), as the CUDA runtime's
+    occupancy calculator gives them.  ``chip_smoke.py`` prints them beside
+    ptxas's registers: registers and shared memory alone do not give the
+    blocks per SM (register allocation granularity, the carveout)."""
+    _check(dtype in _DTYPE_CODE and hd in _HEAD_DIMS, f"no forward for {dtype}, hd {hd}")
+    n, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib()["occupancy"](_DTYPE_CODE[dtype], hd, ctypes.byref(n), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn occupancy query failed: cudaError {rc}")
+    return {"blocks_per_sm": n.value, "smem_bytes": smem.value}
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, k_pos: torch.Tensor,
                         window: Optional[int] = None, prefix_len: int = 0,
@@ -100,6 +126,7 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the forward on the current stream.  Returns ``(out [B,T,H,hd]``
     in q's dtype, ``lse [B,H,T]`` fp32 when ``save_lse`` else None)."""
     _check_inputs(q, k, v, q_pos, k_pos, window, prefix_len)
+    _check_aligned(q, k, v)
     B, T, H, hd = q.shape
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -258,3 +258,12 @@ def test_default_scale_is_inverse_sqrt_head_dim():
     np.testing.assert_array_equal(
         ops.flash_attn(tq, tk, tv, tp, tp).numpy(),
         ops.flash_attn(tq, tk, tv, tp, tp, scale=1 / math.sqrt(q.shape[-1])).numpy())
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float64, 128), (torch.float32, 96),
+                                      (torch.bfloat16, 256)])
+def test_forward_occupancy_query_rejects_what_has_no_instantiation(dtype, hd):
+    """The forward's occupancy query checks (dtype, hd) before it loads the
+    library; only fp32/bf16 at hd 64 and 128 have a forward."""
+    with pytest.raises(ValueError, match="no forward"):
+        K4.fwd_occupancy(dtype, hd)
