@@ -18,9 +18,11 @@ Phases, one report line each (the last line is the JSON verdict):
 2b. paged   the paged kernels K2 (dense) and K3 (ragged) held against the
             plain gather path at the full-width OPT-6.7B verify (B 16,
             T 1, 4, 7, ragged tables with holes and an empty slot, and a
-            full pool of 192 blocks), GQA at yi-9b widths, window,
-            prefix, int8 + scales, block size 8 and all slots empty, in
-            fp32 and bf16; K3 must equal K2 bit for bit.
+            full pool of 192 blocks), GQA at yi-9b widths and at G = 7
+            and 10, window, prefix, int8 + scales, block size 8, all
+            slots empty and one slot of 31 blocks (split across blocks),
+            in fp32 and bf16; K3 must equal K2 bit for bit, and each row
+            gives its split count and the device kernels a call issues.
 2c. train kernels  K4 (flash attention) and K5 (RMSNorm), forward and
             backward, held against their plain versions and autograd through
             the plain forward at the training shapes (internlm2-1.8b, the
@@ -257,10 +259,14 @@ def device_kernels(torch, fn, args):
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(5):   # the profiler now and then hands back no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     return list(dict.fromkeys(names))
 
 
@@ -498,9 +504,19 @@ def run_paged_case(torch, K23, paged, ref, c):
     library_ms = None if quant else device_ms(torch, library, sets)
     bound_ms, bound_by = paged_bound(torch, paged, c)
     del sets
+    B, T, H, hd = c["q"].shape
+    KVH, bs, MAXB = c["k"].shape[2], c["k"].shape[1], c["bt"].shape[1]
+    splits = K23.n_splits(B, KVH, (H // KVH) * T, MAXB, bs,
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    names = device_kernels(torch, ragged, args)
+    # every device kernel of a call is K3's under phase 5's name filter
+    names_ok = (len(names) == K23.device_kernels(splits)
+                and all("paged_verify_kernel" in n for n in names))
     return dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max_err,
-                tol=tol, ok=ok and same and zero_rows, k3_equals_k2=same,
-                empty_rows_zero=zero_rows, ms=ragged_ms, dense_ms=dense_ms,
+                tol=tol, ok=ok and same and zero_rows and names_ok, k3_equals_k2=same,
+                empty_rows_zero=zero_rows, n_splits=splits, device_kernels=len(names),
+                kernel_names=[n.split("<")[0].split("::")[-1] for n in names],
+                ms=ragged_ms, dense_ms=dense_ms,
                 plain_ms=plain_ms, library_ms=library_ms, library="gather + SDPA (two calls)",
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -529,6 +545,13 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
         ("block_size_8", dict(B=8, T=4, H=12, KVH=12, hd=64, bs=8, MAXB=64,
                               ctx=ragged_ctx(8, 4))),
         ("all_empty", dict(B=4, T=4, ctx=[0, 0, 0, 0], **opt)),
+        # group sizes of yi-34b (G 7) and 10, where the folded rows span tiles
+        ("gqa_g7_t4", dict(B=8, T=4, H=56, KVH=8, hd=128, bs=16, MAXB=32,
+                           ctx=ragged_ctx(8, 4), holes=((3, 0), (6, 1)))),
+        ("gqa_g10_t4", dict(B=8, T=4, H=40, KVH=4, hd=128, bs=16, MAXB=32,
+                            ctx=ragged_ctx(8, 4), holes=((2, 0), (5, 1)))),
+        # one slot near phase 6b's 512-row cap: only the splits fill the card
+        ("b1_t1_31_blocks", dict(B=1, T=1, ctx=[496], **opt)),
     ]
     rows = []
     for i, (name, kw) in enumerate(specs):
@@ -1037,6 +1060,9 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4):
         k1_ms=sum(t for k, t in dev.items()
                   if "verify_kernel" in k and "paged" not in k),
         paged_kernel_ms=sum(t for k, t in dev.items() if "paged_verify_kernel" in k),
+        paged_device_kernels=sum(1 for e in prof.events()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA
+                                 and "paged_verify_kernel" in e.name) / steps,
         k5_ms=sum(t for k, t in dev.items() if "rmsnorm" in k),
         k5_launches=sum(1 for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1805,6 +1831,11 @@ def main() -> int:
                       "cuda": torch.version.cuda, "build_s": build_s}), flush=True)
     for ln in ptxas:
         print("  ptxas: " + ln)
+    print("  k2/k3 occupancy (bs 16, MAXB 32): " + json.dumps({
+        f"{dt}{'_int8' if q8 else ''}_hd{hd}": K23.occupancy(
+            getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, 16, 32)
+        for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)}),
+        flush=True)
     print("  k4 forward occupancy: " + json.dumps({
         f"{dt}_hd{hd}": K4.fwd_occupancy(getattr(torch, dt), hd)
         for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
@@ -1904,7 +1935,8 @@ def main() -> int:
     paged_common = {"max_abs_err": phead["max_abs_err"], "plain_ms": phead["plain_ms"],
                     "bound_ms": phead["bound_ms"], "bound_by": phead["bound_by"],
                     "library_ms": phead["library_ms"], "library": phead["library"],
-                    "shape": paged_shape}
+                    "n_splits": phead["n_splits"],
+                    "device_kernels_per_call": phead["device_kernels"], "shape": paged_shape}
     print(json.dumps({"kernels": [{
         "name": "spec_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spec_verify_attn.cu",

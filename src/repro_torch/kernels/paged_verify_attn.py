@@ -12,12 +12,21 @@ of raggedness (same blocks, same order, same tile grouping).  On the card
 both are bound by bytes: at the verify shapes each K/V byte feeds a handful
 of dot products; see the source for the design.
 
+The key range of a slot is split across blocks (split-KV) when the
+``(slot, kv-head, row tile)`` blocks alone would not fill the card:
+:func:`n_splits` picks the count from the shapes and the SM count only, the
+same for K2 and K3, so the launch never depends on the data (and can be
+captured in a CUDA graph).  With more than one split a call issues two
+device kernels, the splits' partial results going through an fp32
+workspace that the wrapper allocates; a launch count still counts calls.
+
 Operands: q ``[B,T,H,hd]`` (float32 or bfloat16); the pool k/v
 ``[NB,bs,KVH,hd]`` of q's dtype, or int8 with ``k_scale``/``v_scale``
 ``[NB,bs,KVH]`` in q's dtype; int32 ``q_pos [B,T]``, ``pos [NB,bs]``,
 ``block_tables [B,MAXB]`` (-1 unused) and, for K3, ``cu_blocks [B+1]``
-(``tuning.host_cu_blocks``).  hd is 64 or 128 and ``bs`` divides 64.
-Anything else raises.
+(``tuning.host_cu_blocks``).  hd is 64 or 128 and ``bs`` divides 64; k
+and v start, and have their (block, row) strides, at multiples of 16
+bytes (the kernels copy them in 16-byte pieces).  Anything else raises.
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from repro_torch.kernels.spec_verify_attn import LaunchCount
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
-_TILE_ROWS = 64          # the kernels' K/V tile: bs must divide it
+_BLOCK_DIVIDES = 64      # the block size must divide it
+ROW_TILE = 8             # folded query rows (G * T) per block
+STAGE_KEYS = 32          # keys per pipeline stage (max(32, bs))
 
 DENSE = LaunchCount()    # launches of K2
 RAGGED = LaunchCount()   # launches of K3
@@ -45,16 +56,98 @@ def _kernel_fn():
     if _fn is None:
         fn = build.load("paged_verify_attn").paged_verify_attn
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([i, i, i] + [p] * 10 + [i] * 7 + [ll] * 11
+        fn.argtypes = ([i, i, i] + [p] * 10 + [i] * 8 + [p] + [ll] * 11
                        + [ctypes.c_float, i, i, i, p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def occupancy(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int, bs: int,
+              MAXB: int) -> dict:
+    """The partial kernel's blocks per SM of the current card and its dynamic
+    shared memory per block at (q dtype, kv dtype, hd, bs, MAXB), as the CUDA
+    runtime's occupancy calculator gives them (``chip_smoke.py`` prints them
+    beside ptxas's registers)."""
+    _check(q_dtype in (torch.float32, torch.bfloat16) and kv_dtype in (q_dtype, torch.int8)
+           and hd in _HEAD_DIMS, f"no kernel for {q_dtype}/{kv_dtype}, hd {hd}")
+    fn = build.load("paged_verify_attn").paged_verify_occupancy
+    i, n, smem = ctypes.c_int, ctypes.c_int(0), ctypes.c_int(0)
+    fn.argtypes = [i] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = i
+    rc = fn(_DTYPE_CODE[q_dtype], _DTYPE_CODE[kv_dtype], hd, bs, MAXB, ctypes.byref(n),
+            ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"paged_verify_attn occupancy query failed: cudaError {rc}")
+    return {"blocks_per_sm": n.value, "smem_bytes": smem.value}
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_verify_attn kernel: {msg}")
+
+
+def row_tiles(rows: int) -> int:
+    """Row tiles of ``rows = G * T`` folded query rows per (slot, kv-head)."""
+    return -(-rows // ROW_TILE)
+
+
+def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int) -> int:
+    """How many blocks share one ``(slot, kv-head, row tile)``'s table row:
+    1 when the ``B * KVH * row_tiles(rows)`` blocks already make two waves
+    over ``sms`` SMs, else enough splits for two waves, at most ``MAXB``
+    and no more than leaves each split one stage of keys.  A function of
+    the shapes and the SM count only: K2 and K3 get the same count, and
+    the launch shape never depends on the tables."""
+    blocks = B * KVH * row_tiles(rows)
+    if blocks >= 2 * sms:
+        return 1
+    cap = max(1, min(MAXB, MAXB * bs // STAGE_KEYS))
+    return max(1, min(cap, -(-2 * sms // blocks)))
+
+
+def workspace_floats(B: int, KVH: int, rows: int, hd: int, splits: int) -> int:
+    """fp32 workspace of a call with ``splits > 1``: acc ``[parts, hd]``,
+    then m and l ``[parts]``, parts = ``B * KVH * splits * row tiles *
+    ROW_TILE``."""
+    return B * KVH * splits * row_tiles(rows) * ROW_TILE * (hd + 2)
+
+
+def device_kernels(splits: int) -> int:
+    """Device kernels one call issues: the partial kernel, and the combine
+    when the key range is split."""
+    return 1 if splits == 1 else 2
+
+
+_SMS: dict = {}          # SM count by device index, read once: every call needs it
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _on_one_cuda_device(tensors, dev: torch.device) -> bool:
+    return dev.type == "cuda" and all(t.device == dev for t in tensors)
+
+
+def _invoke(dev: torch.device, *args) -> int:
+    """Call the C entry point on ``dev``'s current stream; its cudaError_t."""
+    with torch.cuda.device(dev):
+        return _kernel_fn()(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _check_aligned(k, v, k_scale, v_scale) -> None:
+    for name, t in (("k", k), ("v", v)):
+        es = t.element_size()
+        _check(t.data_ptr() % 16 == 0
+               and all(t.shape[d] == 1 or (t.stride(d) * es) % 16 == 0 for d in (0, 1)),
+               f"{name} must start and have (block, row) strides at multiples of 16 bytes")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(t is None or t.data_ptr() % 16 == 0,
+               f"{name} must start at a multiple of 16 bytes")
 
 
 def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
@@ -80,8 +173,8 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
     _check(tuple(v.shape) == tuple(k.shape) and k.shape[3] == hd,
            f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} for q {tuple(q.shape)}")
     _check(KVH > 0 and H % KVH == 0, f"{H} heads over {KVH} kv-heads")
-    _check(0 < bs <= _TILE_ROWS and _TILE_ROWS % bs == 0,
-           f"block size {bs} must divide {_TILE_ROWS}")
+    _check(0 < bs <= _BLOCK_DIVIDES and _BLOCK_DIVIDES % bs == 0,
+           f"block size {bs} must divide {_BLOCK_DIVIDES}")
     _check(B > 0 and T > 0 and NB > 0, "empty batch, query or pool")
     for name, t, n in (("q", q, H), ("k", k, KVH), ("v", v, KVH)):
         _check(t.stride(3) == 1 and t.stride(2) == hd,
@@ -107,25 +200,27 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
                "k_scale and v_scale must share strides")
     _check(window is None or window >= 1, f"window {window}")
     _check(prefix_len >= 0, f"prefix_len {prefix_len}")
-    _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
-           "every tensor must lie on one CUDA device")
+    _check_aligned(k, v, k_scale, v_scale)
+    _check(_on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    rows = (H // KVH) * T
+    splits = n_splits(B, KVH, rows, MAXB, bs, _sm_count(dev))
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
+    ws = (torch.empty(workspace_floats(B, KVH, rows, hd, splits), dtype=torch.float32,
+                      device=dev) if splits > 1 else None)
     s_sn, s_sl = (k_scale.stride(0), k_scale.stride(1)) if quant else (0, 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn()(
-            int(ragged), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            pos.data_ptr(), block_tables.data_ptr(),
-            cu_blocks.data_ptr() if ragged else None,
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None, out.data_ptr(),
-            B, T, H, KVH, bs, MAXB, hd, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1), s_sn, s_sl,
-            q_pos.stride(0), pos.stride(0), block_tables.stride(0),
-            float(scale), int(window is not None), int(window or 0),
-            int(prefix_len), stream)
+    rc = _invoke(
+        dev, int(ragged), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        pos.data_ptr(), block_tables.data_ptr(),
+        cu_blocks.data_ptr() if ragged else None,
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None, out.data_ptr(),
+        B, T, H, KVH, bs, MAXB, hd, splits,
+        ws.data_ptr() if ws is not None else None, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), s_sn, s_sl,
+        q_pos.stride(0), pos.stride(0), block_tables.stride(0),
+        float(scale), int(window is not None), int(window or 0), int(prefix_len))
     if rc != 0:
         kind = "ragged" if ragged else "dense"
         raise RuntimeError(f"paged_verify_attn ({kind}) kernel launch failed: "

@@ -165,7 +165,7 @@ def test_cpu_call_runs_the_plain_path_only():
 @pytest.mark.parametrize("bad,match", [
     ("cpu_tensor", "CUDA device"), ("head_dim", "head dim"), ("block_size", "block size"),
     ("kv_dtype", "k/v dtype"), ("table_dtype", "int32"), ("cu_shape", "cu_blocks"),
-    ("scales_missing", "k_scale"), ("pool_pos", "pos")])
+    ("scales_missing", "k_scale"), ("pool_pos", "pos"), ("alignment", "16 bytes")])
 def test_kernel_wrappers_reject_what_they_cannot_take(bad, match):
     """K2's and K3's wrapper checks come before any build or launch: CPU
     tensors, and shapes, dtypes and layouts the kernels do not take, raise
@@ -187,6 +187,10 @@ def test_kernel_wrappers_reject_what_they_cannot_take(bad, match):
         k, v = k.to(torch.int8), v.to(torch.int8)
     elif bad == "pool_pos":
         pos = pos[:-1]
+    elif bad == "alignment":    # a pool view one element off a 16-byte boundary
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype)
+        flat[1:] = k.reshape(-1)
+        k = flat[1:].view(k.shape)
     launches = (K23.DENSE.launches, K23.RAGGED.launches)
     with pytest.raises(ValueError, match=match):
         K23.ragged_paged_verify_attn_cuda(q, k, v, qp, pos, bt, cu)
