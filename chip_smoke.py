@@ -11,10 +11,14 @@ Phases, one report line each (the last line is the JSON verdict):
             version at the shapes the serving paths give it (target and
             draft prefill, verify at s = 0, 3, 8, draft decode; phase 6b's
             B = 1 prefills of a padded prompt into a 512-row ring and its
-            B = 16 draft decode) plus GQA,
-            window, prefix, fully masked rows, int8 + scales and ragged
-            cache lengths, in fp32 and bf16, with its time beside the plain
-            version's, a library call's and the card's bound.
+            B = 16 draft decode) plus GQA (G = 4, 7, 10), window, prefix,
+            fully masked rows, int8 + scales, ragged cache lengths, and
+            long caches at small B whose key range is split across blocks
+            (gated: they must split), in fp32 and bf16, with its time beside
+            the plain version's, a library call's and the card's bound (the
+            fp32 bound counted for its route, three tf32 products); each row
+            gives its row tile, split count and the device kernels a call
+            issues, all ``verify_kernel*``.
 2b. paged   the paged kernels K2 (dense) and K3 (ragged) held against the
             plain gather path at the full-width OPT-6.7B verify (B 16,
             T 1, 4, 7, ragged tables with holes and an empty slot, and a
@@ -220,7 +224,10 @@ def visible(torch, c):
 def bound(torch, c):
     """Least time for the call: bytes it must move (each input read once,
     K/V rows only where some query sees them, the output written once)
-    against operations on the visible pairs, at the card's peaks."""
+    against operations on the visible pairs, at the card's peaks.  The fp32
+    kernel multiplies as three tf32 products, so its bound counts that route
+    at the tf32 peak, with the fp32 SIMT figure beside it as
+    ``bound_simt_ms``."""
     q, k = c["q"], c["k"]
     B, T, H, hd = q.shape
     KVH = k.shape[2]
@@ -233,8 +240,16 @@ def bound(torch, c):
     nbytes = kv + 2 * q.numel() * q.element_size() + 4 * (c["q_pos"].numel()
                                                           + c["k_pos"].numel())
     ops = 4 * pairs * H * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[c["dtype"]]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+
+    def least(t_ops, label):
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else label)
+    simt = least(ops / PEAK_OPS[c["dtype"]], "operations")
+    if c["dtype"] != "float32":
+        return {"bound_ms": simt[0], "bound_by": simt[1]}
+    ms, by = least(3 * ops / PEAK_OPS["tf32"], "operations")
+    return {"bound_ms": ms, "bound_by": by, "bound_route": "3xTF32",
+            "bound_simt_ms": simt[0]}
 
 
 def device_ms(torch, fn, arg_sets, iters=20):
@@ -254,14 +269,16 @@ def device_ms(torch, fn, arg_sets, iters=20):
 
 
 def device_kernels(torch, fn, args):
-    """The names of the device kernels one call of ``fn`` launches
-    (``torch.profiler``), in order, each once."""
+    """The names of the device kernels a call of ``fn`` launches
+    (``torch.profiler``), in order, each once: the union over 3 calls,
+    since the profiler now and then drops a call's device events."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
-    for _ in range(5):   # the profiler now and then hands back no device event
+    for _ in range(5):   # ... or hands back none at all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args)
+            for _ in range(3):
+                fn(*args)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -271,6 +288,7 @@ def device_kernels(torch, fn, args):
 
 
 def run_kernel_case(torch, K1, ref, c):
+    from repro_torch.kernels import launch
     kw = dict(window=c["window"], prefix_len=c["prefix_len"])
     quant = c["k_scale"] is not None
 
@@ -317,14 +335,24 @@ def run_kernel_case(torch, K1, ref, c):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=G > 1)
         library_ms = device_ms(torch, library, lib_sets)
-    bound_ms, bound_by = bound(torch, c)
     del sets
+    B, T, H, hd = c["q"].shape
+    KVH, L = c["k"].shape[2], c["k"].shape[1]
+    splits = K1.n_splits(B, KVH, (H // KVH) * T, L,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+    names = device_kernels(torch, kernel, args)
+    # every device kernel of a call is K1's under phase 5's name filter
+    names_ok = (len(names) == launch.device_kernels(splits)
+                and all("verify_kernel" in n and "paged" not in n for n in names))
     return dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max_err,
-                tol=tol, ok=ok, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                tol=tol, ok=ok and names_ok, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound(torch, c), row_tile=K1.row_tile((H // KVH) * T),
+                n_splits=splits, device_kernels=len(names),
+                kernel_names=[n.split("<")[0].split("::")[-1] for n in names])
 
 
-def phase_kernels(torch, K1, ref):
+def k1_specs():
+    """Phase 2's K1 cases: (name, ``make_case`` keywords)."""
     T_H, T_KVH, T_HD = 32, 32, 128            # opt-6.7b attention
     D_H, D_KVH, D_HD = 12, 12, 64             # opt-125m attention
     L = 256                                   # the launcher's --cache-len
@@ -364,9 +392,45 @@ def phase_kernels(torch, K1, ref):
                                           n_ctx=200)),
         ("cont_draft_decode_t1_b16", dict(B=16, T=1, H=D_H, KVH=D_KVH, hd=D_HD, L=512,
                                           n_ctx=201)),
+        # group sizes of yi-34b (G 7) and 10, where the folded rows span row
+        # tiles: a verify and a B = 1 prefill each
+        ("gqa_g7_verify_t4", dict(B=8, T=4, H=56, KVH=8, hd=128, L=L, n_ctx=150)),
+        ("gqa_g7_prefill_t100", dict(B=1, T=100, H=56, KVH=8, hd=128, L=512, n_ctx=1,
+                                     kv_len=90)),
+        ("gqa_g10_verify_t4", dict(B=8, T=4, H=40, KVH=4, hd=128, L=L, n_ctx=150)),
+        ("gqa_g10_prefill_t100", dict(B=1, T=100, H=40, KVH=4, hd=128, L=512, n_ctx=1,
+                                      kv_len=90)),
+        # one request decoding near the end of a 512-row ring: only the
+        # splits fill the card
+        ("b1_decode_l512", dict(B=1, T=1, H=T_H, KVH=T_KVH, hd=T_HD, L=512, n_ctx=500)),
+        # phase 8's draft of mamba2-1.3b (dense_draft: 8 heads of 64, window
+        # 4096) decoding over the continuous run's 8 slots of 512 rows
+        ("mamba_draft_decode_t1_b8", dict(B=8, T=1, H=8, KVH=8, hd=64, L=512, n_ctx=200,
+                                          window=4096)),
+        ("mamba_draft_decode_t4_b8", dict(B=8, T=4, H=8, KVH=8, hd=64, L=512, n_ctx=200,
+                                          window=4096)),
+        # longer caches at small B, where the key range is split: both row
+        # tiles, a wrapped ring with a window and GQA, int8, fully masked
+        # rows and a prefix through the splits and the combine
+        ("split_b1_decode_l4096", dict(B=1, T=1, H=T_H, KVH=T_KVH, hd=T_HD, L=4096,
+                                       n_ctx=4000)),
+        ("split_b1_prefill_t256_l1024", dict(B=1, T=256, H=T_H, KVH=T_KVH, hd=T_HD, L=1024,
+                                             n_ctx=768)),
+        ("split_gqa_g4_window_l2048", dict(B=1, T=9, H=32, KVH=8, hd=128, L=2048, n_ctx=3000,
+                                           window=600)),
+        ("split_int8_l2048", dict(B=1, T=4, H=T_H, KVH=T_KVH, hd=T_HD, L=2048, n_ctx=1500,
+                                  quant=True)),
+        ("split_masked_l1024", dict(B=2, T=4, H=D_H, KVH=D_KVH, hd=D_HD, L=1024, n_ctx=900,
+                                    masked_row=True)),
+        ("split_prefix_l1024", dict(B=2, T=4, H=D_H, KVH=D_KVH, hd=D_HD, L=1024, n_ctx=1000,
+                                    prefix_len=16)),
     ]
+    return specs
+
+
+def phase_kernels(torch, K1, ref):
     rows = []
-    for i, (name, kw) in enumerate(specs):
+    for i, (name, kw) in enumerate(k1_specs()):
         for dtype in ("float32", "bfloat16"):
             c = make_case(torch, f"{name}_{'f32' if dtype == 'float32' else 'bf16'}",
                           dtype=dtype, seed=i, **kw)
@@ -374,7 +438,11 @@ def phase_kernels(torch, K1, ref):
             rows.append(r)
             print("  " + json.dumps(r), flush=True)
     bad = [r["case"] for r in rows if not r["ok"]]
-    check(not bad, f"kernel disagrees with its plain version: {bad}")
+    check(not bad, f"kernel disagrees with its plain version or runs another "
+                   f"kernel: {bad}")
+    check(all(r["n_splits"] > 1 for r in rows
+              if r["case"].startswith(("b1_decode_l512", "split_"))),
+          "a case meant to split the key range did not")
     return rows
 
 
@@ -456,6 +524,8 @@ def paged_bound(torch, paged, c):
 
 def run_paged_case(torch, K23, paged, ref, c):
     import torch.nn.functional as F
+
+    from repro_torch.kernels import launch
     kw = dict(window=c["window"], prefix_len=c["prefix_len"])
     quant = c["k_scale"] is not None
 
@@ -510,7 +580,7 @@ def run_paged_case(torch, K23, paged, ref, c):
                           torch.cuda.get_device_properties(0).multi_processor_count)
     names = device_kernels(torch, ragged, args)
     # every device kernel of a call is K3's under phase 5's name filter
-    names_ok = (len(names) == K23.device_kernels(splits)
+    names_ok = (len(names) == launch.device_kernels(splits)
                 and all("paged_verify_kernel" in n for n in names))
     return dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max_err,
                 tol=tol, ok=ok and same and zero_rows and names_ok, k3_equals_k2=same,
@@ -1836,6 +1906,11 @@ def main() -> int:
             getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, 16, 32)
         for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)}),
         flush=True)
+    print("  k1 occupancy (L 512; row tile 16 / 64): " + json.dumps({
+        f"{dt}{'_int8' if q8 else ''}_hd{hd}_rt{rt}": K1.occupancy(
+            getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, rt, 512)
+        for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)
+        for rt in K1.ROW_TILES}), flush=True)
     print("  k4 forward occupancy: " + json.dumps({
         f"{dt}_hd{hd}": K4.fwd_occupancy(getattr(torch, dt), hd)
         for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
@@ -1930,6 +2005,7 @@ def main() -> int:
     print(json.dumps({"phase": "mamba_continuous", "ok": True}), flush=True)
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
+    pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
     paged_shape = "target verify s=0, " + phead["shape"] + ", bf16"
     paged_common = {"max_abs_err": phead["max_abs_err"], "plain_ms": phead["plain_ms"],
@@ -1944,7 +2020,13 @@ def main() -> int:
         "launches": launches, "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": "target verify s=3, " + head["shape"] + ", bf16"
+        "library": "SDPA", "n_splits": head["n_splits"],
+        "device_kernels_per_call": head["device_kernels"],
+        "shape": "target verify s=3, " + head["shape"] + ", bf16",
+        "launches_continuous": live["launches"]["k1"],
+        "prefill": {k: pre[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms",
+                                        "library_ms", "bound_ms", "bound_by", "n_splits",
+                                        "device_kernels")},
     }, {
         "name": "paged_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify_attn.cu",

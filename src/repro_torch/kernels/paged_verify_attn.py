@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import aligned16, invoke, on_one_cuda_device, sm_count
 from repro_torch.kernels.spec_verify_attn import LaunchCount
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -113,37 +114,9 @@ def workspace_floats(B: int, KVH: int, rows: int, hd: int, splits: int) -> int:
     return B * KVH * splits * row_tiles(rows) * ROW_TILE * (hd + 2)
 
 
-def device_kernels(splits: int) -> int:
-    """Device kernels one call issues: the partial kernel, and the combine
-    when the key range is split."""
-    return 1 if splits == 1 else 2
-
-
-_SMS: dict = {}          # SM count by device index, read once: every call needs it
-
-
-def _sm_count(dev: torch.device) -> int:
-    n = _SMS.get(dev.index)
-    if n is None:
-        n = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return n
-
-
-def _on_one_cuda_device(tensors, dev: torch.device) -> bool:
-    return dev.type == "cuda" and all(t.device == dev for t in tensors)
-
-
-def _invoke(dev: torch.device, *args) -> int:
-    """Call the C entry point on ``dev``'s current stream; its cudaError_t."""
-    with torch.cuda.device(dev):
-        return _kernel_fn()(*args, torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _check_aligned(k, v, k_scale, v_scale) -> None:
     for name, t in (("k", k), ("v", v)):
-        es = t.element_size()
-        _check(t.data_ptr() % 16 == 0
-               and all(t.shape[d] == 1 or (t.stride(d) * es) % 16 == 0 for d in (0, 1)),
+        _check(aligned16(t),
                f"{name} must start and have (block, row) strides at multiples of 16 bytes")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         _check(t is None or t.data_ptr() % 16 == 0,
@@ -201,16 +174,16 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
     _check(window is None or window >= 1, f"window {window}")
     _check(prefix_len >= 0, f"prefix_len {prefix_len}")
     _check_aligned(k, v, k_scale, v_scale)
-    _check(_on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
+    _check(on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     rows = (H // KVH) * T
-    splits = n_splits(B, KVH, rows, MAXB, bs, _sm_count(dev))
+    splits = n_splits(B, KVH, rows, MAXB, bs, sm_count(dev))
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     ws = (torch.empty(workspace_floats(B, KVH, rows, hd, splits), dtype=torch.float32,
                       device=dev) if splits > 1 else None)
     s_sn, s_sl = (k_scale.stride(0), k_scale.stride(1)) if quant else (0, 0)
-    rc = _invoke(
-        dev, int(ragged), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+    rc = invoke(
+        _kernel_fn, dev, int(ragged), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         pos.data_ptr(), block_tables.data_ptr(),
         cu_blocks.data_ptr() if ragged else None,

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import paged, tuning
+from repro_torch.kernels import launch, paged, tuning
 from repro_torch.kernels import paged_verify_attn as K23
 from test_torch_kernels import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -282,12 +282,12 @@ def test_both_wrappers_give_the_kernel_the_same_split_count(monkeypatch):
     the entry point is a recorder."""
     calls = []
 
-    def fake_invoke(dev, *args):
+    def fake_invoke(entry, dev, *args):
         calls.append(args)
         return 0
-    monkeypatch.setattr(K23, "_on_one_cuda_device", lambda tensors, dev: True)
-    monkeypatch.setattr(K23, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(K23, "_invoke", fake_invoke)
+    monkeypatch.setattr(K23, "on_one_cuda_device", lambda tensors, dev: True)
+    monkeypatch.setattr(K23, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(K23, "invoke", fake_invoke)
     c = _case("holes")
     args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"])
     tables = [c["bt"], torch.flip(c["bt"], (1,)).contiguous(),
@@ -306,6 +306,6 @@ def test_both_wrappers_give_the_kernel_the_same_split_count(monkeypatch):
     geometry = {tuple(a[13:21]) + (a[21] is not None,) for a in calls}
     assert geometry == {(B, T, H, KVH, c["k"].shape[1], MAXB, hd, want, True)}
     assert [a[0] for a in calls] == [0, 1] * 3
-    assert K23.device_kernels(want) == 2 and K23.device_kernels(1) == 1
+    assert launch.device_kernels(want) == 2 and launch.device_kernels(1) == 1
     assert K23.workspace_floats(B, KVH, (H // KVH) * T, hd, want) == (
         B * KVH * want * K23.row_tiles((H // KVH) * T) * K23.ROW_TILE * (hd + 2))
