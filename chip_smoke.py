@@ -110,7 +110,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS = {"float32": 67e12,        # fp32 outside the tensor cores
             "bfloat16": 989e12,      # dense bf16 tensor cores
-            "tf32": 495e12}          # dense tf32 tensor cores (K4's fp32 forward: 3 products)
+            "tf32": 495e12}          # dense tf32 tensor cores (K1's and K4's fp32: 3 products)
 TOL = {"float32": 1e-5,   # same inputs, fp32 math; only the summation order differs
        "bfloat16": 1e-2}  # bf16 output rounding (2^-9 relative) against an fp32 plain run
 
@@ -642,6 +642,15 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
 
 
 GRAD_TOL = 1e-4   # fp32 grads: the same math, sums over up to 1024 rows in another order
+# bf16 grads: each of dq, dk, dv at most this many times as far, in relative
+# RMS, from the fp32 autograd gradients as SDPA's bf16 backward on the same
+# bf16 inputs (phase 7's rule for prefill_flash's bf16 logits)
+BF16_GRAD_RMS_RATIO = 1.5
+
+
+def rel_rms(x, want):
+    """Relative RMS error of ``x`` against ``want`` (fp32)."""
+    return float((x.float() - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
 
 
 def within(torch, got, want, tol):
@@ -687,9 +696,9 @@ def flash_bound(torch, c, backward):
     (no other row changes the result), positions, and every output row
     (out and lse; dq, dk, dv) with lse read backward.  Operations: 4 flop
     per pair, head and hd forward (QK^T, PV), 10 backward (QK^T and dO V^T
-    recomputed, dV, dQ, dK), at the dtype's peak; the fp32 forward counts
-    its route, three tf32 products at the tf32 peak, with the fp32 SIMT
-    figure beside it as ``bound_simt_ms``."""
+    recomputed, dV, dQ, dK), at the dtype's peak; fp32, forward and
+    backward, counts its route, three tf32 products at the tf32 peak, with
+    the fp32 SIMT figure beside it as ``bound_simt_ms`` (``bwd_bound_simt_ms``)."""
     q, k = c["q"], c["k"]
     B, T, H, hd = q.shape
     KVH = k.shape[2]
@@ -711,8 +720,12 @@ def flash_bound(torch, c, backward):
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else label)
     pre = "bwd_" if backward else ""
     simt = least(ops / PEAK_OPS[c["dtype"]], "operations")
-    if backward or c["dtype"] != "float32":
+    if c["dtype"] != "float32":
         return {pre + "bound_ms": simt[0], pre + "bound_by": simt[1]}
+    if backward:
+        ms, by = least(3 * ops / PEAK_OPS["tf32"], "operations")
+        return {"bwd_bound_ms": ms, "bwd_bound_by": by, "bwd_bound_route": "3xTF32",
+                "bwd_bound_simt_ms": simt[0]}
     ms, by = least(3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)")
     return {"bound_ms": ms, "bound_by": by, "bound_simt_ms": simt[0]}
 
@@ -749,30 +762,60 @@ def run_flash_case(torch, K4, ref, c):
     row["library_kernels"] = [n[:90] for n in device_kernels(torch, sdpa, lib_sets[0])]
     row.update(flash_bound(torch, c, False))
     if c["grads"]:
-        dq, dk, dv = K4.flash_attn_bwd_cuda(q, k, v, out, do, lse, pos, pos, **kw)
-        torch.cuda.synchronize()
-        explicit = ref.flash_attn_bwd_ref(*f32[:3], want, f32[3], want_lse, pos, pos, **kw)
-        leaf = [x.clone().requires_grad_(True) for x in f32[:3]]
-        auto = torch.autograd.grad(ref.gqa_masked_ref(*leaf, pos, pos, **kw), leaf, f32[3])
-        errs = []
-        for name, got, e, a in zip(("dq", "dk", "dv"), (dq, dk, dv), explicit, auto):
-            e1, ok1 = within(torch, got, e, GRAD_TOL)
-            e2, ok2 = within(torch, got, a, GRAD_TOL)
-            errs.append(max(e1, e2))
-            ok &= ok1 and ok2
-        row["grad_max_abs_err"] = max(errs)
-        row["grad_tol"] = GRAD_TOL
-        row["bwd_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: K4.flash_attn_bwd_cuda(
-            q, k, v, o, d, l, p, p, **kw), sets)
-        row["bwd_plain_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: ref.flash_attn_bwd_ref(
-            q, k, v, o, d, l, p, p, **kw), sets)
+        def bwd(q, k, v, p, o, d, l):
+            return K4.flash_attn_bwd_cuda(q, k, v, o, d, l, p, p, **kw)
 
         def sdpa_fwd_bwd(q, k, v, m, d):
             leaf = [x.detach().requires_grad_(True) for x in (q, k, v)]
             o = F.scaled_dot_product_attention(*leaf, attn_mask=m, enable_gqa=G > 1)
             return torch.autograd.grad(o, leaf, d)
+        args = (q, k, v, pos, out, do, lse)
+        grads = bwd(*args)
+        again = bwd(*args)
+        torch.cuda.synchronize()
+        row["bwd_bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(grads, again))
+        ok &= row["bwd_bitwise_repeatable"]
+        leaf = [x.clone().requires_grad_(True) for x in f32[:3]]
+        auto = torch.autograd.grad(ref.gqa_masked_ref(*leaf, pos, pos, **kw), leaf, f32[3])
+        if c["dtype"] == "float32":
+            explicit = ref.flash_attn_bwd_ref(*f32[:3], want, f32[3], want_lse, pos, pos, **kw)
+            errs = []
+            for got, e, a in zip(grads, explicit, auto):
+                e1, ok1 = within(torch, got, e, GRAD_TOL)
+                e2, ok2 = within(torch, got, a, GRAD_TOL)
+                errs.append(max(e1, e2))
+                ok &= ok1 and ok2
+            row["grad_max_abs_err"] = max(errs)
+            row["grad_tol"] = GRAD_TOL
+        else:
+            lib = [g.transpose(1, 2) for g in sdpa_fwd_bwd(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask(pos),
+                do.transpose(1, 2))]
+            names3 = ("dq", "dk", "dv")
+            row["grad_rel_rms"] = {n: rel_rms(g, a) for n, g, a in zip(names3, grads, auto)}
+            row["sdpa_grad_rel_rms"] = {n: rel_rms(g, a) for n, g, a in zip(names3, lib, auto)}
+            row["grad_max_abs_err"] = max(float((g.float() - a).abs().max())
+                                          for g, a in zip(grads, auto))
+            row["grad_rms_ratio_limit"] = BF16_GRAD_RMS_RATIO
+            ok &= all(row["grad_rel_rms"][n] <= BF16_GRAD_RMS_RATIO * row["sdpa_grad_rel_rms"][n]
+                      for n in names3)
+        B, T, H, _ = q.shape
+        KVH = k.shape[2]
+        splits = K4.bwd_n_splits(B, KVH, (H // KVH) * T, T,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+        names = device_kernels(torch, bwd, args)
+        row["bwd_n_splits"] = splits
+        row["bwd_device_kernels"] = len(names)
+        row["bwd_kernel_names"] = [n.split("<")[0].split("::")[-1] for n in names]
+        ok &= (len(names) == K4.bwd_device_kernels(splits)
+               and all("flash_bwd" in n for n in names))
+        row["bwd_ms"] = device_ms(torch, bwd, sets)
+        row["bwd_plain_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: ref.flash_attn_bwd_ref(
+            q, k, v, o, d, l, p, p, **kw), sets)
+        # 10 calls: autograd's host time per call must stay inside device_ms's sleep
         row["bwd_library_ms"] = device_ms(torch, sdpa_fwd_bwd, [
-            (*ls, s[5].transpose(1, 2)) for ls, s in zip(lib_sets, sets)])
+            (*ls, s[5].transpose(1, 2)) for ls, s in zip(lib_sets, sets)], iters=10)
+        row["fwd_plus_bwd_ms"] = row["ms"] + row["bwd_ms"]
         row.update(flash_bound(torch, c, True))
     row["ok"] = ok
     del sets, lib_sets
@@ -854,8 +897,7 @@ FLASH_CASES = [
     # contract cases: G = 8 (yi-9b), window, prefix, padding and a fully
     # masked batch entry, T not a multiple of the 64-row tile
     ("gqa_g8", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="float32")),
-    ("gqa_g8_bf16", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="bfloat16",
-                         grads=False)),
+    ("gqa_g8_bf16", dict(B=2, T=128, H=32, KVH=4, hd=128, dtype="bfloat16")),
     ("window_48", dict(B=2, T=160, H=16, KVH=8, hd=128, dtype="float32", window=48)),
     ("prefix_16", dict(B=2, T=96, H=16, KVH=8, hd=128, dtype="float32", prefix_len=16)),
     ("padded_masked", dict(B=3, T=128, H=12, KVH=12, hd=64, dtype="float32",
@@ -863,11 +905,13 @@ FLASH_CASES = [
     ("ragged_t100", dict(B=3, T=100, H=16, KVH=8, hd=128, dtype="float32",
                          lens=[100, 93, 41])),
     # G = 7 (yi-34b's grouping: a 64-row tile holds parts of two heads) and
-    # G = 10, each fp32 with grads and bf16 forward only
+    # G = 10, each in fp32 and bf16 with grads
     ("gqa_g7", dict(B=2, T=100, H=56, KVH=8, hd=128, dtype="float32")),
-    ("gqa_g7_bf16", dict(B=2, T=100, H=56, KVH=8, hd=128, dtype="bfloat16", grads=False)),
+    ("gqa_g7_bf16", dict(B=2, T=100, H=56, KVH=8, hd=128, dtype="bfloat16")),
     ("gqa_g10", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="float32")),
-    ("gqa_g10_bf16", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="bfloat16", grads=False)),
+    ("gqa_g10_bf16", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="bfloat16")),
+    # the trainer's shape in bf16 (fwd + bwd): the bf16 backward gate
+    ("internlm2_train_bf16", dict(B=8, T=128, H=16, KVH=8, hd=128, dtype="bfloat16")),
 ]
 
 
@@ -1449,7 +1493,7 @@ def phase_train(torch, m):
     busy = sum(by.values())
     res["profile"] = dict(
         wall_ms_profiled=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
-        k4_ms=sum(t for k, t in by.items() if "dq_kernel" in k or "dkv_kernel" in k
+        k4_ms=sum(t for k, t in by.items() if "flash_bwd" in k
                   or ("fwd_kernel" in k and "rmsnorm" not in k)),
         k5_ms=sum(t for k, t in by.items() if "rmsnorm" in k or "dgamma" in k),
         device_kernels=sum(1 for e in prof.events()
@@ -1572,8 +1616,6 @@ def phase_prefill_flash(torch, np, R, m):
                  for k in ("k", "v") for i in range(n_layers))
     layer0 = all(bool(torch.equal(cf[k][0][written], cp[k][0][written])) for k in ("k", "v"))
 
-    def rel_rms(x):
-        return float((x - lp).pow(2).mean().sqrt() / lp.pow(2).mean().sqrt())
     check(bool(torch.isfinite(lp).all() and torch.isfinite(lf_b).all()
                and torch.isfinite(lp_b).all()), "prefill logits are not finite")
     line = dict(held_before_gb=held, fp32_peak_memory_gb=peak,
@@ -1581,8 +1623,8 @@ def phase_prefill_flash(torch, np, R, m):
                 fp32_layer0_rows_equal=layer0,
                 pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
                 seq_lens_equal=bool(torch.equal(sf, sp)), k4_launches=k4,
-                k4_launches_bf16=k4_b, bf16_flash_rel_rms_err=rel_rms(lf_b),
-                bf16_prefill_rel_rms_err=rel_rms(lp_b),
+                k4_launches_bf16=k4_b, bf16_flash_rel_rms_err=rel_rms(lf_b, lp),
+                bf16_prefill_rel_rms_err=rel_rms(lp_b, lp),
                 logits_bitwise_equal=bool(torch.equal(lf_b, lp_b)))
     del cf, cp
     print("  " + json.dumps(line), flush=True)
@@ -1768,8 +1810,10 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
     trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches,
     and K4's bf16 forward at ``prefill_flash``'s shape with phase 7's
-    ``prefill_flash`` launches.  A K4 fp32 forward bound is counted for its
-    route, three tf32 products (``bound_route``), beside the SIMT figure."""
+    ``prefill_flash`` launches.  K4's fp32 bounds are counted for its route,
+    three tf32 products (``bound_route``), beside the SIMT figure; its
+    backward row adds its split count, device kernels a call and the bf16
+    backward at the same shape."""
     flash = next(r for r in trows if r["case"] == "flash_internlm2_train")
     norm = next(r for r in trows if r["case"] == "rmsnorm_internlm2_train")
     pre = next(r for r in trows if r["case"] == "flash_prefill_flash_t512")
@@ -1793,9 +1837,17 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
                     "bound_by": r["bwd_bound_by"], "library_ms": r["bwd_library_ms"],
                     "library": lib + " forward + backward (autograd)",
                     "shape": f"{r['shape']}, fp32"})
-    k4f = out[0]
+    k4f, k4b = out[0], out[1]
     k4f["bound_by"] = "bytes" if flash["bound_by"] == "bytes" else "operations"
     k4f["bound_route"], k4f["bound_simt_ms"] = "3xTF32", flash["bound_simt_ms"]
+    k4b["bound_route"], k4b["bound_simt_ms"] = "3xTF32", flash["bwd_bound_simt_ms"]
+    k4b["n_splits"] = flash["bwd_n_splits"]
+    k4b["device_kernels_per_call"] = flash["bwd_device_kernels"]
+    k4b["fwd_plus_bwd_ms"] = flash["fwd_plus_bwd_ms"]
+    bf = next(r for r in trows if r["case"] == "flash_internlm2_train_bf16")
+    k4b["bf16"] = {k: bf[k] for k in ("shape", "bwd_ms", "bwd_library_ms", "bwd_bound_ms",
+                                      "grad_rel_rms", "sdpa_grad_rel_rms", "bwd_n_splits",
+                                      "fwd_plus_bwd_ms")}
     out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
     out[0]["launches_distill"] = distill["launches"]["k4_fwd"]
     out.insert(1, {"name": "flash_attn_fwd_bf16", **{k: out[0][k] for k in (
@@ -1913,6 +1965,9 @@ def main() -> int:
         for rt in K1.ROW_TILES}), flush=True)
     print("  k4 forward occupancy: " + json.dumps({
         f"{dt}_hd{hd}": K4.fwd_occupancy(getattr(torch, dt), hd)
+        for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
+    print("  k4 backward occupancy (dq, dkv): " + json.dumps({
+        f"{dt}_hd{hd}": K4.bwd_occupancy(getattr(torch, dt), hd)
         for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
 
     # ---- 2. kernels ----
