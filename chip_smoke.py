@@ -74,9 +74,13 @@ Phases, one report line each (the last line is the JSON verdict):
             B 4, T 2048 prefill with ragged dt masks (8 chunks), the
             one-chunk contract with a nonzero h0, T 300 (Q 150) and the
             prime T 257 (Q 1), the serving prefills (B 8, T 16; B 1, T 64,
-            128, 256), strong decay (A 16, dt 0.1; outputs must be finite)
-            and the smoke widths, in fp32 and bf16, with its time beside
-            the plain version's and the bound (no library call computes it).
+            128, 256; a zero state, as the model passes it), strong decay
+            (A 16, dt 0.1; outputs must be finite), the smoke widths and
+            8 heads a group (G 8), in fp32 and bf16; two calls must agree
+            bit for bit and issue the device kernels of the wrapper's rule,
+            all ``ssd_*``; with its time beside the plain version's and the
+            bound (its route: bf16, or fp32 as three tf32 products; no
+            library call computes it).
 8.  mamba2  Mamba-2 served by speculative decoding: mamba2-1.3b cut to 2
             layers (widths kept) with its draft cut to 2 layers, fp32, card
             against CPU (prefill of prompts padded to 512, 8 greedy steps),
@@ -86,8 +90,9 @@ Phases, one report line each (the last line is the JSON verdict):
             K5 and K1 counted, no plain version); then
             ``serve_continuous_live`` on a contiguous pool of 8 slots, 16
             requests of 64-256 prompt tokens, with that loop's LUT (K6
-            counted inside ``prefill_into``), and one step of that pair at
-            B = 8, s = 0 and 3 under ``torch.profiler``.
+            counted inside ``prefill_into``), one step of that pair at
+            B = 8, s = 0 and 3 under ``torch.profiler``, and one B = 1,
+            T 256 target prefill under it (device time, K6's share).
 
 Every serving phase now runs K5 (every norm), and phases 4, 6b and 8 gate
 its launches; phase 5 records its time per step.
@@ -102,6 +107,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -266,6 +272,13 @@ def device_ms(torch, fn, arg_sets, iters=20):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def kernel_name(name):
+    """A device kernel's function name without its namespace, template
+    arguments and parameters."""
+    m = re.search(r"[A-Za-z_]\w*(?=[<(])", name)
+    return m.group(0) if m else name
 
 
 def device_kernels(torch, fn, args):
@@ -954,7 +967,8 @@ def make_ssd_case(torch, name, *, B, T, H=64, P=64, G=1, N=128, dtype, chunk=256
     heads, and dt = 0 at or past a row's length (``lens``).  ``strong``:
     A = 16 and dt = 0.1 everywhere (cs falls to about -410 over 256 rows).
     ``contract``: the one-chunk contract [B*H, T, ...] with an explicit
-    log-decay; ``h0``: a nonzero carried-in state."""
+    log-decay; ``h0``: a nonzero carried-in state, else None (a zero
+    state, as the model's prefill passes it)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt_ = getattr(torch, dtype)
@@ -973,39 +987,60 @@ def make_ssd_case(torch, name, *, B, T, H=64, P=64, G=1, N=128, dtype, chunk=256
     if lens is not None:
         n = torch.tensor(lens, device="cuda")[:, None, None]
         dt = torch.where(torch.arange(T, device="cuda")[None, :, None] < n, dt, 0.0)
-    hinit = (0.5 * rnd(B, H, P, N)) if h0 else torch.zeros((B, H, P, N), device="cuda")
+    hinit = (0.5 * rnd(B, H, P, N)) if h0 else None
     return dict(name=name, xh=xh, B=Bm, C=Cm, dt=dt.contiguous(), A=A, h0=hinit, chunk=chunk,
                 dtype=dtype, contract=contract,
                 shape=f"B{B} T{T} H{H} P{P} G{G} N{N} chunk {chunk}"
                       + (f" lens {lens}" if lens else "") + (" strong decay" if strong else "")
-                      + (" h0" if h0 else "") + (" one-chunk contract" if contract else ""))
+                      + (" h0" if h0 else " zero state")
+                      + (" one-chunk contract" if contract else ""))
 
 
 def ssd_bound(torch, ref, c):
-    """Least time for the scan: every input read once and y and the final
-    state written once, against the operations of the causal half,
-    2 Q(Q+1)/2 (N+P) + 4 Q P N per (batch, head, chunk), at the fp32 rate
-    (the kernel computes in fp32 whatever its inputs)."""
+    """Least time for the scan, as the row's ``bound_ms``/``bound_by``: every
+    input read once (h0 only when given) and y and the final state written
+    once, against the operations the function needs per (batch, chunk): c b^T
+    over the causal half once per group (its heads share it), then per head
+    the decayed scores times x and the state update, and the carried-in
+    state's term when h0 is given (with several chunks, in every chunk
+    after the first).  bf16 at the bf16 peak; fp32 counts its route, three
+    tf32 products at the tf32 peak.  ``bound_simt_ms``: the fp32 SIMT figure
+    of the earlier formula (c b^T per head, every term, 67 TFLOP/s)."""
     xh, Bm = c["xh"], c["B"]
     Bsz, T, H, P = xh.shape
-    N = Bm.shape[3]
+    G, N = Bm.shape[2], Bm.shape[3]
     Q = ref.ssd_chunk_len(T, c["chunk"])
-    ops = Bsz * H * (T // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
+    nc = T // Q
+    with_h = nc if c["h0"] is not None else nc - 1      # chunks with a carried-in state
+    ops = Bsz * (nc * (G * Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 2 * Q * P * N))
+                 + with_h * H * 2 * Q * P * N)
     es = xh.element_size()
-    nbytes = (xh.numel() * es + 2 * Bm.numel() * es + 4 * c["dt"].numel() + 4 * H
-              + 2 * 4 * c["h0"].numel() + 4 * xh.numel())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    h0_bytes = 0 if c["h0"] is None else 4 * c["h0"].numel()
+    nbytes = (xh.numel() * es + 2 * Bm.numel() * es + 4 * c["dt"].numel() + 4 * H + h0_bytes
+              + 4 * xh.numel() + 4 * Bsz * H * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if c["dtype"] == "float32":
+        t_ops, label = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
+    else:
+        t_ops, label = ops / PEAK_OPS["bfloat16"], "operations"
+    simt_ops = Bsz * H * nc * (Q * (Q + 1) * (N + P) + 4 * Q * P * N)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else label,
+            "bound_simt_ms": 1e3 * max(t_bytes, simt_ops / PEAK_OPS["float32"]),
+            "ops": ops, "bytes": nbytes}
 
 
 def run_ssd_case(torch, K6, ref, c):
     """K6 against the plain scan on the same inputs (the one-chunk contract
-    through ``ssd_chunk_cuda`` and ``ssd_chunk_ref``), with its time beside
-    the plain version's and the bound; there is no library call for it."""
+    through ``ssd_chunk_cuda`` and ``ssd_chunk_ref``), two calls bit for bit
+    and the device kernels a call issues (all ``ssd_*``, as many as
+    ``ssd_device_kernels`` says), with its time beside the plain version's
+    and the bound; there is no library call for it."""
+    Bsz, T, H, P = c["xh"].shape
+    G, N = c["B"].shape[2], c["B"].shape[3]
     if c["contract"]:
-        Bsz, T, H, P = c["xh"].shape
         fold = lambda t: t.transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
-        rep = H // c["B"].shape[2]
+        rep = H // G
         x, b, cc = fold(c["xh"]), fold(c["B"].repeat_interleave(rep, 2)), \
             fold(c["C"].repeat_interleave(rep, 2))
         dt = c["dt"].transpose(1, 2).reshape(Bsz * H, T).contiguous()
@@ -1013,54 +1048,78 @@ def run_ssd_case(torch, K6, ref, c):
         h0 = c["h0"].reshape(Bsz * H, P, -1)
         args = (x.contiguous(), b.contiguous(), cc.contiguous(), dt, l, h0)
         kernel, plain = K6.ssd_chunk_cuda, ref.ssd_chunk_ref
+        plan = K6.ssd_plan(Bsz * H, T, 1, 1, P, N, T, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
     else:
         args = (c["xh"], c["B"], c["C"], c["dt"], c["A"], c["h0"])
         kernel = lambda *a: K6.ssd_chunked_cuda(*a, c["chunk"])  # noqa: E731
-        plain = lambda *a: ref.ssd_chunked_ref(*a, c["chunk"])   # noqa: E731
+
+        def plain(xh, B_, C_, dt, A, h0):
+            if h0 is None:
+                h0 = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+            return ref.ssd_chunked_ref(xh, B_, C_, dt, A, h0, c["chunk"])
+        Q = ref.ssd_chunk_len(T, c["chunk"])
+        plan = K6.ssd_plan(Bsz, T, H, G, P, N, Q,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
     y, h = kernel(*args)
+    y2, h2 = kernel(*args)
     torch.cuda.synchronize()
     wy, wh = plain(*args)
     tol = SSD_TOL[c["dtype"]]
     ey, oky = within(torch, y, wy, tol)
     eh, okh = within(torch, h, wh, tol)
     finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    bitwise = bool(torch.equal(y, y2)) and bool(torch.equal(h, h2))
+    names = [kernel_name(n) for n in device_kernels(torch, kernel, args)]
+    kernels_ok = (len(names) == plan["device_kernels"]
+                  and all(n.startswith("ssd_") for n in names))
     row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max(ey, eh),
                y_max_abs_err=ey, h_max_abs_err=eh, tol=tol, finite=finite,
-               ok=oky and okh and finite)
-    case_bytes = sum(t.numel() * t.element_size() for t in args) + 4 * y.numel()
+               bitwise_repeatable=bitwise, plan={k: plan[k] for k in (
+                   "wr", "nspl", "heads_per_block", "out_blocks", "state_blocks")},
+               device_kernels=len(names), kernel_names=names,
+               ok=oky and okh and finite and bitwise and kernels_ok)
+    case_bytes = sum(t.numel() * t.element_size() for t in args if t is not None) \
+        + 4 * y.numel()
     copies = min(16, max(2, math.ceil(2 * 50e6 / case_bytes)))
-    sets = [tuple(t.clone() for t in args) for _ in range(copies)]
+    sets = [tuple(None if t is None else t.clone() for t in args) for _ in range(copies)]
     row["ms"] = device_ms(torch, kernel, sets)
     row["plain_ms"] = device_ms(torch, plain, sets, iters=5)
     row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = ssd_bound(torch, ref, c)
+    b = ssd_bound(torch, ref, c)
+    row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"], bound_simt_ms=b["bound_simt_ms"])
     del sets
     return row
 
 
+SSD_CASES = [   # mamba2-1.3b's heads: H 64, P 64, N 128, one group, chunk 256
+    ("prefill_b4_t2048_ragged", dict(B=4, T=2048, lens=[2048, 1500, 777, 64])),
+    ("contract_q256_h0", dict(B=1, T=256, h0=True, contract=True)),
+    ("t300_q150", dict(B=2, T=300, lens=[300, 211])),
+    ("t257_q1", dict(B=2, T=257, lens=[257, 100])),
+    ("serve_b8_t16", dict(B=8, T=16, lens=[15, 12, 9, 15, 7, 10, 13, 11])),
+    ("serve_b1_t64", dict(B=1, T=64, lens=[59])),
+    ("serve_b1_t128", dict(B=1, T=128, lens=[101])),
+    ("serve_b1_t256", dict(B=1, T=256, lens=[213])),
+    ("strong_decay_t512", dict(B=2, T=512, strong=True, h0=True)),
+    ("smoke_widths_t24", dict(B=2, T=24, H=8, P=32, N=16, chunk=8, h0=True)),
+    ("serve_b1_t256_g8", dict(B=1, T=256, G=8, lens=[213])),   # 8 heads a group
+]
+
+
 def phase_ssd_kernels(torch, K6, ref):
-    full = [   # mamba2-1.3b's heads: H 64, P 64, N 128, one group, chunk 256
-        ("prefill_b4_t2048_ragged", dict(B=4, T=2048, lens=[2048, 1500, 777, 64])),
-        ("contract_q256_h0", dict(B=1, T=256, h0=True, contract=True)),
-        ("t300_q150", dict(B=2, T=300, lens=[300, 211])),
-        ("t257_q1", dict(B=2, T=257, lens=[257, 100])),
-        ("serve_b8_t16", dict(B=8, T=16, lens=[15, 12, 9, 15, 7, 10, 13, 11])),
-        ("serve_b1_t64", dict(B=1, T=64, lens=[59])),
-        ("serve_b1_t128", dict(B=1, T=128, lens=[101])),
-        ("serve_b1_t256", dict(B=1, T=256, lens=[213])),
-        ("strong_decay_t512", dict(B=2, T=512, strong=True, h0=True)),
-        ("smoke_widths_t24", dict(B=2, T=24, H=8, P=32, N=16, chunk=8, h0=True)),
-    ]
     rows = []
-    for i, (name, kw) in enumerate(full):
+    for i, (name, kw) in enumerate(SSD_CASES):
         for dtype in ("float32", "bfloat16"):
             c = make_ssd_case(torch, f"ssd_{name}_{'f32' if dtype == 'float32' else 'bf16'}",
                               dtype=dtype, seed=400 + i, **kw)
             r = run_ssd_case(torch, K6, ref, c)
             rows.append(r)
             print("  " + json.dumps(r), flush=True)
+            del c
     bad = [r["case"] for r in rows if not r["ok"]]
-    check(not bad, f"K6 disagrees with its plain version or is not finite: {bad}")
+    check(not bad, "K6 disagrees with its plain version, is not finite, differs between two "
+          f"calls or issues other device kernels than its rule: {bad}")
     return rows
 
 
@@ -1187,6 +1246,41 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4):
         top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
                      for e in top_cpu})
     print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
+    return row
+
+
+def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
+    """One target prefill at B = 1 of a prompt of ``n`` tokens padded to
+    ``T`` (the continuous run's largest bucket), bf16: its wall time against
+    the device time ``torch.profiler`` sees, and K6's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.from_numpy(np.random.default_rng(37).integers(0, vocab, (1, T))
+                            .astype(np.int64)).cuda()
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    def run():
+        cache = model.init_cache(1, T, torch.bfloat16, "cuda")
+        return model.prefill(params, toks, cache, lens)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) / 1e3 / calls
+    k6 = sum(e.device_time_total for e in dev
+             if kernel_name(e.name).startswith("ssd_")) / 1e3 / calls
+    k6_kernels = sum(1 for e in dev if kernel_name(e.name).startswith("ssd_")) / calls
+    row = dict(prefill=f"B1 T{T} prompt {n}, bf16", wall_ms=wall_ms, device_busy_ms=busy,
+               k6_ms=k6, k6_share=k6 / busy if busy else None, k6_device_kernels=k6_kernels,
+               device_kernels=len(dev) / calls)
+    print("  " + json.dumps(row), flush=True)
     return row
 
 
@@ -1798,6 +1892,8 @@ def phase_mamba_continuous(torch, np, m, lut_table):
                        for s in (0, 3)}
     check(all(v["device_busy_ms"] > 0 for v in line["profile"].values()),
           "the profiler saw no device time")
+    line["profile_prefill"] = profile_prefill(torch, np, eng.target, tp, tcfg.vocab_size)
+    check(line["profile_prefill"]["k6_ms"] > 0, "the profiled prefill ran no K6")
     check(len(done) == len(reqs), f"{len(reqs) - len(done)} requests did not finish")
     check(launches["k6"] > 0 and launches["k6_in_prefill_into"] == launches["k6"],
           f"K6 did not run in prefill_into only: {launches}")
@@ -1871,7 +1967,8 @@ def ssd_kernel_row(srows, launches, launches_live):
             "launches_continuous": launches_live,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "library": "none", "shape": r["shape"] + ", bf16"}
+            "library": "none", "shape": r["shape"] + ", bf16",
+            "device_kernels_per_call": r["device_kernels"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1969,6 +2066,13 @@ def main() -> int:
     print("  k4 backward occupancy (dq, dkv): " + json.dumps({
         f"{dt}_hd{hd}": K4.bwd_occupancy(getattr(torch, dt), hd)
         for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print("  k6 occupancy (mamba2-1.3b, plans at B 8 T 16, B 1 T 256, B 4 T 2048): "
+          + json.dumps({f"{dt}_b{b}_t{t}": dict(plan=plan, **K6.occupancy(
+              getattr(torch, dt), 64, 128, t, q, 64, 1, plan))
+              for dt in ("float32", "bfloat16") for b, t, q in ((8, 16, 16), (1, 256, 256),
+                                                                (4, 2048, 256))
+              for plan in [K6.ssd_plan(b, t, 64, 1, 64, 128, q, sms)]}), flush=True)
 
     # ---- 2. kernels ----
     rows = phase_kernels(torch, K1, ref)

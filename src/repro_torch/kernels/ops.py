@@ -168,13 +168,17 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tenso
 
 
 def ssd_chunked(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor, dt: torch.Tensor,
-                A: torch.Tensor, h0: torch.Tensor, chunk: int):
+                A: torch.Tensor, h0: Optional[torch.Tensor], chunk: int):
     """The whole chunked scan of a Mamba-2 layer (the model's
     ``_ssd_chunked``): xh [B,T,H,P]; B_/C_ [B,T,G,N]; dt [B,T,H] fp32; A [H]
-    fp32 (log-decay -dt*A); h0 [B,H,P,N] fp32; chunks of the largest divisor
-    of T at most ``chunk``.  Returns (y [B,T,H,P], h_final [B,H,P,N]) in
-    fp32.  One launch of K6 on the card, however many chunks."""
+    fp32 (log-decay -dt*A); h0 [B,H,P,N] fp32, or None for a zero state;
+    chunks of the largest divisor of T at most ``chunk``.  Returns (y
+    [B,T,H,P], h_final [B,H,P,N]) in fp32.  One call of K6 on the card,
+    however many chunks."""
     if xh.is_cuda:
         return K6.ssd_chunked_cuda(xh, B_, C_, dt, A, h0, chunk)
     PLAIN_SSD.launches += 1
+    if h0 is None:
+        Bsz, _, H, P = xh.shape
+        h0 = torch.zeros((Bsz, H, P, B_.shape[3]), dtype=torch.float32, device=xh.device)
     return _ref.ssd_chunked_ref(xh, B_, C_, dt, A, h0, chunk)

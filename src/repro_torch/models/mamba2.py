@@ -132,8 +132,8 @@ class Mamba2LM:
 
     def _ssd_chunked(self, lp: Dict, xh, B_, C_, dt, h0):
         """xh [B,T,H,P]; B_/C_ [B,T,G,N]; dt [B,T,H] (>= 0, softplus applied,
-        zeroed on padding); h0 [B,H,P,N].  Returns (y [B,T,H,P] fp32,
-        h_final)."""
+        zeroed on padding); h0 [B,H,P,N], or None for a zero state.  Returns
+        (y [B,T,H,P] fp32, h_final)."""
         A = torch.exp(lp["A_log"].float())
         return ssd_chunked(xh, B_, C_, dt, A, h0, self.cfg.ssm.chunk)
 
@@ -147,7 +147,7 @@ class Mamba2LM:
         y = cm.rms_norm(y * F.silu(z), lp["norm_y"], self.cfg.norm_eps)
         return y @ lp["out"]
 
-    def _layer_full(self, lp: Dict, x: torch.Tensor, h0: torch.Tensor,
+    def _layer_full(self, lp: Dict, x: torch.Tensor, h0: Optional[torch.Tensor],
                     dt_mask: Optional[torch.Tensor] = None):
         """Full-sequence mixer.  x: [B,T,d] (normed).  Returns (out, h_final,
         the raw conv inputs (x, b, c) for a prefill's conv buffers)."""
@@ -164,11 +164,6 @@ class Mamba2LM:
         y, h_fin = self._ssd_chunked(lp, xh, bb.view(B, T, s.n_groups, s.d_state),
                                      cc.view(B, T, s.n_groups, s.d_state), dt, h0)
         return self._gate_out(lp, y, xh, z, x.dtype), h_fin, (xc_raw, bb_raw, cc_raw)
-
-    def _zero_state(self, B: int, device) -> torch.Tensor:
-        s = self.cfg.ssm
-        return torch.zeros((B, self.nheads, s.head_dim, s.d_state), dtype=torch.float32,
-                           device=device)
 
     def _layers(self, params: Dict):
         layers = {k: v.unbind(0) for k, v in params["layers"].items()}
@@ -196,9 +191,8 @@ class Mamba2LM:
                 "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
         c = self.cfg
         x = cm.embed(tokens, params["embed"])
-        h0 = self._zero_state(x.shape[0], x.device)
         for _, lp in self._layers(params):
-            out, _, _ = self._layer_full(lp, cm.rms_norm(x, lp["norm"], c.norm_eps), h0)
+            out, _, _ = self._layer_full(lp, cm.rms_norm(x, lp["norm"], c.norm_eps), None)
             x = x + out
         return (self._unembed(params, x),
                 torch.zeros((), dtype=torch.float32, device=x.device))
@@ -228,11 +222,10 @@ class Mamba2LM:
         gather = rows.clamp(0, T - 1)
         valid = (rows >= 0)[..., None]                                      # [B,w,1]
         bidx = torch.arange(B, device=dev)[:, None]
-        h0 = self._zero_state(B, dev)
         x = cm.embed(tokens, params["embed"])
         for i, lp in self._layers(params):
             out, h_fin, raws = self._layer_full(lp, cm.rms_norm(x, lp["norm"], c.norm_eps),
-                                                h0, dt_mask)
+                                                None, dt_mask)
             cache["state"][i] = h_fin
             for name, raw in zip(("conv_x", "conv_b", "conv_c"), raws):
                 cache[name][i] = torch.where(valid, raw[bidx, gather], 0).to(cache[name].dtype)
