@@ -13,22 +13,39 @@
 // What bounds it on an H100: bytes.  A row of d values takes 3 operations
 // per element against 2 (forward) or 3 (backward) element reads and writes,
 // far below the ~20 fp32 operations per byte where arithmetic would bind.
-// What the design does about it: one block per row (forward) reads x once
-// from device memory into registers, reduces in fp32 with warp shuffles,
-// and writes y once; the backward keeps a row's x and dy in registers
-// between its reduction and its dx.  dgamma is reduced without atomics, so
-// it does not change from run to run: each backward block sums its rows'
-// products into a per-block fp32 row of a [n_blocks, d] scratch, and a
-// second launch from the same call sums those rows in a fixed order.
+// Forward: one block per row reads x once from device memory into
+// registers, reduces in fp32 with warp shuffles, and writes y once.
+// Backward, two device kernels a call, neither with atomics, so dx and
+// dgamma do not change from run to run:
+// - `rmsnorm_bwd_rows`: units of `wpr` warps (several a block), each unit
+//   owning a contiguous, fixed range of `rpu` rows.  A thread owns the same
+//   16-byte accesses of every row (4 fp32 or 8 bf16 values; one value where
+//   d or a base is not 16-byte aligned), so it keeps its columns' fp32
+//   dgamma partial in registers across the unit's rows.  The next row's x
+//   and dy are fetched into a second set of registers before the current
+//   row's sum and stores, so one row's round trip overlaps the next one's
+//   loads (where a thread's share of a row is at most 64 bytes); a row's
+//   sum is warp shuffles plus, for wpr > 1, one named barrier of the
+//   unit's warps (two slots alternate by row parity).  Each unit writes its
+//   partial once: row u of a [units, ldp] fp32 scratch.  (A ring of bulk
+//   copies into shared memory, every row of a unit asked for at once, was
+//   no faster in the sweep and is not kept.)
+// - `rmsnorm_bwd_dgamma`: the partials summed in a fixed order over blocks
+//   of `strip` 4-column groups x (256 / strip) row groups (each thread adds
+//   rows rg, rg + groups, ... in order, then a shuffle tree and the warps in
+//   order), as a programmatic dependent launch whose blocks wait for the
+//   rows kernel to finish before reading.
+// The wrapper (kernels/rmsnorm.py, `bwd_plan`) chooses the grid and sizes
+// the scratch; the rule was set from tools/rmsnorm_variants.py's sweep.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int NT = 256;        // threads per block
 constexpr int MAXV = 32;       // values per thread at most: d <= NT * MAXV = 8192
-constexpr int BWD_BLOCKS = 264;  // backward blocks: two per SM of an H100
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -84,63 +101,256 @@ __global__ void __launch_bounds__(NT) rmsnorm_fwd_kernel(
   if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[row] = rstd;
 }
 
-// block b owns rows [b * rpb, (b + 1) * rpb); writes dx for them and its
-// fp32 dgamma partial row part[b, :]
-template <typename T, int V>
-__global__ void __launch_bounds__(NT) rmsnorm_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ gamma, const T* __restrict__ dy,
-    const float* __restrict__ rstd_in, T* __restrict__ dx, float* __restrict__ part,
-    int n, int d, int rpb) {
-  __shared__ float red[NT / 32];
-  float gv[V], dg[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = threadIdx.x + i * NT;
-    gv[i] = c < d ? to_f(gamma[c]) : 0.f;
-    dg[i] = 0.f;
+// ---------------------------------------------------------------------------
+// backward
+
+constexpr int BWD_NT = 256;       // threads of a rows block at most: units x warps <= 8
+constexpr int BWD_MAX_UNITS = 8;  // units a block at most (one warp each)
+constexpr int BWD_MAX_WPR = 8;    // warps a unit at most
+constexpr int COMBINE_NT = 256;   // threads of a combine block
+
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a unit's warps) under id `id` (1..8)
+__device__ __forceinline__ void unit_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One access of VEC values of T: loaded as raw bits (R), widened on use.
+template <typename T, int VEC> struct Acc;
+
+template <> struct Acc<float, 4> {
+  using R = uint4;
+  static __device__ __forceinline__ R load(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-  const int r0 = blockIdx.x * rpb, r1 = min(n, r0 + rpb);
-  for (int r = r0; r < r1; ++r) {
-    const long long off = static_cast<long long>(r) * d;
-    const float rstd = rstd_in[r];
-    float xh[V], g[V];
-    float dot = 0.f;
+  static __device__ __forceinline__ float get(const R& r, int i) {
+    return __uint_as_float(i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <> struct Acc<__nv_bfloat16, 8> {
+  using R = uint4;
+  static __device__ __forceinline__ R load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ float get(const R& r, int i) {
+    const uint32_t w = i / 2 == 0 ? r.x : i / 2 == 1 ? r.y : i / 2 == 2 ? r.z : r.w;
+    return __uint_as_float(i % 2 ? (w & 0xffff0000u) : (w << 16));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    __nv_bfloat162 h[4];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = threadIdx.x + i * NT;
-      xh[i] = 0.f;
-      g[i] = 0.f;
-      if (c < d) {
-        const float dyv = to_f(dy[off + c]);
-        xh[i] = to_f(x[off + c]) * rstd;
-        g[i] = round_to<T>(dyv * gv[i]);
-        dg[i] = fmaf(dyv, round_to<T>(xh[i]), dg[i]);
-        dot = fmaf(g[i], xh[i], dot);
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+  }
+};
+
+template <typename T> struct Acc<T, 1> {
+  using R = T;
+  static __device__ __forceinline__ R load(const T* p) { return *p; }
+  static __device__ __forceinline__ float get(const R& r, int) { return to_f(r); }
+  static __device__ __forceinline__ void store(T* p, const float (&v)[1]) {
+    *p = from_f<T>(v[0]);
+  }
+};
+
+struct BwdArgs {
+  const void* x;
+  const void* gamma;
+  const void* dy;
+  const float* rstd;
+  void* dx;
+  float* part;            // [units, ldp] fp32: one dgamma partial a unit
+  int n, d, ldp;
+  int wpr, upb, rpu, units;  // warps a unit, units a block, rows a unit, units
+};
+
+// Unit u = blockIdx.x * upb + threadIdx.x / (32 * wpr) owns rows
+// [u * rpu, min(n, (u + 1) * rpu)); its thread t owns accesses j = t + k *
+// 32 * wpr (k < C) of every row, columns [j * VEC, (j + 1) * VEC).
+template <typename T, int VEC, int C>
+__global__ void __launch_bounds__(BWD_NT) rmsnorm_bwd_rows(const BwdArgs a) {
+  using A = Acc<T, VEC>;
+  using R = typename A::R;
+  __shared__ float red[BWD_MAX_UNITS][2][BWD_MAX_WPR];
+  const int G = 32 * a.wpr;
+  const int gi = threadIdx.x / G, t = threadIdx.x % G, w = t / 32, lane = t % 32;
+  const int u = blockIdx.x * a.upb + gi;
+  if (u >= a.units) return;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.dx);
+  const int nacc = (a.d + VEC - 1) / VEC;  // accesses a row (VEC > 1: d % VEC == 0)
+  const int r0 = u * a.rpu, r1 = min(a.n, r0 + a.rpu);
+  // gamma kept in registers, except for one-value accesses above 8 a
+  // thread (read where used, from L1), which would spill
+  constexpr bool keep_gamma = VEC > 1 || C <= 8;
+  const T* gamma = static_cast<const T*>(a.gamma);
+  R gm[keep_gamma ? C : 1];
+  float dg[C][VEC];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = t + k * G;
+    if constexpr (keep_gamma) gm[k] = j < nacc ? A::load(gamma + j * VEC) : R{};
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dg[k][e] = 0.f;
+  }
+  auto gam = [&](int k, int j) -> R {
+    if constexpr (keep_gamma) return gm[k];
+    else return A::load(gamma + j * VEC);
+  };
+
+  auto fetch = [&](int r, R(&xv)[C], R(&yv)[C], float& rs) {
+    const long long off = static_cast<long long>(r) * a.d;
+    rs = a.rstd[r];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * G;
+      if (j < nacc) {
+        xv[k] = A::load(x + off + j * VEC);
+        yv[k] = A::load(dy + off + j * VEC);
       }
     }
-    const float mean = block_sum(dot, red) / d;
+  };
+
+  auto row = [&](int r, const R(&xv)[C], const R(&yv)[C], float rs) {
+    float dot = 0.f;
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = threadIdx.x + i * NT;
-      if (c < d) dx[off + c] = from_f<T>(rstd * (g[i] - xh[i] * mean));
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * G;
+      if (j < nacc) {
+        const R gk = gam(k, j);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = A::get(xv[k], e) * rs, dyv = A::get(yv[k], e);
+          const float g = round_to<T>(dyv * A::get(gk, e));
+          dg[k][e] = fmaf(dyv, round_to<T>(xh), dg[k][e]);
+          dot = fmaf(g, xh, dot);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (a.wpr > 1) {  // the row's warps add their sums in a fixed order
+      float* slot = red[gi][r & 1];
+      if (lane == 0) slot[w] = dot;
+      unit_barrier(1 + gi, G);
+      dot = 0.f;
+      for (int i = 0; i < a.wpr; ++i) dot += slot[i];
+    }
+    const float mean = dot / a.d;
+    const long long off = static_cast<long long>(r) * a.d;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * G;
+      if (j < nacc) {
+        const R gk = gam(k, j);
+        float o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = A::get(xv[k], e) * rs;
+          const float g = round_to<T>(A::get(yv[k], e) * A::get(gk, e));
+          o[e] = rs * (g - xh * mean);
+        }
+        A::store(dx + off + j * VEC, o);
+      }
+    }
+  };
+
+  R xa[C], ya[C];
+  float ra;
+  if constexpr (C * sizeof(R) <= 64) {
+    // rows in pairs, two register sets in turn (a copy between them would
+    // wait for the loads it copies)
+    R xb[C], yb[C];
+    float rb;
+    fetch(r0, xa, ya, ra);
+    for (int r = r0; r < r1; r += 2) {
+      if (r + 1 < r1) fetch(r + 1, xb, yb, rb);
+      row(r, xa, ya, ra);
+      if (r + 1 >= r1) break;
+      if (r + 2 < r1) fetch(r + 2, xa, ya, ra);
+      row(r + 1, xb, yb, rb);
+    }
+  } else {
+    // a thread's share of a row above 64 bytes: one set, or it would spill
+    for (int r = r0; r < r1; ++r) {
+      fetch(r, xa, ya, ra);
+      row(r, xa, ya, ra);
     }
   }
+  allow_dependents();
+  float* pr = a.part + static_cast<long long>(u) * a.ldp;
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = threadIdx.x + i * NT;
-    if (c < d) part[static_cast<long long>(blockIdx.x) * d + c] = dg[i];
+  for (int k = 0; k < C; ++k) {
+    const int j = t + k * G;
+    if (j < nacc) {
+      if constexpr (VEC % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < VEC; q += 4)
+          *reinterpret_cast<float4*>(pr + j * VEC + q) =
+              make_float4(dg[k][q], dg[k][q + 1], dg[k][q + 2], dg[k][q + 3]);
+      } else {
+        pr[j] = dg[k][0];
+      }
+    }
   }
 }
 
-// dgamma[c] = sum over b of part[b, c], in ascending b
+__device__ __forceinline__ void add4(float4& s, const float4& v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// dgamma[col] = the sum of part[p, col] over the units p: block b takes
+// columns [4 * strip * b, 4 * strip * (b + 1)); its thread (rg, c) adds rows
+// rg, rg + groups, ... of its 4 columns in order, then the row groups are
+// added by a shuffle tree inside each warp and the warps in order.
 template <typename T>
-__global__ void __launch_bounds__(NT) dgamma_reduce_kernel(
-    const float* __restrict__ part, T* __restrict__ dgamma, int nb, int d) {
-  const int c = blockIdx.x * NT + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[static_cast<long long>(b) * d + c];
-  dgamma[c] = from_f<T>(s);
+__global__ void __launch_bounds__(COMBINE_NT) rmsnorm_bwd_dgamma(
+    const float* __restrict__ part, T* __restrict__ dgamma, int units, int d, int ldp,
+    int strip) {
+  __shared__ float4 red[COMBINE_NT / 32][32];
+  const int c = threadIdx.x % strip, rg = threadIdx.x / strip, groups = COMBINE_NT / strip;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = (blockIdx.x * strip + c) * 4;
+  wait_for_prior_grid();
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < d) {
+#pragma unroll 4
+    for (int p = rg; p < units; p += groups)
+      add4(s, __ldcg(reinterpret_cast<const float4*>(part + static_cast<long long>(p) * ldp
+                                                     + col)));
+  }
+  for (int o = 16; o >= strip; o >>= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+  }
+  if (lane < strip) red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && lane < strip && col < d) {
+    float4 tot = red[0][lane];
+#pragma unroll
+    for (int i = 1; i < COMBINE_NT / 32; ++i) add4(tot, red[i][lane]);
+    const float v[4] = {tot.x, tot.y, tot.z, tot.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (col + e < d) dgamma[col + e] = from_f<T>(v[e]);
+  }
 }
 
 template <typename T, int V>
@@ -162,38 +372,57 @@ cudaError_t fwd(const void* x, const void* gamma, void* y, float* rstd, int n, i
   return fwd_v<T, MAXV>(x, gamma, y, rstd, n, d, eps, s);
 }
 
-template <typename T, int V>
-void bwd_v(const void* x, const void* gamma, const void* dy, const float* rstd, void* dx,
-           float* part, int n, int d, int nb, int rpb, cudaStream_t s) {
-  rmsnorm_bwd_kernel<T, V><<<nb, NT, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(dy),
-      rstd, static_cast<T*>(dx), part, n, d, rpb);
+using RowsKernel = void (*)(const BwdArgs);
+
+// the rows kernel for `chunks` accesses a thread a row: 1, 2, 4 or (fp32)
+// 8 of 16 bytes, or 2, 8 or 32 of one value; null for any other count
+template <typename T>
+RowsKernel rows_kernel(bool vec, int chunks) {
+  constexpr int VW = 16 / sizeof(T);
+  if (vec) {
+    switch (chunks) {
+      case 1: return rmsnorm_bwd_rows<T, VW, 1>;
+      case 2: return rmsnorm_bwd_rows<T, VW, 2>;
+      case 4: return rmsnorm_bwd_rows<T, VW, 4>;
+      case 8:
+        if constexpr (VW == 4) return rmsnorm_bwd_rows<T, VW, 8>;
+    }
+    return nullptr;
+  }
+  switch (chunks) {
+    case 2: return rmsnorm_bwd_rows<T, 1, 2>;
+    case 8: return rmsnorm_bwd_rows<T, 1, 8>;
+    case 32: return rmsnorm_bwd_rows<T, 1, 32>;
+  }
+  return nullptr;
 }
 
-template <typename T>
-cudaError_t bwd(const void* x, const void* gamma, const void* dy, const float* rstd,
-                void* dx, void* dgamma, float* part, int n, int d, cudaStream_t s) {
-  const int rpb = (n + BWD_BLOCKS - 1) / BWD_BLOCKS;
-  const int nb = (n + rpb - 1) / rpb;
-  if (d <= 4 * NT) bwd_v<T, 4>(x, gamma, dy, rstd, dx, part, n, d, nb, rpb, s);
-  else if (d <= 8 * NT) bwd_v<T, 8>(x, gamma, dy, rstd, dx, part, n, d, nb, rpb, s);
-  else if (d <= 16 * NT) bwd_v<T, 16>(x, gamma, dy, rstd, dx, part, n, d, nb, rpb, s);
-  else bwd_v<T, MAXV>(x, gamma, dy, rstd, dx, part, n, d, nb, rpb, s);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dgamma_reduce_kernel<T><<<(d + NT - 1) / NT, NT, 0, s>>>(part, static_cast<T*>(dgamma),
-                                                           nb, d);
-  return cudaGetLastError();
+RowsKernel rows_kernel(int dtype, bool vec, int chunks) {
+  if (dtype == 0) return rows_kernel<float>(vec, chunks);
+  if (dtype == 1) return rows_kernel<__nv_bfloat16>(vec, chunks);
+  return nullptr;
 }
+
+// kern<<<grid, block, 0, s>>>(args...), as a programmatic dependent launch
+template <typename... Args>
+cudaError_t launch_after(void (*kern)(Args...), dim3 grid, dim3 block, cudaStream_t s,
+                         Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
-
-// Rows the backward's dgamma scratch needs for n rows ([result, d] fp32).
-extern "C" int rmsnorm_bwd_blocks(int n) {
-  if (n <= 0) return 0;
-  const int rpb = (n + BWD_BLOCKS - 1) / BWD_BLOCKS;
-  return (n + rpb - 1) / rpb;
-}
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x, y [n, d] and gamma [d]
 // contiguous in one dtype; rstd [n] fp32, or null when no backward follows.
@@ -208,16 +437,51 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
   return cudaErrorInvalidValue;
 }
 
-// dx [n, d] and dgamma [d] in x's dtype; part is fp32 scratch of
-// [rmsnorm_bwd_blocks(n), d].  Two launches on one stream.
+// dx [n, d] and dgamma [d] in x's dtype from the forward's rstd [n]; part is
+// fp32 scratch [units, ldp].  The grid is the wrapper's plan (bwd_plan in
+// kernels/rmsnorm.py): vec 1 for one-value accesses, else 16 / sizeof(T)
+// (d a multiple of it, x, gamma, dy and dx 16-byte aligned); wpr warps a
+// unit, upb units a block (wpr * upb <= 8), chunks accesses a thread a row,
+// rpu rows a unit, units = ceil(n / rpu) units in blocks = ceil(units / upb)
+// blocks; ldp >= d a multiple of 4; strip 4-column groups a combine block (a
+// power of two up to 32).  Two launches on one stream; anything else is
+// refused before either.
 extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* gamma, const void* dy,
                            const void* rstd, void* dx, void* dgamma, void* part, int n,
-                           int d, void* stream) {
-  if (n <= 0 || d <= 0 || d > NT * MAXV) return cudaErrorInvalidValue;
+                           int d, int vec, int wpr, int chunks, int upb, int rpu, int units,
+                           int blocks, int ldp, int strip, void* stream) {
+  const int es = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (es == 0 || n <= 0 || d <= 0 || d > NT * MAXV) return cudaErrorInvalidValue;
+  if (vec != 1 && !(vec == 16 / es && d % vec == 0 && aligned16(x) && aligned16(gamma)
+                    && aligned16(dy) && aligned16(dx)))
+    return cudaErrorInvalidValue;
+  const RowsKernel kern = rows_kernel(dtype, vec != 1, chunks);
+  if (kern == nullptr || (wpr & (wpr - 1)) != 0 || wpr < 1 || upb < 1
+      || wpr * upb > BWD_NT / 32 || static_cast<long long>(chunks) * 32 * wpr * vec < d
+      || rpu < 1 || units != (n + rpu - 1) / rpu || blocks != (units + upb - 1) / upb
+      || ldp < d || ldp % 4 != 0 || !aligned16(part) || strip < 1 || strip > 32
+      || (strip & (strip - 1)) != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(rstd);
-  float* pt = static_cast<float*>(part);
-  if (dtype == 0) return bwd<float>(x, gamma, dy, r, dx, dgamma, pt, n, d, s);
-  if (dtype == 1) return bwd<__nv_bfloat16>(x, gamma, dy, r, dx, dgamma, pt, n, d, s);
-  return cudaErrorInvalidValue;
+  const BwdArgs a = {x, gamma, dy, static_cast<const float*>(rstd), dx,
+                     static_cast<float*>(part), n, d, ldp, wpr, upb, rpu, units};
+  kern<<<blocks, 32 * wpr * upb, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ldp / 4 + strip - 1) / strip);
+  const float* pc = static_cast<const float*>(part);
+  e = dtype == 0 ? launch_after(rmsnorm_bwd_dgamma<float>, grid, dim3(COMBINE_NT), s, pc,
+                                static_cast<float*>(dgamma), units, d, ldp, strip)
+                 : launch_after(rmsnorm_bwd_dgamma<__nv_bfloat16>, grid, dim3(COMBINE_NT), s,
+                                pc, static_cast<__nv_bfloat16*>(dgamma), units, d, ldp, strip);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Blocks per SM of the rows kernel at a plan's (dtype, vec, chunks, wpr,
+// upb), as the CUDA runtime's occupancy calculator gives them.
+extern "C" int rmsnorm_bwd_occupancy(int dtype, int vec, int chunks, int wpr, int upb,
+                                     int* blocks) {
+  const RowsKernel kern = rows_kernel(dtype, vec != 1, chunks);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, 32 * wpr * upb, 0);
 }

@@ -11,7 +11,8 @@ Both take contiguous rows ``x [n, d]`` and ``gamma [d]`` of one dtype,
 float32 or bfloat16, with d <= 8192.  Anything else raises.  The forward
 writes the fp32 ``rstd [n]`` the backward reads only when asked to; the
 backward returns ``dx`` and ``dgamma``, the latter summed over the rows
-without atomics (the same result from run to run).
+without atomics (the same result from run to run).  One choice is made
+here, from the shapes alone: :func:`bwd_plan`, the backward's grid.
 """
 from __future__ import annotations
 
@@ -20,28 +21,45 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import invoke, on_one_cuda_device, sm_count
 from repro_torch.kernels.spec_verify_attn import LaunchCount
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 8192
+# accesses a thread makes of a row, as the backward's rows kernel is built
+# for them: of 16 bytes (fp32, bf16), or of one value (d or a base not
+# 16-byte aligned)
+CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (2, 8, 32)}
+BLOCK_WARPS = 8        # warps of a rows block at most (units x warps a unit)
+COMBINE_THREADS = 256  # threads of a dgamma combine block
+
+# the plan's entries rmsnorm_bwd takes after n and d, in its order
+BWD_ARGS = ("vec", "wpr", "chunks", "upb", "rpu", "units", "blocks", "ldp", "strip")
 
 FWD = LaunchCount()   # launches of the forward kernel
-BWD = LaunchCount()   # calls of the backward (dx kernel, then the dgamma reduction)
+BWD = LaunchCount()   # calls of the backward (the rows kernel, then the dgamma combine)
 
 _fns = {}
 
 
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, p]
+    lib.rmsnorm_bwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
+    lib.rmsnorm_bwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_bwd_occupancy):
+        f.restype = ctypes.c_int
+    _fns.update(fwd=lib.rmsnorm_fwd, bwd=lib.rmsnorm_bwd, occupancy=lib.rmsnorm_bwd_occupancy)
+
+
 def _lib():
     if not _fns:
-        lib = build.load("rmsnorm")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, p]
-        lib.rmsnorm_bwd.argtypes = [i, p, p, p, p, p, p, p, i, i, p]
-        lib.rmsnorm_bwd_blocks.argtypes = [i]
-        for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_bwd_blocks):
-            f.restype = ctypes.c_int
-        _fns.update(fwd=lib.rmsnorm_fwd, bwd=lib.rmsnorm_bwd, blocks=lib.rmsnorm_bwd_blocks)
+        _bind(build.load("rmsnorm"))
     return _fns
+
+
+def _bwd_fn():
+    return _lib()["bwd"]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -57,8 +75,7 @@ def _check_rows(x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> 
            f"gamma {tuple(gamma.shape)} {gamma.dtype} for x [{n}, {d}] {x.dtype}")
     _check(0 < d <= MAX_D and n > 0, f"x [{n}, {d}] (0 < d <= {MAX_D})")
     _check(all(t.is_contiguous() for t in (x, gamma, *others)), "tensors must be contiguous")
-    _check(x.device.type == "cuda"
-           and all(t.device == x.device for t in (gamma, *others)),
+    _check(on_one_cuda_device((x, gamma, *others), x.device),
            "every tensor must lie on one CUDA device")
 
 
@@ -81,6 +98,64 @@ def rmsnorm_fwd_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
     return y, rstd
 
 
+def _chunks(need: int, vec: int):
+    """The fewest accesses a thread the rows kernel is built for that cover
+    ``need``, or None."""
+    return next((c for c in CHUNKS[vec] if c >= need), None)
+
+
+def bwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
+             wpr: int = 0, rpu: int = 0, strip: int = 0) -> dict:
+    """The backward's grid, from the shapes and the SM count alone.
+
+    ``vec``: values an access, 16 bytes' worth when d and the bases allow
+    (else 1).  ``wpr``: warps a unit (the threads that share a row): 8,
+    fewer where a row has fewer accesses than the unit threads; ``chunks``
+    the accesses a thread makes of a row, rounded up to a count the kernel
+    is built for.  ``rpu``: rows a unit, so that there are about two units
+    an SM (four where d <= 1024: a partial row is cheap there); each unit
+    owns rows ``[u * rpu, (u + 1) * rpu)`` and writes one partial row, so
+    ``units = ceil(n / rpu)`` is also the scratch's rows, ``ldp`` its row
+    stride (d rounded up to 4).  ``upb``: units a block, one unless a
+    forced ``rpu`` leaves more than two units an SM, at most 8 warps a
+    block.  ``strip``: 4-column groups a combine block, 2.  Nonzero
+    ``wpr``, ``rpu`` or ``strip`` force that choice
+    (``tools/rmsnorm_variants.py``'s sweep, which set this rule: PERF.md
+    §6)."""
+    vw = 16 // elem_bytes
+    vec = vw if aligned and d % vw == 0 else 1
+    nacc = -(-d // vec)
+    if not wpr:
+        wpr = BLOCK_WARPS
+        while wpr > 1 and 32 * wpr > nacc:
+            wpr //= 2
+    chunks = _chunks(-(-nacc // (32 * wpr)), vec)
+    while chunks is None:                     # a forced wpr too small for d
+        wpr *= 2
+        chunks = _chunks(-(-nacc // (32 * wpr)), vec)
+    rpu = rpu or max(1, -(-n // ((2 if d > 1024 else 4) * sms)))
+    units = -(-n // rpu)
+    upb = min(max(1, units // (2 * sms)), BLOCK_WARPS // wpr)
+    ldp = -(-d // 4) * 4
+    strip = strip or 2
+    return {"vec": vec, "wpr": wpr, "chunks": chunks, "upb": upb, "rpu": rpu,
+            "units": units, "blocks": -(-units // upb), "threads": 32 * wpr * upb,
+            "ldp": ldp, "strip": strip, "combine_blocks": -(-(ldp // 4) // strip),
+            "partial_rows": units, "device_kernels": 2}
+
+
+def occupancy(dtype: torch.dtype, plan: dict) -> int:
+    """Blocks per SM of the rows kernel at ``plan`` on the current card (the
+    CUDA runtime's occupancy calculator)."""
+    _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
+    out = ctypes.c_int(0)
+    rc = _lib()["occupancy"](_DTYPE_CODE[dtype], *(plan[k] for k in (
+        "vec", "chunks", "wpr", "upb")), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm occupancy query failed: cudaError {rc}")
+    return out.value
+
+
 def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                      rstd: torch.Tensor):
     """``(dx [n, d], dgamma [d])`` in x's dtype from the forward's ``rstd``."""
@@ -88,15 +163,15 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     n, d = x.shape
     _check(tuple(dy.shape) == (n, d) and dy.dtype == x.dtype, "dy must match x")
     _check(tuple(rstd.shape) == (n,) and rstd.dtype == torch.float32, "rstd must be [n] fp32")
-    fns = _lib()
+    dev = x.device
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
-    part = torch.empty((fns["blocks"](n), d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fns["bwd"](_DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
-                        rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), part.data_ptr(),
-                        n, d, stream)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, dy, dx))
+    plan = bwd_plan(n, d, sm_count(dev), x.element_size(), aligned)
+    part = torch.empty((plan["units"], plan["ldp"]), dtype=torch.float32, device=dev)
+    rc = invoke(_bwd_fn, dev, _DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(),
+                dy.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+                part.data_ptr(), n, d, *(plan[k] for k in BWD_ARGS))
     if rc != 0:
         raise RuntimeError(f"rmsnorm backward launch failed: cudaError {rc}")
     BWD.launches += 1
