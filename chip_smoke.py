@@ -11,7 +11,9 @@ Phases, one report line each (the last line is the JSON verdict):
             version at the shapes the serving paths give it (target and
             draft prefill, verify at s = 0, 3, 8, draft decode; phase 6b's
             B = 1 prefills of a padded prompt into a 512-row ring and its
-            B = 16 draft decode) plus GQA (G = 4, 7, 10), window, prefix,
+            B = 16 draft decode; phase 6c's chunks: T 64 at offset 192 of a
+            ring read through 256 rows, target and draft) plus GQA (G = 4,
+            7, 10), window, prefix,
             fully masked rows, int8 + scales, ragged cache lengths, and
             long caches at small B whose key range is split across blocks
             (gated: they must split), in fp32 and bf16, with its time beside
@@ -24,9 +26,11 @@ Phases, one report line each (the last line is the JSON verdict):
             T 1, 4, 7, ragged tables with holes and an empty slot, and a
             full pool of 192 blocks), GQA at yi-9b widths and at G = 7
             and 10, window, prefix, int8 + scales, block size 8, all
-            slots empty and one slot of 31 blocks (split across blocks),
-            in fp32 and bf16; K3 must equal K2 bit for bit, and each row
-            gives its split count and the device kernels a call issues.
+            slots empty, one slot of 31 blocks (split across blocks) and
+            a chunked prefill's chunk (B 1, T 64 and 128 after 256 rows of
+            context, and T 64 at G = 4), in fp32 and bf16; K3 must equal
+            K2 bit for bit, and each row gives its split count and the
+            device kernels a call issues.
 2c. train kernels  K4 (flash attention) and K5 (RMSNorm), forward and
             backward, held against their plain versions and autograd through
             the plain forward at the training shapes (internlm2-1.8b, the
@@ -54,15 +58,29 @@ Phases, one report line each (the last line is the JSON verdict):
 6a. continuous parity  the live continuous-batching runtime
             (``serve_continuous_live``) on the full-width pair cut to 2
             layers, fp32, with an undersized paged pool: tokens of the
-            paged run, the contiguous run and each request's solo
-            ``generate`` identical, preemptions seen, the paged StepTrace
-            equal to its ``SimStepBackend`` replay, and the model's paged
+            paged run, the contiguous run, both again with chunked prefill
+            (``PrefillBudgetAdmit(16, chunk=8)``, a prompt over >= 3
+            chunks) and each request's solo ``generate`` identical,
+            preemptions seen, every StepTrace (chunk events included) equal
+            to its ``SimStepBackend`` replay, and the model's paged
             ``decode_step`` giving the same logits through K2 and K3.
 6b. continuous serve  ``serve_continuous_live`` on the full-width pair in
             bf16 with phase 4's LUT: 16 slots, a paged pool of 144 blocks
             that runs short as requests grow, so running requests are
             preempted and re-prefilled; 32 requests; the ragged kernel's
             launches read around it.
+6c. chunked serve  the same pair and pool with chunked prefill
+            (``PrefillBudgetAdmit(128, chunk=64)``): 24 requests of 64-448
+            prompt tokens, every request finished, prompts over >= 3
+            chunks, the budget kept, the StepTrace replayed, K3 launched
+            32 x (steps + chunks) times and no plain version; the same
+            trace admitted whole beside it; then one 448-token prompt in
+            64-token chunks against ``prefill_into``, both in bf16, with
+            the whole route in fp32 as the reference: positions and layer
+            0's K/V rows equal, every layer's rows (through the slot's
+            table) and the first step's logits no further from fp32 than
+            the whole route's, 1.5x in relative RMS; the elementwise 1e-2
+            comparison and the greedy tokens of both reported.
 7.  train   the training path: the full-width OPT-125M draft distilled for
             20 steps against phase 4's OPT-6.7B teacher (the KL must fall;
             acceptance at s = 4 before and after); the internlm2-1.8b
@@ -418,6 +436,14 @@ def k1_specs():
         ("gqa_g10_verify_t4", dict(B=8, T=4, H=40, KVH=4, hd=128, L=L, n_ctx=150)),
         ("gqa_g10_prefill_t100", dict(B=1, T=100, H=40, KVH=4, hd=128, L=512, n_ctx=1,
                                       kv_len=90)),
+        # chunked prefill on phase 6b's widths (DecoderLM.prefill_chunk): a
+        # chunk of 64 rows at offset 192 of a slot's 512-row ring, attended
+        # through its first R = 256 rows, for the target (a contiguous pool)
+        # and the draft (its ring trails the paged target in phase 6c)
+        ("chunk_target_t64_at192_r256", dict(B=1, T=64, H=T_H, KVH=T_KVH, hd=T_HD, L=256,
+                                             n_ctx=193)),
+        ("chunk_draft_t64_at192_r256", dict(B=1, T=64, H=D_H, KVH=D_KVH, hd=D_HD, L=256,
+                                            n_ctx=193)),
         # one request decoding near the end of a 512-row ring: only the
         # splits fill the card
         ("b1_decode_l512", dict(B=1, T=1, H=T_H, KVH=T_KVH, hd=T_HD, L=512, n_ctx=500)),
@@ -640,6 +666,11 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
                             ctx=ragged_ctx(8, 4), holes=((2, 0), (5, 1)))),
         # one slot near phase 6b's 512-row cap: only the splits fill the card
         ("b1_t1_31_blocks", dict(B=1, T=1, ctx=[496], **opt)),
+        # a chunked prefill's target chunk (phase 6c; DecoderLM.prefill_chunk
+        # on the paged pool): one slot, T query rows after 256 rows of context
+        ("opt_chunk_t64", dict(B=1, T=64, ctx=[257], **opt)),
+        ("opt_chunk_t128", dict(B=1, T=128, ctx=[257], **opt)),
+        ("gqa_g4_chunk_t64", dict(B=1, T=64, H=32, KVH=8, hd=128, bs=16, MAXB=32, ctx=[257])),
     ]
     rows = []
     for i, (name, kw) in enumerate(specs):
@@ -1362,16 +1393,47 @@ def continuous_requests(np, Request, vocab, n, lens, max_new, interval, seed):
 
 
 def trace_signature(trace):
-    """The scheduling decisions of a StepTrace, without its clock."""
-    return [(t.occupancy, t.s, t.rids, t.committed, t.admitted, t.preempted, t.done_rids)
-            for t in trace]
+    """The scheduling decisions of a StepTrace, chunk events included,
+    without its clock."""
+    return [(t.occupancy, t.s, t.rids, t.committed, t.admitted, t.preempted, t.done_rids,
+             t.chunked) for t in trace]
+
+
+def replays_equal(np, m, res, reqs, controller, policy, capacity, **geo):
+    """Whether ``SimStepBackend`` replaying ``res``'s recorded outcomes (with
+    the live pool's block geometry ``geo``) re-derives its StepTrace."""
+    import copy
+    acc, dur, pre, done, chunk = m.replay_sources(res.trace)
+    bs = (1, 2, 4, 8, 16)
+    model = m.LatencyModel(alpha={b: 1e-4 for b in bs}, beta={b: 5e-3 for b in bs},
+                           t_s={b: 2e-4 for b in bs}, c=0.9, gamma=0.548)
+    sim = m.ContinuousScheduler(
+        m.SimStepBackend(model, capacity=capacity, accept_source=acc, duration_source=dur,
+                         prefill_source=pre, done_source=done, chunk_source=chunk, **geo),
+        controller, policy)
+    sim.run(copy.deepcopy(reqs))
+    return trace_signature(sim.trace) == trace_signature(res.trace)
+
+
+def chunk_counts(res):
+    """Chunk events of a run: per request, and the largest per iteration."""
+    per_rid = {}
+    for t in res.trace:
+        for rid, _ in t.chunked:
+            per_rid[rid] = per_rid.get(rid, 0) + 1
+    return dict(chunk_events=sum(per_rid.values()),
+                max_chunks_per_prompt=max(per_rid.values(), default=0),
+                max_chunk_tokens_per_iteration=max(
+                    (sum(n for _, n in t.chunked) for t in res.trace), default=0))
 
 
 def phase_continuous_parity(torch, np, R, m):
     """fp32, the full-width pair cut to 2 layers: the paged live run, the
-    contiguous live run and solo generate give the same tokens; the paged
-    run preempts; its StepTrace replays on the sim backend; and the model's
-    paged decode_step gives the same logits through K2 and K3."""
+    contiguous live run, both again with chunked prefill
+    (``PrefillBudgetAdmit(16, chunk=8)``) and solo generate give the same
+    tokens; the paged runs preempt; every StepTrace replays on the sim
+    backend; and the model's paged decode_step gives the same logits through
+    K2 and K3."""
     import copy
     tcfg = R.get_config("opt-6.7b").with_(n_layers=2)
     dcfg = R.get_draft_config("opt-6.7b").with_(n_layers=2)
@@ -1383,31 +1445,31 @@ def phase_continuous_parity(torch, np, R, m):
     ctrl = m.fixed_controller(3)
     geo = dict(capacity=8, cache_len=96)
     paged_geo = dict(block_size=16, num_blocks=12)
+    budget = dict(token_budget=16, chunk=8)
     runs = {}
-    for name, kw in (("paged", paged_geo), ("contiguous", {})):
+    for name, kw, chunked in (("paged", paged_geo, False), ("contiguous", {}, False),
+                              ("paged_chunked", paged_geo, True),
+                              ("contiguous_chunked", {}, True)):
         be = m.ContinuousEngineBackend(eng, tp, dp, collect_outputs=True, warm_s=(3,),
                                        **geo, **kw)
+        pol = m.PrefillBudgetAdmit(**budget) if chunked else None
         runs[name] = (m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl,
-                                              backend=be), be)
+                                              backend=be, policy=pol), be)
     res, be = runs["paged"]
     mismatched = []
     for r in reqs:
         solo, _, _ = eng.generate(tp, dp, r.tokens[None], np.array([r.prompt_len], np.int32),
                                   s=3, cache_len=96)
-        outs = [runs[k][1].outputs[r.rid] for k in ("paged", "contiguous")]
-        if not all(np.array_equal(o, solo[0][:r.max_new]) for o in outs):
+        if not all(np.array_equal(runs[k][1].outputs[r.rid], solo[0][:r.max_new])
+                   for k in runs):
             mismatched.append(r.rid)
-    n_pre = sum(len(t.preempted) for t in res.trace)
-    acc, dur, pre, done, chunk = m.replay_sources(res.trace)
-    bs = (1, 2, 4, 8)
-    model = m.LatencyModel(alpha={b: 1e-4 for b in bs}, beta={b: 5e-3 for b in bs},
-                           t_s={b: 2e-4 for b in bs}, c=0.9, gamma=0.548)
-    sim = m.ContinuousScheduler(
-        m.SimStepBackend(model, capacity=8, accept_source=acc, duration_source=dur,
-                         prefill_source=pre, done_source=done, chunk_source=chunk,
-                         max_context=96, **paged_geo), ctrl)
-    sim.run(copy.deepcopy(reqs))
-    replay_equal = trace_signature(sim.trace) == trace_signature(res.trace)
+    n_pre = {k: sum(len(t.preempted) for t in runs[k][0].trace) for k in runs}
+    replay_equal = {
+        k: replays_equal(np, m, runs[k][0], reqs, ctrl,
+                         m.PrefillBudgetAdmit(**budget) if k.endswith("chunked") else None,
+                         8, max_context=96, **(paged_geo if k.startswith("paged") else {}))
+        for k in runs if k != "contiguous"}
+    chunks = {k: chunk_counts(runs[k][0]) for k in ("paged_chunked", "contiguous_chunked")}
 
     # the model's paged decode_step through K2 (no cu_blocks) and K3
     state = eng.init_slots(4, 96, block_size=16)
@@ -1426,17 +1488,42 @@ def phase_continuous_parity(torch, np, R, m):
     dense_launches = m.K23.DENSE.launches
     lg_ragged, _ = eng.target.decode_step(tp, feed, state.tcache, state.seq_lens, cu)
     model_equal = bool(torch.equal(lg_dense, lg_ragged))
-    line = dict(requests=len(reqs), tokens_equal_paged_contiguous_solo=not mismatched,
+    line = dict(requests=len(reqs), tokens_equal_whole_chunked_solo=not mismatched,
                 mismatched_rids=mismatched, preemptions=n_pre,
-                steps=len(res.trace), sim_replay_equal=replay_equal,
+                steps={k: len(runs[k][0].trace) for k in runs}, chunks=chunks,
+                sim_replay_equal=replay_equal,
                 model_decode_k2_equals_k3=model_equal, k2_launches=dense_launches)
     print("  " + json.dumps(line), flush=True)
-    check(not mismatched, f"paged / contiguous / solo tokens differ for rids {mismatched}")
-    check(n_pre > 0, "the undersized pool never preempted")
-    check(replay_equal, "the paged StepTrace differs from its SimStepBackend replay")
+    check(not mismatched, f"paged / contiguous (whole or chunked) / solo tokens differ for "
+                          f"rids {mismatched}")
+    check(n_pre["paged"] > 0, "the undersized pool never preempted")
+    check(all(replay_equal.values()),
+          f"a StepTrace differs from its SimStepBackend replay: {replay_equal}")
+    check(all(c["max_chunks_per_prompt"] >= 3 for c in chunks.values()),
+          f"no prompt spanned 3 chunks: {chunks}")
+    check(all(c["max_chunk_tokens_per_iteration"] <= budget["token_budget"]
+              for c in chunks.values()), f"an iteration's chunks exceed the budget: {chunks}")
     check(model_equal, "the paged decode_step differs between K2 and K3")
     check(dense_launches > 0, "the paged decode_step without cu_blocks never launched K2")
     return line
+
+
+def serve_line(m, res, wall):
+    """End-to-end numbers of one serve_continuous_live run, with the mean
+    host seconds of a step, a whole-prompt prefill and a chunk."""
+    busy = sum(b.duration for b in res.batches)
+    prefills = [dt for t in res.trace for dt in t.prefill_s if dt >= 0]   # -1: chunked
+    chunks = [dt for t in res.trace for dt in t.chunk_s]
+    return dict(
+        wall_s=wall, ttft=dataclasses.asdict(m.ttft_summary(res)),
+        itl=dataclasses.asdict(m.itl_summary(res)),
+        tokens_per_s=sum(r.n_generated for r in res.requests) / busy,
+        goodput=m.goodput(res), steps=len(res.batches), mean_occupancy=m.mean_occupancy(res),
+        s_used=sorted({b.s_used for b in res.batches}),
+        preemptions=sum(len(t.preempted) for t in res.trace),
+        step_s_mean=busy / max(len(res.batches), 1),
+        prefill_s_mean=sum(prefills) / max(len(prefills), 1), prefills=len(prefills),
+        chunk_s_mean=sum(chunks) / max(len(chunks), 1))
 
 
 def phase_continuous_serve(torch, np, R, m, lut_table):
@@ -1482,26 +1569,191 @@ def phase_continuous_serve(torch, np, R, m, lut_table):
                     plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
                            + m.ops.PLAIN_RMSNORM.launches))
     done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
-    busy = sum(b.duration for b in res.batches)
-    n_pre = sum(len(t.preempted) for t in res.trace)
     line = dict(
-        requests=len(reqs), finished=len(done), wall_s=wall,
-        ttft=dataclasses.asdict(m.ttft_summary(res)), itl=dataclasses.asdict(m.itl_summary(res)),
-        tokens_per_s=sum(r.n_generated for r in res.requests) / busy,
-        goodput=m.goodput(res), steps=len(res.batches),
-        mean_occupancy=m.mean_occupancy(res),
-        s_used=sorted({b.s_used for b in res.batches}),
-        preemptions=n_pre,
+        requests=len(reqs), finished=len(done), **serve_line(m, res, wall),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         grid_steps_ragged=grid["ragged"], grid_steps_dense=grid["dense"],
         launches=launches)
     print("  " + json.dumps(line), flush=True)
     check(len(done) == len(reqs), f"{len(reqs) - len(done)} requests did not finish")
-    check(n_pre > 0, "the paged pool never ran short: no request was preempted")
+    check(line["preemptions"] > 0, "the paged pool never ran short: no request was preempted")
     check(launches["k3"] > 0, "the paged serving path never launched K3")
     check(launches["k1"] > 0, "the paged serving path never launched K1")
     check(launches["k5"] > 0, "the paged serving path never launched K5")
     check(launches["plain"] == 0, "a plain version ran on the card")
+    return line
+
+
+def chunked_rows_check(torch, np, m, eng, tp, dp, vocab, plen=448, chunk=64):
+    """One ``plen``-token prompt fed in ``chunk``-token chunks into a paged
+    pool (the target's chunks on K3, the draft's on K1) against the same
+    prompt by ``prefill_into`` (K1 over a ring, then copied into blocks),
+    both in bf16, with the whole route in fp32 (the bf16 weights cast) as
+    the reference.  Gated: positions equal; layer 0's K/V rows equal (no
+    attention before them); at every layer the chunked rows, read through
+    the slot's table, no further from the fp32 rows than the whole route's,
+    1.5x in relative RMS (phase 7's rule for two bf16 routes), over the
+    layer and in its worst row; the same for the first step's logits.
+    Reported: the elementwise 1e-2 (abs + rel) comparison of the two bf16
+    routes, and their greedy tokens."""
+    rng = np.random.default_rng(29)
+    prompt = rng.integers(0, vocab, plen).astype(np.int32)
+
+    def fill(e, tparams, dparams, chunked):
+        st = e.init_slots(1, 512, block_size=16)
+        if not chunked:
+            toks = np.ones((512,), np.int32)
+            toks[:plen] = prompt
+            return e.prefill_into(tparams, dparams, st, 0, toks, plen, 512)
+        cur = 0
+        while cur < plen - 1:
+            n = min(chunk, plen - 1 - cur)
+            toks = np.ones((chunk,), np.int32)
+            toks[:n] = prompt[cur:cur + n]
+            st = e.prefill_chunk_into(tparams, dparams, st, 0, toks, cur, n, plen,
+                                      last2=prompt[-2:] if cur + n == plen - 1 else None)
+            cur += n
+        return st
+
+    def rows(st):
+        """K, V and pos of the prefilled rows through the slot's table, and
+        the draft ring's K and V, in fp32."""
+        ids = torch.tensor(st.paged.table(0), device="cuda")
+        out = {n: st.tcache[n][:, ids].flatten(1, 2)[:, :plen - 1].float() for n in ("k", "v")}
+        out.update({"draft_" + n: st.dcache[n][:, 0, :plen - 2].float() for n in ("k", "v")})
+        return out, st.tcache["pos"][ids].flatten()[:plen - 1]
+
+    def first_logits(e, tparams, st):
+        """The target's logits of the first decode step (s = 0: the last
+        prompt token at position plen - 1), through K3 as the step runs it."""
+        cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).cuda()
+        lg, _ = e.target.decode_step(tparams, st.last2[:, 1:], st.tcache, st.seq_lens, cu)
+        return lg[0, -1, :vocab].float()
+
+    def rel_rms(x, want, dims):
+        return ((x - want) ** 2).mean(dims).sqrt() / (want ** 2).mean(dims).sqrt()
+
+    whole, chunked = fill(eng, tp, dp, False), fill(eng, tp, dp, True)
+    (rw, pw), (rc, pc) = rows(whole), rows(chunked)
+    lw, lc = first_logits(eng, tp, whole), first_logits(eng, tp, chunked)
+    e32 = m.SpecDecodeEngine(eng.tcfg, eng.dcfg, max_new=eng.max_new, dtype=torch.float32,
+                             device="cuda")
+    tp32, dp32 = (tree_map(lambda t: t.float(), p) for p in (tp, dp))
+    ref = fill(e32, tp32, dp32, False)
+    rf, _ = rows(ref)
+    lf = first_logits(e32, tp32, ref)
+    del e32, tp32, dp32, ref
+    torch.cuda.empty_cache()
+    ratio = BF16_GRAD_RMS_RATIO
+    tol = TOL["bfloat16"]
+    ok = bool(torch.equal(pc, pw))
+    stats = {}
+    for name in rw:
+        w, c, f = rw[name], rc[name], rf[name]
+        layer_w, layer_c = rel_rms(w, f, (1, 2, 3)), rel_rms(c, f, (1, 2, 3))
+        row_w, row_c = (rel_rms(x, f, (2, 3)).max(1).values for x in (w, c))
+        err = (c - w).abs()
+        beyond = (err > tol + tol * w.abs()).flatten(1).float().mean(1)
+        layer0 = bool(torch.equal(c[0], w[0]))
+        ok &= layer0 and bool((layer_c <= ratio * layer_w).all()) \
+            and bool((row_c <= ratio * row_w).all())
+        stats[name] = dict(layer0_equal=layer0,
+                           rel_rms_vs_fp32_deepest=[float(layer_w[-1]), float(layer_c[-1])],
+                           worst_layer_ratio=float((layer_c / layer_w).max()),
+                           worst_row_ratio=float((row_c / row_w).max()),
+                           max_abs_err_vs_whole=float(err.max()),
+                           beyond_1e2_share_deepest=float(beyond[-1]),
+                           beyond_1e2_share_layer1=float(beyond[min(1, len(beyond) - 1)]))
+    logits_ok = bool(rel_rms(lc, lf, 0) <= ratio * rel_rms(lw, lf, 0))
+    lerr = (lc - lw).abs()
+    tokens = {}
+    for name, st in (("whole", whole), ("chunked", chunked)):
+        for _ in range(eng.max_new + 2):
+            st, _ = eng.step(tp, dp, st, 0)
+            if bool(st.done.all().cpu()):
+                break
+        tokens[name] = st.out[0, :eng.max_new].cpu().numpy()
+    same = tokens["whole"] == tokens["chunked"]
+    line = dict(prompt=plen, chunk=chunk, rows_ok=ok, rows=stats, logits_ok=logits_ok,
+                logits_rel_rms_vs_fp32=[float(rel_rms(lw, lf, 0)), float(rel_rms(lc, lf, 0))],
+                logits_max_abs_err_vs_whole=float(lerr.max()),
+                logits_beyond_1e2_share=float((lerr > tol + tol * lw.abs()).float().mean()),
+                first_token_equal=bool(lw.argmax() == lc.argmax()),
+                greedy_tokens_equal=int(same.sum()), greedy_tokens=int(same.size),
+                first_divergence=None if same.all() else int(np.argmin(same)))
+    print("  chunked vs whole prefill (bf16): " + json.dumps(line), flush=True)
+    check(ok, f"chunked prefill's rows differ from the whole route's beyond its own bf16 "
+              f"error: {stats}")
+    check(logits_ok, "the first step's logits after a chunked prefill are further from fp32 "
+                     f"than {ratio}x the whole route's")
+    return line
+
+
+def phase_chunked_serve(torch, np, R, m, lut_table):
+    """bf16, full depth: serve_continuous_live with chunked prefill
+    (``PrefillBudgetAdmit(128, chunk=64)``) on phase 6b's pair and paged
+    pool, 24 requests of 64-448 prompt tokens; every request finishes,
+    prompts span >= 3 chunks, no iteration's chunks exceed the budget, the
+    StepTrace replays on the sim backend, K3 runs once per layer in every
+    step and every chunk forward and no plain version runs; the same trace
+    with whole-prompt admission beside it; then a 448-token prompt chunked
+    against ``prefill_into`` (``chunked_rows_check``)."""
+    import copy
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    lut = {int(b): int(v) for b, v in lut_table.items()}
+    reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 24, (64, 448), 32, 0.05, 31)
+    budget = dict(token_budget=128, chunk=64)
+    geo = dict(capacity=16, cache_len=512, block_size=16, num_blocks=144)
+    eng.load_kernels(paged=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (m.K1.KERNEL, m.K23.DENSE, m.K23.RAGGED, m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN,
+                m.ops.PLAIN_RMSNORM)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp,
+                                  m.AdaptiveController(lut=m.SpeculationLUT(lut)),
+                                  policy=m.PrefillBudgetAdmit(**budget), **geo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(k1=m.K1.KERNEL.launches, k2=m.K23.DENSE.launches,
+                    k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+                    plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                           + m.ops.PLAIN_RMSNORM.launches))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    chunks = chunk_counts(res)
+    # K3 carries the target's attention in every step's verify and in every
+    # chunk forward on the paged pool, once per layer; nothing else calls it
+    k3_expected = tcfg.n_layers * (len(res.batches) + chunks["chunk_events"])
+    done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+    replay = replays_equal(np, m, res, reqs, m.AdaptiveController(lut=m.SpeculationLUT(lut)),
+                           m.PrefillBudgetAdmit(**budget), 16, max_context=512,
+                           block_size=16, num_blocks=144)
+    t0 = time.perf_counter()
+    whole = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp,
+                                    m.AdaptiveController(lut=m.SpeculationLUT(lut)), **geo)
+    torch.cuda.synchronize()
+    line = dict(requests=len(reqs), finished=len(done), **serve_line(m, res, wall),
+                peak_memory_gb=peak, **chunks, sim_replay_equal=replay, launches=launches,
+                k3_expected=k3_expected,
+                whole_prompt=serve_line(m, whole, time.perf_counter() - t0))
+    print("  " + json.dumps(line), flush=True)
+    check(len(done) == len(reqs), f"{len(reqs) - len(done)} requests did not finish")
+    check(chunks["max_chunks_per_prompt"] >= 3, "no prompt spanned 3 chunks")
+    check(chunks["max_chunk_tokens_per_iteration"] <= budget["token_budget"],
+          "an iteration's chunk tokens exceed the budget")
+    check(replay, "the chunked StepTrace differs from its SimStepBackend replay")
+    check(launches["k3"] == k3_expected,
+          f"K3 ran {launches['k3']} times, not 32 x (steps + chunks) = {k3_expected}")
+    check(launches["k1"] > 0 and launches["k5"] > 0, "K1 or K5 never ran")
+    check(launches["plain"] == 0, "a plain version ran on the card")
+    line["rows"] = chunked_rows_check(torch, np, m, eng, tp, dp, tcfg.vocab_size)
     return line
 
 
@@ -2061,6 +2313,7 @@ def main() -> int:
         ContinuousScheduler=scheduler.ContinuousScheduler,
         SimStepBackend=scheduler.SimStepBackend, replay_sources=scheduler.replay_sources,
         serve_continuous_live=scheduler.serve_continuous_live,
+        PrefillBudgetAdmit=scheduler.PrefillBudgetAdmit,
         ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
         goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy,
         R=R, DecoderLM=DecoderLM, train=train, measure_acceptance=adaptive.measure_acceptance,
@@ -2187,6 +2440,11 @@ def main() -> int:
     print(json.dumps({"phase": "continuous_serve", "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 6c. chunked prefill on the continuous main path, bf16, full depth ----
+    chunked = phase_chunked_serve(torch, np, R, m, res["lut"])
+    print(json.dumps({"phase": "chunked_serve", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----
     distill = phase_distill(torch, np, R, m)
     print(json.dumps({"phase": "distill", "ok": True}), flush=True)
@@ -2212,6 +2470,12 @@ def main() -> int:
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
+    keys = ("case", "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "n_splits", "device_kernels")
+    k1_chunk = [{k: r[k] for k in keys} for r in rows
+                if r["case"].startswith("chunk_") and r["dtype"] == "bfloat16"]
+    k3_chunk = [{k: r[k] for k in keys} for r in prows
+                if "_chunk_" in r["case"] and r["dtype"] == "bfloat16"]
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
     paged_shape = "target verify s=0, " + phead["shape"] + ", bf16"
     paged_common = {"max_abs_err": phead["max_abs_err"], "plain_ms": phead["plain_ms"],
@@ -2230,9 +2494,8 @@ def main() -> int:
         "device_kernels_per_call": head["device_kernels"],
         "shape": "target verify s=3, " + head["shape"] + ", bf16",
         "launches_continuous": live["launches"]["k1"],
-        "prefill": {k: pre[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms",
-                                        "library_ms", "bound_ms", "bound_by", "n_splits",
-                                        "device_kernels")},
+        "prefill": {k: pre[k] for k in keys},
+        "chunk": k1_chunk, "launches_chunked": chunked["launches"]["k1"],
     }, {
         "name": "paged_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify_attn.cu",
@@ -2246,6 +2509,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_verify_attn.py:445",
         "launches": live["launches"]["k3"], "ms": phead["ms"],
         "launches_from": "phase 6b, serve_continuous_live on the paged pool",
+        "chunk": k3_chunk, "launches_chunked": chunked["launches"]["k3"],
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash)
         + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),

@@ -1,6 +1,6 @@
 """Batched speculative decoding (paper §3, Algorithm 1): the port of
-``repro.core.spec_decode`` for greedy verification, without chunked
-prefill, the prefix cache or sharded pools.
+``repro.core.spec_decode`` for greedy verification, without the mixed
+verify+chunk launch, the prefix cache or sharded pools.
 
 One speculative step at speculation length ``s`` for a batch of ``b``
 ragged requests:
@@ -47,6 +47,12 @@ recycled block never leaks stale keys.  The draft's small cache
 stays a ring at the per-slot logical length.  ``warm=True`` on these
 methods only loads the kernels and leaves the state as it is: there is no
 compile to warm, and the state is written in place.
+
+Chunked prefill: :meth:`~SpecDecodeEngine.prefill_chunk_into` feeds a
+prompt into a slot in chunks between the steps of the running batch
+(``DecoderLM.prefill_chunk``: K1 over the slot's ring, K3 over a paged
+pool through the slot's table); the slot joins the decode batch after the
+final chunk in the state a whole-prompt ``prefill_into`` leaves.
 """
 from __future__ import annotations
 
@@ -273,6 +279,137 @@ class SpecDecodeEngine:
                 full.copy_(single)
             else:
                 full.select(ax, slot).copy_(single.select(ax, 0))
+
+    # ------------------------------------------------------------------
+    # chunked prefill into a slot (the scheduler interleaves the chunks
+    # with the decode steps of the running batch)
+
+    @staticmethod
+    def _ring_view(cache: Dict, slot: int) -> Dict:
+        """The B = 1 view of a contiguous pool's slot (k/v on axis 1, pos
+        on axis 0): writes through it land in the pool in place."""
+        return {name: (t.narrow(0, slot, 1) if name == "pos" else t.narrow(1, slot, 1))
+                for name, t in cache.items()}
+
+    def prefill_chunk_into(self, tparams, dparams, state: DecodeState,
+                           slot: int, tokens, start: int, n: int,
+                           total_len: int, last2=None, *,
+                           warm: bool = False) -> DecodeState:
+        """Feed one prefill chunk of a request into row ``slot``, in place.
+
+        The request's feed (prompt, or prompt + pre-preemption stash) has
+        ``total_len`` tokens; this call writes feed positions ``[start,
+        start + n)`` of the target cache (the draft trails by one: its
+        limit is ``total_len - 2``, as in the whole-prompt prefill, which
+        leaves the last prompt token to the first decode step).
+        ``tokens`` is the bucket-padded chunk (its first ``n`` entries
+        real).
+
+        Row-state contract (what the interleaved decode steps may observe):
+
+        * **first chunk** (``start == 0``): the slot's stale ``pos`` rows
+          are wiped (contiguous target ring and draft ring: a previous
+          occupant's keys must never be attendable) and ``seq_lens[slot]``
+          is PARKED at ``total_len``.  Parking is load-bearing: the slot is
+          still ``done``, so interleaved steps write masked garbage for it,
+          and at ``seq_lens = total_len`` those writes land at positions
+          ``>= total_len - 1``, beyond every chunk query, and are rewritten
+          by the slot's own first decode step before they can be attended.
+          On a paged pool the slot is also marked *pending*: its device
+          block-table row stays ``-1`` (decode writes go to the trash
+          block) until the final chunk publishes it.
+        * **middle chunks**: only cache rows ``[start, start + n)`` change;
+          ``done``, ``out``, ``n_generated`` and ``last2`` stay as they are.
+        * **final chunk** (``start + n == total_len - 1``): ``last2`` (the
+          feed's final two tokens) must be given; the commit leaves the
+          row state a whole-prompt ``prefill_into`` would have left:
+          ``seq_lens = total_len``, ``last2`` set, ``out`` zeroed,
+          ``n_generated = 0``, ``done = False`` and (paged) the block table
+          published, including the block of row ``total_len - 1``, which
+          the first decode step writes.
+
+        ``warm=True`` only loads the kernels and returns the state as it
+        is.  An SSM target has no chunked prefill and raises."""
+        if not hasattr(self.target, "prefill_chunk") or (
+                self.draft is not None and not hasattr(self.draft, "prefill_chunk")):
+            raise NotImplementedError(
+                f"chunked prefill is not supported for family "
+                f"'{self.tcfg.family}' (model lacks a prefill_chunk path)")
+        pk = state.paged
+        paged = pk is not None
+        if warm:
+            self.load_kernels(paged)
+            return state
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        CB = int(tokens.shape[0])
+        feed_total = total_len - 1
+        final = start + n == feed_total
+        if not 0 < n <= CB:
+            raise ValueError(f"chunk carries n={n} tokens in a {CB} bucket")
+        if start + n > feed_total:
+            raise ValueError(
+                f"chunk [{start}, {start + n}) overruns the {feed_total}"
+                f"-token feed (prompt of {total_len})")
+        if final and (last2 is None or len(np.asarray(last2)) != 2):
+            raise ValueError(
+                "the final chunk must pass last2 = the feed's last 2 tokens")
+
+        # ---- first chunk: wipe stale rows, park seq_lens ----
+        if start == 0:
+            if not paged:
+                state.tcache["pos"][slot] = -1
+            if self.draft is not None:
+                state.dcache["pos"][slot] = -1
+            state.seq_lens[slot] = total_len
+
+        # ---- host block accounting + this chunk's block table ----
+        if paged:
+            if start == 0:
+                pk.prefill(slot, n)
+                pk.mark_pending(slot)
+            else:
+                pk.ensure(slot, start + n)
+                pk.commit(slot, n)
+            bt_row = np.full((pk.max_blocks,), -1, np.int32)
+            ids = pk.table(slot)
+            bt_row[:len(ids)] = ids
+
+        # ---- the chunk forward, target then draft ----
+        L = pk.logical_len if paged else int(state.tcache["pos"].shape[1])
+        # every attendable key lives below row start + CB until the ring
+        # wraps, so the ring forwards attend a power-of-two cover of it
+        R = min(max(1 << (start + CB - 1).bit_length(), 16), L)
+        toks = self._tensor(tokens, torch.long)[None]
+        off = self._tensor([start])
+        if paged:
+            # the pool is the B = 1 cache (writes land through the slot's
+            # host table); the device bt row stays -1 until the commit
+            t1 = dict(state.tcache, bt=self._tensor(bt_row[None]))
+            self.target.prefill_chunk(tparams, toks, t1, off, self._tensor([feed_total]),
+                                      cu_blocks=self._tensor(host_cu_blocks(bt_row[None])))
+        else:
+            self.target.prefill_chunk(tparams, toks, self._ring_view(state.tcache, slot),
+                                      off, self._tensor([feed_total]), rows_limit=R)
+        if self.draft is not None:
+            self.draft.prefill_chunk(dparams, toks, self._ring_view(state.dcache, slot),
+                                     off, self._tensor([feed_total - 1]), rows_limit=R)
+
+        # ---- final chunk: the slot becomes a live decode row ----
+        if final:
+            if paged:
+                # cover row total_len - 1 (written by the first decode step)
+                pk.ensure(slot, total_len)
+                pk.commit(slot, 1)
+                pk.clear_pending(slot)
+                ids = pk.table(slot)
+                bt_row[:len(ids)] = ids
+                state.tcache["bt"][slot] = self._tensor(bt_row)
+            state.seq_lens[slot] = total_len
+            state.last2[slot] = self._tensor(np.asarray(last2, np.int32))
+            state.out[slot] = 0
+            state.n_generated[slot] = 0
+            state.done[slot] = False
+        return state
 
     def retire_slot(self, state: DecodeState, slot: int) -> DecodeState:
         """Free a slot (mark it done), in place and with no host read: the

@@ -11,6 +11,8 @@ Entry points:
                      prompt's own K/V, then one cache write per layer
   ``decode_step``    incremental forward of T new tokens against the cache
                      (T = 1 for plain decode, T = s+1 for speculative verify)
+  ``prefill_chunk``  one prefill chunk written at ``offset ..`` and attending
+                     the prefix already in the cache (chunked prefill)
 
 The ring cache is indexed by absolute position modulo cache length, with a
 per-row absolute-position array ``pos`` driving the attention mask, so
@@ -134,18 +136,31 @@ class DecoderLM:
 
     def _attn_decode(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos_arr: torch.Tensor, rows: torch.Tensor,
-                     rope) -> torch.Tensor:
+                     pos_arr: torch.Tensor, rows: torch.Tensor, rope,
+                     valid: Optional[torch.Tensor] = None,
+                     rows_limit: Optional[int] = None) -> torch.Tensor:
         """Write the new K/V rows at ``rows`` [B,T] (in place), then attend.
-        ``pos_arr`` [B,L] already holds the new rows' positions."""
+        ``pos_arr`` [B,L] already holds the new rows' positions.
+
+        ``valid`` [B,T] marks the columns to write: a column outside it
+        writes its row's old value back (the ring has no row to drop a
+        write into, as the JAX package's ``mode="drop"`` does), so that row
+        is left as it was.  ``rows_limit`` bounds the attended rows to the
+        first ``rows_limit`` of the ring; the writes still land anywhere."""
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
         bidx = torch.arange(B, device=x.device)[:, None]
-        k_cache[bidx, rows] = k_new.to(k_cache.dtype)
-        v_cache[bidx, rows] = v_new.to(v_cache.dtype)
-        out = spec_verify_attn(q, k_cache, v_cache, positions, pos_arr,
-                               window=a.window)
+        k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+        if valid is not None:
+            keep = valid[:, :, None, None]
+            k_new = torch.where(keep, k_new, k_cache[bidx, rows])
+            v_new = torch.where(keep, v_new, v_cache[bidx, rows])
+        k_cache[bidx, rows] = k_new
+        v_cache[bidx, rows] = v_new
+        R = pos_arr.shape[1] if rows_limit is None else rows_limit
+        out = spec_verify_attn(q, k_cache[:, :R], v_cache[:, :R], positions,
+                               pos_arr[:, :R], window=a.window)
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_paged(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -198,9 +213,11 @@ class DecoderLM:
         return cm.rms_norm(x, params["final_norm"], c.norm_eps)
 
     def _ring_attn(self, cache: Dict, positions: torch.Tensor,
-                   rows: torch.Tensor) -> Callable:
+                   rows: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                   rows_limit: Optional[int] = None) -> Callable:
         return lambda lp, hn, i, rope: self._attn_decode(
-            lp, hn, positions, cache["k"][i], cache["v"][i], cache["pos"], rows, rope)
+            lp, hn, positions, cache["k"][i], cache["v"][i], cache["pos"], rows, rope,
+            valid, rows_limit)
 
     def _unembed(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         return cm.unembed(x, params["unembed"], self.cfg.vocab_size)
@@ -324,23 +341,74 @@ class DecoderLM:
         A slot whose table has no block there (an empty or retired slot, bt
         = -1) writes into the trash block and reads key position -1, so the
         same step serves every occupancy level."""
-        B, T = tokens.shape
-        dev = tokens.device
+        positions = ((seq_lens - 1)[:, None]
+                     + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                    device=tokens.device)[None]).to(torch.int32)
+        return self._paged_forward(params, tokens, cache, positions, cu_blocks)
+
+    def _paged_forward(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                       positions: torch.Tensor, cu_blocks: Optional[torch.Tensor],
+                       valid: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, Dict]:
+        """The decoder over the paged pool at ``positions`` [B,T], writing
+        each column through its slot's table; a column outside ``valid``
+        [B,T], or at a table hole, writes into the trash block."""
         bt = cache["bt"]                                        # [B, MAXB]
         trash, bs = cache["pos"].shape[0] - 1, cache["pos"].shape[1]
-        positions = ((seq_lens - 1)[:, None]
-                     + torch.arange(T, dtype=torch.int32, device=dev)[None]).to(torch.int32)
         blk = (positions // bs).clamp(0, bt.shape[1] - 1).long()
         off = (positions % bs).long()
         pb = torch.gather(bt, 1, blk)
-        pb = torch.where(pb < 0, trash, pb).long()
-        cache["pos"][pb, off] = positions
+        dropped = pb < 0 if valid is None else (pb < 0) | ~valid
+        pb = torch.where(dropped, trash, pb).long()
+        cache["pos"][pb, off] = (positions if valid is None
+                                 else torch.where(valid, positions, -1))
 
         def attn(lp, hn, i, rope):
             return self._attn_paged(lp, hn, positions, cache["k"][i], cache["v"][i],
                                     cache["pos"], pb, off, bt, rope, cu_blocks)
 
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
+        return self._unembed(params, x), cache
+
+    # ------------------------------------------------------------------
+    # chunked prefill (prefix extension)
+
+    def prefill_chunk(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                      offset: torch.Tensor, limit: torch.Tensor,
+                      rows_limit: Optional[int] = None,
+                      cu_blocks: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """One prefill chunk: write ``tokens`` [B, T] at absolute positions
+        ``offset .. offset+T-1`` ([B] each), attending over the prefix
+        already in the cache plus the chunk itself.  Returns (logits [B, T,
+        V], the cache written in place).
+
+        Positions at or beyond ``limit`` [B] are bucket padding and change
+        no row of the cache.  The ring has no row to drop them into, so a
+        padded column writes its row's old K, V and position back; that
+        covers the ragged final chunk whose padded tail wraps onto row 0.
+        The paged pool sends them, and table holes, to its trash block.  A
+        chunk query at position p sees exactly the keys at positions <= p,
+        which makes the chunked cache equal to a whole-prompt prefill's.
+
+        ``rows_limit`` bounds the attended ring rows (every visible key of
+        a chunk lives below row ``offset + T`` until the ring wraps);
+        ``cu_blocks [B + 1]`` selects the ragged kernel K3 on the paged
+        path, as in :meth:`decode_step`."""
+        B, T = tokens.shape
+        positions = (offset[:, None].to(torch.int32)
+                     + torch.arange(T, dtype=torch.int32, device=tokens.device)[None])
+        valid = positions < limit[:, None]
+        if "bt" in cache:
+            return self._paged_forward(params, tokens, cache, positions, cu_blocks, valid)
+        L = cache["pos"].shape[1]
+        if T > L:
+            raise ValueError(f"a chunk of {T} rows does not fit a ring of {L}")
+        rows = (positions % L).long()
+        bidx = torch.arange(B, device=tokens.device)[:, None]
+        cache["pos"][bidx, rows] = torch.where(valid, positions, cache["pos"][bidx, rows])
+        x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
+                         self._ring_attn(cache, positions, rows, valid, rows_limit))
         return self._unembed(params, x), cache
 
     @staticmethod

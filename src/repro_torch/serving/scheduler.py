@@ -33,13 +33,15 @@ accounting, so a :class:`SimStepBackend` built with the same pool geometry
 re-derives them during replay.
 
 The ``run`` loop is the JAX loop without the prefix-cache and telemetry
-branches, so StepTraces agree by construction.  Chunked prefill is kept in
-the loop and in :class:`SimStepBackend`; the live backend cannot chunk yet
-(the port's ``DecoderLM`` has no ``prefill_chunk``), so a
-:class:`PrefillBudgetAdmit` policy falls back to whole-prompt budgeting on
-it, as it does in JAX on a chunk-incapable backend.  The prefix cache, the
-mixed verify+chunk launch, sharded pools and the telemetry hub are not
-ported (ROADMAP queue 1, items 10, 9, 14 and 11) and raise
+branches, so StepTraces agree by construction.  Chunked prefill runs on
+both backends: with a :class:`PrefillBudgetAdmit` policy the live backend
+feeds long prompts in budgeted chunks between speculative steps
+(``SpecDecodeEngine.prefill_chunk_into``; K1 over a ring, K3 over a paged
+pool).  A Mamba-2 target has no chunked prefill (``can_chunk`` is false),
+so the policy falls back to whole-prompt budgeting there, as it does in
+JAX on a chunk-incapable backend.  The prefix cache, the mixed
+verify+chunk launch, sharded pools and the telemetry hub are not ported
+(ROADMAP queue 1, items 10, 9, 14 and 11) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -274,10 +276,10 @@ class ContinuousEngineBackend:
     """Live-engine step backend: a SpecDecodeEngine slot pool on the card.
 
     The kernels are built and loaded outside the timed regions (``warm_s``,
-    and on the first prefill of each prompt bucket), so serving latency is
+    and on the first prefill or chunk of each bucket), so serving latency is
     steady-state, as EngineBackend's is.  Each timed region ends in a fence:
-    ``torch.cuda.synchronize()`` after a prefill, and the engine step's own
-    ``.cpu()`` read of the commit counts.
+    ``torch.cuda.synchronize()`` after a prefill or a chunk, and the engine
+    step's own ``.cpu()`` read of the commit counts.
 
     With ``block_size`` set, the engine slot pool is the paged KV block pool
     (``self.kv`` holds its host free list / block tables) and the scheduler
@@ -317,6 +319,7 @@ class ContinuousEngineBackend:
         self.outputs: Dict[int, np.ndarray] = {}   # rid -> generated tokens
         self._stash: Dict[int, np.ndarray] = {}    # rid -> pre-preempt tokens
         self._warm_prefill: set = set()
+        self._warm_chunk: set = set()
         self._warm_step: set = set()
         for s in warm_s:
             self.warm_step(s)
@@ -377,6 +380,37 @@ class ContinuousEngineBackend:
         self.state = self.engine.prefill_into(
             self.tparams, self.dparams, self.state, slot, toks,
             plen, self.cache_len)
+        self._fence()
+        return time.perf_counter() - t0
+
+    def prefill_chunk(self, req: Request, slot: int, start: int,
+                      n: int) -> float:
+        """Feed feed-positions ``[start, start + n)`` of ``req``'s prompt
+        (+ pre-preemption stash) into ``slot``; returns seconds.
+
+        The feed spans ``len(prompt) - 1`` positions (the last token is
+        written by the slot's first decode step, exactly like whole-prompt
+        prefill); the chunk carrying the final position also commits the
+        slot into the decode batch.
+        """
+        if start == 0:
+            _reject_oversize(req, self.max_context, self.s_cap)
+        prompt = self._full_prompt(req)
+        total_len = len(prompt)
+        CB = self._bucket(n)
+        toks = np.ones((CB,), np.int32)
+        toks[:n] = prompt[start:start + n]
+        final = start + n == total_len - 1
+        if CB not in self._warm_chunk:
+            # load the kernels for this bucket off the clock
+            self.engine.prefill_chunk_into(
+                self.tparams, self.dparams, self.state, slot,
+                np.ones((CB,), np.int32), 0, CB, CB + 2, warm=True)
+            self._warm_chunk.add(CB)
+        t0 = time.perf_counter()
+        self.state = self.engine.prefill_chunk_into(
+            self.tparams, self.dparams, self.state, slot, toks, start, n,
+            total_len, last2=prompt[-2:] if final else None)
         self._fence()
         return time.perf_counter() - t0
 

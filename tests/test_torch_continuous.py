@@ -259,13 +259,23 @@ def test_unported_features_raise(engine, kw, item):
                               capacity=2, cache_len=CACHE_LEN, block_size=BLOCK, **kw)
 
 
-def test_budget_policy_falls_back_to_whole_prompts_on_the_engine(engine):
-    """The live backend cannot chunk yet, so a PrefillBudgetAdmit policy
-    budgets whole prompts (as JAX does on a chunk-incapable backend)."""
-    eng, tp, dp, tcfg = engine
+def test_budget_policy_falls_back_to_whole_prompts_on_the_engine():
+    """A Mamba-2 target has no chunked prefill, so the live backend cannot
+    chunk and a PrefillBudgetAdmit policy budgets whole prompts (as JAX does
+    on a chunk-incapable backend); the engine refuses a chunk."""
+    tcfg = R.get_smoke_config("mamba2-1.3b")
+    d = R.get_draft_config("mamba2-1.3b")
+    dcfg = dataclasses.replace(
+        d, n_layers=1, d_model=64, d_ff=128, vocab_size=tcfg.vocab_size,
+        attn=dataclasses.replace(d.attn, n_heads=2, n_kv_heads=2, head_dim=32))
+    eng = SpecDecodeEngine(tcfg, dcfg, max_new=24, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tp, dp = eng.target.init(gen, device="cpu"), eng.draft.init(gen, device="cpu")
     backend = ContinuousEngineBackend(eng, tp, dp, capacity=3, cache_len=CACHE_LEN,
-                                      block_size=BLOCK, collect_outputs=True)
+                                      collect_outputs=True)
     assert not backend.can_chunk
+    with pytest.raises(NotImplementedError, match="family 'ssm'"):
+        eng.prefill_chunk_into(tp, dp, backend.state, 0, np.ones((8,), np.int32), 0, 8, 20)
     res = serve_continuous_live(_trace(tcfg.vocab_size, n=6), eng, tp, dp, _ctrl(),
                                 policy=PrefillBudgetAdmit(token_budget=24, chunk=8),
                                 backend=backend)
@@ -318,8 +328,8 @@ def test_simulated_serving_matches_jax(variant):
     """The scheduler over the fitted model: the same trace in both packages
     (scheduling, acceptance draws and clock are all host numpy).
     ``chunked_paged`` runs the budgeted chunked admission and preemption on
-    a paged sim mirror, the loop's branches the live engine cannot take
-    yet."""
+    a paged sim mirror (the live engine's chunked runs are held against
+    JAX's in ``test_torch_chunked_prefill.py``)."""
     bs = (1, 2, 4, 8)
     kw = dict(alpha={b: 1e-4 * b for b in bs}, beta={b: 5e-3 for b in bs},
               t_s={b: 2e-4 for b in bs}, c=0.9, gamma=0.548)
