@@ -26,10 +26,14 @@ Phases, one report line each (the last line is the JSON verdict):
             T 1, 4, 7, ragged tables with holes and an empty slot, and a
             full pool of 192 blocks), GQA at yi-9b widths and at G = 7
             and 10, window, prefix, int8 + scales, block size 8, all
-            slots empty, one slot of 31 blocks (split across blocks) and
-            a chunked prefill's chunk (B 1, T 64 and 128 after 256 rows of
-            context, and T 64 at G = 4), in fp32 and bf16; K3 must equal
-            K2 bit for bit, and each row gives its split count and the
+            slots empty, one slot of 31 blocks (split across blocks), a
+            chunked prefill's chunk (B 1, T 64 and 128 after 256 rows of
+            context, and T 64 at G = 4) and the mixed verify+chunk launch
+            (``mixed_*``: 15 slots verifying at s = 0 or 3 over 192 rows
+            and one 64-row chunk after 256, padded to T 64, at G 1 and 4,
+            beside the two-launch order it replaces; and at B 2, T 16,
+            where the call splits), in fp32 and bf16; K3 must equal K2
+            bit for bit, and each row gives its split count and the
             device kernels a call issues.
 2c. train kernels  K4 (flash attention) and K5 (RMSNorm), forward and
             backward, held against their plain versions and autograd through
@@ -54,16 +58,22 @@ Phases, one report line each (the last line is the JSON verdict):
             around it.
 5. profile  one serving step of that pair at B = 8, s = 0 and 3, and one
             paged step at B = 16: wall time against the device time
-            ``torch.profiler`` sees.
+            ``torch.profiler`` sees; then one mixed verify+chunk step at
+            B = 16 (a 64-token chunk of slot 15 inside the step of slots
+            0-14) against the chunk on its own, then the step.
 6a. continuous parity  the live continuous-batching runtime
             (``serve_continuous_live``) on the full-width pair cut to 2
             layers, fp32, with an undersized paged pool: tokens of the
             paged run, the contiguous run, both again with chunked prefill
             (``PrefillBudgetAdmit(16, chunk=8)``, a prompt over >= 3
-            chunks) and each request's solo ``generate`` identical,
-            preemptions seen, every StepTrace (chunk events included) equal
-            to its ``SimStepBackend`` replay, and the model's paged
-            ``decode_step`` giving the same logits through K2 and K3.
+            chunks), the paged chunked run again with the mixed
+            verify+chunk launch, and each request's solo ``generate``
+            identical, preemptions seen (the mixed run's too), the mixed
+            run's StepTrace equal to the chunked run's but for durations
+            and at least one chunk riding a step, every StepTrace (chunk
+            events included) equal to its ``SimStepBackend`` replay, and
+            the model's paged ``decode_step`` giving the same logits
+            through K2 and K3.
 6b. continuous serve  ``serve_continuous_live`` on the full-width pair in
             bf16 with phase 4's LUT: 16 slots, a paged pool of 144 blocks
             that runs short as requests grow, so running requests are
@@ -74,13 +84,19 @@ Phases, one report line each (the last line is the JSON verdict):
             prompt tokens, every request finished, prompts over >= 3
             chunks, the budget kept, the StepTrace replayed, K3 launched
             32 x (steps + chunks) times and no plain version; the same
-            trace admitted whole beside it; then one 448-token prompt in
-            64-token chunks against ``prefill_into``, both in bf16, with
-            the whole route in fp32 as the reference: positions and layer
-            0's K/V rows equal, every layer's rows (through the slot's
-            table) and the first step's logits no further from fp32 than
-            the whole route's, 1.5x in relative RMS; the elementwise 1e-2
-            comparison and the greedy tokens of both reported.
+            trace admitted whole beside it, and again with the mixed
+            verify+chunk launch (every request finished, the StepTrace
+            replayed, chunks riding steps, K3 launched 32 x (steps + final
+            chunks + flushed chunks) times, no plain version; the mean
+            host time of a mixed and of a plain step); then one 448-token
+            prompt in 64-token chunks, on their own and through mixed
+            steps beside 15 decoding slots, against ``prefill_into``, all
+            in bf16, with the whole route in fp32 as the reference:
+            positions equal, layer 0's K/V rows equal (reported for the
+            mixed route), every layer's rows (through the slot's table)
+            and the first step's logits no further from fp32 than the
+            whole route's, 1.5x in relative RMS; the elementwise 1e-2
+            comparison and the greedy tokens reported.
 7.  train   the training path: the full-width OPT-125M draft distilled for
             20 steps against phase 4's OPT-6.7B teacher (the KL must fall;
             acceptance at s = 4 before and after); the internlm2-1.8b
@@ -495,17 +511,21 @@ def phase_kernels(torch, K1, ref):
 
 
 def make_paged_case(torch, np, name, *, B, T, H, KVH, hd, bs, MAXB, ctx, dtype,
-                    holes=(), window=None, prefix_len=0, quant=False, seed=0):
+                    holes=(), window=None, prefix_len=0, quant=False, seed=0, lens=None):
     """A pool as the paged engine leaves it before the verify attention:
     slot b's rows hold positions 0 .. ctx[b] + T - 2 (its context and this
     step's T query rows) in blocks taken from a shuffled pool, with the
     (slot, logical block) entries in ``holes`` set to -1 and left unowned.
     ctx[b] = 0 is an empty slot: table row all -1, queries at 1 .. T as the
     engine gives them.  Spare blocks and the trash block hold garbage rows
-    and positions that no table names."""
+    and positions that no table names.  ``lens[b]`` (the mixed launch's
+    layout) gives slot b only its first ``lens[b]`` query columns: its rows
+    end at ctx[b] + lens[b] - 2 and the other columns are padding at
+    position -1."""
     from repro_torch.kernels.tuning import host_cu_blocks
     rng = np.random.default_rng(seed)
-    need = [-(-(n + T - 1) // bs) if n else 0 for n in ctx]
+    lens = [T] * B if lens is None else lens
+    need = [-(-(n + t - 1) // bs) if n else 0 for n, t in zip(ctx, lens)]
     NB = sum(need) + 8 + 1
     order = rng.permutation(NB - 1)
     bt = np.full((B, MAXB), -1, np.int32)
@@ -519,8 +539,9 @@ def make_paged_case(torch, np, name, *, B, T, H, KVH, hd, bs, MAXB, ctx, dtype,
             nxt += 1
             bt[b, j] = pb
             rows = np.arange(j * bs, (j + 1) * bs)
-            pos[pb] = np.where(rows < n + T - 1, rows, -1)
-    q_pos = np.stack([np.arange(T) + (n - 1 if n else 1) for n in ctx]).astype(np.int32)
+            pos[pb] = np.where(rows < n + lens[b] - 1, rows, -1)
+    q_pos = np.stack([np.where(np.arange(T) < t, np.arange(T) + (n - 1 if n else 1), -1)
+                      for n, t in zip(ctx, lens)]).astype(np.int32)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
 
@@ -540,14 +561,16 @@ def make_paged_case(torch, np, name, *, B, T, H, KVH, hd, bs, MAXB, ctx, dtype,
                 cu=cuda(host_cu_blocks(bt)), window=window, prefix_len=prefix_len,
                 k_scale=ks, v_scale=vs, dtype=dtype, tables=bt,
                 shape=f"B{B} T{T} H{H}/{KVH}x{hd} bs{bs} MAXB{MAXB} "
-                      f"live blocks {int((bt >= 0).sum())}")
+                      f"live blocks {int((bt >= 0).sum())}"
+                      + (f" real rows {sum(lens)}" if sum(lens) < B * T else ""))
 
 
 def paged_bound(torch, paged, c):
-    """Least time for one paged verify call: q, out, q_pos, the table (and
-    cu_blocks), the positions of every owned block, and the K/V (and
-    scales) of the owned blocks some query sees, against the operations on
-    the visible (query, key) pairs."""
+    """Least time for one paged verify call: q and out of the real query
+    rows (position >= 0; the mixed launch's padding changes nothing),
+    q_pos, the table (and cu_blocks), the positions of every owned block,
+    and the K/V (and scales) of the owned blocks some query sees, against
+    the operations on the visible (query, key) pairs."""
     q, k = c["q"], c["k"]
     B, T, H, hd = q.shape
     bs, KVH = k.shape[1], k.shape[2]
@@ -558,7 +581,8 @@ def paged_bound(torch, paged, c):
     per_row = 2 * KVH * hd * k.element_size()
     if c["k_scale"] is not None:
         per_row += 2 * KVH * c["k_scale"].element_size()
-    nbytes = (vis_blocks * bs * per_row + 2 * q.numel() * q.element_size()
+    real = int((c["q_pos"] >= 0).sum())
+    nbytes = (vis_blocks * bs * per_row + 2 * real * H * hd * q.element_size()
               + 4 * (c["q_pos"].numel() + c["bt"].numel() + c["cu"].numel()
                      + owned * bs))
     ops = 4 * int(ok.sum()) * H * hd
@@ -635,6 +659,64 @@ def run_paged_case(torch, K23, paged, ref, c):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _mixed_cases():
+    opt = dict(H=32, KVH=32, hd=128, bs=16, MAXB=32)
+    # slots 0-14 verify at s = 0 or 3 with the full pool's contexts, slot 15
+    # carries a 64-row chunk after 256 rows of context, all padded to Tm = 64
+    cases = [(f"mixed_b16_t64_s{s}{tag}", dict(B=16, T=64, ctx=[192] * 15 + [257],
+                                               lens=[s + 1] * 15 + [64], mixed_slot=15,
+                                               **heads))
+             for tag, heads in (("", opt), ("_gqa_g4", dict(opt, KVH=8))) for s in (0, 3)]
+    # the same at B 2, T 16: few enough blocks that the call splits, so the
+    # padding-only tiles write their empty partials for the ordered combine
+    cases.append(("mixed_b2_t16_s0_gqa_g4", dict(B=2, T=16, ctx=[192, 257], lens=[1, 16],
+                                                 mixed_slot=1, **dict(opt, KVH=8))))
+    return cases
+
+
+# phase 2b's mixed verify+chunk launch (phase 6c with mixed_launch=True):
+# (name, make_paged_case arguments + the chunk's slot ``mixed_slot``)
+MIXED_CASES = _mixed_cases()
+
+
+def run_mixed_case(torch, K23, paged, ref, c, slot):
+    """A mixed verify+chunk call (slot ``slot`` carries the chunk, every
+    other slot its verify columns; ``make_paged_case`` with ``lens``) as
+    ``run_paged_case`` runs it, beside the two-launch order it replaces:
+    K3 at the verify's ``[B, s + 1]`` (the pending slot's table row -1, as
+    the device table has it) plus K3 at the chunk's ``[1, T]`` through its
+    own row, each timed on its own and added."""
+    from repro_torch.kernels.tuning import host_cu_blocks
+    r = run_paged_case(torch, K23, paged, ref, c)
+    vl = int((c["q_pos"][0] >= 0).sum())
+    tab_v = c["tables"].copy()
+    tab_v[slot] = -1
+    bt_v = torch.from_numpy(tab_v).cuda()
+    cu_v = torch.from_numpy(host_cu_blocks(tab_v)).cuda()
+    q_pos_v = c["q_pos"][:, :vl].clone()
+    q_pos_v[slot] = torch.arange(vl, device="cuda", dtype=torch.int32) + 4096   # parked
+    parts = {
+        "verify": (c["q"][:, :vl].contiguous(), q_pos_v, bt_v, cu_v),
+        "chunk": (c["q"][slot:slot + 1].contiguous(), c["q_pos"][slot:slot + 1].contiguous(),
+                  c["bt"][slot:slot + 1].contiguous(),
+                  torch.from_numpy(host_cu_blocks(c["tables"][slot:slot + 1])).cuda()),
+    }
+    kw = dict(window=c["window"], prefix_len=c["prefix_len"])
+
+    def ragged(q, k, v, qp, pos, bt, cu):
+        return K23.ragged_paged_verify_attn_cuda(q, k, v, qp, pos, bt, cu, **kw)
+    ms = {}
+    for name, (q, qp, bt, cu) in parts.items():
+        args = (q, c["k"], c["v"], qp, c["pos"], bt, cu)
+        sets = [tuple(x.clone() for x in args) for _ in range(2)]
+        ms[name] = device_ms(torch, ragged, sets)
+        del sets
+    r.update(verify_call_ms=ms["verify"], chunk_call_ms=ms["chunk"],
+             two_launch_ms=ms["verify"] + ms["chunk"],
+             mixed_over_two_launch=r["ms"] / (ms["verify"] + ms["chunk"]))
+    return r
+
+
 def phase_paged_kernels(torch, np, K23, paged, ref):
     rng = np.random.default_rng(17)
     opt = dict(H=32, KVH=32, hd=128, bs=16, MAXB=32)      # opt-6.7b verify, cache_len 512
@@ -672,12 +754,16 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
         ("opt_chunk_t128", dict(B=1, T=128, ctx=[257], **opt)),
         ("gqa_g4_chunk_t64", dict(B=1, T=64, H=32, KVH=8, hd=128, bs=16, MAXB=32, ctx=[257])),
     ]
+    specs += MIXED_CASES
     rows = []
     for i, (name, kw) in enumerate(specs):
+        kw = dict(kw)
+        mixed_slot = kw.pop("mixed_slot", None)
         for dtype in ("float32", "bfloat16"):
             c = make_paged_case(torch, np, f"{name}_{'f32' if dtype == 'float32' else 'bf16'}",
                                 dtype=dtype, seed=100 + i, **kw)
-            r = run_paged_case(torch, K23, paged, ref, c)
+            r = (run_paged_case(torch, K23, paged, ref, c) if mixed_slot is None
+                 else run_mixed_case(torch, K23, paged, ref, c, mixed_slot))
             rows.append(r)
             print("  " + json.dumps(r), flush=True)
     bad = [r["case"] for r in rows if not r["ok"]]
@@ -1259,11 +1345,12 @@ def phase_parity(torch, np, R, DecoderLM, SpecDecodeEngine, tree_to):
 # phase 5: where one serving step's time goes
 
 
-def profile_step(torch, eng, tp, dp, name, state, s, steps=4):
+def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None):
     """One engine step at length ``s`` from ``state``: the wall time of an
     unprofiled run of ``steps`` steps against the device time that
     ``torch.profiler`` sees over as many more, with the kernels' shares and
-    the host's most expensive ops."""
+    the host's most expensive ops.  The state after the steps is appended
+    to ``keep`` when given."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(prof):
@@ -1307,7 +1394,58 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4):
         top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
                      for e in top_cpu})
     print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
+    if keep is not None:
+        keep.append(state)
     return row
+
+
+def profile_mixed(torch, np, eng, tp, dp, state, vocab, steps=3, slot=15, plen=480, chunk=64):
+    """Slot ``slot`` of a paged state takes a ``plen``-token prompt in
+    ``chunk``-token chunks while the other slots decode at s = 0: each
+    iteration defers one chunk (``prefill_chunk_into(..., defer=True)``:
+    its host bookkeeping, untimed), then runs its forward inside the step
+    (``step_with_chunk``, the mixed launch) or on its own before it
+    (``flush_chunk``, then ``step``).  The wall time of that part (the
+    step ends in its ``.cpu()`` read of the counts) over ``steps``
+    iterations, against the device time ``torch.profiler`` sees over as
+    many more; K3's device time and device kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+    prompt = np.random.default_rng(41).integers(0, vocab, plen).astype(np.int32)
+    out = {}
+    for name in ("mixed", "flush_then_step"):
+        state = eng.retire_slot(state, slot)
+        cur = 0
+
+        def one():
+            nonlocal state, cur
+            state, ch = eng.prefill_chunk_into(tp, dp, state, slot, prompt[cur:cur + chunk],
+                                               cur, chunk, plen, defer=True)
+            cur += chunk
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "mixed":
+                state, _ = eng.step_with_chunk(tp, dp, state, 0, ch)
+            else:
+                state = eng.flush_chunk(tp, dp, state, ch)
+                state, _ = eng.step(tp, dp, state, 0)
+            return time.perf_counter() - t0
+        one()
+        wall_ms = 1e3 * sum(one() for _ in range(steps)) / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                one()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in dev) / 1e3 / steps
+        k3 = [e for e in dev if "paged_verify_kernel" in e.name]
+        row = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                   idle_share=max(0.0, 1.0 - busy / wall_ms), device_kernels=len(dev) / steps,
+                   k3_ms=sum(e.device_time_total for e in k3) / 1e3 / steps,
+                   k3_device_kernels=len(k3) / steps)
+        print("  " + json.dumps({"step": f"paged_b16_s0_chunk{chunk}_{name}", **row}),
+              flush=True)
+        out[name] = row
+    eng.retire_slot(state, slot)
+    return out
 
 
 def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
@@ -1349,7 +1487,10 @@ def phase_profile(torch, np, R, SpecDecodeEngine):
     """Full-width pair, bf16: the wall time of one engine step at B = 8,
     s = 0 and s = 3 on the ring cache, and at B = 16, s = 0 on a paged pool
     of 16 x 8 blocks, against the device time that ``torch.profiler`` sees,
-    with the verify kernels' share and the host's most expensive ops."""
+    with the verify kernels' share and the host's most expensive ops; then
+    on that pool one mixed verify+chunk step (a 64-token chunk of slot 15
+    inside the step of slots 0-14) against the chunk on its own then the
+    step (``profile_mixed``)."""
     bf16 = torch.bfloat16
     eng = SpecDecodeEngine(R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b"),
                            max_new=64, dtype=bf16, device="cuda")
@@ -1367,11 +1508,17 @@ def phase_profile(torch, np, R, SpecDecodeEngine):
     ptoks = rng.integers(0, eng.tcfg.vocab_size, (16, 128)).astype(np.int32)
     for slot in range(16):
         state = eng.prefill_into(tp, dp, state, slot, ptoks[slot], 128, 512)
-    out["paged_b16_s0"] = profile_step(torch, eng, tp, dp, "paged_b16_s0", state, 0)
+    keep = []
+    out["paged_b16_s0"] = profile_step(torch, eng, tp, dp, "paged_b16_s0", state, 0,
+                                       keep=keep)
     check(all(v["device_busy_ms"] > 0 for v in out.values()),
           "the profiler saw no device time")
     check(out["paged_b16_s0"]["paged_kernel_ms"] > 0,
           "the profiler saw no paged kernel in the paged step")
+    mixed = profile_mixed(torch, np, eng, tp, dp, keep[0], eng.tcfg.vocab_size)
+    check(all(v["device_busy_ms"] > 0 and v["k3_ms"] > 0 for v in mixed.values()),
+          f"the profiler saw no device time or no K3 in a chunked step: {mixed}")
+    out.update({f"paged_b16_s0_chunk64_{k}": v for k, v in mixed.items()})
     return out
 
 
@@ -1427,13 +1574,46 @@ def chunk_counts(res):
                     (sum(n for _, n in t.chunked) for t in res.trace), default=0))
 
 
+def engine_calls(eng):
+    """Count, and time on the host clock, the engine's mixed steps, plain
+    steps, flushes and chunk forwards run at feed time, by wrapping its
+    methods on the instance (``release_calls`` takes them off).  A step ends
+    in its ``.cpu()`` read of the counts, so its host time covers its
+    device work."""
+    rec = {"step_with_chunk": [], "step": [], "flush_chunk": [], "final_chunks": 0,
+           "deferred_chunks": 0}
+    for name in ("step_with_chunk", "step", "flush_chunk", "prefill_chunk_into"):
+        fn = getattr(eng, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            if kw.get("warm"):
+                return _fn(*a, **kw)
+            if _name == "prefill_chunk_into":
+                rec["deferred_chunks" if kw.get("defer") else "final_chunks"] += 1
+                return _fn(*a, **kw)
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            rec[_name].append(time.perf_counter() - t0)
+            return out
+        setattr(eng, name, wrapped)
+    return rec
+
+
+def release_calls(eng):
+    for name in ("step_with_chunk", "step", "flush_chunk", "prefill_chunk_into"):
+        eng.__dict__.pop(name, None)
+
+
 def phase_continuous_parity(torch, np, R, m):
     """fp32, the full-width pair cut to 2 layers: the paged live run, the
     contiguous live run, both again with chunked prefill
-    (``PrefillBudgetAdmit(16, chunk=8)``) and solo generate give the same
-    tokens; the paged runs preempt; every StepTrace replays on the sim
-    backend; and the model's paged decode_step gives the same logits through
-    K2 and K3."""
+    (``PrefillBudgetAdmit(16, chunk=8)``), the paged chunked run again with
+    the mixed verify+chunk launch, and solo generate give the same tokens;
+    the paged runs preempt; the mixed run's StepTrace equals the chunked
+    run's but for its durations, and at least one chunk rode a step; every
+    StepTrace replays on the sim backend (the arrivals are all 0, so the
+    schedules do not hang on the wall clock); and the model's paged
+    decode_step gives the same logits through K2 and K3."""
     import copy
     tcfg = R.get_config("opt-6.7b").with_(n_layers=2)
     dcfg = R.get_draft_config("opt-6.7b").with_(n_layers=2)
@@ -1446,15 +1626,21 @@ def phase_continuous_parity(torch, np, R, m):
     geo = dict(capacity=8, cache_len=96)
     paged_geo = dict(block_size=16, num_blocks=12)
     budget = dict(token_budget=16, chunk=8)
-    runs = {}
+    runs, calls = {}, None
     for name, kw, chunked in (("paged", paged_geo, False), ("contiguous", {}, False),
                               ("paged_chunked", paged_geo, True),
-                              ("contiguous_chunked", {}, True)):
+                              ("contiguous_chunked", {}, True),
+                              ("paged_mixed", dict(paged_geo, mixed_launch=True), True)):
         be = m.ContinuousEngineBackend(eng, tp, dp, collect_outputs=True, warm_s=(3,),
                                        **geo, **kw)
         pol = m.PrefillBudgetAdmit(**budget) if chunked else None
-        runs[name] = (m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl,
-                                              backend=be, policy=pol), be)
+        if name == "paged_mixed":
+            calls = engine_calls(eng)
+        try:
+            runs[name] = (m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl,
+                                                  backend=be, policy=pol), be)
+        finally:
+            release_calls(eng)
     res, be = runs["paged"]
     mismatched = []
     for r in reqs:
@@ -1466,10 +1652,15 @@ def phase_continuous_parity(torch, np, R, m):
     n_pre = {k: sum(len(t.preempted) for t in runs[k][0].trace) for k in runs}
     replay_equal = {
         k: replays_equal(np, m, runs[k][0], reqs, ctrl,
-                         m.PrefillBudgetAdmit(**budget) if k.endswith("chunked") else None,
+                         m.PrefillBudgetAdmit(**budget) if k != "paged" else None,
                          8, max_context=96, **(paged_geo if k.startswith("paged") else {}))
         for k in runs if k != "contiguous"}
     chunks = {k: chunk_counts(runs[k][0]) for k in ("paged_chunked", "contiguous_chunked")}
+    mixed_trace_equal = (trace_signature(runs["paged_mixed"][0].trace)
+                         == trace_signature(runs["paged_chunked"][0].trace))
+    mixed_calls = {k: len(calls[k]) for k in ("step_with_chunk", "step", "flush_chunk")}
+    mixed_calls.update(final_chunks=calls["final_chunks"],
+                       deferred_chunks=calls["deferred_chunks"])
 
     # the model's paged decode_step through K2 (no cu_blocks) and K3
     state = eng.init_slots(4, 96, block_size=16)
@@ -1491,12 +1682,16 @@ def phase_continuous_parity(torch, np, R, m):
     line = dict(requests=len(reqs), tokens_equal_whole_chunked_solo=not mismatched,
                 mismatched_rids=mismatched, preemptions=n_pre,
                 steps={k: len(runs[k][0].trace) for k in runs}, chunks=chunks,
-                sim_replay_equal=replay_equal,
+                sim_replay_equal=replay_equal, mixed_trace_equals_chunked=mixed_trace_equal,
+                mixed_calls=mixed_calls,
                 model_decode_k2_equals_k3=model_equal, k2_launches=dense_launches)
     print("  " + json.dumps(line), flush=True)
-    check(not mismatched, f"paged / contiguous (whole or chunked) / solo tokens differ for "
-                          f"rids {mismatched}")
+    check(not mismatched, f"paged / contiguous (whole, chunked or mixed) / solo tokens differ "
+                          f"for rids {mismatched}")
     check(n_pre["paged"] > 0, "the undersized pool never preempted")
+    check(n_pre["paged_mixed"] > 0, "the mixed run never preempted")
+    check(mixed_trace_equal, "the mixed run's StepTrace differs from the chunked run's")
+    check(mixed_calls["step_with_chunk"] > 0, "no chunk rode a step in the mixed run")
     check(all(replay_equal.values()),
           f"a StepTrace differs from its SimStepBackend replay: {replay_equal}")
     check(all(c["max_chunks_per_prompt"] >= 3 for c in chunks.values()),
@@ -1589,103 +1784,130 @@ def chunked_rows_check(torch, np, m, eng, tp, dp, vocab, plen=448, chunk=64):
     pool (the target's chunks on K3, the draft's on K1) against the same
     prompt by ``prefill_into`` (K1 over a ring, then copied into blocks),
     both in bf16, with the whole route in fp32 (the bf16 weights cast) as
-    the reference.  Gated: positions equal; layer 0's K/V rows equal (no
-    attention before them); at every layer the chunked rows, read through
-    the slot's table, no further from the fp32 rows than the whole route's,
-    1.5x in relative RMS (phase 7's rule for two bf16 routes), over the
-    layer and in its worst row; the same for the first step's logits.
-    Reported: the elementwise 1e-2 (abs + rel) comparison of the two bf16
-    routes, and their greedy tokens."""
+    the reference; and the same chunks fed through mixed steps (slot 15 of
+    16: each non-final chunk deferred and run inside a step of slots 0-14
+    decoding at s = 0, K3 carrying both kinds of rows; the final chunk on
+    its own).  Gated for the chunked route: positions equal; layer 0's K/V
+    rows equal (no attention before them); at every layer the rows, read
+    through the slot's table, no further from the fp32 rows than the whole
+    route's, 1.5x in relative RMS (phase 7's rule for two bf16 routes),
+    over the layer and in its worst row; the same for the first step's
+    logits.  The mixed route is gated the same way but for layer 0, whose
+    equality is reported: its products run on another number of rows.
+    Reported: the elementwise 1e-2 (abs + rel) comparison with the whole
+    route, and the greedy tokens."""
     rng = np.random.default_rng(29)
     prompt = rng.integers(0, vocab, plen).astype(np.int32)
+    others = [rng.integers(0, vocab, int(n)).astype(np.int32)
+              for n in rng.integers(64, 193, 15)]
+    slot_of = {"whole": 0, "chunked": 0, "mixed": 15}
 
-    def fill(e, tparams, dparams, chunked):
-        st = e.init_slots(1, 512, block_size=16)
-        if not chunked:
+    def fill(e, tparams, dparams, route):
+        if route == "whole":
+            st = e.init_slots(1, 512, block_size=16)
             toks = np.ones((512,), np.int32)
             toks[:plen] = prompt
             return e.prefill_into(tparams, dparams, st, 0, toks, plen, 512)
-        cur = 0
+        st = e.init_slots(len(others) + 1 if route == "mixed" else 1, 512, block_size=16,
+                          num_blocks=320 if route == "mixed" else None)
+        if route == "mixed":
+            for slot, p in enumerate(others):
+                st = e.prefill_into(tparams, dparams, st, slot, p, len(p), 512)
+        slot, cur = slot_of[route], 0
         while cur < plen - 1:
             n = min(chunk, plen - 1 - cur)
             toks = np.ones((chunk,), np.int32)
             toks[:n] = prompt[cur:cur + n]
-            st = e.prefill_chunk_into(tparams, dparams, st, 0, toks, cur, n, plen,
-                                      last2=prompt[-2:] if cur + n == plen - 1 else None)
+            final = cur + n == plen - 1
+            if route == "mixed" and not final:
+                st, ch = e.prefill_chunk_into(tparams, dparams, st, slot, toks, cur, n, plen,
+                                              defer=True)
+                st, _ = e.step_with_chunk(tparams, dparams, st, 0, ch)
+            else:
+                st = e.prefill_chunk_into(tparams, dparams, st, slot, toks, cur, n, plen,
+                                          last2=prompt[-2:] if final else None)
             cur += n
         return st
 
-    def rows(st):
+    def rows(st, slot):
         """K, V and pos of the prefilled rows through the slot's table, and
         the draft ring's K and V, in fp32."""
-        ids = torch.tensor(st.paged.table(0), device="cuda")
+        ids = torch.tensor(st.paged.table(slot), device="cuda")
         out = {n: st.tcache[n][:, ids].flatten(1, 2)[:, :plen - 1].float() for n in ("k", "v")}
-        out.update({"draft_" + n: st.dcache[n][:, 0, :plen - 2].float() for n in ("k", "v")})
+        out.update({"draft_" + n: st.dcache[n][:, slot, :plen - 2].float() for n in ("k", "v")})
         return out, st.tcache["pos"][ids].flatten()[:plen - 1]
 
-    def first_logits(e, tparams, st):
+    def first_logits(e, tparams, st, slot):
         """The target's logits of the first decode step (s = 0: the last
         prompt token at position plen - 1), through K3 as the step runs it."""
         cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).cuda()
         lg, _ = e.target.decode_step(tparams, st.last2[:, 1:], st.tcache, st.seq_lens, cu)
-        return lg[0, -1, :vocab].float()
+        return lg[slot, -1, :vocab].float()
 
     def rel_rms(x, want, dims):
         return ((x - want) ** 2).mean(dims).sqrt() / (want ** 2).mean(dims).sqrt()
 
-    whole, chunked = fill(eng, tp, dp, False), fill(eng, tp, dp, True)
-    (rw, pw), (rc, pc) = rows(whole), rows(chunked)
-    lw, lc = first_logits(eng, tp, whole), first_logits(eng, tp, chunked)
+    states = {r: fill(eng, tp, dp, r) for r in slot_of}
+    got = {r: rows(st, slot_of[r]) for r, st in states.items()}
+    lg = {r: first_logits(eng, tp, st, slot_of[r]) for r, st in states.items()}
     e32 = m.SpecDecodeEngine(eng.tcfg, eng.dcfg, max_new=eng.max_new, dtype=torch.float32,
                              device="cuda")
     tp32, dp32 = (tree_map(lambda t: t.float(), p) for p in (tp, dp))
-    ref = fill(e32, tp32, dp32, False)
-    rf, _ = rows(ref)
-    lf = first_logits(e32, tp32, ref)
+    ref = fill(e32, tp32, dp32, "whole")
+    rf, _ = rows(ref, 0)
+    lf = first_logits(e32, tp32, ref, 0)
     del e32, tp32, dp32, ref
     torch.cuda.empty_cache()
     ratio = BF16_GRAD_RMS_RATIO
     tol = TOL["bfloat16"]
-    ok = bool(torch.equal(pc, pw))
-    stats = {}
-    for name in rw:
-        w, c, f = rw[name], rc[name], rf[name]
-        layer_w, layer_c = rel_rms(w, f, (1, 2, 3)), rel_rms(c, f, (1, 2, 3))
-        row_w, row_c = (rel_rms(x, f, (2, 3)).max(1).values for x in (w, c))
-        err = (c - w).abs()
-        beyond = (err > tol + tol * w.abs()).flatten(1).float().mean(1)
-        layer0 = bool(torch.equal(c[0], w[0]))
-        ok &= layer0 and bool((layer_c <= ratio * layer_w).all()) \
-            and bool((row_c <= ratio * row_w).all())
-        stats[name] = dict(layer0_equal=layer0,
-                           rel_rms_vs_fp32_deepest=[float(layer_w[-1]), float(layer_c[-1])],
-                           worst_layer_ratio=float((layer_c / layer_w).max()),
-                           worst_row_ratio=float((row_c / row_w).max()),
-                           max_abs_err_vs_whole=float(err.max()),
-                           beyond_1e2_share_deepest=float(beyond[-1]),
-                           beyond_1e2_share_layer1=float(beyond[min(1, len(beyond) - 1)]))
-    logits_ok = bool(rel_rms(lc, lf, 0) <= ratio * rel_rms(lw, lf, 0))
-    lerr = (lc - lw).abs()
+    (rw, pw), lw = got["whole"], lg["whole"]
+    line = dict(prompt=plen, chunk=chunk)
     tokens = {}
-    for name, st in (("whole", whole), ("chunked", chunked)):
+    for route, st in states.items():
+        slot = slot_of[route]
         for _ in range(eng.max_new + 2):
             st, _ = eng.step(tp, dp, st, 0)
-            if bool(st.done.all().cpu()):
+            if bool(st.done[slot].cpu()):
                 break
-        tokens[name] = st.out[0, :eng.max_new].cpu().numpy()
-    same = tokens["whole"] == tokens["chunked"]
-    line = dict(prompt=plen, chunk=chunk, rows_ok=ok, rows=stats, logits_ok=logits_ok,
-                logits_rel_rms_vs_fp32=[float(rel_rms(lw, lf, 0)), float(rel_rms(lc, lf, 0))],
-                logits_max_abs_err_vs_whole=float(lerr.max()),
-                logits_beyond_1e2_share=float((lerr > tol + tol * lw.abs()).float().mean()),
-                first_token_equal=bool(lw.argmax() == lc.argmax()),
-                greedy_tokens_equal=int(same.sum()), greedy_tokens=int(same.size),
-                first_divergence=None if same.all() else int(np.argmin(same)))
-    print("  chunked vs whole prefill (bf16): " + json.dumps(line), flush=True)
-    check(ok, f"chunked prefill's rows differ from the whole route's beyond its own bf16 "
-              f"error: {stats}")
-    check(logits_ok, "the first step's logits after a chunked prefill are further from fp32 "
-                     f"than {ratio}x the whole route's")
+        tokens[route] = st.out[slot, :eng.max_new].cpu().numpy()
+    for route in ("chunked", "mixed"):
+        (rc, pc), lc = got[route], lg[route]
+        ok = bool(torch.equal(pc, pw))
+        stats = {}
+        for name in rw:
+            w, c, f = rw[name], rc[name], rf[name]
+            layer_w, layer_c = rel_rms(w, f, (1, 2, 3)), rel_rms(c, f, (1, 2, 3))
+            row_w, row_c = (rel_rms(x, f, (2, 3)).max(1).values for x in (w, c))
+            err = (c - w).abs()
+            beyond = (err > tol + tol * w.abs()).flatten(1).float().mean(1)
+            layer0 = bool(torch.equal(c[0], w[0]))
+            ok &= (layer0 or route == "mixed") and bool((layer_c <= ratio * layer_w).all()) \
+                and bool((row_c <= ratio * row_w).all())
+            stats[name] = dict(layer0_equal=layer0,
+                               rel_rms_vs_fp32_deepest=[float(layer_w[-1]), float(layer_c[-1])],
+                               worst_layer_ratio=float((layer_c / layer_w).max()),
+                               worst_row_ratio=float((row_c / row_w).max()),
+                               max_abs_err_vs_whole=float(err.max()),
+                               beyond_1e2_share_deepest=float(beyond[-1]),
+                               beyond_1e2_share_layer1=float(beyond[min(1, len(beyond) - 1)]))
+        logits_ok = bool(rel_rms(lc, lf, 0) <= ratio * rel_rms(lw, lf, 0))
+        lerr = (lc - lw).abs()
+        same = tokens["whole"] == tokens[route]
+        line[route] = dict(
+            rows_ok=ok, positions_equal=bool(torch.equal(pc, pw)), rows=stats,
+            logits_ok=logits_ok,
+            logits_rel_rms_vs_fp32=[float(rel_rms(lw, lf, 0)), float(rel_rms(lc, lf, 0))],
+            logits_max_abs_err_vs_whole=float(lerr.max()),
+            logits_beyond_1e2_share=float((lerr > tol + tol * lw.abs()).float().mean()),
+            first_token_equal=bool(lw.argmax() == lc.argmax()),
+            greedy_tokens_equal=int(same.sum()), greedy_tokens=int(same.size),
+            first_divergence=None if same.all() else int(np.argmin(same)))
+    print("  chunked and mixed vs whole prefill (bf16): " + json.dumps(line), flush=True)
+    for route in ("chunked", "mixed"):
+        check(line[route]["rows_ok"], f"{route} prefill's rows differ from the whole route's "
+                                      f"beyond its own bf16 error: {line[route]['rows']}")
+        check(line[route]["logits_ok"], f"the first step's logits after a {route} prefill are "
+                                        f"further from fp32 than {ratio}x the whole route's")
     return line
 
 
@@ -1696,8 +1918,13 @@ def phase_chunked_serve(torch, np, R, m, lut_table):
     prompts span >= 3 chunks, no iteration's chunks exceed the budget, the
     StepTrace replays on the sim backend, K3 runs once per layer in every
     step and every chunk forward and no plain version runs; the same trace
-    with whole-prompt admission beside it; then a 448-token prompt chunked
-    against ``prefill_into`` (``chunked_rows_check``)."""
+    with whole-prompt admission beside it; the same trace with the mixed
+    verify+chunk launch (``mixed_launch=True``): every request finishes,
+    the StepTrace replays, chunks ride steps, K3 runs once per layer in
+    every step and every chunk forward run on its own (the final chunks and
+    the flushed ones) and no plain version runs; then a 448-token prompt
+    chunked, and fed through mixed steps, against ``prefill_into``
+    (``chunked_rows_check``)."""
     import copy
     bf16 = torch.bfloat16
     tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
@@ -1739,10 +1966,11 @@ def phase_chunked_serve(torch, np, R, m, lut_table):
     whole = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp,
                                     m.AdaptiveController(lut=m.SpeculationLUT(lut)), **geo)
     torch.cuda.synchronize()
+    whole_line = serve_line(m, whole, time.perf_counter() - t0)
+    mixed = mixed_serve(torch, np, m, eng, tp, dp, reqs, lut, budget, geo, counters)
     line = dict(requests=len(reqs), finished=len(done), **serve_line(m, res, wall),
                 peak_memory_gb=peak, **chunks, sim_replay_equal=replay, launches=launches,
-                k3_expected=k3_expected,
-                whole_prompt=serve_line(m, whole, time.perf_counter() - t0))
+                k3_expected=k3_expected, whole_prompt=whole_line, mixed_launch=mixed)
     print("  " + json.dumps(line), flush=True)
     check(len(done) == len(reqs), f"{len(reqs) - len(done)} requests did not finish")
     check(chunks["max_chunks_per_prompt"] >= 3, "no prompt spanned 3 chunks")
@@ -1753,8 +1981,62 @@ def phase_chunked_serve(torch, np, R, m, lut_table):
           f"K3 ran {launches['k3']} times, not 32 x (steps + chunks) = {k3_expected}")
     check(launches["k1"] > 0 and launches["k5"] > 0, "K1 or K5 never ran")
     check(launches["plain"] == 0, "a plain version ran on the card")
+    check(mixed["finished"] == len(reqs),
+          f"{len(reqs) - mixed['finished']} requests did not finish with the mixed launch")
+    check(mixed["sim_replay_equal"], "the mixed StepTrace differs from its SimStepBackend replay")
+    check(mixed["fused_steps"] > 0, "no chunk rode a step with the mixed launch")
+    check(mixed["deferred_chunks"] == mixed["fused_steps"] + mixed["flushed_chunks"]
+          and mixed["chunk_events"] == mixed["deferred_chunks"] + mixed["final_chunks"],
+          f"the mixed run's chunks do not add up: {mixed}")
+    check(mixed["launches"]["k3"] == mixed["k3_expected"],
+          f"K3 ran {mixed['launches']['k3']} times with the mixed launch, not 32 x (steps + "
+          f"final chunks + flushed chunks) = {mixed['k3_expected']}")
+    check(mixed["launches"]["k1"] > 0 and mixed["launches"]["k5"] > 0,
+          "K1 or K5 never ran with the mixed launch")
+    check(mixed["launches"]["plain"] == 0, "a plain version ran on the card (mixed launch)")
     line["rows"] = chunked_rows_check(torch, np, m, eng, tp, dp, tcfg.vocab_size)
     return line
+
+
+def mixed_serve(torch, np, m, eng, tp, dp, reqs, lut, budget, geo, counters):
+    """Phase 6c's trace with ``mixed_launch=True``: its serving numbers, the
+    launches, the engine's mixed steps, plain steps, flushes and final
+    chunks (``engine_calls``), the mean host time of a mixed and of a plain
+    step, and K3's expected launches: once per layer in every step and in
+    every chunk forward run on its own."""
+    import copy
+    for c in counters:
+        c.launches = 0
+    calls = engine_calls(eng)
+    t0 = time.perf_counter()
+    try:
+        res = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp,
+                                      m.AdaptiveController(lut=m.SpeculationLUT(lut)),
+                                      policy=m.PrefillBudgetAdmit(**budget), mixed_launch=True,
+                                      **geo)
+        torch.cuda.synchronize()
+    finally:
+        release_calls(eng)
+    wall = time.perf_counter() - t0
+    launches = dict(k1=m.K1.KERNEL.launches, k2=m.K23.DENSE.launches,
+                    k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+                    plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                           + m.ops.PLAIN_RMSNORM.launches))
+    fused, plain, flushed = (len(calls[k]) for k in ("step_with_chunk", "step", "flush_chunk"))
+    done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+    replay = replays_equal(np, m, res, reqs, m.AdaptiveController(lut=m.SpeculationLUT(lut)),
+                           m.PrefillBudgetAdmit(**budget), geo["capacity"],
+                           max_context=geo["cache_len"], block_size=geo["block_size"],
+                           num_blocks=geo["num_blocks"])
+    return dict(
+        finished=len(done), **serve_line(m, res, wall), **chunk_counts(res),
+        sim_replay_equal=replay, launches=launches, fused_steps=fused, plain_steps=plain,
+        flushed_chunks=flushed, final_chunks=calls["final_chunks"],
+        deferred_chunks=calls["deferred_chunks"],
+        k3_expected=eng.tcfg.n_layers * (len(res.batches) + calls["final_chunks"] + flushed),
+        mixed_step_ms_mean=1e3 * sum(calls["step_with_chunk"]) / max(fused, 1),
+        plain_step_ms_mean=1e3 * sum(calls["step"]) / max(plain, 1),
+        flush_ms_mean=1e3 * sum(calls["flush_chunk"]) / max(flushed, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -2476,6 +2758,10 @@ def main() -> int:
                 if r["case"].startswith("chunk_") and r["dtype"] == "bfloat16"]
     k3_chunk = [{k: r[k] for k in keys} for r in prows
                 if "_chunk_" in r["case"] and r["dtype"] == "bfloat16"]
+    mixed_keys = keys + ("verify_call_ms", "chunk_call_ms", "two_launch_ms",
+                         "mixed_over_two_launch")
+    k3_mixed = [{k: r[k] for k in mixed_keys} for r in prows
+                if r["case"].startswith("mixed_") and r["dtype"] == "bfloat16"]
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
     paged_shape = "target verify s=0, " + phead["shape"] + ", bf16"
     paged_common = {"max_abs_err": phead["max_abs_err"], "plain_ms": phead["plain_ms"],
@@ -2510,6 +2796,11 @@ def main() -> int:
         "launches": live["launches"]["k3"], "ms": phead["ms"],
         "launches_from": "phase 6b, serve_continuous_live on the paged pool",
         "chunk": k3_chunk, "launches_chunked": chunked["launches"]["k3"],
+        "mixed": {"cases": k3_mixed,
+                  "launches": chunked["mixed_launch"]["launches"]["k3"],
+                  "launches_from": "phase 6c with mixed_launch=True: 32 x (steps + final "
+                                   "chunks + flushed chunks)",
+                  "fused_steps": chunked["mixed_launch"]["fused_steps"]},
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash)
         + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),

@@ -1,6 +1,6 @@
 """Batched speculative decoding (paper §3, Algorithm 1): the port of
-``repro.core.spec_decode`` for greedy verification, without the mixed
-verify+chunk launch, the prefix cache or sharded pools.
+``repro.core.spec_decode`` for greedy verification, without the prefix
+cache or sharded pools.
 
 One speculative step at speculation length ``s`` for a batch of ``b``
 ragged requests:
@@ -53,6 +53,16 @@ prompt into a slot in chunks between the steps of the running batch
 (``DecoderLM.prefill_chunk``: K1 over the slot's ring, K3 over a paged
 pool through the slot's table); the slot joins the decode batch after the
 final chunk in the state a whole-prompt ``prefill_into`` leaves.
+
+Mixed verify+chunk launch (paged pool): ``prefill_chunk_into(...,
+defer=True)`` runs a non-final chunk's host bookkeeping and returns a
+:class:`DeferredChunk` instead of running its forward.
+:meth:`~SpecDecodeEngine.step_with_chunk` then runs that forward inside the
+next speculative step: the draft's chunk forward first, then the target's
+chunk rows in the same attention call as the verify rows, once per layer
+(``DecoderLM.decode_step_mixed``, K3 on the card), so the chunk's separate
+32-layer target forward disappears.  Any other consumer of the pool first
+sends the deferred chunk on its own (:meth:`~SpecDecodeEngine.flush_chunk`).
 """
 from __future__ import annotations
 
@@ -104,6 +114,33 @@ class DecodeState:
 class StepStats:
     accepted: np.ndarray     # [B] accepted draft tokens this step (a)
     committed: np.ndarray    # [B] tokens committed this step (a+1, 0 if done)
+
+
+@dataclasses.dataclass
+class DeferredChunk:
+    """A paged, non-final prefill chunk whose host bookkeeping (block
+    allocation, pending marking, first-chunk begin) has run but whose
+    forward has not (``prefill_chunk_into(..., defer=True)``).  Consumed by
+    :meth:`SpecDecodeEngine.step_with_chunk`, the mixed verify+chunk launch,
+    or by :meth:`SpecDecodeEngine.flush_chunk`, the forward on its own.
+    Either way the pool ends with the same rows below the trash block (the
+    parked slot's verify writes land in the trash block in one order and
+    nowhere in the other)."""
+    slot: int
+    tokens: np.ndarray       # the CB-bucketed chunk tokens
+    start: int               # first feed position this chunk writes
+    total_len: int           # the request's full prompt (+ stash) length
+    bt_row: Optional[np.ndarray]  # [max_blocks] the slot's host table row;
+                                  # None on a contiguous pool (no defer there)
+    cb: int                  # the bucket CB (the JAX package's jit key)
+    rows_limit: int          # R: the ring rows the draft's chunk forward attends
+
+
+def ring_view(cache: Dict, slot: int) -> Dict:
+    """The B = 1 view of a contiguous cache's slot (k/v on axis 1, pos on
+    axis 0): writes through it land in the pool in place."""
+    return {name: (t.narrow(0, slot, 1) if name == "pos" else t.narrow(1, slot, 1))
+            for name, t in cache.items()}
 
 
 class SpecDecodeEngine:
@@ -284,17 +321,10 @@ class SpecDecodeEngine:
     # chunked prefill into a slot (the scheduler interleaves the chunks
     # with the decode steps of the running batch)
 
-    @staticmethod
-    def _ring_view(cache: Dict, slot: int) -> Dict:
-        """The B = 1 view of a contiguous pool's slot (k/v on axis 1, pos
-        on axis 0): writes through it land in the pool in place."""
-        return {name: (t.narrow(0, slot, 1) if name == "pos" else t.narrow(1, slot, 1))
-                for name, t in cache.items()}
-
     def prefill_chunk_into(self, tparams, dparams, state: DecodeState,
                            slot: int, tokens, start: int, n: int,
                            total_len: int, last2=None, *,
-                           warm: bool = False) -> DecodeState:
+                           warm: bool = False, defer: bool = False):
         """Feed one prefill chunk of a request into row ``slot``, in place.
 
         The request's feed (prompt, or prompt + pre-preemption stash) has
@@ -329,7 +359,14 @@ class SpecDecodeEngine:
           the first decode step writes.
 
         ``warm=True`` only loads the kernels and returns the state as it
-        is.  An SSM target has no chunked prefill and raises."""
+        is.  An SSM target has no chunked prefill and raises.
+
+        ``defer=True`` (a paged, non-final, non-warm chunk only; anything
+        else raises ``ValueError``) runs the first-chunk begin and the host
+        block accounting as usual but not the forward, and returns
+        ``(state, DeferredChunk)``: the caller runs the forward inside the
+        next speculative step (:meth:`step_with_chunk`) or on its own
+        (:meth:`flush_chunk`)."""
         if not hasattr(self.target, "prefill_chunk") or (
                 self.draft is not None and not hasattr(self.draft, "prefill_chunk")):
             raise NotImplementedError(
@@ -337,13 +374,15 @@ class SpecDecodeEngine:
                 f"'{self.tcfg.family}' (model lacks a prefill_chunk path)")
         pk = state.paged
         paged = pk is not None
-        if warm:
-            self.load_kernels(paged)
-            return state
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         CB = int(tokens.shape[0])
         feed_total = total_len - 1
-        final = start + n == feed_total
+        final = not warm and start + n == feed_total
+        if defer and (not paged or final or warm):
+            raise ValueError("defer=True needs a paged, non-final, non-warm chunk")
+        if warm:
+            self.load_kernels(paged)
+            return state
         if not 0 < n <= CB:
             raise ValueError(f"chunk carries n={n} tokens in a {CB} bucket")
         if start + n > feed_total:
@@ -363,6 +402,7 @@ class SpecDecodeEngine:
             state.seq_lens[slot] = total_len
 
         # ---- host block accounting + this chunk's block table ----
+        bt_row = None
         if paged:
             if start == 0:
                 pk.prefill(slot, n)
@@ -374,25 +414,17 @@ class SpecDecodeEngine:
             ids = pk.table(slot)
             bt_row[:len(ids)] = ids
 
-        # ---- the chunk forward, target then draft ----
+        # ---- the chunk forward, target then draft (deferred: not now) ----
         L = pk.logical_len if paged else int(state.tcache["pos"].shape[1])
         # every attendable key lives below row start + CB until the ring
         # wraps, so the ring forwards attend a power-of-two cover of it
         R = min(max(1 << (start + CB - 1).bit_length(), 16), L)
-        toks = self._tensor(tokens, torch.long)[None]
-        off = self._tensor([start])
-        if paged:
-            # the pool is the B = 1 cache (writes land through the slot's
-            # host table); the device bt row stays -1 until the commit
-            t1 = dict(state.tcache, bt=self._tensor(bt_row[None]))
-            self.target.prefill_chunk(tparams, toks, t1, off, self._tensor([feed_total]),
-                                      cu_blocks=self._tensor(host_cu_blocks(bt_row[None])))
-        else:
-            self.target.prefill_chunk(tparams, toks, self._ring_view(state.tcache, slot),
-                                      off, self._tensor([feed_total]), rows_limit=R)
-        if self.draft is not None:
-            self.draft.prefill_chunk(dparams, toks, self._ring_view(state.dcache, slot),
-                                     off, self._tensor([feed_total - 1]), rows_limit=R)
+        chunk = DeferredChunk(slot=int(slot), tokens=tokens, start=int(start),
+                              total_len=int(total_len), bt_row=bt_row, cb=CB,
+                              rows_limit=R)
+        if defer:
+            return state, chunk
+        self._chunk_forward(tparams, dparams, state, chunk)
 
         # ---- final chunk: the slot becomes a live decode row ----
         if final:
@@ -409,6 +441,40 @@ class SpecDecodeEngine:
             state.out[slot] = 0
             state.n_generated[slot] = 0
             state.done[slot] = False
+        return state
+
+    def _chunk_forward(self, tparams, dparams, state: DecodeState,
+                       chunk: DeferredChunk) -> None:
+        """A chunk's forward, target then draft, written into the pool in
+        place: on a paged pool the target runs through the slot's one-row
+        host table (K3), on a contiguous one through its ring view (K1);
+        the draft through its ring view, bounded to ``rows_limit`` rows."""
+        toks = self._tensor(chunk.tokens, torch.long)[None]
+        off = self._tensor([chunk.start])
+        feed_total = chunk.total_len - 1
+        if chunk.bt_row is not None:
+            # the pool is the B = 1 cache (writes land through the slot's
+            # host table); the device bt row stays -1 until the commit
+            row = chunk.bt_row[None]
+            t1 = dict(state.tcache, bt=self._tensor(row))
+            self.target.prefill_chunk(tparams, toks, t1, off, self._tensor([feed_total]),
+                                      cu_blocks=self._tensor(host_cu_blocks(row)))
+        else:
+            self.target.prefill_chunk(tparams, toks, ring_view(state.tcache, chunk.slot),
+                                      off, self._tensor([feed_total]),
+                                      rows_limit=chunk.rows_limit)
+        if self.draft is not None:
+            self.draft.prefill_chunk(dparams, toks, ring_view(state.dcache, chunk.slot),
+                                     off, self._tensor([feed_total - 1]),
+                                     rows_limit=chunk.rows_limit)
+
+    def flush_chunk(self, tparams, dparams, state: DecodeState,
+                    chunk: DeferredChunk) -> DecodeState:
+        """Run a deferred chunk's forward on its own: exactly the forward
+        ``prefill_chunk_into(..., defer=True)`` skipped (its host bookkeeping
+        ran then).  For when another consumer of the pool comes before the
+        next speculative step."""
+        self._chunk_forward(tparams, dparams, state, chunk)
         return state
 
     def retire_slot(self, state: DecodeState, slot: int) -> DecodeState:
@@ -436,10 +502,7 @@ class SpecDecodeEngine:
         same host tables; afterwards the host token mirror advances by the
         commit counts.  ``warm=True`` only loads the kernels and returns the
         state untouched with zero counts."""
-        if not 0 <= s <= S_MAX:
-            raise ValueError(
-                f"s={s} outside [0, {S_MAX}]: the step's output buffer is "
-                f"sized for at most S_MAX={S_MAX} speculative tokens")
+        self._check_s(s)
         B = state.seq_lens.shape[0]
         pk = state.paged
         if warm:
@@ -451,26 +514,87 @@ class SpecDecodeEngine:
         args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
                 state.last2, state.out, state.n_generated, state.done)
         if pk is not None:
-            grew = False
-            for slot in pk.active_slots():
-                if not pk.is_pending(slot):
-                    grew |= bool(pk.ensure(slot, pk.tokens(slot) + s))
             # the device table and the kernel's cu_blocks describe the same
             # blocks: both come from these host tables
-            tables = pk.device_tables(exclude_pending=True)
-            if grew:
-                state.tcache["bt"].copy_(torch.from_numpy(tables))
+            tables = self._grow_tables(state, s)
             args = (*args, torch.from_numpy(host_cu_blocks(tables)).to(self.device))
-        (tc, dc, seq_lens, last2, out, n_gen, done, a, n_commit) = fn(*args)
-        # step-boundary host read: the accept and commit counts, in one copy
+        return self._finish_step(state, fn(*args))
+
+    @staticmethod
+    def _check_s(s: int) -> None:
+        if not 0 <= s <= S_MAX:
+            raise ValueError(
+                f"s={s} outside [0, {S_MAX}]: the step's output buffer is "
+                f"sized for at most S_MAX={S_MAX} speculative tokens")
+
+    @staticmethod
+    def _grow_tables(state: DecodeState, s: int) -> np.ndarray:
+        """Grow each live, non-pending slot's table to cover its worst-case
+        writes this step (``seq_len + s`` rows) and upload ``bt`` only if a
+        table grew.  Returns the host tables the device ``bt`` holds."""
+        pk = state.paged
+        grew = False
+        for slot in pk.active_slots():
+            if not pk.is_pending(slot):
+                grew |= bool(pk.ensure(slot, pk.tokens(slot) + s))
+        tables = pk.device_tables(exclude_pending=True)
+        if grew:
+            state.tcache["bt"].copy_(torch.from_numpy(tables))
+        return tables
+
+    @staticmethod
+    def _finish_step(state: DecodeState, outs) -> Tuple[DecodeState, StepStats]:
+        """The step-boundary host read of the accept and commit counts (one
+        copy), then, on a paged pool, each non-pending slot's commit."""
+        (tc, dc, seq_lens, last2, out, n_gen, done, a, n_commit) = outs
         counts = torch.stack([a, n_commit]).cpu().numpy()
         stats = StepStats(accepted=counts[0], committed=counts[1])
+        pk = state.paged
         if pk is not None:
             for slot in pk.active_slots():
                 if not pk.is_pending(slot):
                     pk.commit(slot, int(stats.committed[slot]))
         return (DecodeState(tc, dc, seq_lens, last2, out, n_gen, done, paged=pk),
                 stats)
+
+    def step_with_chunk(self, tparams, dparams, state: DecodeState, s: int,
+                        chunk: DeferredChunk) -> Tuple[DecodeState, StepStats]:
+        """One speculative step with a deferred chunk's forward inside it:
+        the mixed verify+chunk launch.
+
+        The draft's chunk forward runs first (B = 1 on the slot's ring
+        view, as the chunk on its own runs it), then the usual draft loop;
+        the target's chunk rows ride the verify's paged attention call,
+        once per layer (``DecoderLM.decode_step_mixed``), through the
+        chunk's host table row.  The tables grow as in :meth:`step`;
+        ``cu_blocks`` comes from the host tables with the chunk row patched
+        in, while the device ``bt`` row of the pending slot stays -1.  Its
+        ``done`` flag forces its accept count to 0.  Against
+        ``flush_chunk`` then ``step`` the pool rows below the trash block,
+        the row state and the counts are equal in exact arithmetic; the
+        products run on another number of rows, so they may round apart.
+        A contiguous pool raises."""
+        self._check_s(s)
+        pk = state.paged
+        if pk is None:
+            raise ValueError("step_with_chunk needs a paged slot pool")
+        B = state.seq_lens.shape[0]
+        tables = self._grow_tables(state, s)
+        # K3's grid covers the chunk row's blocks: it reads them through
+        # the patched table, not through the device bt
+        tables[chunk.slot] = chunk.bt_row
+        cu = host_cu_blocks(tables)
+        # one upload: cu_blocks, the chunk tokens, the chunk's table row
+        ops = torch.from_numpy(np.concatenate([cu, chunk.tokens, chunk.bt_row])).to(self.device)
+        feed_total = chunk.total_len - 1
+        fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
+                            max_new=self.max_new, paged=True,
+                            chunk=(chunk.cb, chunk.rows_limit))
+        outs = fn(tparams, dparams, state.tcache, state.dcache, state.seq_lens,
+                  state.last2, state.out, state.n_generated, state.done, ops[:B + 1],
+                  (chunk.slot, ops[B + 1:B + 1 + chunk.cb], chunk.start, feed_total,
+                   feed_total - 1, ops[B + 1 + chunk.cb:]))
+        return self._finish_step(state, outs)
 
     def generate(self, tparams, dparams, tokens, prompt_lens, *, s: int,
                  cache_len: int, max_new: Optional[int] = None,
@@ -503,25 +627,46 @@ class SpecDecodeEngine:
 
 
 def make_spec_step(tgt, drf, B: int, s: int, *,
-                   eos_id: int = -1, max_new: int = 128, paged: bool = False):
+                   eos_id: int = -1, max_new: int = 128, paged: bool = False,
+                   chunk: Optional[Tuple[int, int]] = None):
     """One greedy speculative step (paper Algorithm 1, batched): the port of
     ``repro.core.spec_decode.make_spec_step``.
 
     Signature: fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-    n_generated, done[, cu_blocks]) -> (tcache', dcache', seq_lens', last2',
-    out', n_generated', done', accepted, n_commit).  ``paged=True`` adds the
-    ``cu_blocks [B + 1]`` operand, which the target's verify passes to the
-    paged attention (the ragged kernel K3 on the card).  ``tgt`` and ``drf``
-    are models of ``build_model`` (the draft a ``DecoderLM``; the target a
-    ``DecoderLM`` or a ``Mamba2LM``, whose ``commit`` picks the state
-    checkpoint at each accept count).  The caches are written in place, and
-    nothing is read back to the host.
+    n_generated, done[, cu_blocks[, chunk_ops]]) -> (tcache', dcache',
+    seq_lens', last2', out', n_generated', done', accepted, n_commit).
+    ``paged=True`` adds the ``cu_blocks [B + 1]`` operand, which the
+    target's verify passes to the paged attention (the ragged kernel K3 on
+    the card).  ``tgt`` and ``drf`` are models of ``build_model`` (the
+    draft a ``DecoderLM``; the target a ``DecoderLM`` or a ``Mamba2LM``,
+    whose ``commit`` picks the state checkpoint at each accept count).  The
+    caches are written in place, and nothing is read back to the host.
+
+    ``chunk = (CB, R)`` (paged only) builds the mixed verify+chunk step:
+    ``chunk_ops = (slot, tokens [CB], start, target limit, draft limit,
+    table row [MAXB])`` (ints on the host, tensors on the device).  The
+    draft's chunk forward runs first, B = 1 on the slot's ring view and
+    bounded to ``R`` rows, in the order the chunk on its own then the step
+    would run; then the draft loop, and the target's verify through
+    ``decode_step_mixed``, which carries the chunk's rows in the same
+    attention call.  The chunk slot is parked ``done``, so its accept count
+    is 0 and its row state does not move.
     """
     eos = eos_id
+    assert chunk is None or paged, "the mixed step is paged-pool only"
 
     def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-           n_generated, done, cu_blocks=None):
+           n_generated, done, cu_blocks=None, chunk_ops=None):
         dev = seq_lens.device
+        # ---- 0. mixed launch: the draft's chunk forward first ----
+        if chunk_ops is not None:
+            cslot, ctoks, cstart, ctl, cdl, cbt_row = chunk_ops
+            assert ctoks.shape[0] == chunk[0], "chunk tokens are not CB-bucketed"
+            if drf is not None:
+                drf.prefill_chunk(dparams, ctoks[None], ring_view(dcache, cslot),
+                                  torch.full((1,), cstart, dtype=torch.int32, device=dev),
+                                  torch.full((1,), cdl, dtype=torch.int32, device=dev),
+                                  rows_limit=chunk[1])
         # ---- 1. draft phase ----
         if s > 0:
             logits, dcache = drf.decode_step(dparams, last2, dcache, seq_lens - 1)
@@ -540,8 +685,13 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
 
         # ---- 2. verify: [t_{n-1}, d_1..d_s] ----
         feed = torch.cat([last2[:, 1:], drafts], dim=1)              # [B, s+1]
-        vlogits, tcache_out = tgt.decode_step(tparams, feed, tcache, seq_lens,
-                                              cu_blocks if paged else None)
+        if chunk_ops is not None:
+            vlogits, tcache_out = tgt.decode_step_mixed(
+                tparams, feed, tcache, seq_lens, cslot, ctoks, cstart, ctl, cbt_row,
+                s + 1, cu_blocks)
+        else:
+            vlogits, tcache_out = tgt.decode_step(tparams, feed, tcache, seq_lens,
+                                                  cu_blocks if paged else None)
         bidx = torch.arange(B, device=dev)
 
         # ---- 3. acceptance (argmax verification) ----

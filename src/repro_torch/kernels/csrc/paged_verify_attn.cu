@@ -39,7 +39,11 @@
 //     blocks' positions are tested against the tile's rows (the TPU
 //     kernel's `_tile_visible`); an invisible block costs no K/V bytes.
 //   * no work on rows the call does not have: a block computes its nr <= RT
-//     rows only.  The 4 warps split each stage's keys, 8 at a time; a lane
+//     rows only, and a tile of padding rows only (every position -1, no
+//     prefix: the mixed verify+chunk launch pads each slot to the widest
+//     slot's columns) sees nothing, so it writes what the walk would write
+//     for it (zero rows; with splits the empty partial acc 0, m -inf, l 0)
+//     and returns before it loads Q or reads the table.  The 4 warps split each stage's keys, 8 at a time; a lane
 //     is (key jj = lane & 7, dim quarter qd = lane >> 3) for the scores,
 //     two shuffles finish a dot product, and (dims lane*hd/32 ..) for P.V.
 //     Scores, running max and sum stay in registers (warp shuffles); each
@@ -236,6 +240,32 @@ __global__ void __launch_bounds__(NT, min_blocks<KT, HD>()) paged_verify_kernel(
   const int r0 = tile * RT;
   const int nr = min(RT, G * p.T - r0);
   const int bs = p.bs, lbs = p.lbs, P = p.per_split, KC = p.stage_keys;
+
+  // a tile of padding rows only: the walk below would see no key and write
+  // zeros (the empty partial with splits); write them and stop
+  if (p.prefix_len == 0) {
+    bool dead = true;
+    for (int r = 0; r < nr; ++r) dead = dead && p.q_pos[b * p.qp_sb + (r0 + r) % p.T] < 0;
+    if (dead) {
+      const long long part0 =
+          ((static_cast<long long>(b) * p.KVH + kvh) * p.n_splits + split) * (p.tiles * RT) + r0;
+      QT* o = static_cast<QT*>(p.out);
+      for (int e = tid; e < nr * HD; e += NT) {
+        const int r = e / HD, d = e % HD;
+        if (p.n_splits == 1) {
+          const int fr = r0 + r, g = fr / p.T, t = fr % p.T;
+          o[((static_cast<long long>(b) * p.T + t) * p.H + kvh * G + g) * HD + d] = from_f<QT>(0.f);
+        } else {
+          p.ws_acc[(part0 + r) * HD + d] = 0.f;
+          if (d == 0) {
+            p.ws_m[part0 + r] = -INFINITY;
+            p.ws_l[part0 + r] = 0.f;
+          }
+        }
+      }
+      return;
+    }
+  }
 
   // the row tile: folded row r0 + r = g*T + t holds head kvh*G + g at time t
   const QT* q = static_cast<const QT*>(p.q);

@@ -13,6 +13,9 @@ Entry points:
                      (T = 1 for plain decode, T = s+1 for speculative verify)
   ``prefill_chunk``  one prefill chunk written at ``offset ..`` and attending
                      the prefix already in the cache (chunked prefill)
+  ``decode_step_mixed``  the paged verify of every slot and one slot's
+                     prefill chunk in one attention call per layer (the
+                     mixed verify+chunk launch)
 
 The ring cache is indexed by absolute position modulo cache length, with a
 per-row absolute-position array ``pos`` driving the attention mask, so
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, pad_vocab
@@ -167,17 +171,32 @@ class DecoderLM:
                     k_pool: torch.Tensor, v_pool: torch.Tensor,
                     pos: torch.Tensor, pb: torch.Tensor, off: torch.Tensor,
                     bt: torch.Tensor, rope,
-                    cu_blocks: Optional[torch.Tensor]) -> torch.Tensor:
+                    cu_blocks: Optional[torch.Tensor],
+                    wide: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                    ) -> torch.Tensor:
         """Write the new K/V rows at the physical addresses ``(pb, off)``
         [B,T] (in place; ``pb`` = the trash block for slots without a block
-        there), then attend against the pool through the block table."""
+        there), then attend against the pool through the block table.
+
+        ``wide = (b, t, q_pos)`` is the mixed launch's layout: ``x`` is
+        ``[1, M, d]`` packed rows, and row m's query sits at ``(b[m],
+        t[m])`` of a zeroed ``[B, Tm]`` batch whose positions ``q_pos``
+        are -1 on every padding column, for the one attention call; each
+        row's output is read back from the same place."""
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
         k_pool[pb, off] = k_new.to(k_pool.dtype)
         v_pool[pb, off] = v_new.to(v_pool.dtype)
-        out = paged_verify_attn(q, k_pool, v_pool, positions, pos, bt,
-                                window=a.window, cu_blocks=cu_blocks)
+        if wide is None:
+            out = paged_verify_attn(q, k_pool, v_pool, positions, pos, bt,
+                                    window=a.window, cu_blocks=cu_blocks)
+        else:
+            b, t, q_pos = wide
+            qw = q.new_zeros((*q_pos.shape, *q.shape[2:]))
+            qw[b, t] = q[0]
+            out = paged_verify_attn(qw, k_pool, v_pool, q_pos, pos, bt,
+                                    window=a.window, cu_blocks=cu_blocks)[b, t]
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_full(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -346,6 +365,25 @@ class DecoderLM:
                                     device=tokens.device)[None]).to(torch.int32)
         return self._paged_forward(params, tokens, cache, positions, cu_blocks)
 
+    @staticmethod
+    def _pool_rows(cache: Dict, bt: torch.Tensor, slots: torch.Tensor,
+                   positions: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The physical addresses ``(pb, off)`` of new rows at ``positions``
+        through the table rows ``bt[slots]`` (``slots`` broadcasts against
+        ``positions``), with their positions written into ``cache["pos"]``
+        in place.  A row outside ``valid``, or at a table hole, goes to the
+        trash block."""
+        trash, bs = cache["pos"].shape[0] - 1, cache["pos"].shape[1]
+        blk = (positions // bs).clamp(0, bt.shape[1] - 1).long()
+        off = (positions % bs).long()
+        pb = bt[slots, blk]
+        dropped = pb < 0 if valid is None else (pb < 0) | ~valid
+        pb = torch.where(dropped, trash, pb).long()
+        cache["pos"][pb, off] = (positions if valid is None
+                                 else torch.where(valid, positions, -1))
+        return pb, off
+
     def _paged_forward(self, params: Dict, tokens: torch.Tensor, cache: Dict,
                        positions: torch.Tensor, cu_blocks: Optional[torch.Tensor],
                        valid: Optional[torch.Tensor] = None,
@@ -354,14 +392,8 @@ class DecoderLM:
         each column through its slot's table; a column outside ``valid``
         [B,T], or at a table hole, writes into the trash block."""
         bt = cache["bt"]                                        # [B, MAXB]
-        trash, bs = cache["pos"].shape[0] - 1, cache["pos"].shape[1]
-        blk = (positions // bs).clamp(0, bt.shape[1] - 1).long()
-        off = (positions % bs).long()
-        pb = torch.gather(bt, 1, blk)
-        dropped = pb < 0 if valid is None else (pb < 0) | ~valid
-        pb = torch.where(dropped, trash, pb).long()
-        cache["pos"][pb, off] = (positions if valid is None
-                                 else torch.where(valid, positions, -1))
+        slots = torch.arange(bt.shape[0], device=bt.device)[:, None]
+        pb, off = self._pool_rows(cache, bt, slots, positions, valid)
 
         def attn(lp, hn, i, rope):
             return self._attn_paged(lp, hn, positions, cache["k"][i], cache["v"][i],
@@ -369,6 +401,77 @@ class DecoderLM:
 
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
         return self._unembed(params, x), cache
+
+    def decode_step_mixed(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                          seq_lens: torch.Tensor, chunk_slot: int,
+                          chunk_tokens: torch.Tensor, chunk_start: int,
+                          chunk_limit: int, chunk_bt_row: torch.Tensor,
+                          verify_len: int, cu_blocks: Optional[torch.Tensor] = None,
+                          ) -> Tuple[torch.Tensor, Dict]:
+        """One mixed verify+chunk launch against the paged pool: the port of
+        the JAX ``decode_step_mixed``.
+
+        Row ``chunk_slot`` carries a prefill chunk (``chunk_tokens`` at
+        absolute positions ``chunk_start ..``, those at or beyond
+        ``chunk_limit`` bucket padding), read and written through
+        ``chunk_bt_row``, the slot's host table row; every other row
+        carries its verify feed, the first ``verify_len`` columns of
+        ``tokens`` at ``seq_lens - 1 ..``.  Both query kinds ride one
+        paged attention call per layer (K3 with ``cu_blocks``, which must
+        describe ``bt`` with the chunk row patched in).
+
+        The JAX function pads every slot to ``Tm = max(verify_len, CB)``
+        columns for the whole layer.  Here only the rows that carry a token
+        go through the embedding, K5, RoPE and the products, packed into
+        one ``[1, M]`` sequence (each other slot's ``verify_len`` columns
+        and the chunk's ``n`` real columns): the attention alone widens to
+        ``[B, Tm]``, ``Tm = max(verify_len, n)``, with position -1 on every
+        padding column (it sees nothing and writes nowhere).  The values
+        are JAX's; only the roundings of the products differ, which run on
+        another number of rows.
+
+        The device table ``cache["bt"]`` is not patched: the pending slot's
+        row stays -1 until its final chunk commits, and the patched table
+        is only the attention's operand.  The chunk slot writes no verify
+        rows (flush-then-step writes them into the trash block).  Returns
+        (logits [B, verify_len, V] of the verify columns, the cache written
+        in place); the chunk row's logits mean nothing."""
+        B = seq_lens.shape[0]
+        dev = seq_lens.device
+        n = min(int(chunk_tokens.shape[0]), chunk_limit - chunk_start)
+        if n < 1 or not 0 <= chunk_slot < B:
+            raise ValueError(f"no chunk rows: slot {chunk_slot} of {B}, positions "
+                             f"[{chunk_start}, {chunk_limit}) in a {chunk_tokens.shape[0]} bucket")
+        # the packed layout, built on the host: row m is column t[m] of slot b[m]
+        counts = np.full(B, verify_len)
+        counts[chunk_slot] = n
+        starts = np.cumsum(counts) - counts
+        b_np = np.repeat(np.arange(B), counts)
+        t_np = np.arange(len(b_np)) - np.repeat(starts, counts)
+        # the verify logits' rows (the chunk slot's: its rows, to fill the shape)
+        v_np = starts[:, None] + np.minimum(np.arange(verify_len)[None], counts[:, None] - 1)
+        M = len(b_np)
+        idx = torch.from_numpy(np.concatenate([b_np, t_np, v_np.ravel()])).to(dev)
+        b, t, vrows = idx[:M], idx[M:2 * M], idx[2 * M:]
+        c0 = int(starts[chunk_slot])
+        toks = tokens[b, t.clamp(max=tokens.shape[1] - 1)]
+        toks[c0:c0 + n] = chunk_tokens[:n]
+        positions = (seq_lens[b] - 1 + t).to(torch.int32)
+        positions[c0:c0 + n] = chunk_start + t[c0:c0 + n].to(torch.int32)
+        q_pos = torch.full((B, max(verify_len, n)), -1, dtype=torch.int32, device=dev)
+        q_pos[b, t] = positions
+        bt_eff = cache["bt"].clone()
+        bt_eff[chunk_slot] = chunk_bt_row
+        positions = positions[None]
+        pb, off = self._pool_rows(cache, bt_eff, b[None], positions)
+
+        def attn(lp, hn, i, rope):
+            return self._attn_paged(lp, hn, positions, cache["k"][i], cache["v"][i],
+                                    cache["pos"], pb, off, bt_eff, rope, cu_blocks,
+                                    wide=(b, t, q_pos))
+
+        x = self._layers(params, cm.embed(toks[None], params["embed"]), positions, attn)
+        return self._unembed(params, x[0, vrows].view(B, verify_len, -1)), cache
 
     # ------------------------------------------------------------------
     # chunked prefill (prefix extension)

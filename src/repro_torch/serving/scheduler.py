@@ -39,10 +39,13 @@ feeds long prompts in budgeted chunks between speculative steps
 (``SpecDecodeEngine.prefill_chunk_into``; K1 over a ring, K3 over a paged
 pool).  A Mamba-2 target has no chunked prefill (``can_chunk`` is false),
 so the policy falls back to whole-prompt budgeting there, as it does in
-JAX on a chunk-incapable backend.  The prefix cache, the mixed
-verify+chunk launch, sharded pools and the telemetry hub are not ported
-(ROADMAP queue 1, items 10, 9, 14 and 11) and raise
-``NotImplementedError``.
+JAX on a chunk-incapable backend.  On a paged pool,
+``mixed_launch=True`` defers every non-final chunk's forward into the next
+speculative step (``SpecDecodeEngine.step_with_chunk``: the chunk's rows
+ride the verify's K3 call, once per layer); the host bookkeeping still
+runs at feed time, so the StepTrace is the one of the run without it.  The
+prefix cache, sharded pools and the telemetry hub are not ported (ROADMAP
+queue 1, items 10, 14 and 11) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -287,6 +290,12 @@ class ContinuousEngineBackend:
     A preempted request's generated tokens are stashed host-side; on
     re-admission it re-prefills from prompt + stash (recompute-style
     restore) and greedy decoding continues exactly where it left off.
+
+    ``mixed_launch=True`` (paged only) defers each non-final chunk's
+    forward: its host bookkeeping runs when it is fed, and the forward
+    rides the next speculative step (the mixed verify+chunk launch).  Every
+    other consumer of the pool first sends the deferred chunk on its own,
+    so at most one chunk is ever in flight.
     """
 
     def __init__(self, engine, tparams, dparams, capacity: int,
@@ -302,8 +311,6 @@ class ContinuousEngineBackend:
             raise _not_ported("a mesh-sharded slot pool", 14)
         if prefix_cache:
             raise _not_ported("the prefix cache", 10)
-        if mixed_launch:
-            raise _not_ported("the mixed verify+chunk launch", 9)
         self.engine = engine
         self.tparams = tparams
         self.dparams = dparams
@@ -321,6 +328,13 @@ class ContinuousEngineBackend:
         self._warm_prefill: set = set()
         self._warm_chunk: set = set()
         self._warm_step: set = set()
+        self.mixed_launch = mixed_launch
+        self._deferred = None            # Optional[DeferredChunk]
+        self._flush_s = 0.0              # flush seconds no timed region covered
+        if mixed_launch and self.kv is None:
+            raise ValueError(
+                "mixed_launch=True needs a paged KV pool (block_size): "
+                "the fused launch rides the ragged paged kernel")
         for s in warm_s:
             self.warm_step(s)
 
@@ -347,6 +361,25 @@ class ContinuousEngineBackend:
         """Wait for the card, so the host clock covers the queued work."""
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
+
+    def _flush_deferred(self) -> float:
+        """Run the deferred chunk's forward on its own, if one is pending,
+        and return its seconds (fenced; 0 when none was pending).  Called
+        before every other consumer of the pool (prefill, chunk, preempt,
+        retire, output reads): the deferred forward must land before
+        anything else reads or writes the pool.  A prefill or a chunk runs
+        it inside its own timed region; preempt, retire and output reads
+        have none, so their flush seconds go to the next step's time: the
+        eager forward costs the host as much as a chunk does, and the
+        virtual clock must not lose it."""
+        if self._deferred is None:
+            return 0.0
+        chunk, self._deferred = self._deferred, None
+        t0 = time.perf_counter()
+        self.state = self.engine.flush_chunk(self.tparams, self.dparams,
+                                             self.state, chunk)
+        self._fence()
+        return time.perf_counter() - t0
 
     def _bucket(self, n: int) -> int:
         p = 4
@@ -377,6 +410,7 @@ class ContinuousEngineBackend:
                                      warm=True)
             self._warm_prefill.add(P)
         t0 = time.perf_counter()
+        self._flush_deferred()
         self.state = self.engine.prefill_into(
             self.tparams, self.dparams, self.state, slot, toks,
             plen, self.cache_len)
@@ -408,6 +442,15 @@ class ContinuousEngineBackend:
                 np.ones((CB,), np.int32), 0, CB, CB + 2, warm=True)
             self._warm_chunk.add(CB)
         t0 = time.perf_counter()
+        self._flush_deferred()
+        if self.mixed_launch and not final:
+            # the host bookkeeping runs now (block accounting and admission
+            # are unchanged); the forward rides the next speculative step,
+            # or a flush, whichever consumer of the pool comes first
+            self.state, self._deferred = self.engine.prefill_chunk_into(
+                self.tparams, self.dparams, self.state, slot, toks, start, n,
+                total_len, defer=True)
+            return time.perf_counter() - t0
         self.state = self.engine.prefill_chunk_into(
             self.tparams, self.dparams, self.state, slot, toks, start, n,
             total_len, last2=prompt[-2:] if final else None)
@@ -416,18 +459,27 @@ class ContinuousEngineBackend:
 
     def step(self, s: int) -> Tuple[float, np.ndarray, np.ndarray]:
         """One speculative step at live occupancy.  Returns
-        (wall seconds, committed[capacity], done[capacity])."""
+        (wall seconds, committed[capacity], done[capacity]).  With a
+        deferred chunk pending, the step is the mixed verify+chunk launch
+        (``step_with_chunk``)."""
         self.warm_step(s)
+        chunk, self._deferred = self._deferred, None
         t0 = time.perf_counter()
-        self.state, st = self.engine.step(self.tparams, self.dparams,
-                                          self.state, s)
+        if chunk is not None:
+            self.state, st = self.engine.step_with_chunk(
+                self.tparams, self.dparams, self.state, s, chunk)
+        else:
+            self.state, st = self.engine.step(self.tparams, self.dparams,
+                                              self.state, s)
         committed = st.committed      # read on the host inside the step
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - t0 + self._flush_s
+        self._flush_s = 0.0
         return dt, committed, self.state.done.cpu().numpy()
 
     def preempt(self, slot: int, req: Request) -> None:
         """Evict ``req`` under memory pressure: stash its generated tokens,
         free the slot's KV blocks, and mark the row done."""
+        self._flush_s += self._flush_deferred()
         dev_n = int(self.state.n_generated[slot].cpu())
         fresh = self.state.out[slot, :dev_n].cpu().numpy().astype(np.int32)
         old = self._stash.get(req.rid)
@@ -436,6 +488,7 @@ class ContinuousEngineBackend:
         self.state = self.engine.retire_slot(self.state, slot)
 
     def retire(self, slot: int, req: Optional[Request] = None) -> None:
+        self._flush_s += self._flush_deferred()
         if req is not None:
             if self.collect_outputs:
                 # stitch ever-preempted requests now, before the slot (and
@@ -454,6 +507,7 @@ class ContinuousEngineBackend:
         surface tokens past its budget) and stitched with any pre-preemption
         stash; without it, the engine-sized row is returned.
         """
+        self._flush_s += self._flush_deferred()
         out = self.state.out[slot].cpu().numpy()
         if req is None:
             return out[:self.engine.max_new]
@@ -1021,16 +1075,28 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
     KV footprint (``prompt_len + max_new`` + the controller's speculation
     ceiling) exceeds the per-request capacity.
 
-    ``mesh``, ``prefix_cache``, ``mixed_launch`` and ``telemetry`` are the
-    JAX package's sharded pool, prefix cache, mixed launch and telemetry
-    hub; they are not ported yet and raise ``NotImplementedError``.
+    ``mixed_launch`` (requires ``block_size``) runs each non-final prefill
+    chunk inside the next speculative step, one K3 call per layer for the
+    chunk's and the verify's rows (``SpecDecodeEngine.step_with_chunk``).
+    The host block accounting still runs at feed time, so admissions,
+    preemptions, tokens and the StepTrace (all but its durations) equal the
+    run without it; with an explicit ``backend`` pass the flag to the
+    backend instead (``ValueError`` here).
+
+    ``mesh``, ``prefix_cache`` and ``telemetry`` are the JAX package's
+    sharded pool, prefix cache and telemetry hub; they are not ported yet
+    and raise ``NotImplementedError``.
     """
     if mesh is not None:
         raise _not_ported("a mesh-sharded slot pool", 14)
     if prefix_cache:
         raise _not_ported("the prefix cache", 10)
-    if mixed_launch:
-        raise _not_ported("the mixed verify+chunk launch", 9)
+    if backend is not None and mixed_launch:
+        # the defer/flush bookkeeping lives on the backend
+        raise ValueError(
+            "serve_continuous_live: pass mixed_launch=True to the "
+            "ContinuousEngineBackend constructor when supplying an explicit "
+            "backend (the deferred-chunk bookkeeping lives on it)")
     for r in requests:
         if r.max_new > engine.max_new:
             raise ValueError(
@@ -1044,7 +1110,7 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
                                           cache_len=cache_len, warm_s=warm,
                                           block_size=block_size,
                                           num_blocks=num_blocks,
-                                          s_cap=s_cap)
+                                          s_cap=s_cap, mixed_launch=mixed_launch)
     for r in requests:
         if r.prompt_len + r.max_new + s_cap > backend.max_context:
             raise ValueError(

@@ -249,7 +249,6 @@ def test_admission_rejects_kv_overflow(engine, block_size):
 
 
 @pytest.mark.parametrize("kw,item", [({"prefix_cache": True}, "item 10"),
-                                     ({"mixed_launch": True}, "item 9"),
                                      ({"mesh": object()}, "item 14"),
                                      ({"telemetry": object()}, "item 11")])
 def test_unported_features_raise(engine, kw, item):

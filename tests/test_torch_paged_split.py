@@ -18,7 +18,10 @@ checks the kernels themselves on the card, K3 == K2 bit for bit.
 Also here: the dense walk (every table entry, skipping -1) and the ragged
 walk (``host_cu_blocks``) hand every split the same blocks, the wrapper's
 ``n_splits`` rule, and that both wrappers pass the kernel the same split
-count and workspace whatever the tables hold.
+count and workspace whatever the tables hold; and the kernels' early exit
+for a row tile of padding rows only (every position -1, no prefix: the
+mixed verify+chunk launch pads each slot to the widest slot's columns),
+which writes the partials the walk would have written.
 """
 import inspect
 import math
@@ -86,10 +89,13 @@ def _tile_visible_block(kp, qlo, qhi, window, prefix_len):
 
 
 def emulate(q, k, v, q_pos, pos, bt, splits, window=None, prefix_len=0,
-            k_scale=None, v_scale=None, walk="dense"):
+            k_scale=None, v_scale=None, walk="dense", early_exit=True, partials=None):
     """The kernels' algorithm in fp32: per (slot, kv-head, row tile, split)
     the split's live blocks, the visible ones, their (acc, m, l); then the
-    splits folded in index order with the ``m_safe`` guard."""
+    splits folded in index order with the ``m_safe`` guard.  With
+    ``early_exit`` a tile whose rows all sit at position -1 (and no prefix)
+    takes the empty partial (0, -inf, 0) without a walk.  ``partials``
+    (a dict) collects each tile's split partials by (b, kvh, tile)."""
     B, T, H, hd = q.shape
     bs, KVH = k.shape[1], k.shape[2]
     G, MAXB = H // KVH, bt.shape[1]
@@ -111,8 +117,13 @@ def emulate(q, k, v, q_pos, pos, bt, splits, window=None, prefix_len=0,
                 qp = q_pos[b, times]                                  # [nr]
                 qhi = int(qp.max())
                 qlo = int(qp[qp >= 0].min()) if (qp >= 0).any() else INT_MAX
+                dead = early_exit and prefix_len == 0 and qhi < 0
                 parts = []
                 for c in range(splits):
+                    if dead:
+                        parts.append((torch.zeros(len(qr), hd),
+                                      torch.full((len(qr),), -math.inf), torch.zeros(len(qr))))
+                        continue
                     blocks = (dense_walk(row, c, P) if walk == "dense"
                               else ragged_walk(row, int(cu[b + 1] - cu[b]), c, P))
                     vis = [blk for blk in blocks
@@ -130,6 +141,8 @@ def emulate(q, k, v, q_pos, pos, bt, splits, window=None, prefix_len=0,
                         p = torch.where(ok, torch.exp(s - ms[:, None]), 0.0)
                         l, acc = p.sum(1), p @ vv
                     parts.append((acc, m, l))
+                if partials is not None:
+                    partials[(b, kvh, tile)] = parts
                 M = torch.stack([m for _, m, _ in parts]).max(0).values
                 Ms = torch.where(M == -math.inf, 0.0, M)
                 A, L = torch.zeros(len(qr), hd), torch.zeros(len(qr))
@@ -149,7 +162,13 @@ PATTERNS = {
     "prefix": ([60, 33], 3, 4, 2, 64, 8, 8, ((1, 1),), 6, 5, False),
     "int8": ([40, 0, 19], 3, 4, 2, 64, 8, 8, ((0, 2),), None, 0, True),
     "bs16_hd128": ([70, 12, 0, 33], 2, 8, 2, 128, 16, 5, ((0, 1),), None, 0, False),
+    # the mixed launch's layout: slot 1 carries a 16-row chunk, slots 0 and
+    # 2 their verify columns (REAL), the rest padding at position -1; with a
+    # prefix the padding rows see the prefix keys, so no tile exits early
+    "mixed": ([40, 23, 57], 16, 4, 2, 64, 8, 8, ((0, 1),), None, 0, False),
+    "mixed_prefix": ([40, 23, 57], 16, 4, 2, 64, 8, 8, (), None, 5, False),
 }
+REAL = {"mixed": [1, 16, 4], "mixed_prefix": [1, 16, 4]}   # real query columns a slot
 
 
 def _case(name, seed=0):
@@ -160,12 +179,13 @@ def _case(name, seed=0):
     lens, T, H, KVH, hd, bs, MAXB, holes, window, prefix_len, quant = PATTERNS[name]
     rng = np.random.default_rng(seed + len(name))
     B = len(lens)
-    need = [-(-(n + T - 1) // bs) if n else 0 for n in lens]
+    real = REAL.get(name, [T] * B)
+    need = [-(-(n + t - 1) // bs) if n else 0 for n, t in zip(lens, real)]
     NB = sum(need) + 3
     order, nxt = rng.permutation(NB), 0
     bt = np.full((B, MAXB), -1, np.int32)
     pos = rng.integers(0, 200, (NB, bs)).astype(np.int32)
-    for b, n in enumerate(lens):
+    for b, (n, t_real) in enumerate(zip(lens, real)):
         for j in range(need[b]):
             if (b, j) in holes:
                 continue
@@ -173,8 +193,9 @@ def _case(name, seed=0):
             nxt += 1
             bt[b, j] = pb
             rows = j * bs + np.arange(bs)
-            pos[pb] = np.where(rows < n + T - 1, rows, -1)
-    q_pos = np.stack([np.arange(T) + (n - 1 if n else 1) for n in lens]).astype(np.int32)
+            pos[pb] = np.where(rows < n + t_real - 1, rows, -1)
+    q_pos = np.stack([np.where(np.arange(T) < t, np.arange(T) + (n - 1 if n else 1), -1)
+                      for n, t in zip(lens, real)]).astype(np.int32)
     q = rng.standard_normal((B, T, H, hd)).astype(np.float32)
     k = rng.standard_normal((NB, bs, KVH, hd)).astype(np.float32)
     v = rng.standard_normal((NB, bs, KVH, hd)).astype(np.float32)
@@ -208,6 +229,33 @@ def test_split_emulation_matches_gather(pattern, splits):
         assert bool((err <= TOL + TOL * want.abs()).all()), float(err.max())
         empty = (c["bt"] < 0).all(1)
         assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("pattern", ["mixed", "mixed_prefix"])
+def test_padding_tiles_exit_with_the_walks_partials(pattern, splits):
+    """A row tile of padding rows only writes, without its walk, the
+    partials (and so the output rows) its walk would write: bit for bit;
+    the mixed layout has such tiles, and with a prefix none exits."""
+    c = _case(pattern)
+    args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"], c["bt"], splits)
+    kw = dict(window=c["window"], prefix_len=c["prefix_len"])
+    walked, exited = {}, {}
+    a = emulate(*args, early_exit=False, partials=walked, **kw)
+    b = emulate(*args, partials=exited, **kw)
+    assert torch.equal(a, b)
+    G, T = c["q"].shape[2] // c["k"].shape[2], c["q"].shape[1]
+    dead = [key for key in walked
+            if bool((c["q_pos"][key[0], [f % T for f in range(key[2] * K23.ROW_TILE,
+                     min((key[2] + 1) * K23.ROW_TILE, G * T))]] < 0).all())]
+    assert dead, "the pattern has no padding-only tile"
+    for key in walked:
+        for (acc0, m0, l0), (acc1, m1, l1) in zip(walked[key], exited[key]):
+            assert torch.equal(acc0, acc1) and torch.equal(m0, m1) and torch.equal(l0, l1)
+    if c["prefix_len"]:   # padding rows see the prefix keys: not zero
+        assert bool((a[c["q_pos"] < 0].abs().sum(-1) > 0).all())
+    else:
+        assert bool((a[c["q_pos"] < 0] == 0).all())
 
 
 def test_window_leaves_whole_splits_invisible():

@@ -2,7 +2,8 @@
 """What limits the paged verify kernels K2/K3 on the card: variants of
 ``src/repro_torch/kernels/csrc/paged_verify_attn.cu`` timed in one process.
 
-    python3 tools/paged_verify_variants.py      # from the repository root, on a GPU
+    python3 tools/paged_verify_variants.py          # from the repository root, on a GPU
+    python3 tools/paged_verify_variants.py --mixed  # the mixed launch's shapes
 
 Each variant is a copy of the source with one text substitution, built with
 the same ``nvcc`` flags into ``build/variants/`` (gitignored):
@@ -11,13 +12,20 @@ the same ``nvcc`` flags into ``build/variants/`` (gitignored):
 - ``nocompute``  no stage is computed (copies, prologue and epilogue only);
 - ``nocopy``     no K/V byte is copied (compute on whatever the ring holds);
 - ``ns4``        a ring of 4 stages instead of 3;
-- ``kc64``       64 keys a stage instead of 32.
+- ``kc64``       64 keys a stage instead of 32;
+- ``noexit``     no early exit for a row tile of padding rows only (they
+                 load Q, walk the table and scan the positions, as before
+                 the mixed verify+chunk launch).
 
 K3's wrapper is pointed at each library in turn and timed with
 ``chip_smoke.device_ms`` at phase 2b's verify shapes (OPT-6.7B widths,
 bf16 and fp32), ``base`` first and last.  The variants compute wrong
-results: only their times mean anything.  One JSON line per case, the
-card's name and power limit first; everything also goes to
+results: only their times mean anything (``noexit`` computes right ones).
+With ``--mixed``, ``base`` and ``noexit`` at phase 2b's mixed cases
+(``chip_smoke.MIXED_CASES``), beside the two-launch order the mixed call
+replaces (``chip_smoke.run_mixed_case``: the verify's K3 call plus the
+chunk's, on ``base``).  One JSON line per case, the card's name and power
+limit first; everything also goes to
 ``chiprun_out/paged_verify_variants.log``.
 """
 from __future__ import annotations
@@ -38,6 +46,8 @@ VARIANTS = {
                 "for (int e = tid; e < 0; e += NT)")],
     "ns4": [("constexpr int NS = 3;", "constexpr int NS = 4;")],
     "kc64": [("constexpr int STAGE_KEYS = 32;", "constexpr int STAGE_KEYS = 64;")],
+    "noexit": [("  if (p.prefix_len == 0) {\n    bool dead = true;",
+                "  if (false) {\n    bool dead = true;")],
 }
 
 
@@ -94,6 +104,8 @@ def main() -> int:
     sys.stdout = cs.Tee(sys.stdout, log)
     print(cs.smi(), flush=True)
     libs = build_variants(build)
+    if "--mixed" in sys.argv[1:]:
+        return mixed(cs, np, torch, build, K23, paged, libs)
     rng = np.random.default_rng(17)
     opt = dict(H=32, KVH=32, hd=128, bs=16, MAXB=32)
 
@@ -120,6 +132,35 @@ def main() -> int:
                 row[key] = cs.device_ms(torch, k3, sets, iters=40)
             print(json.dumps({"case": name, "dtype": dtype, "shape": c["shape"], "ms": row,
                               "bound_ms": cs.paged_bound(torch, paged, c)[0]}), flush=True)
+    return 0
+
+
+def mixed(cs, np, torch, build, K23, paged, libs) -> int:
+    """``base`` and ``noexit`` at phase 2b's mixed cases, ``base`` first and
+    last, beside the two-launch order (on ``base``)."""
+    from repro_torch.kernels import ref
+
+    def k3(q, k, v, qp, pos, bt, cu):
+        return K23.ragged_paged_verify_attn_cuda(q, k, v, qp, pos, bt, cu)
+    for dtype in ("bfloat16", "float32"):
+        for i, (name, kw) in enumerate(cs.MIXED_CASES):
+            kw = dict(kw)
+            slot = kw.pop("mixed_slot")
+            c = cs.make_paged_case(torch, np, name, dtype=dtype, seed=100 + i, **kw)
+            args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"], c["bt"], c["cu"])
+            sets = [tuple(x.clone() for x in args) for _ in range(4)]   # out of L2
+            row = {}
+            for variant in ("base", "noexit", "base"):
+                point_wrapper_at(K23, libs[variant])
+                key = variant if variant not in row else "base_again"
+                row[key] = cs.device_ms(torch, k3, sets, iters=40)
+            point_wrapper_at(K23, libs["base"])
+            r = cs.run_mixed_case(torch, K23, paged, ref, c, slot)
+            print(json.dumps({"case": name, "dtype": dtype, "shape": c["shape"], "ms": row,
+                              "verify_call_ms": r["verify_call_ms"],
+                              "chunk_call_ms": r["chunk_call_ms"],
+                              "two_launch_ms": r["two_launch_ms"], "ok": r["ok"],
+                              "bound_ms": r["bound_ms"]}), flush=True)
     return 0
 
 
