@@ -1540,10 +1540,10 @@ def continuous_requests(np, Request, vocab, n, lens, max_new, interval, seed):
 
 
 def trace_signature(trace):
-    """The scheduling decisions of a StepTrace, chunk events included,
-    without its clock."""
+    """The scheduling decisions of a StepTrace, chunk events and prefix-cache
+    hits included, without its clock."""
     return [(t.occupancy, t.s, t.rids, t.committed, t.admitted, t.preempted, t.done_rids,
-             t.chunked) for t in trace]
+             t.chunked, t.cache_hits) for t in trace]
 
 
 def replays_equal(np, m, res, reqs, controller, policy, capacity, **geo):
@@ -1574,22 +1574,40 @@ def chunk_counts(res):
                     (sum(n for _, n in t.chunked) for t in res.trace), default=0))
 
 
+ENGINE_CALLS = ("step_with_chunk", "step", "flush_chunk", "prefill_chunk_into",
+                "prefill_into", "attach_prefix")
+
+
 def engine_calls(eng):
     """Count, and time on the host clock, the engine's mixed steps, plain
     steps, flushes and chunk forwards run at feed time, by wrapping its
     methods on the instance (``release_calls`` takes them off).  A step ends
     in its ``.cpu()`` read of the counts, so its host time covers its
-    device work."""
+    device work.  Also the target rows each prefill and chunk feeds
+    (``rows_fed``: a whole prefill feeds ``prompt_len - 1``) and each
+    admission's ``(feed length, cached prefix)`` (a whole prefill, a first
+    chunk, or a prefix-cache attach)."""
+    import inspect
     rec = {"step_with_chunk": [], "step": [], "flush_chunk": [], "final_chunks": 0,
-           "deferred_chunks": 0}
-    for name in ("step_with_chunk", "step", "flush_chunk", "prefill_chunk_into"):
+           "deferred_chunks": 0, "rows_fed": 0, "admissions": []}
+    for name in ENGINE_CALLS:
         fn = getattr(eng, name)
 
         def wrapped(*a, _fn=fn, _name=name, **kw):
             if kw.get("warm"):
                 return _fn(*a, **kw)
-            if _name == "prefill_chunk_into":
+            arg = inspect.signature(_fn).bind(*a, **kw).arguments
+            if _name == "prefill_into":
+                rec["rows_fed"] += arg["prompt_len"] - 1
+                rec["admissions"].append((arg["prompt_len"], 0))
+            elif _name == "attach_prefix":
+                rec["admissions"].append((arg["total_len"], arg["n_prefix"]))
+            elif _name == "prefill_chunk_into":
                 rec["deferred_chunks" if kw.get("defer") else "final_chunks"] += 1
+                rec["rows_fed"] += arg["n"]
+                if arg["start"] == 0:
+                    rec["admissions"].append((arg["total_len"], 0))
+            if _name not in rec:
                 return _fn(*a, **kw)
             t0 = time.perf_counter()
             out = _fn(*a, **kw)
@@ -1600,7 +1618,7 @@ def engine_calls(eng):
 
 
 def release_calls(eng):
-    for name in ("step_with_chunk", "step", "flush_chunk", "prefill_chunk_into"):
+    for name in ENGINE_CALLS:
         eng.__dict__.pop(name, None)
 
 
@@ -1779,6 +1797,82 @@ def phase_continuous_serve(torch, np, R, m, lut_table):
     return line
 
 
+def paged_slot_rows(torch, st, slot, plen):
+    """K, V and pos of a slot's ``plen - 1`` prefilled target rows through
+    its table, and its draft ring's ``plen - 2`` rows of K and V, in fp32."""
+    ids = torch.tensor(st.paged.table(slot), device="cuda")
+    out = {n: st.tcache[n][:, ids].flatten(1, 2)[:, :plen - 1].float() for n in ("k", "v")}
+    out.update({"draft_" + n: st.dcache[n][:, slot, :plen - 2].float() for n in ("k", "v")})
+    return out, st.tcache["pos"][ids].flatten()[:plen - 1]
+
+
+def first_step_logits(torch, m, e, tparams, st, vocab):
+    """The target's logits of every slot's first decode step (s = 0: the
+    last prompt token at position plen - 1), through K3 as the step runs
+    it, in fp32 ``[B, vocab]``."""
+    cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).cuda()
+    lg, _ = e.target.decode_step(tparams, st.last2[:, 1:], st.tcache, st.seq_lens, cu)
+    return lg[:, -1, :vocab].float()
+
+
+def rel_rms_over(x, want, dims):
+    return ((x - want) ** 2).mean(dims).sqrt() / (want ** 2).mean(dims).sqrt()
+
+
+def route_against_whole(torch, np, got, whole, fp32_rows, logits, tokens, layer0_gated=True):
+    """One bf16 prefill route against the whole route (``prefill_into``),
+    with the whole route in fp32 as the reference: ``got`` and ``whole``
+    are ``(paged_slot_rows, ...)`` pairs, ``logits`` and ``tokens`` the
+    (route, whole, fp32) first-step logits and (route, whole) greedy
+    tokens.  ``rows_ok``: positions equal, layer 0's K/V rows equal
+    (unless ``layer0_gated`` is false), and at every layer the rows no
+    further from fp32 than the whole route's, 1.5x in relative RMS, over
+    the layer and in its worst row; ``logits_ok`` the same for the logits.
+    The elementwise 1e-2 comparison and the greedy tokens are reported."""
+    ratio, tol = BF16_GRAD_RMS_RATIO, TOL["bfloat16"]
+    (rc, pc), (rw, pw) = got, whole
+    ok = bool(torch.equal(pc, pw))
+    stats = {}
+    for name in rw:
+        w, c, f = rw[name], rc[name], fp32_rows[name]
+        layer_w, layer_c = rel_rms_over(w, f, (1, 2, 3)), rel_rms_over(c, f, (1, 2, 3))
+        row_w, row_c = (rel_rms_over(x, f, (2, 3)).max(1).values for x in (w, c))
+        err = (c - w).abs()
+        beyond = (err > tol + tol * w.abs()).flatten(1).float().mean(1)
+        layer0 = bool(torch.equal(c[0], w[0]))
+        ok &= (layer0 or not layer0_gated) and bool((layer_c <= ratio * layer_w).all()) \
+            and bool((row_c <= ratio * row_w).all())
+        stats[name] = dict(layer0_equal=layer0,
+                           rel_rms_vs_fp32_deepest=[float(layer_w[-1]), float(layer_c[-1])],
+                           worst_layer_ratio=float((layer_c / layer_w).max()),
+                           worst_row_ratio=float((row_c / row_w).max()),
+                           max_abs_err_vs_whole=float(err.max()),
+                           beyond_1e2_share_deepest=float(beyond[-1]),
+                           beyond_1e2_share_layer1=float(beyond[min(1, len(beyond) - 1)]))
+    lc, lw, lf = logits
+    lerr = (lc - lw).abs()
+    same = tokens[1] == tokens[0]
+    return dict(
+        rows_ok=ok, positions_equal=bool(torch.equal(pc, pw)), rows=stats,
+        logits_ok=bool(rel_rms_over(lc, lf, 0) <= ratio * rel_rms_over(lw, lf, 0)),
+        logits_rel_rms_vs_fp32=[float(rel_rms_over(lw, lf, 0)), float(rel_rms_over(lc, lf, 0))],
+        logits_max_abs_err_vs_whole=float(lerr.max()),
+        logits_beyond_1e2_share=float((lerr > tol + tol * lw.abs()).float().mean()),
+        first_token_equal=bool(lw.argmax() == lc.argmax()),
+        greedy_tokens_equal=int(same.sum()), greedy_tokens=int(same.size),
+        first_divergence=None if same.all() else int(np.argmin(same)))
+
+
+def greedy_tokens(eng, tp, dp, st, slots):
+    """Step ``st`` at s = 0 until every slot of ``slots`` is done; their
+    generated tokens."""
+    for _ in range(eng.max_new + 2):
+        st, _ = eng.step(tp, dp, st, 0)
+        if bool(st.done[list(slots)].all().cpu()):
+            break
+    return {slot: st.out[slot, :eng.max_new].cpu().numpy() for slot in slots}
+
+
 def chunked_rows_check(torch, np, m, eng, tp, dp, vocab, plen=448, chunk=64):
     """One ``plen``-token prompt fed in ``chunk``-token chunks into a paged
     pool (the target's chunks on K3, the draft's on K1) against the same
@@ -1829,79 +1923,26 @@ def chunked_rows_check(torch, np, m, eng, tp, dp, vocab, plen=448, chunk=64):
             cur += n
         return st
 
-    def rows(st, slot):
-        """K, V and pos of the prefilled rows through the slot's table, and
-        the draft ring's K and V, in fp32."""
-        ids = torch.tensor(st.paged.table(slot), device="cuda")
-        out = {n: st.tcache[n][:, ids].flatten(1, 2)[:, :plen - 1].float() for n in ("k", "v")}
-        out.update({"draft_" + n: st.dcache[n][:, slot, :plen - 2].float() for n in ("k", "v")})
-        return out, st.tcache["pos"][ids].flatten()[:plen - 1]
-
-    def first_logits(e, tparams, st, slot):
-        """The target's logits of the first decode step (s = 0: the last
-        prompt token at position plen - 1), through K3 as the step runs it."""
-        cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).cuda()
-        lg, _ = e.target.decode_step(tparams, st.last2[:, 1:], st.tcache, st.seq_lens, cu)
-        return lg[slot, -1, :vocab].float()
-
-    def rel_rms(x, want, dims):
-        return ((x - want) ** 2).mean(dims).sqrt() / (want ** 2).mean(dims).sqrt()
-
     states = {r: fill(eng, tp, dp, r) for r in slot_of}
-    got = {r: rows(st, slot_of[r]) for r, st in states.items()}
-    lg = {r: first_logits(eng, tp, st, slot_of[r]) for r, st in states.items()}
+    got = {r: paged_slot_rows(torch, st, slot_of[r], plen) for r, st in states.items()}
+    lg = {r: first_step_logits(torch, m, eng, tp, st, vocab)[slot_of[r]]
+          for r, st in states.items()}
     e32 = m.SpecDecodeEngine(eng.tcfg, eng.dcfg, max_new=eng.max_new, dtype=torch.float32,
                              device="cuda")
     tp32, dp32 = (tree_map(lambda t: t.float(), p) for p in (tp, dp))
     ref = fill(e32, tp32, dp32, "whole")
-    rf, _ = rows(ref, 0)
-    lf = first_logits(e32, tp32, ref, 0)
+    rf, _ = paged_slot_rows(torch, ref, 0, plen)
+    lf = first_step_logits(torch, m, e32, tp32, ref, vocab)[0]
     del e32, tp32, dp32, ref
     torch.cuda.empty_cache()
     ratio = BF16_GRAD_RMS_RATIO
-    tol = TOL["bfloat16"]
-    (rw, pw), lw = got["whole"], lg["whole"]
     line = dict(prompt=plen, chunk=chunk)
-    tokens = {}
-    for route, st in states.items():
-        slot = slot_of[route]
-        for _ in range(eng.max_new + 2):
-            st, _ = eng.step(tp, dp, st, 0)
-            if bool(st.done[slot].cpu()):
-                break
-        tokens[route] = st.out[slot, :eng.max_new].cpu().numpy()
+    tokens = {r: greedy_tokens(eng, tp, dp, st, [slot_of[r]])[slot_of[r]]
+              for r, st in states.items()}
     for route in ("chunked", "mixed"):
-        (rc, pc), lc = got[route], lg[route]
-        ok = bool(torch.equal(pc, pw))
-        stats = {}
-        for name in rw:
-            w, c, f = rw[name], rc[name], rf[name]
-            layer_w, layer_c = rel_rms(w, f, (1, 2, 3)), rel_rms(c, f, (1, 2, 3))
-            row_w, row_c = (rel_rms(x, f, (2, 3)).max(1).values for x in (w, c))
-            err = (c - w).abs()
-            beyond = (err > tol + tol * w.abs()).flatten(1).float().mean(1)
-            layer0 = bool(torch.equal(c[0], w[0]))
-            ok &= (layer0 or route == "mixed") and bool((layer_c <= ratio * layer_w).all()) \
-                and bool((row_c <= ratio * row_w).all())
-            stats[name] = dict(layer0_equal=layer0,
-                               rel_rms_vs_fp32_deepest=[float(layer_w[-1]), float(layer_c[-1])],
-                               worst_layer_ratio=float((layer_c / layer_w).max()),
-                               worst_row_ratio=float((row_c / row_w).max()),
-                               max_abs_err_vs_whole=float(err.max()),
-                               beyond_1e2_share_deepest=float(beyond[-1]),
-                               beyond_1e2_share_layer1=float(beyond[min(1, len(beyond) - 1)]))
-        logits_ok = bool(rel_rms(lc, lf, 0) <= ratio * rel_rms(lw, lf, 0))
-        lerr = (lc - lw).abs()
-        same = tokens["whole"] == tokens[route]
-        line[route] = dict(
-            rows_ok=ok, positions_equal=bool(torch.equal(pc, pw)), rows=stats,
-            logits_ok=logits_ok,
-            logits_rel_rms_vs_fp32=[float(rel_rms(lw, lf, 0)), float(rel_rms(lc, lf, 0))],
-            logits_max_abs_err_vs_whole=float(lerr.max()),
-            logits_beyond_1e2_share=float((lerr > tol + tol * lw.abs()).float().mean()),
-            first_token_equal=bool(lw.argmax() == lc.argmax()),
-            greedy_tokens_equal=int(same.sum()), greedy_tokens=int(same.size),
-            first_divergence=None if same.all() else int(np.argmin(same)))
+        line[route] = route_against_whole(
+            torch, np, got[route], got["whole"], rf, (lg[route], lg["whole"], lf),
+            (tokens["whole"], tokens[route]), layer0_gated=route != "mixed")
     print("  chunked and mixed vs whole prefill (bf16): " + json.dumps(line), flush=True)
     for route in ("chunked", "mixed"):
         check(line[route]["rows_ok"], f"{route} prefill's rows differ from the whole route's "
@@ -2037,6 +2078,271 @@ def mixed_serve(torch, np, m, eng, tp, dp, reqs, lut, budget, geo, counters):
         mixed_step_ms_mean=1e3 * sum(calls["step_with_chunk"]) / max(fused, 1),
         plain_step_ms_mean=1e3 * sum(calls["step"]) / max(plain, 1),
         flush_ms_mean=1e3 * sum(calls["flush_chunk"]) / max(flushed, 1))
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the prefix cache on the continuous main path
+
+PREFIX_SYSTEM = 256            # tokens of the system prompt every request shares
+
+
+def prefix_requests(np, Request, vocab, n=24, tails=(16, 64), interval=0.05, seed=37):
+    """Phase 6d's templated trace: ``n`` requests that share one 256-token
+    system prompt, each with a unique tail of ``tails`` tokens and 32 new
+    tokens, arriving every ``interval`` seconds.  Chosen with a CPU
+    ``SimStepBackend`` run of this trace on phase 6b's pool (16 slots, cap
+    512, 144 blocks of 16; 35 ms a step, 46 ms a prefill, 45 ms a chunk,
+    nothing accepted): cold, 2 preemptions at s_cap 0-6 and intervals
+    0.02-0.1 s; with the cache, 23 of 24 requests hit under the default
+    admission, 22 under ``PrefillBudgetAdmit(128, chunk=64)``, and nothing
+    is evicted (the cache never outgrows the free blocks), so eviction is
+    reported, not gated."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).astype(np.int32)
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, int(rng.integers(tails[0], tails[1] + 1))).astype(np.int32)
+        toks = np.concatenate([system, tail])
+        out.append(Request(rid=i, arrival=interval * i, tokens=toks, prompt_len=len(toks),
+                           max_new=32))
+    return out
+
+
+def mean_ms(xs):
+    return 1e3 * sum(xs) / max(len(xs), 1)
+
+
+def prefix_serve_run(torch, np, m, eng, tp, dp, reqs, lut, geo, counters, cache, budget):
+    """One ``serve_continuous_live`` run of phase 6d's trace through an
+    explicit backend (``prefix_cache=cache``; chunked under
+    ``PrefillBudgetAdmit(**budget)`` when ``budget`` is given): its serving
+    numbers, hits, evictions, launches, the engine's steps and chunk
+    forwards and the target rows fed (``engine_calls``), the StepTrace's
+    replay on a ``SimStepBackend`` with the same cache, the pool's
+    invariants, and the mean host seconds (fenced) of an attach, a
+    zero-suffix commit, a whole prefill and a chunk, as the backend returns
+    them."""
+    import copy
+    ctrl = lambda: m.AdaptiveController(lut=m.SpeculationLUT(lut))
+    policy = lambda: m.PrefillBudgetAdmit(**budget) if budget else None
+    backend = m.ContinuousEngineBackend(eng, tp, dp, warm_s=sorted(set(lut.values())),
+                                        prefix_cache=cache, **geo)
+    host = {"attach": [], "commit_attached": [], "prefill": [], "prefill_chunk": []}
+    for name in host:
+        def timed(*a, _fn=getattr(backend, name), _name=name, **kw):
+            dt = _fn(*a, **kw)
+            host[_name].append(dt)
+            return dt
+        setattr(backend, name, timed)
+    for c in counters:
+        c.launches = 0
+    calls = engine_calls(eng)
+    t0 = time.perf_counter()
+    try:
+        res = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl(), backend=backend,
+                                      policy=policy())
+        torch.cuda.synchronize()
+    finally:
+        release_calls(eng)
+    wall = time.perf_counter() - t0
+    launches = dict(k1=m.K1.KERNEL.launches, k2=m.K23.DENSE.launches,
+                    k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+                    plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                           + m.ops.PLAIN_RMSNORM.launches))
+    hits = [h for t in res.trace for h in t.cache_hits]
+    kv = backend.kv
+    try:
+        kv.pool.check_invariants()
+        invariants = True
+    except AssertionError:
+        invariants = False
+    done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+    return dict(
+        finished=len(done), **serve_line(m, res, wall), hits=len(hits),
+        hit_requests=len({rid for rid, _ in hits}), hit_tokens=sum(p for _, p in hits),
+        evicted_blocks=kv.evicted_total, cached_blocks_at_end=kv.cached_blocks,
+        sim_replay_equal=replays_equal(np, m, res, reqs, ctrl(), policy(), geo["capacity"],
+                                       max_context=geo["cache_len"],
+                                       block_size=geo["block_size"],
+                                       num_blocks=geo["num_blocks"], prefix_cache=cache),
+        pool_invariants=invariants, launches=launches,
+        engine_steps=len(calls["step"]), chunk_forwards=calls["final_chunks"],
+        k3_expected=eng.tcfg.n_layers * (len(calls["step"]) + calls["final_chunks"]),
+        admissions=len(calls["admissions"]),
+        trace_admissions=sum(len(t.admitted) for t in res.trace),
+        attach_prefixes_equal_hits=[p for _, p in calls["admissions"] if p]
+        == [p for _, p in hits],
+        rows_fed=calls["rows_fed"],
+        rows_expected=sum(max(0, n - 1 - p) for n, p in calls["admissions"]),
+        host_ms={k: mean_ms(v) for k, v in host.items()},
+        host_calls={k: len(v) for k, v in host.items()})
+
+
+def prefix_rows_check(torch, np, m, eng, tp, dp, vocab):
+    """Phase 6d's numerics in bf16, with phase 6c's rule.  A donor prompt
+    (the 256-token system prompt and a 40-token tail) is prefilled whole
+    and published into a ``PrefixCache``, then retired.  (a) A hit: the
+    system prompt and a 48-token tail, attached after the 16 shared blocks
+    (``attach_prefix``), its 47-row suffix fed as one chunk from row 256
+    (K3 over the shared rows).  (b) A zero-suffix hit: the system prompt
+    alone, 256 of 256 tokens cached, so ``commit_attached`` copies the
+    shared block of row 255 on write.  Each is held against
+    ``prefill_into`` of the same prompt in bf16, with that route in fp32
+    (the bf16 weights cast) as the reference (``route_against_whole``:
+    positions equal, layer 0's K/V rows equal, every layer's rows through
+    the slot's table and the first step's logits no further from fp32 than
+    the whole route's, 1.5x in relative RMS).  For (b) also: the copy's
+    rows equal the source block's, and the source block is bit for bit
+    unchanged after the slot's first decode step.  The greedy tokens are
+    reported."""
+    rng = np.random.default_rng(43)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).astype(np.int32)
+    donor = np.concatenate([system, rng.integers(0, vocab, 40).astype(np.int32)])
+    prompts = {"hit": np.concatenate([system, rng.integers(0, vocab, 48).astype(np.int32)]),
+               "zero_suffix": system}
+    slot_of = {"hit": 1, "zero_suffix": 2}
+
+    def padded(p):
+        toks = np.ones((512,), np.int32)
+        toks[:len(p)] = p
+        return toks
+
+    def whole(e, tparams, dparams, p):
+        st = e.init_slots(1, 512, block_size=16)
+        return e.prefill_into(tparams, dparams, st, 0, padded(p), len(p), 512)
+
+    st = eng.init_slots(3, 512, block_size=16)
+    pk = st.paged
+    cache = m.PrefixCache(pk.pool)
+    pk.attach_cache(cache)
+    st = eng.prefill_into(tp, dp, st, 0, padded(donor), len(donor), 512)
+    n_ins = (len(donor) - 1) // 16
+    cache.insert(donor[:n_ins * 16], pk.table(0)[:n_ins])
+    st = eng.retire_slot(st, 0)
+    n_prefix = {}
+    for route, p in prompts.items():
+        blocks = cache.lock(p)
+        n_prefix[route] = P = len(blocks) * 16
+        pk.attach(slot_of[route], blocks, P)
+        cache.unlock(blocks)
+        st = eng.attach_prefix(dp, st, slot_of[route], padded(p), P, len(p))
+        if route == "hit":
+            n = len(p) - 1 - P
+            toks = np.ones((64,), np.int32)
+            toks[:n] = p[P:P + n]
+            st = eng.prefill_chunk_into(tp, dp, st, slot_of[route], toks, P, n, len(p),
+                                        last2=p[-2:])
+        else:
+            src = pk.table(slot_of[route])[-1]
+            snap = {k: (st.tcache[k][src] if k == "pos" else st.tcache[k][:, src]).clone()
+                    for k in ("k", "v", "pos")}
+            st = eng.commit_attached(st, slot_of[route], len(p), p[-2:])
+            dst = pk.table(slot_of[route])[-1]
+            copy_equal = dst != src and all(torch.equal(
+                st.tcache[k][dst] if k == "pos" else st.tcache[k][:, dst], snap[k])
+                for k in snap)
+    got = {r: paged_slot_rows(torch, st, slot_of[r], len(p)) for r, p in prompts.items()}
+    lg_cache = first_step_logits(torch, m, eng, tp, st, vocab)
+    wholes = {r: whole(eng, tp, dp, p) for r, p in prompts.items()}
+    gw = {r: paged_slot_rows(torch, w, 0, len(prompts[r])) for r, w in wholes.items()}
+    lw = {r: first_step_logits(torch, m, eng, tp, w, vocab)[0] for r, w in wholes.items()}
+    e32 = m.SpecDecodeEngine(eng.tcfg, eng.dcfg, max_new=eng.max_new, dtype=torch.float32,
+                             device="cuda")
+    tp32, dp32 = (tree_map(lambda t: t.float(), p) for p in (tp, dp))
+    rf, lf = {}, {}
+    for r, p in prompts.items():
+        ref = whole(e32, tp32, dp32, p)
+        rf[r], _ = paged_slot_rows(torch, ref, 0, len(p))
+        lf[r] = first_step_logits(torch, m, e32, tp32, ref, vocab)[0]
+        del ref
+    del e32, tp32, dp32
+    torch.cuda.empty_cache()
+    # the slots' first decode step, then the source block of row 255
+    st, _ = eng.step(tp, dp, st, 0)
+    source_unchanged = all(torch.equal(
+        st.tcache[k][src] if k == "pos" else st.tcache[k][:, src], snap[k]) for k in snap)
+    tokens = greedy_tokens(eng, tp, dp, st, list(slot_of.values()))
+    line = dict(system=PREFIX_SYSTEM, n_prefix=n_prefix,
+                copy_rows_equal_source=copy_equal, source_unchanged_after_step=source_unchanged,
+                source_still_indexed=cache.match(prompts["zero_suffix"])[-1] == src)
+    for r, p in prompts.items():
+        wt = greedy_tokens(eng, tp, dp, wholes[r], [0])[0]
+        line[r] = route_against_whole(torch, np, got[r], gw[r], rf[r],
+                                      (lg_cache[slot_of[r]], lw[r], lf[r]),
+                                      (wt, tokens[slot_of[r]]))
+    print("  prefix-cache routes vs whole prefill (bf16): " + json.dumps(line), flush=True)
+    ratio = BF16_GRAD_RMS_RATIO
+    for r in prompts:
+        check(line[r]["rows_ok"], f"the {r} route's rows differ from the whole route's beyond "
+                                  f"its own bf16 error: {line[r]['rows']}")
+        check(line[r]["logits_ok"], f"the first step's logits of the {r} route are further "
+                                    f"from fp32 than {ratio}x the whole route's")
+    check(n_prefix == {"hit": PREFIX_SYSTEM, "zero_suffix": PREFIX_SYSTEM},
+          f"the routes did not attach the 256 shared rows: {n_prefix}")
+    check(copy_equal, "the copy-on-write copy's rows differ from its source block's")
+    check(source_unchanged, "the shared source block changed under the slot's first step")
+    return line
+
+
+def phase_prefix_serve(torch, np, R, m, lut_table):
+    """bf16, full depth: phase 6b's pair and pool (16 slots, cap 512, 144
+    blocks of 16) with phase 4's LUT serving phase 6d's templated trace
+    (``prefix_requests``) three times: cold, with ``prefix_cache=True``
+    under the default admission, and with the cache under
+    ``PrefillBudgetAdmit(128, chunk=64)`` (partial hits fed as suffix
+    chunks).  Gated: every request finishes; the cold run preempts; each
+    cache run hits on at least 20 of the 24 requests; every StepTrace,
+    ``cache_hits`` included, equals its ``SimStepBackend`` replay (with the
+    cache when the run had it); the pool's invariants hold after each run;
+    K3 runs once per layer in every step and every chunk forward, K1 and K5
+    run, no plain version does; each admission's attach prefix is its
+    StepTrace hit, and the target rows the cache runs feed through
+    prefills and chunks equal the sum over admissions of the feed length
+    less its cached prefix, below the cold run's.  Then the numerics
+    (``prefix_rows_check``)."""
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    lut = {int(b): int(v) for b, v in lut_table.items()}
+    reqs = prefix_requests(np, m.Request, tcfg.vocab_size)
+    geo = dict(capacity=16, cache_len=512, block_size=16, num_blocks=144)
+    counters = (m.K1.KERNEL, m.K23.DENSE, m.K23.RAGGED, m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN,
+                m.ops.PLAIN_RMSNORM)
+    eng.load_kernels(paged=True)
+    torch.cuda.synchronize()
+    runs = {name: prefix_serve_run(torch, np, m, eng, tp, dp, reqs, lut, geo, counters,
+                                   cache, budget)
+            for name, cache, budget in (("cold", False, None), ("cache", True, None),
+                                        ("cache_chunked", True,
+                                         dict(token_budget=128, chunk=64)))}
+    line = dict(requests=len(reqs), system=PREFIX_SYSTEM, **runs)
+    print("  " + json.dumps(line), flush=True)
+    for name, r in runs.items():
+        check(r["finished"] == len(reqs), f"{name}: {len(reqs) - r['finished']} requests did "
+                                          f"not finish")
+        check(r["sim_replay_equal"], f"{name}: the StepTrace differs from its replay")
+        check(r["pool_invariants"], f"{name}: the block pool's invariants broke")
+        check(r["launches"]["k3"] == r["k3_expected"],
+              f"{name}: K3 ran {r['launches']['k3']} times, not 32 x (steps + chunk "
+              f"forwards) = {r['k3_expected']}")
+        check(r["launches"]["k1"] > 0 and r["launches"]["k5"] > 0, f"{name}: K1 or K5 never ran")
+        check(r["launches"]["plain"] == 0, f"{name}: a plain version ran on the card")
+        check(r["admissions"] == r["trace_admissions"] and r["attach_prefixes_equal_hits"],
+              f"{name}: the engine's admissions differ from the StepTrace's")
+        check(r["rows_fed"] == r["rows_expected"],
+              f"{name}: fed {r['rows_fed']} target rows, not {r['rows_expected']}")
+    check(runs["cold"]["preemptions"] > 0, "the cold run never preempted")
+    for name in ("cache", "cache_chunked"):
+        check(runs[name]["hit_requests"] >= 20,
+              f"{name}: only {runs[name]['hit_requests']} of 24 requests hit the cache")
+        check(runs[name]["rows_fed"] < runs["cold"]["rows_fed"],
+              f"{name}: fed {runs[name]['rows_fed']} target rows, not fewer than the cold "
+              f"run's {runs['cold']['rows_fed']}")
+    line["rows"] = prefix_rows_check(torch, np, m, eng, tp, dp, tcfg.vocab_size)
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -2578,6 +2884,7 @@ def main() -> int:
     from repro_torch.launch import serve, train
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import metrics, scheduler
+    from repro_torch.serving.prefix_cache import PrefixCache
     from repro_torch.serving.request import Request
     from repro_torch.training import train_step
 
@@ -2594,6 +2901,7 @@ def main() -> int:
         ContinuousEngineBackend=scheduler.ContinuousEngineBackend,
         ContinuousScheduler=scheduler.ContinuousScheduler,
         SimStepBackend=scheduler.SimStepBackend, replay_sources=scheduler.replay_sources,
+        PrefixCache=PrefixCache,
         serve_continuous_live=scheduler.serve_continuous_live,
         PrefillBudgetAdmit=scheduler.PrefillBudgetAdmit,
         ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
@@ -2727,6 +3035,11 @@ def main() -> int:
     print(json.dumps({"phase": "chunked_serve", "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 6d. the prefix cache on the continuous main path, bf16, full depth ----
+    prefix = phase_prefix_serve(torch, np, R, m, res["lut"])
+    print(json.dumps({"phase": "prefix_serve", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----
     distill = phase_distill(torch, np, R, m)
     print(json.dumps({"phase": "distill", "ok": True}), flush=True)
@@ -2782,6 +3095,8 @@ def main() -> int:
         "launches_continuous": live["launches"]["k1"],
         "prefill": {k: pre[k] for k in keys},
         "chunk": k1_chunk, "launches_chunked": chunked["launches"]["k1"],
+        "launches_prefix": {k: prefix[k]["launches"]["k1"]
+                            for k in ("cold", "cache", "cache_chunked")},
     }, {
         "name": "paged_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify_attn.cu",
@@ -2801,6 +3116,8 @@ def main() -> int:
                   "launches_from": "phase 6c with mixed_launch=True: 32 x (steps + final "
                                    "chunks + flushed chunks)",
                   "fused_steps": chunked["mixed_launch"]["fused_steps"]},
+        "launches_prefix": {k: prefix[k]["launches"]["k3"]
+                            for k in ("cold", "cache", "cache_chunked")},
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash)
         + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),

@@ -1,6 +1,5 @@
 """Batched speculative decoding (paper §3, Algorithm 1): the port of
-``repro.core.spec_decode`` for greedy verification, without the prefix
-cache or sharded pools.
+``repro.core.spec_decode`` for greedy verification, without sharded pools.
 
 One speculative step at speculation length ``s`` for a batch of ``b``
 ragged requests:
@@ -63,6 +62,19 @@ chunk rows in the same attention call as the verify rows, once per layer
 (``DecoderLM.decode_step_mixed``, K3 on the card), so the chunk's separate
 32-layer target forward disappears.  Any other consumer of the pool first
 sends the deferred chunk on its own (:meth:`~SpecDecodeEngine.flush_chunk`).
+
+Prefix cache (paged pool; serving/prefix_cache.py is the host index,
+serving/scheduler.py drives it): :meth:`~SpecDecodeEngine.attach_prefix`
+admits a request whose first blocks are cached (the backend has mapped them
+into the slot's table): the draft recomputes its ring rows of the prefix
+and the slot is parked; the uncached suffix then goes through
+``prefill_chunk_into`` with ``start = n_prefix``, or, when nothing is left
+to feed, :meth:`~SpecDecodeEngine.commit_attached` copies the shared block
+of the first decode row (copy-on-write) and joins the slot to the batch.
+Under pressure a host allocation may evict cache blocks; every allocating
+entry point then wipes their ``pos`` rows (``_drain_evicted``) before the
+next dispatch, so a block never comes back from the free list with
+attendable keys.
 """
 from __future__ import annotations
 
@@ -287,6 +299,7 @@ class SpecDecodeEngine:
             self._copy_slot(state.tcache, one.tcache, slot)
         else:
             pk.prefill(slot, prompt_len)
+            self._drain_evicted(state)
             ids = pk.table(slot)
             n, bs = len(ids), pk.block_size
             blocks = self._tensor(ids, torch.long)
@@ -350,6 +363,9 @@ class SpecDecodeEngine:
           block) until the final chunk publishes it.
         * **middle chunks**: only cache rows ``[start, start + n)`` change;
           ``done``, ``out``, ``n_generated`` and ``last2`` stay as they are.
+          A slot admitted through the prefix cache has no first chunk: its
+          feed starts at ``start = n_prefix``, after :meth:`attach_prefix`
+          parked it, marked it pending and wrote its draft rows.
         * **final chunk** (``start + n == total_len - 1``): ``last2`` (the
           feed's final two tokens) must be given; the commit leaves the
           row state a whole-prompt ``prefill_into`` would have left:
@@ -410,6 +426,7 @@ class SpecDecodeEngine:
             else:
                 pk.ensure(slot, start + n)
                 pk.commit(slot, n)
+            self._drain_evicted(state)
             bt_row = np.full((pk.max_blocks,), -1, np.int32)
             ids = pk.table(slot)
             bt_row[:len(ids)] = ids
@@ -433,15 +450,28 @@ class SpecDecodeEngine:
                 pk.ensure(slot, total_len)
                 pk.commit(slot, 1)
                 pk.clear_pending(slot)
-                ids = pk.table(slot)
-                bt_row[:len(ids)] = ids
-                state.tcache["bt"][slot] = self._tensor(bt_row)
-            state.seq_lens[slot] = total_len
-            state.last2[slot] = self._tensor(np.asarray(last2, np.int32))
-            state.out[slot] = 0
-            state.n_generated[slot] = 0
-            state.done[slot] = False
+                self._drain_evicted(state)
+            self._commit_row(state, slot, total_len, last2)
         return state
+
+    def _commit_row(self, state: DecodeState, slot: int, total_len: int,
+                    last2) -> None:
+        """The row state a whole-prompt ``prefill_into`` leaves, written
+        in place by the final chunk and by a zero-suffix
+        ``commit_attached``: (paged) the slot's host table published as its
+        device ``bt`` row, ``seq_lens = total_len``, ``last2``, ``out``
+        zeroed, ``n_generated = 0``, ``done = False``."""
+        pk = state.paged
+        if pk is not None:
+            ids = pk.table(slot)
+            bt_row = np.full((pk.max_blocks,), -1, np.int32)
+            bt_row[:len(ids)] = ids
+            state.tcache["bt"][slot] = self._tensor(bt_row)
+        state.seq_lens[slot] = total_len
+        state.last2[slot] = self._tensor(np.asarray(last2, np.int32))
+        state.out[slot] = 0
+        state.n_generated[slot] = 0
+        state.done[slot] = False
 
     def _chunk_forward(self, tparams, dparams, state: DecodeState,
                        chunk: DeferredChunk) -> None:
@@ -490,6 +520,107 @@ class SpecDecodeEngine:
             state.tcache["bt"][slot] = -1
         return state
 
+    # ------------------------------------------------------------------
+    # prefix-cache admission (shared blocks; serving/prefix_cache.py is the
+    # host index, serving/scheduler.py drives this; paged pools only)
+
+    @staticmethod
+    def _drain_evicted(state: DecodeState) -> None:
+        """Wipe the ``pos`` rows of the cache blocks that
+        reclaim-under-pressure evicted (``PagedKVTables.evicted_pending``)
+        and clear the list, in place.
+
+        Runs after every host allocation and before the next dispatch that
+        could write or attend the evicted ids: an evicted block enters the
+        free list with its old positions, and a later allocation may hand it
+        to a slot whose length lies above them.  This restores the standing
+        "free blocks carry pos = -1" invariant; a -1 row is never attended,
+        whatever its K and V hold."""
+        pk = state.paged
+        if pk is None or not pk.evicted_pending:
+            return
+        ids, pk.evicted_pending = pk.evicted_pending, []
+        pos = state.tcache["pos"]
+        pos[torch.tensor(ids, dtype=torch.long, device=pos.device)] = -1
+
+    def attach_prefix(self, dparams, state: DecodeState, slot: int, tokens,
+                      n_prefix: int, total_len: int, *,
+                      warm: bool = False) -> DecodeState:
+        """Admit a request whose first ``n_prefix`` feed rows are cached, in
+        place.
+
+        Host side: the (already locked) cache blocks were mapped into the
+        slot's table by the backend (``PagedKVTables.attach``); this call
+        marks the slot pending and does the device half.  The shared blocks
+        hold the target's K/V only, so the draft recomputes its rows: a
+        B = 1 prefill of the bucket-padded feed ``tokens`` (prompt + stash)
+        up to ``min(n_prefix, total_len - 2)`` on a fresh ring of the
+        per-slot logical length (K1), copied into the slot's draft row
+        wholesale, so no stale draft key of the previous occupant survives.
+        ``seq_lens[slot]`` is parked at ``total_len``, the parked-row
+        contract of a first chunk (:meth:`prefill_chunk_into`).  A pair
+        without a draft only parks.  The uncached suffix rows ``[n_prefix,
+        total_len - 1)`` then go through :meth:`prefill_chunk_into` with
+        ``start = n_prefix``; a zero-suffix admission goes through
+        :meth:`commit_attached` instead.
+
+        ``warm=True`` only loads the kernels and leaves the state as it is.
+        """
+        pk = state.paged
+        if pk is None:
+            raise ValueError("attach_prefix needs a paged slot pool")
+        if warm:
+            self.load_kernels(paged=True)
+            return state
+        pk.mark_pending(slot)
+        if self.draft is not None:
+            toks = self._tensor(np.asarray(tokens, np.int32).reshape(1, -1), torch.long)
+            dlim = min(n_prefix, total_len - 2)
+            one = self.draft.init_cache(1, pk.logical_len, self.dtype, self.device)
+            _, one, _ = self.draft.prefill(dparams, toks, one,
+                                           prompt_lens=self._tensor([dlim]))
+            self._copy_slot(state.dcache, one, slot)
+        state.seq_lens[slot] = total_len
+        return state
+
+    def commit_attached(self, state: DecodeState, slot: int, total_len: int,
+                        last2, *, warm: bool = False) -> DecodeState:
+        """Turn a fully cached (zero-suffix) attached slot into a live
+        decode row, in place, with no prefill forward at all.
+
+        The first decode step writes feed row ``total_len - 1``.  When the
+        cached prefix covers it (``n_prefix == total_len``) that row lives
+        in a shared block, so ``cow_for_range`` swaps in a fresh copy and
+        every pool leaf but ``bt`` (``k``, ``v``, ``pos``) is copied from
+        the source block to the copy.  Then the table grows to cover
+        ``total_len``, the evicted blocks are wiped, and the slot takes the
+        row state of a chunked (and so of a whole-prompt) admission
+        (``_commit_row``).
+
+        ``warm=True`` only loads the kernels and leaves the state as it is.
+        """
+        pk = state.paged
+        if pk is None:
+            raise ValueError("commit_attached needs a paged slot pool")
+        if warm:
+            self.load_kernels(paged=True)
+            return state
+        pairs = pk.cow_for_range(slot, total_len - 1, total_len)
+        pk.ensure(slot, total_len)
+        pk.commit(slot, total_len - pk.tokens(slot))
+        pk.clear_pending(slot)
+        # before the copy: a copy's destination may be a just-evicted block
+        self._drain_evicted(state)
+        if pairs:
+            src, dst = (self._tensor(ids, torch.long) for ids in zip(*pairs))
+            for name, leaf in state.tcache.items():
+                if name == "pos":
+                    leaf[dst] = leaf[src]
+                elif name != "bt":
+                    leaf[:, dst] = leaf[:, src]
+        self._commit_row(state, slot, total_len, last2)
+        return state
+
     def step(self, tparams, dparams, state: DecodeState, s: int, *,
              warm: bool = False) -> Tuple[DecodeState, StepStats]:
         """One speculative step at length ``s`` for the whole batch.  The
@@ -527,16 +658,18 @@ class SpecDecodeEngine:
                 f"s={s} outside [0, {S_MAX}]: the step's output buffer is "
                 f"sized for at most S_MAX={S_MAX} speculative tokens")
 
-    @staticmethod
-    def _grow_tables(state: DecodeState, s: int) -> np.ndarray:
+    @classmethod
+    def _grow_tables(cls, state: DecodeState, s: int) -> np.ndarray:
         """Grow each live, non-pending slot's table to cover its worst-case
-        writes this step (``seq_len + s`` rows) and upload ``bt`` only if a
+        writes this step (``seq_len + s`` rows), wipe the ``pos`` rows of
+        the cache blocks the growth evicted, and upload ``bt`` only if a
         table grew.  Returns the host tables the device ``bt`` holds."""
         pk = state.paged
         grew = False
         for slot in pk.active_slots():
             if not pk.is_pending(slot):
                 grew |= bool(pk.ensure(slot, pk.tokens(slot) + s))
+        cls._drain_evicted(state)
         tables = pk.device_tables(exclude_pending=True)
         if grew:
             state.tcache["bt"].copy_(torch.from_numpy(tables))

@@ -1,9 +1,10 @@
 """Serving layer of the port: request/traffic modelling, the
 run-to-completion server, the iteration-level continuous-batching scheduler
 (live engine + simulation backends behind one protocol), slot/block-pool
-bookkeeping, and latency metrics.  The JAX package's prefix cache and
-telemetry hub are not ported yet."""
+bookkeeping, the copy-on-write prefix cache, and latency metrics.  The JAX
+package's telemetry hub is not ported yet."""
 from repro_torch.serving.acceptance import GeometricAcceptance, match_prob
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import BatchRecord, Request
 from repro_torch.serving.scheduler import (AdmissionPolicy,
                                            ContinuousEngineBackend,

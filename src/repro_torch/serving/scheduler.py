@@ -32,8 +32,8 @@ are recorded in :class:`StepTrace`; they are pure functions of the block
 accounting, so a :class:`SimStepBackend` built with the same pool geometry
 re-derives them during replay.
 
-The ``run`` loop is the JAX loop without the prefix-cache and telemetry
-branches, so StepTraces agree by construction.  Chunked prefill runs on
+The ``run`` loop is the JAX loop without the telemetry branches, so
+StepTraces agree by construction.  Chunked prefill runs on
 both backends: with a :class:`PrefillBudgetAdmit` policy the live backend
 feeds long prompts in budgeted chunks between speculative steps
 (``SpecDecodeEngine.prefill_chunk_into``; K1 over a ring, K3 over a paged
@@ -43,9 +43,20 @@ JAX on a chunk-incapable backend.  On a paged pool,
 ``mixed_launch=True`` defers every non-final chunk's forward into the next
 speculative step (``SpecDecodeEngine.step_with_chunk``: the chunk's rows
 ride the verify's K3 call, once per layer); the host bookkeeping still
-runs at feed time, so the StepTrace is the one of the run without it.  The
-prefix cache, sharded pools and the telemetry hub are not ported (ROADMAP
-queue 1, items 10, 14 and 11) and raise ``NotImplementedError``.
+runs at feed time, so the StepTrace is the one of the run without it.
+
+Prefix cache (``prefix_cache=True``, paged pools only): admission looks up
+the longest cached block prefix of each prompt
+(:class:`~repro_torch.serving.prefix_cache.PrefixCache`), maps those blocks
+into the new slot at refcount+1 and feeds only the uncached suffix through
+the chunk path (``SpecDecodeEngine.attach_prefix``, then
+``prefill_chunk_into`` from ``n_prefix``, or ``commit_attached`` when
+nothing is left to feed); every whole prefill and final chunk publishes the
+slot's prompt blocks into the index.  Both backends keep the same cache
+over the same host accounting, so cache hits (``StepTrace.cache_hits``),
+evictions and every decision that follows replay sim against live.
+Sharded pools and the telemetry hub are not ported (ROADMAP queue 1, items
+14 and 11) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ from repro_torch.core.adaptive import AdaptiveController
 from repro_torch.core.analytical import LatencyModel
 from repro_torch.core.spec_decode import S_MAX
 from repro_torch.serving.acceptance import GeometricAcceptance
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import BatchRecord, Request
 from repro_torch.serving.slots import PagedKVTables, SlotPool
 
@@ -275,7 +287,65 @@ def _reject_oversize(req: Request, max_context: int,
             f"itself")
 
 
-class ContinuousEngineBackend:
+class _PrefixCacheIndex:
+    """The host half of the prefix-cache protocol, the same on both step
+    backends (they keep the same :class:`PrefixCache` over the same block
+    accounting, which is what makes cache admissions replay sim vs live):
+    ``match_and_lock``, ``cancel_match`` and ``cache_insert``.  Each
+    backend adds ``attach`` and ``commit_attached``, the calls with device
+    work on the live one.  ``cache`` stays None unless the backend was
+    built with ``prefix_cache=True`` (``_attach_prefix_cache``)."""
+
+    cache: Optional[PrefixCache] = None
+    kv: Optional[PagedKVTables] = None
+
+    def _attach_prefix_cache(self) -> None:
+        self.cache = PrefixCache(self.kv.pool)
+        self.kv.attach_cache(self.cache)
+        self._locked: Dict[int, List[int]] = {}   # rid -> lock()ed blocks
+
+    def match_and_lock(self, req: Request) -> int:
+        """Longest cached prefix of ``req``'s *prompt* (never the stash:
+        generated tokens are model outputs the sim backend cannot know, so
+        matching them would break sim-vs-live re-derivation).  The matched
+        blocks are pinned against eviction until ``attach`` or
+        :meth:`cancel_match`.  Returns the prefix length in tokens.  Host
+        bookkeeping only: a deferred chunk stays deferred."""
+        if self.cache is None:
+            return 0
+        blocks = self.cache.lock(req.tokens[:req.prompt_len])
+        if not blocks:
+            return 0
+        self._locked[req.rid] = blocks
+        return len(blocks) * self.kv.block_size
+
+    def cancel_match(self, req: Request) -> None:
+        """Drop a lock taken by :meth:`match_and_lock` (admission abort)."""
+        blocks = self._locked.pop(req.rid, None)
+        if blocks:
+            self.cache.unlock(blocks)
+
+    def cache_insert(self, req: Request, slot: int) -> None:
+        """Publish ``slot``'s prompt blocks into the prefix index (called
+        by the scheduler when the slot joins the decode batch).
+
+        Only *prompt* rows strictly below the feed's final row are indexed:
+        the block containing row ``total_len - 1`` is excluded, so this
+        slot's own decode writes never land in an indexed block and need no
+        copy.  First writer wins: prefixes already indexed keep their node.
+        Host bookkeeping only: the slot's rows are all written by now (its
+        whole prefill or final chunk ran, and neither is ever deferred).
+        """
+        if self.cache is None:
+            return
+        total_len = req.prompt_len + req.n_generated
+        n_ins = min(req.prompt_len, total_len - 1) // self.kv.block_size
+        if n_ins:
+            self.cache.insert(req.tokens[:n_ins * self.kv.block_size],
+                              self.kv.table(slot)[:n_ins])
+
+
+class ContinuousEngineBackend(_PrefixCacheIndex):
     """Live-engine step backend: a SpecDecodeEngine slot pool on the card.
 
     The kernels are built and loaded outside the timed regions (``warm_s``,
@@ -296,6 +366,11 @@ class ContinuousEngineBackend:
     rides the next speculative step (the mixed verify+chunk launch).  Every
     other consumer of the pool first sends the deferred chunk on its own,
     so at most one chunk is ever in flight.
+
+    ``prefix_cache=True`` (paged, chunk-capable pairs only) builds a
+    :class:`~repro_torch.serving.prefix_cache.PrefixCache` over the pool
+    and answers the scheduler's five cache calls (``match_and_lock``,
+    ``cancel_match``, ``attach``, ``commit_attached``, ``cache_insert``).
     """
 
     def __init__(self, engine, tparams, dparams, capacity: int,
@@ -309,8 +384,6 @@ class ContinuousEngineBackend:
                  mixed_launch: bool = False):
         if mesh is not None:
             raise _not_ported("a mesh-sharded slot pool", 14)
-        if prefix_cache:
-            raise _not_ported("the prefix cache", 10)
         self.engine = engine
         self.tparams = tparams
         self.dparams = dparams
@@ -328,6 +401,24 @@ class ContinuousEngineBackend:
         self._warm_prefill: set = set()
         self._warm_chunk: set = set()
         self._warm_step: set = set()
+        self._warm_attach: set = set()
+        # cross-request prefix sharing: opt-in, paged + unsharded +
+        # chunk-capable only; `cache is None` keeps every other path as it is
+        if prefix_cache:
+            if self.kv is None:
+                raise ValueError(
+                    "prefix_cache=True needs a paged KV pool (block_size)")
+            if mesh is not None:
+                # unreachable until sharded pools are ported (item 14)
+                raise ValueError(
+                    "prefix_cache is not supported on a mesh-sharded pool: "
+                    "shared blocks may live on any shard (allocation is not "
+                    "shard-local)")
+            if not self.can_chunk:
+                raise ValueError(
+                    "prefix_cache needs chunked prefill support: the "
+                    "uncached suffix of a hit is fed through the chunk path")
+            self._attach_prefix_cache()
         self.mixed_launch = mixed_launch
         self._deferred = None            # Optional[DeferredChunk]
         self._flush_s = 0.0              # flush seconds no timed region covered
@@ -457,6 +548,49 @@ class ContinuousEngineBackend:
         self._fence()
         return time.perf_counter() - t0
 
+    # ------------------------------------------------------------------
+    # prefix-cache admission: the two calls with device work (the host
+    # calls are _PrefixCacheIndex's; used only with prefix_cache=True)
+
+    def attach(self, req: Request, slot: int, n_prefix: int) -> float:
+        """Map the locked prefix blocks into ``slot`` (refcount+1), park
+        the slot and run the draft-only prefix prefill
+        (``SpecDecodeEngine.attach_prefix``); returns seconds (fenced).
+        The uncached suffix then goes through :meth:`prefill_chunk` with
+        ``start = n_prefix`` (or, zero-suffix, :meth:`commit_attached`)."""
+        blocks = self._locked.pop(req.rid)
+        prompt = self._full_prompt(req)
+        total_len = len(prompt)
+        P = self._bucket(total_len)
+        toks = np.ones((P,), np.int32)
+        toks[:total_len] = prompt
+        if P not in self._warm_attach:
+            # load the kernels for this bucket off the clock
+            self.engine.attach_prefix(self.dparams, self.state, slot, toks,
+                                      n_prefix, total_len, warm=True)
+            self._warm_attach.add(P)
+        t0 = time.perf_counter()
+        self._flush_deferred()
+        self.kv.attach(slot, blocks, n_prefix)
+        self.cache.unlock(blocks)      # the slot now holds its own refs
+        self.state = self.engine.attach_prefix(
+            self.dparams, self.state, slot, toks, n_prefix, total_len)
+        self._fence()
+        return time.perf_counter() - t0
+
+    def commit_attached(self, req: Request, slot: int) -> float:
+        """Commit a fully cached attach into the decode batch: no prefill
+        forward at all, the copy-on-write of the last block if it is
+        shared, then the final chunk's row commit
+        (``SpecDecodeEngine.commit_attached``).  Returns seconds (fenced)."""
+        prompt = self._full_prompt(req)
+        t0 = time.perf_counter()
+        self._flush_deferred()
+        self.state = self.engine.commit_attached(self.state, slot, len(prompt),
+                                                 prompt[-2:])
+        self._fence()
+        return time.perf_counter() - t0
+
     def step(self, s: int) -> Tuple[float, np.ndarray, np.ndarray]:
         """One speculative step at live occupancy.  Returns
         (wall seconds, committed[capacity], done[capacity]).  With a
@@ -518,7 +652,7 @@ class ContinuousEngineBackend:
         return np.concatenate([stash, cont])
 
 
-class SimStepBackend:
+class SimStepBackend(_PrefixCacheIndex):
     """Discrete-event step backend over a fitted LatencyModel.
 
     Step duration at live occupancy b is t_L(bk, s) + s * t_S(bk, 1) with bk
@@ -540,8 +674,6 @@ class SimStepBackend:
                  chunk_source: Optional[Callable] = None,
                  prefix_cache: bool = False,
                  prefill_token_cost: float = 0.0):
-        if prefix_cache:
-            raise _not_ported("the prefix cache", 10)
         self.model = model
         self.capacity = capacity
         self.acceptance = GeometricAcceptance(model, seed)
@@ -575,6 +707,14 @@ class SimStepBackend:
         # the plain sim has no KV to overflow, so no admission hard limit
         self.max_context = (self.kv.logical_len if self.kv is not None
                             else None)
+        # prefix cache mirror: the same PrefixCache/refcount machinery as
+        # the live backend over the same pool geometry, so cache hits,
+        # attach block accounting and evictions re-derive identically
+        if prefix_cache:
+            if self.kv is None:
+                raise ValueError(
+                    "prefix_cache=True needs a paged KV mirror (block_size)")
+            self._attach_prefix_cache()
 
     def _batch_key(self, b: int) -> int:
         for x in self.model.batch_sizes:
@@ -676,6 +816,35 @@ class SimStepBackend:
         if self.kv is not None:
             self.kv.release(slot)
 
+    # ------------------------------------------------------------------
+    # prefix-cache admission: the live backend's attach and commit over the
+    # same host accounting, without the device work (and its clock cost)
+
+    def attach(self, req: Request, slot: int, n_prefix: int) -> float:
+        """Map the locked prefix blocks into ``slot``'s table at ref+1."""
+        blocks = self._locked.pop(req.rid)
+        self.done[slot] = True            # mid-admission: out of decode batch
+        self.rids[slot] = req.rid
+        self.kv.attach(slot, blocks, n_prefix)
+        self.kv.mark_pending(slot)
+        self.cache.unlock(blocks)
+        return 0.0
+
+    def commit_attached(self, req: Request, slot: int) -> float:
+        """Zero-suffix admission, the live engine's host bookkeeping: copy
+        the block holding row total - 1 if it is shared, grow to cover the
+        first decode row, and join the decode batch."""
+        total_len = req.prompt_len + req.n_generated
+        self.kv.cow_for_range(slot, total_len - 1, total_len)
+        self.kv.ensure(slot, total_len)
+        self.kv.commit(slot, total_len - self.kv.tokens(slot))
+        self.kv.clear_pending(slot)
+        self.kv.evicted_pending.clear()  # no device rows to wipe in sim
+        self.done[slot] = False
+        if self.prefill_source is not None:
+            return float(self.prefill_source(req.rid))
+        return 0.0
+
 
 # ---------------------------------------------------------------------------
 # the scheduler
@@ -697,6 +866,8 @@ class StepTrace:
     done_rids: Tuple[int, ...] = ()    # rids the backend flagged done after
     chunked: Tuple[Tuple[int, int], ...] = ()  # (rid, tokens) chunk events
     chunk_s: Tuple[float, ...] = ()    # per-chunk-event seconds
+    cache_hits: Tuple[Tuple[int, int], ...] = ()  # (rid, prefix tokens)
+                                       # per prefix-cache-hit admission
 
 
 def replay_sources(trace: Sequence[StepTrace]):
@@ -721,6 +892,13 @@ def replay_sources(trace: Sequence[StepTrace]):
     A preempted request is admitted (and so prefilled) more than once, so
     per-rid prefill/chunk costs replay as FIFO queues of the recorded
     durations.
+
+    Prefix-cache admissions need no extra channel: cache decisions are
+    re-derived by the sim backend's own cache mirror, a zero-suffix hit
+    records its attach + commit seconds as an ordinary ``prefill_s`` entry
+    (consumed by the sim's ``commit_attached``), and a hit with an
+    uncached suffix folds its attach seconds into the first suffix
+    chunk's recorded duration.
     """
     steps = [t for t in trace if t.occupancy > 0]
     prefill: Dict[int, List[float]] = {}
@@ -797,6 +975,10 @@ class ContinuousScheduler:
         batches: List[BatchRecord] = []
         self.trace = []
         kv = getattr(self.backend, "kv", None)
+        # prefix cache: both stock backends expose .cache (None unless built
+        # with prefix_cache=True); foreign backends without the attribute
+        # simply never enter the cache paths
+        cache_on = getattr(self.backend, "cache", None) is not None
         max_ctx = getattr(self.backend, "max_context", None)
         s_cap = self.s_cap
         chunk_cfg = getattr(self.policy, "chunk_tokens", None)
@@ -838,17 +1020,27 @@ class ContinuousScheduler:
             prefill_s: List[float] = []
             chunked: List[Tuple[int, int]] = []
             chunk_s: List[float] = []
+            cache_hits: List[Tuple[int, int]] = []
             budget_left = (budget_cfg if (chunking and budget_cfg is not None)
                            else float("inf"))
 
-            def feed_chunk(req: Request, slot: int, m: int) -> None:
+            def feed_chunk(req: Request, slot: int, m: int,
+                           extra: float = 0.0) -> None:
+                # ``extra`` folds a cache attach's seconds into the first
+                # suffix chunk's recorded duration, so replay_sources needs
+                # no extra replay channel for attach costs
                 nonlocal clock
                 start = req.prefill_pos
-                dt = self.backend.prefill_chunk(req, slot, start, m)
+                dt = self.backend.prefill_chunk(req, slot, start, m) + extra
                 clock += dt
                 chunked.append((req.rid, m))
                 chunk_s.append(dt)
                 req.prefill_pos += m
+                if (cache_on and req.prefill_pos
+                        == req.prompt_len + req.n_generated - 1):
+                    # final chunk: the slot joins the decode batch — publish
+                    # its prompt blocks into the prefix index
+                    self.backend.cache_insert(req, slot)
 
             def claim_for(req: Request) -> int:
                 """Shared admission bookkeeping (both admission modes)."""
@@ -861,6 +1053,26 @@ class ContinuousScheduler:
                 admit_seq[req.rid] = n_admits
                 admitted.append(req.rid)
                 return slot
+
+            def attach_admit(req: Request, slot: int, P: int,
+                             suffix_chunk: int) -> None:
+                """Admission via a cached prefix: map the matched blocks
+                into the slot, then either commit straight into the decode
+                batch (zero uncached suffix) or feed the first
+                ``suffix_chunk`` uncached feed positions."""
+                nonlocal clock
+                feed_total = req.prompt_len + req.n_generated - 1
+                cache_hits.append((req.rid, P))
+                a_dt = self.backend.attach(req, slot, P)
+                req.prefill_pos = P
+                if P >= feed_total:
+                    c_dt = self.backend.commit_attached(req, slot)
+                    clock += a_dt + c_dt
+                    prefill_s.append(a_dt + c_dt)
+                    self.backend.cache_insert(req, slot)
+                else:
+                    prefill_s.append(-1.0)
+                    feed_chunk(req, slot, suffix_chunk, extra=a_dt)
 
             # ---- continue in-flight chunked prefills (Sarathi: ongoing
             # prefills spend the budget before new admissions) ----
@@ -876,6 +1088,8 @@ class ContinuousScheduler:
                     m = int(min(chunk_cfg, feed_total - start, budget_left))
                     if kv is not None:
                         # blocks actually available to this chunk right now
+                        # (free + reclaimable cache-only blocks: the pool
+                        # evicts on demand when the free list runs short)
                         avail = (kv.available_blocks - growth_reserve(s_cap)
                                  - pending_reserve(exclude=slot))
                         cap_rows = ((kv.allocated(slot) + avail)
@@ -905,23 +1119,47 @@ class ContinuousScheduler:
                     if max_ctx is not None:
                         _reject_oversize(req, max_ctx, s_cap)
                     total_len = req.prompt_len + req.n_generated
+                    # longest cached prefix of the prompt, pinned against
+                    # eviction until attach (or the break below)
+                    P = self.backend.match_and_lock(req) if cache_on else 0
                     if kv is not None:
                         # reserve the full prompt + first-step worst case up
                         # front (plus the running batch's growth and the
                         # other pending prefills' completion) — a chunked
                         # admission that could not finish would hold blocks
-                        # forever
-                        need = kv.blocks_for(total_len + s_cap)
+                        # forever.  A cache hit attaches P // block_size
+                        # blocks for free (+1 only for the copy-on-write
+                        # copy when the whole prompt is cached); reclaimable
+                        # cache-only blocks count as available (eviction on
+                        # demand).
+                        need = (kv.blocks_for(total_len + s_cap)
+                                - P // kv.block_size
+                                + (1 if P == total_len else 0))
                         if (need + growth_reserve(s_cap) + pending_reserve()
                                 > kv.available_blocks):
+                            if P:
+                                self.backend.cancel_match(req)
                             break      # head-of-line: wait for free blocks
                     slot = claim_for(req)
                     req.prefill_pos = 0
-                    if total_len <= budget_left:
+                    if P:
+                        feed_total = total_len - 1
+                        if P >= feed_total:
+                            attach_admit(req, slot, P, 0)
+                        else:
+                            m = int(min(chunk_cfg, budget_left,
+                                        feed_total - P))
+                            attach_admit(req, slot, P, m)
+                            budget_left -= m
+                            if req.prefill_pos < feed_total:
+                                prefilling[slot] = req
+                    elif total_len <= budget_left:
                         p_dt = self.backend.prefill(req, slot)
                         clock += p_dt
                         prefill_s.append(p_dt)
                         budget_left -= total_len
+                        if cache_on:
+                            self.backend.cache_insert(req, slot)
                     else:
                         # over the remaining budget: admit CHUNKED — never a
                         # whole-prompt burst (bounds this iteration's stall)
@@ -940,20 +1178,35 @@ class ContinuousScheduler:
                         # would spin forever); fail loudly before claiming
                         _reject_oversize(req, max_ctx, s_cap)
                     total_len = req.prompt_len + req.n_generated
+                    P = self.backend.match_and_lock(req) if cache_on else 0
                     if kv is not None:
                         # admit only if the free list covers the prompt
                         # (plus stash), this request's worst-case first
                         # step, AND the running batch's own worst-case
                         # growth — otherwise a fresh admit pays a full B=1
                         # prefill just to be evicted by the pressure check
-                        # below (prefill thrash)
-                        need = kv.blocks_for(total_len + s_cap)
+                        # below (prefill thrash).  Cache hits and
+                        # reclaimable blocks discount as in the chunked
+                        # branch above.
+                        need = (kv.blocks_for(total_len + s_cap)
+                                - P // kv.block_size
+                                + (1 if P == total_len else 0))
                         if need + growth_reserve(s_cap) > kv.available_blocks:
+                            if P:
+                                self.backend.cancel_match(req)
                             break      # head-of-line: wait for free blocks
                     slot = claim_for(req)
+                    if P:
+                        # no per-iteration budget here: any uncached suffix
+                        # is fed as one chunk (cache_on implies can_chunk)
+                        req.prefill_pos = 0
+                        attach_admit(req, slot, P, total_len - 1 - P)
+                        continue
                     p_dt = self.backend.prefill(req, slot)
                     clock += p_dt
                     prefill_s.append(p_dt)
+                    if cache_on:
+                        self.backend.cache_insert(req, slot)
             if pool.occupancy == 0:
                 if not backlog and i < n:
                     clock = max(clock, pending[i].arrival)
@@ -1042,7 +1295,7 @@ class ContinuousScheduler:
                 admitted=tuple(admitted), duration=dt,
                 prefill_s=tuple(prefill_s), preempted=tuple(preempted),
                 done_rids=done_rids, chunked=tuple(chunked),
-                chunk_s=tuple(chunk_s)))
+                chunk_s=tuple(chunk_s), cache_hits=tuple(cache_hits)))
             prev_done = set(done_rids)
         return ServeResult(requests=list(pending), batches=batches)
 
@@ -1083,14 +1336,28 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
     run without it; with an explicit ``backend`` pass the flag to the
     backend instead (``ValueError`` here).
 
-    ``mesh``, ``prefix_cache`` and ``telemetry`` are the JAX package's
-    sharded pool, prefix cache and telemetry hub; they are not ported yet
-    and raise ``NotImplementedError``.
+    ``prefix_cache`` (requires ``block_size``) turns on cross-request
+    prefix sharing: admission matches the longest cached prefix of each
+    prompt in a radix index over the block pool, maps those blocks into
+    the new slot at refcount+1 and prefills only the uncached suffix
+    (through the chunk path, K3 after the shared rows); shared blocks are
+    copy-on-write and eviction is LRU over cache-only blocks.  Tokens and
+    the StepTrace's scheduling signature equal a cold run's; with an
+    explicit ``backend`` pass the flag to the backend instead
+    (``ValueError`` here).
+
+    ``mesh`` and ``telemetry`` are the JAX package's sharded pool and
+    telemetry hub; they are not ported yet and raise
+    ``NotImplementedError``.
     """
     if mesh is not None:
         raise _not_ported("a mesh-sharded slot pool", 14)
-    if prefix_cache:
-        raise _not_ported("the prefix cache", 10)
+    if backend is not None and prefix_cache:
+        # the cache wraps the backend's pool at construction time
+        raise ValueError(
+            "serve_continuous_live: pass prefix_cache=True to the "
+            "ContinuousEngineBackend constructor when supplying an explicit "
+            "backend (the cache wraps the pool at init)")
     if backend is not None and mixed_launch:
         # the defer/flush bookkeeping lives on the backend
         raise ValueError(
@@ -1110,7 +1377,8 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
                                           cache_len=cache_len, warm_s=warm,
                                           block_size=block_size,
                                           num_blocks=num_blocks,
-                                          s_cap=s_cap, mixed_launch=mixed_launch)
+                                          s_cap=s_cap, prefix_cache=prefix_cache,
+                                          mixed_launch=mixed_launch)
     for r in requests:
         if r.prompt_len + r.max_new + s_cap > backend.max_context:
             raise ValueError(

@@ -17,12 +17,13 @@ count-exact mirror inside
 preemption decisions — pure functions of (free blocks, per-slot tokens,
 per-slot allocated blocks) — replay identically sim vs live.
 
-Prefix sharing (copy-on-write) is carried over whole although the port has
-no prefix cache yet: every block carries a reference count; ``alloc`` hands
-blocks out at refcount 1 and a block enters the free list exactly when its
-count drops to 0 (``decref``/``release``), so the free set and the
-referenced set partition the pool at all times.  A block with refcount > 1
-is SHARED and must never be written in place: writers go through
+Prefix sharing (copy-on-write; the index is
+:class:`~repro_torch.serving.prefix_cache.PrefixCache`): every block carries
+a reference count; ``alloc`` hands blocks out at refcount 1 and a block
+enters the free list exactly when its count drops to 0
+(``decref``/``release``), so the free set and the referenced set partition
+the pool at all times.  A block with refcount > 1 is SHARED and must never
+be written in place: writers go through
 :meth:`PagedKVTables.cow_for_range`, which swaps a fresh copy into the
 writing slot's table and drops the shared reference.  With a cache
 attached, allocation under pressure evicts cache-only blocks LRU-first and
@@ -253,9 +254,10 @@ class PagedKVTables:
     @property
     def available_blocks(self) -> int:
         """Blocks an allocation can actually obtain: the free list plus
-        cache-only (refcount-1, unlocked) blocks that reclaim-under-pressure
-        may evict.  Every feasibility check in the scheduler uses this —
-        with no cache attached it equals ``free_blocks`` exactly."""
+        the cache blocks that reclaim-under-pressure can evict (held by the
+        cache alone, unlocked, with no descendant held elsewhere).  Every
+        feasibility check in the scheduler uses this — with no cache
+        attached it equals ``free_blocks`` exactly."""
         extra = self.cache.reclaimable() if self.cache is not None else 0
         return self.pool.free_count + extra
 
@@ -285,8 +287,8 @@ class PagedKVTables:
         return BlockPool._run_fragmentation(ids)
 
     def attach_cache(self, cache) -> None:
-        """Attach a prefix cache (the ``PrefixCache`` of the JAX package's
-        serving layer, not ported yet) so
+        """Attach a prefix cache
+        (:class:`~repro_torch.serving.prefix_cache.PrefixCache`) so
         allocations can reclaim LRU cache-only blocks under pressure."""
         if cache.pool is not self.pool:
             raise ValueError("prefix cache is bound to a different BlockPool")

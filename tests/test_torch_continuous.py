@@ -248,14 +248,35 @@ def test_admission_rejects_kv_overflow(engine, block_size):
                               block_size=block_size)
 
 
-@pytest.mark.parametrize("kw,item", [({"prefix_cache": True}, "item 10"),
-                                     ({"mesh": object()}, "item 14"),
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14"),
                                      ({"telemetry": object()}, "item 11")])
 def test_unported_features_raise(engine, kw, item):
     eng, tp, dp, tcfg = engine
     with pytest.raises(NotImplementedError, match=item):
         serve_continuous_live(_trace(tcfg.vocab_size, n=2), eng, tp, dp, _ctrl(),
                               capacity=2, cache_len=CACHE_LEN, block_size=BLOCK, **kw)
+
+
+def test_prefix_cache_needs_a_paged_pool(engine):
+    """``prefix_cache=True`` on a contiguous pool (no ``block_size``)."""
+    eng, tp, dp, tcfg = engine
+    with pytest.raises(ValueError, match="paged KV pool"):
+        serve_continuous_live(_trace(tcfg.vocab_size, n=2), eng, tp, dp, _ctrl(),
+                              capacity=2, cache_len=CACHE_LEN, prefix_cache=True)
+    with pytest.raises(ValueError, match="paged KV pool"):
+        ContinuousEngineBackend(eng, tp, dp, capacity=2, cache_len=CACHE_LEN,
+                                prefix_cache=True)
+
+
+def test_prefix_cache_flag_beside_an_explicit_backend(engine):
+    """The cache wraps the backend's pool at construction, so the flag
+    beside an explicit ``backend`` would be dropped: ``ValueError``."""
+    eng, tp, dp, tcfg = engine
+    backend = ContinuousEngineBackend(eng, tp, dp, capacity=2, cache_len=CACHE_LEN,
+                                      block_size=BLOCK)
+    with pytest.raises(ValueError, match="pass prefix_cache=True"):
+        serve_continuous_live(_trace(tcfg.vocab_size, n=2), eng, tp, dp, _ctrl(),
+                              backend=backend, prefix_cache=True)
 
 
 def test_budget_policy_falls_back_to_whole_prompts_on_the_engine():
