@@ -45,10 +45,11 @@ Phases, one report line each (the last line is the JSON verdict):
             kernels it runs) and the card's bound, K4's fp32 forward bound
             counted for its route (three tf32 products).  K5's backward
             also in bf16 (held against the plain backward on the same bf16
-            inputs), at the card-vs-CPU train step's 128 rows and at odd
-            widths (d 1000; d 1001, one-value accesses); two calls must
-            agree bit for bit and issue the device kernels of the wrapper's
-            plan, all ``rmsnorm_*``.
+            inputs), at the card-vs-CPU train step's 128 rows, at the
+            Mamba-2 trainer's rows (2048 x 2048 and 2048 x 4096, fp32) and
+            at odd widths (d 1000; d 1001, one-value accesses); two calls
+            must agree bit for bit and issue the device kernels of the
+            wrapper's plan, all ``rmsnorm_*``.
 3. parity   full-width target and draft cut to 2 layers, fp32: prefill + 8
             greedy steps on the card (kernel) against the same on the CPU
             (plain version), and speculative generate(s) == generate(0).
@@ -103,7 +104,13 @@ Phases, one report line each (the last line is the JSON verdict):
             trainer (``repro_torch.launch.train``) at full width and depth,
             fp32, 20 steps, loss falling, K4/K5 launched and no plain
             version, peak memory and the device-busy share; one train step
-            of internlm2 cut to 2 layers on the card against the CPU; and
+            of internlm2 cut to 2 layers on the card against the CPU; the
+            mamba2-1.3b trainer at full width and depth, fp32, B 4, T 512
+            (two chunks), 20 steps, loss falling, K6's forward and backward
+            launched once per layer a step, K5 launched, no plain version,
+            peak memory, the device-busy share and K6's and K5's shares;
+            one Mamba-2 train step cut to 2 layers (B 2, T 512) on the card
+            against the CPU (loss 1e-5, grads 1e-4 of each max); and
             ``prefill_flash`` against ``prefill`` on OPT-6.7B, in fp32 (the
             bf16 weights cast: logits, every K/V row, K4 once per layer) and
             in bf16 (no further from the fp32 logits than ``prefill``).
@@ -119,7 +126,17 @@ Phases, one report line each (the last line is the JSON verdict):
             bit for bit and issue the device kernels of the wrapper's rule,
             all ``ssd_*``; with its time beside the plain version's and the
             bound (its route: bf16, or fp32 as three tf32 products; no
-            library call computes it).
+            library call computes it).  Then K6's backward against the
+            plain backward: the trainer's call (B 4, T 512), T 2048 (8
+            chunks), T 300 (Q 150), one chunk (three device kernels), G 8,
+            the smoke widths with h0 and dh_final, strong decay, an h0 and
+            a dh_final over two chunks and over one, heads of 128 (the
+            build for P above 64) with N 64; fp32 within 1e-4 of
+            each gradient's largest entry of the plain backward and of an
+            fp64 evaluation of it, bf16 elementwise within 1e-2 of the
+            plain backward of the same bf16 inputs; finite, bit for bit
+            from call to call and through autograd, the forward's kept
+            states leaving y unchanged, its device kernels all ``ssd_*``.
 8.  mamba2  Mamba-2 served by speculative decoding: mamba2-1.3b cut to 2
             layers (widths kept) with its draft cut to 2 layers, fp32, card
             against CPU (prefill of prompts padded to 512, 8 greedy steps),
@@ -320,13 +337,17 @@ def kernel_name(name):
     return m.group(0) if m else name
 
 
-def device_kernels(torch, fn, args):
+def device_kernels(torch, fn, args, expect=None):
     """The names of the device kernels a call of ``fn`` launches
     (``torch.profiler``), in order, each once: the union over 3 calls,
-    since the profiler now and then drops a call's device events."""
+    since the profiler now and then drops a call's device events.  With
+    ``expect`` (the count the caller's rule gives), profiles again, up to 5
+    times, while the union holds fewer names (it once kept 2 of a call's 5
+    in all 3 calls); more names than that, or other ones, still show."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
+    seen = {}
     for _ in range(5):   # ... or hands back none at all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -334,9 +355,10 @@ def device_kernels(torch, fn, args):
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        seen.update(dict.fromkeys(names))
+        if seen and (expect is None or len(seen) >= expect):
             break
-    return list(dict.fromkeys(names))
+    return list(seen)
 
 
 def run_kernel_case(torch, K1, ref, c):
@@ -1088,7 +1110,11 @@ def phase_train_kernels(torch, K4, K5, ref):
              # 16-byte accesses over 128 threads); d 1001: one-value accesses
              ("small_n128", 128, 2048, "float32", True),
              ("odd_d1000", 257, 1000, "float32", True),
-             ("odd_d1001_bf16", 257, 1001, "bfloat16", True)]
+             ("odd_d1001_bf16", 257, 1001, "bfloat16", True),
+             # the mamba2-1.3b trainer's rows (B 4, T 512): norm and final_norm
+             # at d 2048, norm_y at d 4096
+             ("mamba2_train_d2048", 2048, 2048, "float32", True),
+             ("mamba2_train_d4096", 2048, 4096, "float32", True)]
     for i, (name, n, d, dtype, grads) in enumerate(norms):
         r = run_norm_case(torch, K5, ref, "rmsnorm_" + name, n, d, dtype, grads, 300 + i)
         rows.append(r)
@@ -1199,7 +1225,7 @@ def run_ssd_case(torch, K6, ref, c):
                            .multi_processor_count)
     else:
         args = (c["xh"], c["B"], c["C"], c["dt"], c["A"], c["h0"])
-        kernel = lambda *a: K6.ssd_chunked_cuda(*a, c["chunk"])  # noqa: E731
+        kernel = lambda *a: K6.ssd_chunked_cuda(*a, c["chunk"])[:2]  # noqa: E731
 
         def plain(xh, B_, C_, dt, A, h0):
             if h0 is None:
@@ -1267,6 +1293,212 @@ def phase_ssd_kernels(torch, K6, ref):
     bad = [r["case"] for r in rows if not r["ok"]]
     check(not bad, "K6 disagrees with its plain version, is not finite, differs between two "
           f"calls or issues other device kernels than its rule: {bad}")
+    return rows
+
+
+# phase 2d (continued): K6's backward against its plain backward
+
+
+def ssd_bwd_bound(torch, ref, c, dh_final):
+    """Least time for the backward, as the row's ``bound_ms``/``bound_by``:
+    every input read once (xh, B, C, dt, A, dy; h0 and dh_final where given)
+    and every gradient written once, against the operations these inputs
+    need per (batch, chunk): c b^T over the causal half once per group, then
+    per head four products over the causal half, D = dy x^T and dx = (S o
+    L)^T dy (P wide), db = (L o D)^T c and dc = (L o D dt) b (N wide) (the
+    kernel's own recompute of S a head is not counted); the dh_out terms
+    (dx, db) where dh_out is not zero (chunks before the last, or a
+    dh_final), the h_in term of dc where h_in is not zero (chunks after the
+    first, or an h0), and the state of dh where it is wanted (the same).
+    bf16 at the bf16 peak; fp32 counts three tf32 products at the tf32 peak;
+    ``bound_simt_ms``: at the fp32 SIMT peak, the kernel's route."""
+    xh, Bm = c["xh"], c["B"]
+    Bsz, T, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = ref.ssd_chunk_len(T, c["chunk"])
+    nc = T // Q
+    with_dh = nc - 1 + (dh_final is not None)          # chunks whose dh_out is not zero
+    with_h = nc - 1 + (c["h0"] is not None)            # chunks whose h_in is not zero
+    tri = Q * (Q + 1)
+    ops = Bsz * (nc * (G * tri * N + H * tri * (2 * P + 2 * N))
+                 + H * 2 * Q * P * N * (2 * with_dh + 2 * with_h))
+    es = xh.element_size()
+    state = 4 * Bsz * H * P * N
+    nbytes = (2 * (xh.numel() + 2 * Bm.numel()) * es + 2 * 4 * c["dt"].numel() + 2 * 4 * H
+              + 4 * xh.numel() + (2 * state if c["h0"] is not None else 0)
+              + (state if dh_final is not None else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if c["dtype"] == "float32":
+        t_ops, label = 3 * ops / PEAK_OPS["tf32"], "operations (3xTF32)"
+    else:
+        t_ops, label = ops / PEAK_OPS["bfloat16"], "operations"
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else label,
+            "bound_simt_ms": 1e3 * max(t_bytes, ops / PEAK_OPS["float32"]),
+            "ops": ops, "bytes": nbytes}
+
+
+# the head axis of each gradient of the scan (the group's for dB and dC)
+SSD_GRAD_HEAD_AXIS = {"dxh": 2, "dB": 2, "dC": 2, "ddt": 2, "dA": 0, "dh0": 1}
+
+
+def per_head_rel(torch, a, ref, axis, scale=None):
+    """For each index along ``axis``: the largest |a - ref| over its slice,
+    over ``scale`` there (default: the largest |ref| there), or the plain
+    difference where that is 0."""
+    d = (a - ref).abs().movedim(axis, 0).reshape(a.shape[axis], -1).amax(1)
+    m = ref.abs().movedim(axis, 0).reshape(a.shape[axis], -1).amax(1) if scale is None \
+        else scale
+    return torch.where(m > 0, d / torch.where(m > 0, m, 1), d)
+
+
+def ssd_dA_terms(xh, dt, A, dxh, ddt):
+    """Per (batch, position, head), the term dt dl that dA = -sum dt dl sums
+    (dl the log-decay's gradient), from the inputs and the gradients dxh,
+    ddt: x . dx = dt ddt_dir and ddt = ddt_dir - A dl, so dt dl = (x . dx -
+    dt ddt) / A.  The sum of their magnitudes over (batch, position) is the
+    size of a head's dA before its terms cancel: the scale its error is read
+    against (a head's dA can cancel to 1e-3 of it)."""
+    return ((xh * dxh).sum(-1) - dt * ddt) / A
+
+
+def run_ssd_bwd_case(torch, K6, ops, ref, c, with_dh_final, seed):
+    """K6's backward against ``ssd_chunked_bwd_ref`` on the same inputs (the
+    chunk states the forward returns, as ``ops.ssd_chunked`` keeps them
+    under grad).  fp32: each gradient within 1e-4 of its largest entry of
+    the plain backward and of an fp64 evaluation of it (the per-tensor
+    grads rule: the elementwise absolute-plus-relative form fails for fp32
+    itself, the plain backward against fp64 included, where ddt = ddt_dir -
+    A dl cancels; the share of elements outside it is reported for both),
+    and in every head (every group for dB, dC) within 1e-4 of the head's
+    largest fp64 entry, a head's dA within 1e-4 of the magnitudes of the
+    terms it sums (``ssd_dA_terms``); the plain backward's per-head errors
+    are reported beside the kernel's.  bf16: elementwise within 1e-2
+    absolute plus relative of the plain backward of the same bf16 inputs.
+    Every gradient finite, two calls bit for bit, the same bits through
+    autograd (``ops.ssd_chunked`` under grad), whose forward gives the
+    no-grad call's y and final state bit for bit, and the device kernels of
+    ``ssd_bwd_device_kernels``, all ``ssd_*``; with its time beside the
+    plain backward's and the bound (no library call computes it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xh, Bm, Cm, dt, A, h0, chunk = (c[k] for k in ("xh", "B", "C", "dt", "A", "h0", "chunk"))
+    Bsz, T, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dy = torch.randn((Bsz, T, H, P), generator=g, device="cuda")
+    dhf = (0.5 * torch.randn((Bsz, H, P, N), generator=g, device="cuda")
+           if with_dh_final else None)
+    y, hfin, states = K6.ssd_chunked_cuda(xh, Bm, Cm, dt, A, h0, chunk)
+    args = (xh, Bm, Cm, dt, A, h0, chunk, dy, dhf, states)
+    got = K6.ssd_chunked_bwd_cuda(*args)
+    again = K6.ssd_chunked_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    names6 = ("dxh", "dB", "dC", "ddt", "dA", "dh0")
+    pairs = [(n, a, b) for n, a, b in zip(names6, got, again) if a is not None]
+    bitwise = all(torch.equal(a, b) for _, a, b in pairs)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xh, Bm, Cm, dt, A)]
+    hl = None if h0 is None else h0.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        ya, ha = ops.ssd_chunked(*leaves, hl, chunk)
+        loss = (ya * dy).sum() + ((ha * dhf).sum() if dhf is not None else 0)
+        auto = torch.autograd.grad(loss, leaves + ([hl] if hl is not None else []))
+    auto_same = all(torch.equal(a, b) for a, b in zip(auto, got))
+    fwd_same = bool(torch.equal(ya, y)) and bool(torch.equal(ha, hfin))
+    want = ref.ssd_chunked_bwd_ref(xh, Bm, Cm, dt, A, h0, chunk, dy, dhf)
+    ok = all((gv is None) == (wv is None) for gv, wv in zip(got, want))
+    present = [(n, gv, wv) for n, gv, wv in zip(names6, got, want) if wv is not None]
+    errs = {n: float((gv.float() - wv.float()).abs().max()) for n, gv, wv in present}
+    row_extra = {}
+    if c["dtype"] == "float32":
+        tol = GRAD_TOL
+        f64 = lambda t: None if t is None else t.double()  # noqa: E731
+        exact = ref.ssd_chunked_bwd_ref(*(f64(t) for t in (xh, Bm, Cm, dt, A, h0)), chunk,
+                                        f64(dy), f64(dhf))
+        rel32, rel64, plain64, share, plain_share, head, heads_out = ({} for _ in range(7))
+        for (n, gv, wv), ev in zip(present, [e for e in exact if e is not None]):
+            gd, wd = gv.double(), wv.double()
+            rel32[n] = float((gd - wd).abs().max() / wd.abs().max())
+            rel64[n] = float((gd - ev).abs().max() / ev.abs().max())
+            plain64[n] = float((wd - ev).abs().max() / ev.abs().max())
+            share[n] = float(((gd - wd).abs() > tol + tol * wd.abs()).double().mean())
+            plain_share[n] = float(((wd - ev).abs() > tol + tol * ev.abs()).double().mean())
+            # per head (per group for dB, dC): a fault confined to the weak heads
+            # stays under 1e-4 of the tensor's max, not under 1e-4 of its head's;
+            # a head's dA is read against the size of its terms
+            scale = None if n != "dA" else ssd_dA_terms(
+                xh.double(), dt.double(), A.double(), exact[0], exact[3]).abs().sum((0, 1))
+            k_h, p_h = (per_head_rel(torch, t, ev, SSD_GRAD_HEAD_AXIS[n], scale)
+                        for t in (gd, wd))
+            w = int(torch.argmax(k_h))
+            head[n] = dict(head=w, rel_err_fp64=float(k_h[w]), plain_rel_err_fp64=float(p_h[w]),
+                           plain_worst=float(p_h.max()))
+            heads_out[n] = [int((k_h > tol).sum()), int((p_h > tol).sum()), k_h.numel()]
+            ok &= rel32[n] <= tol and rel64[n] <= tol and not bool((k_h > tol).any())
+        row_extra = dict(grad_rel_err=rel32, grad_rel_err_fp64=rel64, plain_rel_err_fp64=plain64,
+                         worst_head=head, heads_out_kernel_plain_of=heads_out,
+                         elementwise_outside_share=share,
+                         plain_fp64_elementwise_outside_share=plain_share)
+    else:
+        tol = TOL["bfloat16"]
+        for n, gv, wv in present:
+            ok &= within(torch, gv, wv, tol)[1]
+    finite = all(bool(torch.isfinite(t).all()) for t in got if t is not None)
+    Q = ref.ssd_chunk_len(T, chunk)
+    plan = K6.ssd_bwd_plan(Bsz, T, H, G, P, N, Q, h0 is not None)
+    names = [kernel_name(n) for n in device_kernels(torch, K6.ssd_chunked_bwd_cuda, args,
+                                                    expect=plan["device_kernels"])]
+    kernels_ok = (len(names) == plan["device_kernels"]
+                  and all(n.startswith("ssd_") for n in names))
+    row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"]
+               + (" dh_final" if with_dh_final else ""), max_abs_err=max(errs.values()),
+               grad_max_abs_err=errs, tol=tol, **row_extra, finite=finite,
+               bitwise_repeatable=bitwise,
+               autograd_bitwise=auto_same, autograd_fwd_bitwise=fwd_same,
+               plan={k: plan[k] for k in ("tiles", "chunk_blocks", "state_blocks")},
+               device_kernels=len(names), kernel_names=names,
+               ok=ok and finite and bitwise and auto_same and fwd_same and kernels_ok)
+    case_bytes = sum(t.numel() * t.element_size() for t in args[:6] + args[7:]
+                     if isinstance(t, torch.Tensor))
+    copies = min(8, max(2, math.ceil(2 * 50e6 / case_bytes)))
+    sets = [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+            for _ in range(copies)]
+    row["ms"] = device_ms(torch, K6.ssd_chunked_bwd_cuda, sets, iters=10)
+    row["plain_ms"] = device_ms(torch, lambda *a: ref.ssd_chunked_bwd_ref(*a[:9]), sets,
+                                iters=3)
+    row["library_ms"] = None
+    b = ssd_bwd_bound(torch, ref, c, dhf)
+    row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"], bound_simt_ms=b["bound_simt_ms"])
+    del sets
+    return row
+
+
+SSD_BWD_CASES = [   # (name, make_ssd_case arguments, a dh_final): mamba2-1.3b's heads
+    ("train_b4_t512", dict(B=4, T=512), False),             # the trainer's call: 2 chunks
+    ("t2048_8chunks", dict(B=1, T=2048), False),
+    ("t300_q150", dict(B=2, T=300), False),
+    ("t256_one_chunk", dict(B=2, T=256), False),            # three device kernels
+    ("g8_t512", dict(B=1, T=512, G=8), False),              # 8 heads a group
+    ("smoke_widths_t24", dict(B=2, T=24, H=8, P=32, N=16, chunk=8, h0=True), True),
+    ("strong_decay_t512", dict(B=2, T=512, strong=True), False),
+    ("h0_dh_final_t512", dict(B=2, T=512, h0=True), True),
+    ("h0_dh_final_t256", dict(B=2, T=256, h0=True), True),  # one chunk with a state
+    ("p128_n64_t512", dict(B=1, T=512, H=8, P=128, N=64, h0=True), True),  # the wide build
+]
+
+
+def phase_ssd_bwd_kernels(torch, K6, ops, ref):
+    rows = []
+    for i, (name, kw, dhf) in enumerate(SSD_BWD_CASES):
+        for dtype in ("float32", "bfloat16"):
+            c = make_ssd_case(torch, f"ssd_bwd_{name}_{'f32' if dtype == 'float32' else 'bf16'}",
+                              dtype=dtype, seed=500 + i, **kw)
+            r = run_ssd_bwd_case(torch, K6, ops, ref, c, dhf, seed=600 + i)
+            rows.append(r)
+            print("  " + json.dumps(r), flush=True)
+            del c
+    bad = [r["case"] for r in rows if not r["ok"]]
+    check(not bad, "K6's backward disagrees with its plain backward, is not finite, differs "
+          "between two calls or from autograd's, or issues other device kernels than its "
+          f"rule: {bad}")
     return rows
 
 
@@ -2515,6 +2747,138 @@ def phase_train_parity(torch, np, m, tree_to):
     return line
 
 
+def phase_mamba_train(torch, m):
+    """The mamba2-1.3b trainer at full width and depth, fp32, batch 4, seq
+    512 (two chunks of 256: the carried state and its gradient on the
+    path), 20 steps on the markov stream through ``repro_torch.launch.train``,
+    every launch count zeroed before it and read after: K6's forward and
+    backward once per layer a step, K5 forward and backward, no plain
+    version; then, on a second model, two steps timed unprofiled and two
+    under ``torch.profiler`` for the device-busy share and K6's and K5's
+    shares of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = (m.K6.KERNEL, m.K6.KERNEL_BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN_SSD,
+                m.ops.PLAIN_RMSNORM, m.ops.PLAIN, m.ops.PLAIN_FLASH)
+    steps, batch, seq = 20, 4, 512
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = m.train.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--steps", str(steps),
+                        "--batch", str(batch), "--seq", str(seq)])
+    torch.cuda.synchronize()
+    launches = dict(k6_fwd=m.K6.KERNEL.launches, k6_bwd=m.K6.KERNEL_BWD.launches,
+                    k5_fwd=m.K5.FWD.launches, k5_bwd=m.K5.BWD.launches,
+                    plain=sum(c.launches for c in counters[4:]))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["launches"] = launches
+
+    cfg = m.R.get_config("mamba2-1.3b")
+    model = m.R.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1), torch.float32, "cuda")
+    state = m.init_adamw(params)
+    step = m.make_train_step(model, cfg, m.AdamWConfig(warmup_steps=2, total_steps=20))
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=batch, seq_len=seq, seed=0)
+    batches = [{"tokens": torch.from_numpy(m.batch_at(dc, i)["tokens"]).cuda()}
+               for i in range(5)]
+    params, state, _ = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:3]:
+        params, state, met = step(params, state, b)
+    torch.cuda.synchronize()
+    wall_unprofiled_ms = 1e3 * (time.perf_counter() - t0) / 2
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[3:]:
+            params, state, met = step(params, state, b)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3 / 2
+    busy = sum(by.values())
+    k6_bwd = sum(t for k, t in by.items() if "ssd_bwd" in k)
+    k6_fwd = sum(t for k, t in by.items() if "ssd_" in k) - k6_bwd
+    k5 = sum(t for k, t in by.items() if "rmsnorm" in k)
+    # the profiler's own host cost (about 11000 device kernels a step) makes
+    # the profiled steps slower than unprofiled ones, so busy_share (within
+    # the profiled steps) is a floor; busy_share_est divides the same busy
+    # time by the wall time of two unprofiled steps of this model just
+    # before: an estimate across two pairs of steps, not one measurement
+    res["profile"] = dict(
+        wall_ms_profiled=wall_ms, wall_ms_unprofiled=wall_unprofiled_ms,
+        device_busy_ms=busy, busy_share=busy / wall_ms,
+        busy_share_est=busy / wall_unprofiled_ms,
+        k6_fwd_ms=k6_fwd, k6_bwd_ms=k6_bwd, k5_ms=k5, k6_share=(k6_fwd + k6_bwd) / busy,
+        k5_share=k5 / busy,
+        device_kernels=sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
+        top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
+                                                     reverse=True)[:8]})
+    del params, state, batches
+    print("  " + json.dumps(res), flush=True)
+    nl = cfg.n_layers
+    check(res["losses"][-1] < res["losses"][0], "the Mamba-2 trainer's loss did not fall")
+    check(launches["k6_fwd"] == nl * steps and launches["k6_bwd"] == nl * steps,
+          f"K6 was not launched once per layer a step, forward and backward: {launches}")
+    check(launches["k5_fwd"] > 0 and launches["k5_bwd"] > 0, f"K5 never launched: {launches}")
+    check(launches["plain"] == 0, "a plain version ran on the card")
+    check(res["peak_memory_gb"] < 80, "the Mamba-2 trainer does not fit one 80 GB card")
+    check(res["profile"]["device_busy_ms"] > 0, "the profiler saw no device time")
+    return res
+
+
+def phase_mamba_train_parity(torch, np, m, tree_to):
+    """One fp32 train step of mamba2-1.3b cut to 2 layers (widths kept), B 2,
+    T 512 (two chunks), on the card (K6 and K5, forward and backward) and
+    on the CPU (plain versions): the loss within 1e-5 relative, each
+    gradient within 1e-4 of its tensor's largest entry, the grad norm
+    within 1e-5 relative."""
+    cfg = m.R.get_config("mamba2-1.3b").with_(n_layers=2)
+    model = m.R.build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(7), torch.float32, "cpu")
+    p_gpu = tree_to(p_cpu, "cuda")
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=512, seed=11)
+    toks = torch.from_numpy(m.batch_at(dc, 0)["tokens"])
+    loss_fn = m.make_loss_fn(model, cfg)
+    k6_0, plain_0 = m.K6.KERNEL_BWD.launches, m.ops.PLAIN_SSD.launches
+    met_g, gr_g = m.value_and_grad(loss_fn, p_gpu, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    k6_bwd, plain_card = m.K6.KERNEL_BWD.launches - k6_0, m.ops.PLAIN_SSD.launches - plain_0
+    t0 = time.perf_counter()
+    met_c, gr_c = m.value_and_grad(loss_fn, p_cpu, {"tokens": toks})
+    cpu_s = time.perf_counter() - t0
+    loss_g, loss_c = float(met_g["loss"].cpu()), float(met_c["loss"])
+
+    def items(tree, prefix=""):
+        for k, v in tree.items():
+            yield from items(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    cpu = dict(items(gr_c))
+    rel = {k: float((g.cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+           for k, g in items(gr_g)}
+    worst_name = max(rel, key=rel.get)
+    worst = rel[worst_name]
+    opt = m.AdamWConfig(warmup_steps=1, total_steps=10)
+    _, _, gn_g = m.adamw_update(opt, gr_g, m.init_adamw(p_gpu), p_gpu)
+    _, _, gn_c = m.adamw_update(opt, gr_c, m.init_adamw(p_cpu), p_cpu)
+    line = dict(loss_card=loss_g, loss_cpu=loss_c, loss_rel_err=abs(loss_g - loss_c) / loss_c,
+                worst_grad_rel_err=worst, worst_grad=worst_name,
+                grad_rel_err={k: rel[k] for k in sorted(rel)},
+                grad_norm_card=float(gn_g.cpu()), grad_norm_cpu=float(gn_c),
+                k6_bwd_launches=k6_bwd, plain_ssd_on_card=plain_card, cpu_step_s=cpu_s)
+    print("  " + json.dumps(line), flush=True)
+    check(k6_bwd == cfg.n_layers, f"the card's step launched K6's backward {k6_bwd} times")
+    check(plain_card == 0, "the plain SSD scan ran on the card")
+    check(line["loss_rel_err"] <= 1e-5, f"card vs CPU Mamba-2 loss differs: {line}")
+    check(worst <= 1e-4, f"card vs CPU Mamba-2 gradient {worst_name} differs by {worst} "
+          "of its max")
+    check(abs(line["grad_norm_card"] - line["grad_norm_cpu"]) <= 1e-5 * line["grad_norm_cpu"],
+          "card vs CPU Mamba-2 grad norm differs")
+    return line
+
+
 def phase_prefill_flash(torch, np, R, m):
     """``prefill_flash`` (attention by K4 over the prompt) against
     ``prefill`` (K1 over the ring) on the full-width OPT-6.7B with phase 4's
@@ -2772,9 +3136,10 @@ def phase_mamba_continuous(torch, np, m, lut_table):
     return line
 
 
-def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
+def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba_launches):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
-    trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches,
+    trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches
+    (K5's also with the Mamba-2 trainer's),
     and K4's bf16 forward at ``prefill_flash``'s shape with phase 7's
     ``prefill_flash`` launches.  K4's fp32 bounds are counted for its route,
     three tf32 products (``bound_route``), beside the SIMT figure; its
@@ -2825,6 +3190,8 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
                                        "bwd_bound_ms", "grad_max_abs_err", "grad_tol",
                                        "bwd_device_kernels")}
     out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
+    out[2]["launches_mamba_train"] = mamba_launches["k5_fwd"]   # 97 a step
+    out[3]["launches_mamba_train"] = mamba_launches["k5_bwd"]
     out[0]["launches_distill"] = distill["launches"]["k4_fwd"]
     out.insert(1, {"name": "flash_attn_fwd_bf16", **{k: out[0][k] for k in (
         "route", "source", "replaces")}, "launches": pflash["k4_launches_bf16"],
@@ -2835,20 +3202,41 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash):
     return out
 
 
-def ssd_kernel_row(srows, launches, launches_live):
+def ssd_kernel_row(srows, launches, launches_live, launches_train):
     """The ``kernels`` line's K6 row at the continuous path's largest
     prefill (B 1, T 256, bf16), with the launches of phase 8's serve loop
-    (the main path) and of its continuous run."""
+    (the main path), of its continuous run and of phase 7's Mamba-2
+    trainer."""
     r = next(r for r in srows if r["case"] == "ssd_serve_b1_t256_bf16")
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_chunk.py:52", "launches": launches,
             "launches_from": "phase 8, the mamba2-1.3b serve loop",
-            "launches_continuous": launches_live,
+            "launches_continuous": launches_live, "launches_mamba_train": launches_train,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "library": "none", "shape": r["shape"] + ", bf16",
             "device_kernels_per_call": r["device_kernels"]}
+
+
+def ssd_bwd_kernel_row(brows, mtrain):
+    """The ``kernels`` line's row for K6's backward at the mamba2-1.3b
+    trainer's call (B 4, T 512, fp32), with the launches of phase 7's
+    Mamba-2 trainer (the main path: once per layer a step)."""
+    r = next(r for r in brows if r["case"] == "ssd_bwd_train_b4_t512_f32")
+    bf = next(r for r in brows if r["case"] == "ssd_bwd_train_b4_t512_bf16")
+    return {"name": "ssd_chunk_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_chunk.py:52",
+            "replaces_note": "the TPU kernel has no backward; JAX differentiates the plain "
+                             "Mamba2LM._ssd_chunked (src/repro/models/mamba2.py:141)",
+            "launches": mtrain["launches"]["k6_bwd"],
+            "launches_from": "phase 7, the mamba2-1.3b trainer (20 steps)",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_simt_ms": r["bound_simt_ms"], "library_ms": None, "library": "none",
+            "shape": r["shape"] + ", fp32", "device_kernels_per_call": r["device_kernels"],
+            "bf16": {k: bf[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "tol")}}
 
 
 # ---------------------------------------------------------------------------
@@ -2963,6 +3351,9 @@ def main() -> int:
               for dt in ("float32", "bfloat16") for b, t, q in ((8, 16, 16), (1, 256, 256),
                                                                 (4, 2048, 256))
               for plan in [K6.ssd_plan(b, t, 64, 1, 64, 128, q, sms)]}), flush=True)
+    print("  k6 backward occupancy (P 64, N 128): " + json.dumps({
+        dt: K6.bwd_occupancy(getattr(torch, dt), 64) for dt in ("float32", "bfloat16")}),
+        flush=True)
 
     # ---- 2. kernels ----
     rows = phase_kernels(torch, K1, ref)
@@ -2981,6 +3372,10 @@ def main() -> int:
     # ---- 2d. K6, the SSD scan ----
     srows = phase_ssd_kernels(torch, K6, ref)
     print(json.dumps({"phase": "ssd_kernels", "cases": len(srows), "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    brows = phase_ssd_bwd_kernels(torch, K6, ops, ref)
+    print(json.dumps({"phase": "ssd_bwd_kernels", "cases": len(brows), "ok": True}),
+          flush=True)
     torch.cuda.empty_cache()
 
     # ---- 3. fp32 parity, card against CPU ----
@@ -3049,6 +3444,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_parity(torch, np, m, tree_to)
     print(json.dumps({"phase": "train_parity", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    mtrain = phase_mamba_train(torch, m)
+    print(json.dumps({"phase": "mamba_train", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+    phase_mamba_train_parity(torch, np, m, tree_to)
+    print(json.dumps({"phase": "mamba_train_parity", "ok": True}), flush=True)
     torch.cuda.empty_cache()
     pflash = phase_prefill_flash(torch, np, R, m)
     print(json.dumps({"phase": "prefill_flash", "ok": True}), flush=True)
@@ -3119,8 +3520,11 @@ def main() -> int:
         "launches_prefix": {k: prefix[k]["launches"]["k3"]
                             for k in ("cold", "cache", "cache_chunked")},
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
-                                             live["launches"]["k5"], distill, pflash)
-        + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"])]}),
+                                             live["launches"]["k5"], distill, pflash,
+                                             mtrain["launches"])
+        + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
+                          mtrain["launches"]["k6_fwd"]),
+           ssd_bwd_kernel_row(brows, mtrain)]}),
         flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)

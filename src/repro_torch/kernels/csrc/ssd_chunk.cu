@@ -53,6 +53,9 @@
 //   * h0 may be null: a zero state, whose reads and products are skipped.
 // The grid (WR, the state split) is the wrapper's, a function of the shapes
 // (kernels/ssd_chunk.py, ssd_plan).
+//
+// The scan's backward (ssd_chunk_scan_bwd: the gradients of x, b, c, dt, A
+// and h0) follows the forward in this file, with its own design notes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -967,6 +970,808 @@ extern "C" int ssd_chunk_occupancy(int dtype, int P, int N, int T, int Q, int H,
     *state_smem_bytes = static_cast<int>(state_smem<__nv_bfloat16>(p));
     return P <= 64 ? occupancy<__nv_bfloat16, 64>(p, out_blocks, state_blocks)
                    : occupancy<__nv_bfloat16, 128>(p, out_blocks, state_blocks);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The backward of the chunked scan (what JAX's autodiff of
+// `Mamba2LM._ssd_chunked` computes; the TPU kernel has no backward).  For
+// one (batch, head) slice and one chunk, with dy [Q, P] the gradient of y,
+// dh_out [P, N] that of the chunk's final state (the next chunk's dh_in, or
+// dh_final, or zero, for the last), L_ij = exp(cs_i - cs_j) for i >= j
+// (else 0), S = c b^T, D = dy x^T and e_j = exp(cs_Q - cs_j):
+//   dx_j  = dt_j (sum_i S_ij L_ij dy_i + e_j dh_out b_j)
+//   db_j  = dt_j (sum_i L_ij D_ij c_i + e_j dh_out^T x_j)
+//   dc_i  = sum_j L_ij D_ij dt_j b_j + exp(cs_i) h_in^T dy_i
+//   ddt_j = sum_i S_ij L_ij D_ij + e_j x_j^T dh_out b_j    (its direct part)
+//   dh_in = exp(cs_Q) dh_out + sum_i exp(cs_i) dy_i c_i^T
+// and the log-decay's gradient dcs_k = c_k . dc_k - dt_k ddt_k, plus, at the
+// last row, E + sum_j W_j (E = exp(cs_Q) <dh_out, h_in>, W_j = dt_j e_j
+// x_j^T dh_out b_j); dl is its reverse cumsum and ddt -= A dl.  dA is taken
+// in its direct form, each decay's derivative in A (-sum dt dl sums row
+// minus column sums and loses 1e-5 to 1e-4 of its largest entry in fp32):
+//   dA = -(sum_{i>=j} T_ij (cd_i - cd_j) + sum_i U_i cd_i
+//          + sum_j W_j (cd_Q - cd_j) + E cd_Q)
+// with cd the running sum of dt in the chunk, T_ij = S_ij L_ij D_ij dt_j and
+// U_i = exp(cs_i) c_i^T h_in^T dy_i.  db and dc sum over the heads of a
+// group, dA over the batch and the chunks.
+//
+// What bounds it on an H100: at the trainer's shape (B 4, T 512, 64 heads
+// of 64, N 128, chunks of 256, fp32) the products, about 26 GFLOP a call.
+// The design is the simple one, fp32 SIMT products from shared memory:
+//   * ssd_bwd_states: each chunk's sum_i exp(cs_i) dy_i c_i^T, in parallel
+//     (the forward's state role with dy and c), and its cs_Q;
+//   * ssd_bwd_carry: the ordered pass from the last chunk to the first,
+//     dh_out of each chunk in place of its state, and dh0 (the mirror of
+//     ssd_carry; run only with several chunks or an h0);
+//   * ssd_bwd_chunk: a block per (batch, chunk, head, tile of 64 rows);
+//     for its tile as keys j it walks the query tiles i >= j (dx, db, ddt's
+//     direct part, the state terms with dh_out, its part of dA's T sum),
+//     then for its tile as queries i the key tiles j <= i (dc with the h_in
+//     term, c_i . dc_i and U_i):
+//     every block walks nt + 1 tile pairs.  4 x 4 (or 4 x 8) outputs a
+//     thread, rows of odd stride, so no shared-memory bank is hit twice;
+//   * ssd_bwd_finish: per (batch, chunk, head) dcs, its reverse cumsum, ddt
+//     and the chunk's part of dA (the tiles' parts in order, then U, W, E);
+//   * ssd_bwd_reduce: db and dc summed over each group's heads in order,
+//     and dA over (batch, chunk) in order.
+// No atomics: every sum has a fixed order, so two calls agree bit for bit.
+// The carried-in states are the forward's (kept from its workspace).
+
+namespace {
+
+constexpr int BT = 256;         // backward threads a block: 16 x 16 (tx along columns)
+constexpr int TQ = 64;          // backward rows a tile
+constexpr int NMAX = 128;       // N at most (tiles are this wide)
+constexpr int SKB = 32;         // ssd_bwd_states: rows a stage
+
+struct BwdParams {
+  const void* x;
+  const void* b;
+  const void* c;
+  const float* dt;
+  const float* A;
+  const float* dy;        // [B, T, H, P] contiguous
+  const float* hin;       // [B, nc, H, P, N] each chunk's carried-in state (chunk 0: h0)
+  const float* dh_final;  // [B, H, P, N] or null (zero)
+  void* dx;               // [B, T, H, P], x's dtype
+  void* dB;               // [B, T, G, N], b's dtype
+  void* dC;
+  float* ddt;             // [B, T, H]
+  float* dA;              // [H]
+  float* dh0;             // [B, H, P, N] (with h0)
+  float* dhs;             // [B, nc, H, P, N]: sum_i exp(cs_i) dy_i c_i^T, then each dh_out
+  float* dec;             // [B, nc, H]: cs_Q * log2(e)
+  float* dbp;             // [B, T, H, N]: each head's db, before the group's sum
+  float* dcp;             // [B, T, H, N]: each head's dc
+  float* rrow;            // [B, T, H]: c_i . dc_i
+  float* ddir;            // [B, T, H]: ddt's direct part
+  float* wst;             // [B, T, H]: dt_j e_j x_j^T dh_out b_j
+  float* urow;            // [B, T, H]: exp(cs_i) c_i^T h_in^T dy_i
+  float* dAt;             // [B, nc, H, nt]: each key tile's sum of T_ij (cd_i - cd_j)
+  float* dAp;             // [B, nc, H]: each chunk's part of dA
+  int B, T, H, G, P, N, Q, nc, nt;
+  int has_h0;             // chunk 0 carries h0 in, and dh0 is wanted
+  int run_states;         // ssd_bwd_states and ssd_bwd_carry run
+  long long x_sb, x_st, x_sh;
+  long long b_sb, b_st, b_sg;
+  long long c_sb, c_st, c_sg;
+  long long dt_sb, dt_st, dt_sh;
+};
+
+__device__ __forceinline__ void from_f(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16(v); }
+
+// Inclusive prefix sum over a warp of v[0..8) per lane (runs of 8 rows a
+// lane, then a shuffle scan of the run totals), in place.
+__device__ __forceinline__ void warp_scan8(float (&v)[8], int lane) {
+#pragma unroll
+  for (int i = 1; i < 8; ++i) v[i] += v[i - 1];
+  float incl = v[7];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const float base = incl - v[7];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] += base;
+}
+
+// The chunk's inclusive prefix sum of l = -dt A[h] over rows [0, Q), as
+// chunk_cumsum takes it, by one warp: cs2[i] = cs_i * log2(e), dts[i] =
+// dt_i and, where cds is given, cds[i] = the running sum of dt (zeros at
+// and past Q for dt; the last sums after).
+__device__ void bwd_cumsum(const BwdParams& p, int bb, int h, int t0, float* cs2, float* dts,
+                           float* cds, int lane) {
+  const float* DT = p.dt + bb * p.dt_sb + h * p.dt_sh;
+  const float rate = p.A[h];
+  float v[8], d[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = 8 * lane + i;
+    d[i] = row < p.Q ? DT[static_cast<long long>(t0 + row) * p.dt_st] : 0.f;
+    v[i] = -d[i] * rate;
+  }
+  warp_scan8(v, lane);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    cs2[8 * lane + i] = v[i] * LOG2E;
+    dts[8 * lane + i] = d[i];
+  }
+  if (cds != nullptr) {
+    warp_scan8(d, lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cds[8 * lane + i] = d[i];
+  }
+}
+
+// Sum of v over the block in a fixed order (shuffles, then the warps in
+// order); every thread gets it.  `red` holds BT / 32 floats.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red free
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < BT / 32; ++i) s += red[i];
+  return s;
+}
+
+// rows [0, rows) x cols of dst (row stride R) = src rows [0, nrows) x
+// columns [0, ncols) (row stride rs, unit column stride) as fp32, times
+// scale[row] when given; zeros elsewhere.
+template <typename T, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int R, const T* src, long long rs,
+                                          int nrows, int ncols, int rows,
+                                          const float* scale = nullptr) {
+  for (int e = threadIdx.x; e < rows * COLS; e += BT) {
+    const int r = e / COLS, cc = e % COLS;
+    float v = 0.f;
+    if (r < nrows && cc < ncols) {
+      v = to_f(src[r * rs + cc]);
+      if (scale != nullptr) v *= scale[r];
+    }
+    dst[r * R + cc] = v;
+  }
+}
+
+// acc[r][s] += sum_{k < K} A[(ty + 16 r) am + k ak] * Bm[(tx + 16 s) bn + k bk]:
+// a thread's MR x NS outputs of a product from shared memory.  The block's
+// threads are a 16 x 16 grid; a warp holds two ty and 16 tx, so its A
+// reads are two addresses and its B reads 16 consecutive ones or 16 rows of
+// odd stride: one shared-memory wavefront each.
+template <int MR, int NS>
+__device__ __forceinline__ void mm_acc(float (&acc)[MR][NS], const float* A, int am, int ak,
+                                       const float* Bm, int bn, int bk, int K, int ty, int tx) {
+  const float* a0 = A + ty * am;
+  const float* b0 = Bm + tx * bn;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    float a[MR], bv[NS];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) a[r] = a0[16 * r * am + k * ak];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) bv[s] = b0[16 * s * bn + k * bk];
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(a[r], bv[s], acc[r][s]);
+  }
+}
+
+template <int MR, int NS>
+__device__ __forceinline__ void zero(float (&acc)[MR][NS]) {
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[r][s] = 0.f;
+}
+
+__device__ __forceinline__ long long slot_of(const BwdParams& p, int bb, int k, int h) {
+  return (static_cast<long long>(bb) * p.nc + k) * p.H + h;
+}
+
+// dh_out of chunk k: dh_final (or zero: null) for the last, else what
+// ssd_bwd_carry left in dhs
+__device__ __forceinline__ const float* bwd_dh_out(const BwdParams& p, int bb, int k, int h) {
+  const long long pn = static_cast<long long>(p.P) * p.N;
+  if (k == p.nc - 1)
+    return p.dh_final != nullptr ? p.dh_final + (static_cast<long long>(bb) * p.H + h) * pn
+                                 : nullptr;
+  return p.dhs + slot_of(p, bb, k, h) * pn;
+}
+
+// h_in of chunk k (null: zero)
+__device__ __forceinline__ const float* bwd_h_in(const BwdParams& p, int bb, int k, int h) {
+  if (k == 0 && !p.has_h0) return nullptr;
+  return p.hin + slot_of(p, bb, k, h) * static_cast<long long>(p.P) * p.N;
+}
+
+// shared memory of ssd_bwd_chunk (floats): x, b, c, dy tiles, two score
+// tiles, cs, dt and the reductions
+template <int PMAX>
+__host__ __device__ constexpr int chunk_smem_floats() {
+  return TQ * (2 * (PMAX + 1) + 2 * (NMAX + 1)) + 2 * TQ * (TQ + 1) + 3 * MAXQ + 9 * TQ;
+}
+
+template <int PMAX>
+__host__ __device__ constexpr int states_smem_floats() {
+  return SKB * (PMAX + 1 + NMAX + 1) + 2 * MAXQ;
+}
+
+// The chunk's tile t as keys j: for every query tile i >= t, S = c_i b_j^T
+// and D = dy_i x_j^T, then dx_j += (S L)^T dy_i and db_j += (L D)^T c_i; then
+// the dh_out terms; writes dx, db (this head's), ddt's direct part and W.
+template <typename T, int PMAX>
+__device__ __forceinline__ void bwd_keys(const BwdParams& p, float* sm, int bb, int k, int h,
+                                         int t) {
+  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
+  constexpr int PS = PMAX / 16, NS = NMAX / 16, MR = TQ / 16;
+  float* X = sm;
+  float* Bt = X + TQ * RP;
+  float* Cs = Bt + TQ * RN;
+  float* DY = Cs + TQ * RN;
+  float* SL = DY + TQ * RP;
+  float* LD = SL + TQ * RS;
+  float* cs2 = LD + TQ * RS;
+  float* dts = cs2 + MAXQ;
+  float* cds = dts + MAXQ;
+  float* red = cds + MAXQ;   // [8][TQ] column sums of each warp, then [TQ] the row sums
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31, w = tid >> 5;
+  const int t0 = k * p.Q, grp = h / (p.H / p.G);
+  const int j0 = t * TQ, nj = min(TQ, p.Q - j0);
+  const T* Xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st;
+  const T* Bg = static_cast<const T*>(p.b) + bb * p.b_sb + grp * p.b_sg + t0 * p.b_st;
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
+  const long long dy_st = static_cast<long long>(p.H) * p.P;
+  const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+
+  load_tile<T, PMAX>(X, RP, Xg + j0 * p.x_st, p.x_st, nj, p.P, TQ);
+  load_tile<T, NMAX>(Bt, RN, Bg + j0 * p.b_st, p.b_st, nj, p.N, TQ);
+  float dx[MR][PS], db[MR][NS], part[MR], tda = 0.f;   // tda: sum of T_ij (cd_i - cd_j)
+  zero(dx);
+  zero(db);
+#pragma unroll
+  for (int s = 0; s < MR; ++s) part[s] = 0.f;
+  for (int it = t; it < p.nt; ++it) {
+    const int i0 = it * TQ, ni = min(TQ, p.Q - i0);
+    __syncthreads();  // the previous query tile consumed (and cs in place)
+    load_tile<T, NMAX>(Cs, RN, Cg + i0 * p.c_st, p.c_st, ni, p.N, TQ);
+    load_tile<float, PMAX>(DY, RP, DYg + i0 * dy_st, dy_st, ni, p.P, TQ);
+    __syncthreads();
+    float sc[MR][MR], dd[MR][MR];
+    zero(sc);
+    zero(dd);
+    mm_acc(sc, Cs, RN, 1, Bt, RN, 1, p.N, ty, tx);   // S_ij = c_i . b_j
+    mm_acc(dd, DY, RP, 1, X, RP, 1, p.P, ty, tx);    // D_ij = dy_i . x_j
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int il = ty + 16 * r, i = i0 + il;
+#pragma unroll
+      for (int s = 0; s < MR; ++s) {
+        const int jl = tx + 16 * s, j = j0 + jl;
+        // mask before the exp: above the diagonal the decay would overflow
+        const bool ok = i >= j && il < ni && jl < nj;
+        const float L = ok ? ex2(cs2[i] - cs2[j]) : 0.f;
+        const float sl = ok ? sc[r][s] * L : 0.f;
+        const float sd = sl * (ok ? dd[r][s] : 0.f);
+        SL[il * RS + jl] = sl;
+        LD[il * RS + jl] = ok ? L * dd[r][s] : 0.f;
+        part[s] += sd;
+        if (ok) tda = fmaf(sd * dts[j], cds[i] - cds[j], tda);
+      }
+    }
+    __syncthreads();  // the score tiles in place
+    mm_acc(dx, SL, 1, RS, DY, 1, RP, ni, ty, tx);   // sum_i (S L)_ij dy_i
+    mm_acc(db, LD, 1, RS, Cs, 1, RN, ni, ty, tx);   // sum_i (L D)_ij c_i
+  }
+  __syncthreads();  // c, dy and the score tiles consumed: dh_out goes there
+
+  const float* dho = bwd_dh_out(p, bb, k, h);
+  float* DH = Cs;   // [PMAX][RN]
+  if (dho != nullptr) {
+    load_tile<float, NMAX>(DH, RN, dho, p.N, p.P, p.N, PMAX);
+    __syncthreads();
+  }
+  const float cl = cs2[p.Q - 1];
+  const long long out_row = static_cast<long long>(p.H) * p.P;
+  T* DX = static_cast<T*>(p.dx) + (static_cast<long long>(bb) * p.T + t0 + j0) * out_row +
+          h * p.P;
+  {  // dx_j = dt_j (sum_i (S L)_ij dy_i + e_j dh_out b_j)
+    float bdh[MR][PS];
+    zero(bdh);
+    if (dho != nullptr) mm_acc(bdh, Bt, RN, 1, DH, RN, 1, p.N, ty, tx);
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int jl = ty + 16 * r, j = j0 + jl;
+      if (jl >= nj) continue;
+      const float dtj = dts[j], ej = ex2(cl - cs2[j]);
+#pragma unroll
+      for (int s = 0; s < PS; ++s) {
+        const int pc = tx + 16 * s;
+        if (pc < p.P) from_f(DX + jl * out_row + pc, dtj * fmaf(ej, bdh[r][s], dx[r][s]));
+      }
+    }
+  }
+  {  // db_j = dt_j (sum_i (L D)_ij c_i + e_j dh_out^T x_j); e_j x_j^T dh_out b_j
+    float xdh[MR][NS];
+    zero(xdh);
+    if (dho != nullptr) mm_acc(xdh, X, RP, 1, DH, 1, RN, p.P, ty, tx);
+    const long long nrow = static_cast<long long>(p.H) * p.N;
+    float* DBP = p.dbp + (static_cast<long long>(bb) * p.T + t0 + j0) * nrow + h * p.N;
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int jl = ty + 16 * r, j = j0 + jl;
+      float xb = 0.f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) xb = fmaf(xdh[r][s], Bt[jl * RN + tx + 16 * s], xb);
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) xb += __shfl_xor_sync(0xffffffffu, xb, o);  // over tx
+      if (jl >= nj) continue;
+      const float dtj = dts[j], ej = ex2(cl - cs2[j]);
+      if (tx == 0) red[8 * TQ + jl] = ej * xb;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int n = tx + 16 * s;
+        if (n < p.N) DBP[jl * nrow + n] = dtj * fmaf(ej, xdh[r][s], db[r][s]);
+      }
+    }
+  }
+  // ddt's intra-chunk part: the column sums of (S L) D, over ty in order
+#pragma unroll
+  for (int s = 0; s < MR; ++s) {
+    const float v = part[s] + __shfl_xor_sync(0xffffffffu, part[s], 16);
+    if (lane < 16) red[w * TQ + tx + 16 * s] = v;
+  }
+  __syncthreads();
+  if (tid < nj) {
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < BT / 32; ++i) v += red[i * TQ + tid];
+    const float st = red[8 * TQ + tid];
+    const long long o = (static_cast<long long>(bb) * p.T + t0 + j0 + tid) * p.H + h;
+    p.ddir[o] = v + st;
+    p.wst[o] = dts[j0 + tid] * st;
+  }
+  tda = block_sum(tda, red);   // (its first barrier: every read of red above is done)
+  if (tid == 0) p.dAt[slot_of(p, bb, k, h) * p.nt + t] = tda;
+}
+
+// The chunk's tile t as queries i: for every key tile j <= t, D = dy_i x_j^T
+// and dc_i += (L D dt) b_j; then the h_in term; writes dc (this head's) and
+// c_i . dc_i.
+template <typename T, int PMAX>
+__device__ __forceinline__ void bwd_queries(const BwdParams& p, float* sm, int bb, int k, int h,
+                                            int t) {
+  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
+  constexpr int NS = NMAX / 16, MR = TQ / 16;
+  float* X = sm;
+  float* Bt = X + TQ * RP;
+  float* Cs = Bt + TQ * RN;
+  float* DY = Cs + TQ * RN;
+  float* SL = DY + TQ * RP;
+  float* LD = SL + TQ * RS;
+  float* cs2 = LD + TQ * RS;
+  float* dts = cs2 + MAXQ;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int t0 = k * p.Q, grp = h / (p.H / p.G);
+  const int i0 = t * TQ, ni = min(TQ, p.Q - i0);
+  float u[MR] = {};   // c_i . (h_in^T dy_i), then times exp(cs_i): U_i
+  const T* Xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st;
+  const T* Bg = static_cast<const T*>(p.b) + bb * p.b_sb + grp * p.b_sg + t0 * p.b_st;
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
+  const long long dy_st = static_cast<long long>(p.H) * p.P;
+  const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+  (void)SL;
+
+  __syncthreads();  // the key role's tiles consumed
+  load_tile<T, NMAX>(Cs, RN, Cg + i0 * p.c_st, p.c_st, ni, p.N, TQ);
+  load_tile<float, PMAX>(DY, RP, DYg + i0 * dy_st, dy_st, ni, p.P, TQ);
+  float dc[MR][NS];
+  zero(dc);
+  for (int jt = 0; jt <= t; ++jt) {
+    const int j0 = jt * TQ, nj = min(TQ, p.Q - j0);
+    if (jt > 0) __syncthreads();  // the previous key tile consumed
+    load_tile<T, PMAX>(X, RP, Xg + j0 * p.x_st, p.x_st, nj, p.P, TQ);
+    load_tile<T, NMAX>(Bt, RN, Bg + j0 * p.b_st, p.b_st, nj, p.N, TQ);
+    __syncthreads();
+    float dd[MR][MR];
+    zero(dd);
+    mm_acc(dd, DY, RP, 1, X, RP, 1, p.P, ty, tx);    // D_ij = dy_i . x_j
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int il = ty + 16 * r, i = i0 + il;
+#pragma unroll
+      for (int s = 0; s < MR; ++s) {
+        const int jl = tx + 16 * s, j = j0 + jl;
+        const bool ok = i >= j && il < ni && jl < nj;
+        LD[il * RS + jl] = ok ? ex2(cs2[i] - cs2[j]) * dd[r][s] * dts[j] : 0.f;
+      }
+    }
+    __syncthreads();  // the score tile in place
+    mm_acc(dc, LD, RS, 1, Bt, 1, RN, nj, ty, tx);   // sum_j (L D dt)_ij b_j
+  }
+  __syncthreads();  // x, b and the score tile consumed: h_in goes where x and b were
+
+  const float* hi = bwd_h_in(p, bb, k, h);
+  if (hi != nullptr) {
+    float* HIN = X;   // [PMAX][RN]
+    load_tile<float, NMAX>(HIN, RN, hi, p.N, p.P, p.N, PMAX);
+    __syncthreads();
+    float dyh[MR][NS];
+    zero(dyh);
+    mm_acc(dyh, DY, RP, 1, HIN, 1, RN, p.P, ty, tx);   // h_in^T dy_i
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int il = ty + 16 * r;
+      const float f = ex2(cs2[i0 + il]);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        u[r] = fmaf(Cs[il * RN + tx + 16 * s], dyh[r][s], u[r]);
+        dc[r][s] = fmaf(f, dyh[r][s], dc[r][s]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);  // over tx
+      u[r] *= f;
+    }
+  }
+  const long long nrow = static_cast<long long>(p.H) * p.N;
+  float* DCP = p.dcp + (static_cast<long long>(bb) * p.T + t0 + i0) * nrow + h * p.N;
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+    const int il = ty + 16 * r;
+    float cd = 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) cd = fmaf(Cs[il * RN + tx + 16 * s], dc[r][s], cd);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) cd += __shfl_xor_sync(0xffffffffu, cd, o);  // over tx
+    if (il >= ni) continue;
+    if (tx == 0) {
+      const long long o = (static_cast<long long>(bb) * p.T + t0 + i0 + il) * p.H + h;
+      p.rrow[o] = cd;
+      p.urow[o] = u[r];
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int n = tx + 16 * s;
+      if (n < p.N) DCP[il * nrow + n] = dc[r][s];
+    }
+  }
+}
+
+// A block per (batch, chunk, head, tile): the tile as keys, then as queries
+template <typename T, int PMAX>
+__global__ void __launch_bounds__(BT) ssd_bwd_chunk(const BwdParams p) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int t = blockIdx.x % p.nt, h = blockIdx.x / p.nt, k = blockIdx.y, bb = blockIdx.z;
+  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
+  float* cs2 = bwd_smem + TQ * (2 * RP + 2 * RN) + 2 * TQ * RS;
+  if (threadIdx.x < 32) bwd_cumsum(p, bb, h, k * p.Q, cs2, cs2 + MAXQ, cs2 + 2 * MAXQ,
+                                   threadIdx.x);
+  bwd_keys<T, PMAX>(p, bwd_smem, bb, k, h, t);
+  bwd_queries<T, PMAX>(p, bwd_smem, bb, k, h, t);
+}
+
+// Each chunk's sum_i exp(cs_i) dy_i c_i^T into dhs, and cs_Q into dec;
+// chunk 0's only when there is an h0 (it feeds dh0 alone)
+template <typename T, int PMAX>
+__global__ void __launch_bounds__(BT) ssd_bwd_states(const BwdParams p) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  constexpr int RP = PMAX + 1, RN = NMAX + 1, PS = PMAX / 16, NS = NMAX / 16;
+  const int h = blockIdx.x, k = blockIdx.y, bb = blockIdx.z;
+  if (k == 0 && !p.has_h0) return;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* DYs = bwd_smem;              // [SKB][RP]: dy rows times exp(cs_i)
+  float* Cs = DYs + SKB * RP;         // [SKB][RN]
+  float* cs2 = Cs + SKB * RN;
+  float* fac = cs2 + MAXQ;            // dt, then exp(cs_i)
+  const int t0 = k * p.Q, grp = h / (p.H / p.G);
+  if (tid < 32) bwd_cumsum(p, bb, h, t0, cs2, fac, nullptr, tid);
+  __syncthreads();
+  fac[tid] = ex2(cs2[tid]);   // MAXQ == BT
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
+  const long long dy_st = static_cast<long long>(p.H) * p.P;
+  const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+  float acc[PS][NS];
+  zero(acc);
+  for (int r0 = 0; r0 < p.Q; r0 += SKB) {
+    const int nr = min(SKB, p.Q - r0);
+    __syncthreads();  // the previous stage consumed (and fac in place)
+    load_tile<float, PMAX>(DYs, RP, DYg + r0 * dy_st, dy_st, nr, p.P, SKB, fac + r0);
+    load_tile<T, NMAX>(Cs, RN, Cg + r0 * p.c_st, p.c_st, nr, p.N, SKB);
+    __syncthreads();
+    mm_acc(acc, DYs, 1, RP, Cs, 1, RN, nr, ty, tx);
+  }
+  const long long slot = slot_of(p, bb, k, h);
+  float* dst = p.dhs + slot * static_cast<long long>(p.P) * p.N;
+#pragma unroll
+  for (int r = 0; r < PS; ++r) {
+    const int pr = ty + 16 * r;
+    if (pr >= p.P) continue;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int n = tx + 16 * s;
+      if (n < p.N) dst[pr * p.N + n] = acc[r][s];
+    }
+  }
+  if (tid == 0) p.dec[slot] = cs2[p.Q - 1];
+}
+
+// The ordered pass from the last chunk to the first: dh = dh_final (or 0);
+// for each chunk k from the last: dhs[k] = dh (its dh_out; the last chunk's
+// is dh_final itself), dh = exp(cs_Q) dh + dhs[k] as it was; dh0 = dh.
+// One state entry a thread.
+__global__ void __launch_bounds__(256) ssd_bwd_carry(const BwdParams p) {
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const long long pn = static_cast<long long>(p.P) * p.N;
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= pn) return;
+  float dh = p.dh_final != nullptr ? p.dh_final[(static_cast<long long>(bb) * p.H + h) * pn + e]
+                                   : 0.f;
+  const int k_end = p.has_h0 ? 0 : 1;   // without h0, chunk 0's dh_in is not wanted
+  constexpr int AHEAD = 4;   // chunk states read together, before any of them is written
+  for (int k0 = p.nc - 1; k0 >= k_end; k0 -= AHEAD) {
+    float sv[AHEAD], d[AHEAD];
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int k = k0 - i;
+      if (k >= k_end) {
+        const long long slot = slot_of(p, bb, k, h);
+        sv[i] = p.dhs[slot * pn + e];
+        d[i] = ex2(p.dec[slot]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+      const int k = k0 - i;
+      if (k >= k_end) {
+        if (k < p.nc - 1) p.dhs[slot_of(p, bb, k, h) * pn + e] = dh;
+        dh = fmaf(d[i], dh, sv[i]);
+      }
+    }
+  }
+  if (!p.has_h0) {   // dh_out of chunk 0 (its dh_in is not wanted)
+    if (p.nc > 1) p.dhs[slot_of(p, bb, 0, h) * pn + e] = dh;
+  } else {
+    p.dh0[(static_cast<long long>(bb) * p.H + h) * pn + e] = dh;
+  }
+}
+
+// Per (batch, chunk, head): dcs, dl (its reverse cumsum), ddt and the
+// chunk's part of dA
+__global__ void __launch_bounds__(BT) ssd_bwd_finish(const BwdParams p) {
+  __shared__ float cs2[MAXQ], dts[MAXQ], cds[MAXQ], dcs[MAXQ], red[BT / 32];
+  const int h = blockIdx.x, k = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int t0 = k * p.Q;
+  if (tid < 32) bwd_cumsum(p, bb, h, t0, cs2, dts, cds, tid);
+  const float* dho = bwd_dh_out(p, bb, k, h);
+  const float* hi = bwd_h_in(p, bb, k, h);
+  float dot = 0.f;
+  if (dho != nullptr && hi != nullptr) {
+    const long long pn = static_cast<long long>(p.P) * p.N;
+    for (long long e = tid; e < pn; e += BT) dot = fmaf(dho[e], hi[e], dot);
+  }
+  dot = block_sum(dot, red);   // (its barriers also publish cs2, dts and cds)
+  const float eterm = ex2(cs2[p.Q - 1]) * dot, cl = cds[p.Q - 1];
+  const long long o = (static_cast<long long>(bb) * p.T + t0 + tid) * p.H + h;
+  float dd = 0.f, wv = 0.f, dc = 0.f, da = 0.f;
+  if (tid < p.Q) {
+    dd = p.ddir[o];
+    wv = p.wst[o];
+    dc = p.rrow[o] - dts[tid] * dd;
+    da = wv * (cl - cds[tid]);                              // W_j (cd_Q - cd_j)
+    if (hi != nullptr) da = fmaf(p.urow[o], cds[tid], da);  // U_i cd_i
+  }
+  const float wsum = block_sum(wv, red);
+  if (tid == p.Q - 1) dc += eterm + wsum;
+  dcs[tid] = dc;
+  __syncthreads();
+  if (tid < 32) {   // dl_i = sum_{j >= i} dcs_j: runs of 8 rows a lane, from the top
+    float v[8], run = 0.f;
+#pragma unroll
+    for (int i = 7; i >= 0; --i) {
+      run += dcs[8 * lane + i];
+      v[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const float u = __shfl_down_sync(0xffffffffu, incl, s);
+      if (lane + s < 32) incl += u;
+    }
+    const float base = incl - run;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dcs[8 * lane + i] = base + v[i];
+  }
+  __syncthreads();
+  if (tid < p.Q) p.ddt[o] = dd - p.A[h] * dcs[tid];
+  da = block_sum(da, red);
+  if (tid == 0) {
+    float tsum = 0.f;   // the key tiles' sums of T_ij (cd_i - cd_j), in order
+    for (int t = 0; t < p.nt; ++t) tsum += p.dAt[slot_of(p, bb, k, h) * p.nt + t];
+    p.dAp[slot_of(p, bb, k, h)] = -(tsum + da + eterm * cl);
+  }
+}
+
+// dB, dC: each group's heads summed in order; the last block: dA, the
+// (batch, chunk) parts summed in order
+template <typename T>
+__global__ void __launch_bounds__(256) ssd_bwd_reduce(const BwdParams p) {
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int h = threadIdx.x; h < p.H; h += 256) {
+      float s = 0.f;
+      for (int bb = 0; bb < p.B; ++bb)
+        for (int k = 0; k < p.nc; ++k) s += p.dAp[slot_of(p, bb, k, h)];
+      p.dA[h] = s;
+    }
+    return;
+  }
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long total = static_cast<long long>(p.B) * p.T * p.G * p.N;
+  if (e >= total) return;
+  const int n = static_cast<int>(e % p.N);
+  const long long rg = e / p.N;                  // (b, t, g)
+  const int g = static_cast<int>(rg % p.G);
+  const long long bt = rg / p.G;
+  const int rep = p.H / p.G;
+  const long long base = (bt * p.H + static_cast<long long>(g) * rep) * p.N + n;
+  float sb = 0.f, sc = 0.f;
+  for (int i = 0; i < rep; ++i) {
+    sb += p.dbp[base + static_cast<long long>(i) * p.N];
+    sc += p.dcp[base + static_cast<long long>(i) * p.N];
+  }
+  from_f(static_cast<T*>(p.dB) + e, sb);
+  from_f(static_cast<T*>(p.dC) + e, sc);
+}
+
+template <typename T, int PMAX>
+cudaError_t bwd_attributes() {
+  static bool c_chunk[kMaxDevices] = {}, c_states[kMaxDevices] = {};
+  cudaError_t e = allow_smem(ssd_bwd_chunk<T, PMAX>, c_chunk);
+  if (e != cudaSuccess) return e;
+  return allow_smem(ssd_bwd_states<T, PMAX>, c_states);
+}
+
+template <typename T, int PMAX>
+cudaError_t bwd_launch(const BwdParams& p, cudaStream_t s) {
+  cudaError_t e = bwd_attributes<T, PMAX>();
+  if (e != cudaSuccess) return e;
+  const long long pn = static_cast<long long>(p.P) * p.N;
+  if (p.run_states) {
+    ssd_bwd_states<T, PMAX><<<dim3(p.H, p.nc, p.B), BT,
+                              sizeof(float) * states_smem_floats<PMAX>(), s>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    ssd_bwd_carry<<<dim3(static_cast<unsigned>((pn + 255) / 256), p.H, p.B), 256, 0, s>>>(p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  ssd_bwd_chunk<T, PMAX><<<dim3(p.nt * p.H, p.nc, p.B), BT,
+                           sizeof(float) * chunk_smem_floats<PMAX>(), s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_finish<<<dim3(p.H, p.nc, p.B), BT, 0, s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long total = static_cast<long long>(p.B) * p.T * p.G * p.N;
+  ssd_bwd_reduce<T><<<static_cast<unsigned>((total + 255) / 256 + 1), 256, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_dispatch(const BwdParams& p, cudaStream_t s) {
+  return p.P <= 64 ? bwd_launch<T, 64>(p, s) : bwd_launch<T, 128>(p, s);
+}
+
+}  // namespace
+
+// The backward of ssd_chunk_scan with the log-decay -dt * A.  dtype code of
+// x, b, c (and of dx, dB, dC): 0 = float32, 1 = bfloat16.  dy [B, T, H, P]
+// float32 contiguous; hin: each chunk's carried-in state [B, T/Q, H, P, N]
+// as the forward's workspace leaves it, or with one chunk h0 (null: zero);
+// dh_final [B, H, P, N] or null (zero); has_h0: chunk 0 carries an h0 in
+// and dh0 [B, H, P, N] is written.  Workspace (float32): with several
+// chunks or an h0, dhs B * (T/Q) * H * P * N and dec B * (T/Q) * H; always
+// dbp and dcp B * T * H * N each, rrow, ddir, wst, urow B * T * H each, dAt
+// B * (T/Q) * H * ceil(Q / 64) and dAp B * (T/Q) * H.  Issues ssd_bwd_states and ssd_bwd_carry (several chunks
+// or an h0), then ssd_bwd_chunk, ssd_bwd_finish and ssd_bwd_reduce.
+// Returns a cudaError_t (0 = launched).
+extern "C" int ssd_chunk_scan_bwd(
+    int dtype, const void* x, const void* b, const void* c, const void* dt, const void* A,
+    const void* hin, const void* dh_final, const void* dy, void* dx, void* dB, void* dC,
+    void* ddt, void* dA, void* dh0, void* dhs, void* dec, void* dbp, void* dcp, void* rrow,
+    void* ddir, void* wst, void* urow, void* dAt, void* dAp, int B, int T, int H, int G, int P,
+    int N, int Q,
+    int has_h0, long long x_sb, long long x_st, long long x_sh,
+    long long b_sb, long long b_st, long long b_sg,
+    long long c_sb, long long c_st, long long c_sg,
+    long long dt_sb, long long dt_st, long long dt_sh, void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || G <= 0 || H % G != 0) return cudaErrorInvalidValue;
+  if (P <= 0 || P > 128 || P % 8 != 0 || N <= 0 || N > NMAX || N % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (Q <= 0 || Q > MAXQ || T % Q != 0 || T / Q > 65535) return cudaErrorInvalidValue;
+  BwdParams p = {};
+  p.B = B; p.T = T; p.H = H; p.G = G; p.P = P; p.N = N; p.Q = Q; p.nc = T / Q;
+  p.nt = (Q + TQ - 1) / TQ;
+  p.has_h0 = has_h0 != 0;
+  p.run_states = p.nc > 1 || p.has_h0;
+  if (static_cast<long long>(p.nt) * H > 2147483647LL) return cudaErrorInvalidValue;
+  if (dt == nullptr || A == nullptr || dy == nullptr || dx == nullptr || dB == nullptr ||
+      dC == nullptr || ddt == nullptr || dA == nullptr || dbp == nullptr || dcp == nullptr ||
+      rrow == nullptr || ddir == nullptr || wst == nullptr || urow == nullptr ||
+      dAt == nullptr || dAp == nullptr)
+    return cudaErrorInvalidValue;
+  if ((p.nc > 1 || p.has_h0) && hin == nullptr) return cudaErrorInvalidValue;
+  if (p.run_states && (dhs == nullptr || dec == nullptr)) return cudaErrorInvalidValue;
+  if (p.has_h0 && dh0 == nullptr) return cudaErrorInvalidValue;
+  p.x = x; p.b = b; p.c = c;
+  p.dt = static_cast<const float*>(dt);
+  p.A = static_cast<const float*>(A);
+  p.dy = static_cast<const float*>(dy);
+  p.hin = static_cast<const float*>(hin);
+  p.dh_final = static_cast<const float*>(dh_final);
+  p.dx = dx; p.dB = dB; p.dC = dC;
+  p.ddt = static_cast<float*>(ddt);
+  p.dA = static_cast<float*>(dA);
+  p.dh0 = static_cast<float*>(dh0);
+  p.dhs = static_cast<float*>(dhs);
+  p.dec = static_cast<float*>(dec);
+  p.dbp = static_cast<float*>(dbp);
+  p.dcp = static_cast<float*>(dcp);
+  p.rrow = static_cast<float*>(rrow);
+  p.ddir = static_cast<float*>(ddir);
+  p.wst = static_cast<float*>(wst);
+  p.urow = static_cast<float*>(urow);
+  p.dAt = static_cast<float*>(dAt);
+  p.dAp = static_cast<float*>(dAp);
+  p.x_sb = x_sb; p.x_st = x_st; p.x_sh = x_sh;
+  p.b_sb = b_sb; p.b_st = b_st; p.b_sg = b_sg;
+  p.c_sb = c_sb; p.c_st = c_st; p.c_sg = c_sg;
+  p.dt_sb = dt_sb; p.dt_st = dt_st; p.dt_sh = dt_sh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd_dispatch<float>(p, s);
+  if (dtype == 1) return bwd_dispatch<__nv_bfloat16>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks per SM of ssd_bwd_chunk and ssd_bwd_states (P <= 64 or <= 128) and
+// their dynamic shared memory
+extern "C" int ssd_chunk_bwd_occupancy(int dtype, int P, int* chunk_blocks, int* state_blocks,
+                                       int* chunk_smem_bytes, int* state_smem_bytes) {
+  const bool wide = P > 64;
+  *chunk_smem_bytes = static_cast<int>(sizeof(float) * (wide ? chunk_smem_floats<128>()
+                                                             : chunk_smem_floats<64>()));
+  *state_smem_bytes = static_cast<int>(sizeof(float) * (wide ? states_smem_floats<128>()
+                                                             : states_smem_floats<64>()));
+  cudaError_t e;
+  if (dtype == 0) {
+    e = wide ? bwd_attributes<float, 128>() : bwd_attributes<float, 64>();
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        chunk_blocks, wide ? ssd_bwd_chunk<float, 128> : ssd_bwd_chunk<float, 64>, BT,
+        *chunk_smem_bytes);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        state_blocks, wide ? ssd_bwd_states<float, 128> : ssd_bwd_states<float, 64>, BT,
+        *state_smem_bytes);
+  }
+  if (dtype == 1) {
+    e = wide ? bwd_attributes<__nv_bfloat16, 128>() : bwd_attributes<__nv_bfloat16, 64>();
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        chunk_blocks, wide ? ssd_bwd_chunk<__nv_bfloat16, 128> : ssd_bwd_chunk<__nv_bfloat16, 64>,
+        BT, *chunk_smem_bytes);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        state_blocks,
+        wide ? ssd_bwd_states<__nv_bfloat16, 128> : ssd_bwd_states<__nv_bfloat16, 64>, BT,
+        *state_smem_bytes);
   }
   return cudaErrorInvalidValue;
 }

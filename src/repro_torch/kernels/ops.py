@@ -5,10 +5,10 @@ CPU tensor goes to the plain PyTorch version in ``ref.py``.  There is no
 fallback between the two and no switch to force either.  Each path keeps a
 launch count, so a run can show which one carried it.
 
-``spec_verify_attn`` is K1; ``rmsnorm`` (K5) and ``flash_attn`` (K4) are
-``torch.autograd.Function``s whose backward dispatches the same way;
-``ssd_chunk`` and ``ssd_chunked`` (K6) are the Mamba-2 SSD scan, forward
-only.
+``spec_verify_attn`` is K1; ``rmsnorm`` (K5), ``flash_attn`` (K4) and
+``ssd_chunked`` (K6, the Mamba-2 SSD scan) are ``torch.autograd.Function``s
+whose backward dispatches the same way; ``ssd_chunk`` (K6's one-chunk
+contract) is forward only: no model path differentiates it.
 """
 from __future__ import annotations
 
@@ -150,9 +150,10 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the Mamba-2 SSD scan (K6), forward only
+# the Mamba-2 SSD scan (K6): one chunk (forward only), and the chunked scan
+# with its gradients
 
-PLAIN_SSD = LaunchCount()       # calls of ssd_chunk's or ssd_chunked's plain version
+PLAIN_SSD = LaunchCount()       # calls of ssd_chunk's or ssd_chunked's plain forward or backward
 
 
 def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
@@ -167,6 +168,46 @@ def ssd_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tenso
     return _ref.ssd_chunk_ref(x, b, c, dt, l, h0)
 
 
+class _SSDChunked(torch.autograd.Function):
+    """The chunked scan: the kernel K6 on the card (its forward keeps each
+    chunk's carried-in state for the backward), the plain versions on the
+    CPU, forward and backward.  The final state's gradient is None when the
+    caller drops h_final; the backward reads it as zero."""
+
+    @staticmethod
+    def forward(ctx, xh, B_, C_, dt, A, h0, chunk):
+        ctx.set_materialize_grads(False)
+        if xh.is_cuda:
+            y, h, states = K6.ssd_chunked_cuda(xh, B_, C_, dt, A, h0, chunk)
+        else:
+            (y, h), states = _plain_ssd_chunked(xh, B_, C_, dt, A, h0, chunk), None
+        ctx.save_for_backward(xh, B_, C_, dt, A, h0, states)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xh, B_, C_, dt, A, h0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xh.shape, dtype=torch.float32, device=xh.device)
+        if xh.is_cuda:
+            grads = K6.ssd_chunked_bwd_cuda(xh, B_, C_, dt, A, h0, ctx.chunk, dy.contiguous(),
+                                            None if dh is None else dh.contiguous(), states)
+        else:
+            PLAIN_SSD.launches += 1
+            grads = _ref.ssd_chunked_bwd_ref(xh, B_, C_, dt, A, h0, ctx.chunk, dy, dh)
+        return (*grads, None)
+
+
+def _plain_ssd_chunked(xh, B_, C_, dt, A, h0, chunk):
+    """The plain chunked scan, counted; h0 None is a zero state."""
+    PLAIN_SSD.launches += 1
+    if h0 is None:
+        Bsz, _, H, P = xh.shape
+        h0 = torch.zeros((Bsz, H, P, B_.shape[3]), dtype=torch.float32, device=xh.device)
+    return _ref.ssd_chunked_ref(xh, B_, C_, dt, A, h0, chunk)
+
+
 def ssd_chunked(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor, dt: torch.Tensor,
                 A: torch.Tensor, h0: Optional[torch.Tensor], chunk: int):
     """The whole chunked scan of a Mamba-2 layer (the model's
@@ -174,11 +215,11 @@ def ssd_chunked(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor, dt: torch.
     fp32 (log-decay -dt*A); h0 [B,H,P,N] fp32, or None for a zero state;
     chunks of the largest divisor of T at most ``chunk``.  Returns (y
     [B,T,H,P], h_final [B,H,P,N]) in fp32.  One call of K6 on the card,
-    however many chunks."""
+    however many chunks.  Differentiable in every tensor input; the chunk
+    states the backward reads are kept only when a gradient is wanted."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (xh, B_, C_, dt, A, h0)):
+        return _SSDChunked.apply(xh, B_, C_, dt, A, h0, chunk)
     if xh.is_cuda:
-        return K6.ssd_chunked_cuda(xh, B_, C_, dt, A, h0, chunk)
-    PLAIN_SSD.launches += 1
-    if h0 is None:
-        Bsz, _, H, P = xh.shape
-        h0 = torch.zeros((Bsz, H, P, B_.shape[3]), dtype=torch.float32, device=xh.device)
-    return _ref.ssd_chunked_ref(xh, B_, C_, dt, A, h0, chunk)
+        return K6.ssd_chunked_cuda(xh, B_, C_, dt, A, h0, chunk)[:2]
+    return _plain_ssd_chunked(xh, B_, C_, dt, A, h0, chunk)

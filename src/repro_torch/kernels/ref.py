@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention and norm kernels (copies of
-``repro.kernels.ref``, plus the explicit backward of K4 and K5).
+"""Plain PyTorch versions of the attention, norm and SSD kernels (copies of
+``repro.kernels.ref``, plus the explicit backward of K4, K5 and K6).
 
 They define each kernel's numerical contract: the CPU tests hold them
 against the JAX oracles, and ``chip_smoke.py`` holds the CUDA kernel against
@@ -159,6 +159,12 @@ def flash_attn_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Mamba-2 SSD chunk (K6): one chunk, and the model's whole chunk loop
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or in its own dtype where that is wider (fp64 inputs give
+    an fp64 evaluation, the yardstick of the fp32 ones)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def ssd_chunk_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                   dt: torch.Tensor, l: torch.Tensor, h0: torch.Tensor):
     """One SSD chunk for a batch of (batch*head) slices, all math in fp32
@@ -167,7 +173,7 @@ def ssd_chunk_ref(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     P, N].  With cs = cumsum(l) and M = tril(c b^T * exp(cs_i - cs_j)):
     y = (M * dt_j) x + (c * exp(cs)) h0^T and h_new = exp(cs_Q) h0 +
     (x * dt exp(cs_Q - cs))^T b.  Returns (y [BH, Q, P], h_new [BH, P, N])."""
-    x, b, c, dt, l, h0 = (t.float() for t in (x, b, c, dt, l, h0))
+    x, b, c, dt, l, h0 = (_wide(t) for t in (x, b, c, dt, l, h0))
     Q = x.shape[1]
     cs = torch.cumsum(l, dim=1)                                   # [BH, Q]
     cb = torch.einsum("zin,zjn->zij", c, b)
@@ -200,18 +206,18 @@ def ssd_chunked_ref(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     dt [B,T,H] (>= 0, zero on padding); A [H] (> 0, the decay rate, so the
     log-decay is -dt*A); h0 [B,H,P,N].  Chunks of Q = ``ssd_chunk_len(T,
     chunk)`` rows run in order, each carrying h into the next.  Returns (y
-    [B,T,H,P] fp32, h_final [B,H,P,N] fp32)."""
+    [B,T,H,P] fp32, h_final [B,H,P,N] fp32; fp64 for fp64 inputs)."""
     Bsz, T, H, Pd = xh.shape
     G, N = B_.shape[2], B_.shape[3]
     Q = ssd_chunk_len(T, chunk)
     rep = H // G
-    fold = lambda t: t.float().transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
+    fold = lambda t: _wide(t).transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
     x = fold(xh)                                                  # [BH, T, P]
     b = fold(B_.repeat_interleave(rep, dim=2))                    # [BH, T, N]
     c = fold(C_.repeat_interleave(rep, dim=2))
-    dtf = dt.float().transpose(1, 2).reshape(Bsz * H, T)
-    l = -dtf * A.float().repeat(Bsz)[:, None]
-    h = h0.float().reshape(Bsz * H, Pd, N)
+    dtf = _wide(dt).transpose(1, 2).reshape(Bsz * H, T)
+    l = -dtf * _wide(A).repeat(Bsz)[:, None]
+    h = _wide(h0).reshape(Bsz * H, Pd, N)
     ys = []
     for i in range(0, T, Q):
         y, h = ssd_chunk_ref(x[:, i:i + Q], b[:, i:i + Q], c[:, i:i + Q],
@@ -219,3 +225,113 @@ def ssd_chunked_ref(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
         ys.append(y)
     y = torch.cat(ys, dim=1).reshape(Bsz, H, T, Pd).transpose(1, 2)
     return y, h.reshape(Bsz, H, Pd, N)
+
+
+def ssd_chunked_bwd_ref(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                        dt: torch.Tensor, A: torch.Tensor, h0: Optional[torch.Tensor],
+                        chunk: int, dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None):
+    """The gradients of :func:`ssd_chunked_ref` (with h0 None a zero state)
+    for an output gradient ``dy`` [B,T,H,P] and ``dh_final`` [B,H,P,N] (None:
+    the final state is not used), in fp32, in the order K6's backward takes
+    them: each chunk's carried-in state h_in (the forward's carry); dh
+    carried from the last chunk to the first (``dh_out`` of chunk k is
+    ``dh_in`` of chunk k + 1, ``dh_in = exp(cs_end) dh_out + sum_i exp(cs_i)
+    dy_i c_i^T``); then each chunk's gradients.  Per (batch, head) and chunk,
+    with cs = cumsum(l), l = -dt * A, L_ij = exp(cs_i - cs_j) for i >= j
+    (else 0), S = c b^T, D = dy x^T and e_j = exp(cs_end - cs_j):
+
+      dx_j  = dt_j (sum_i S_ij L_ij dy_i + e_j dh_out b_j)
+      db_j  = dt_j (sum_i L_ij D_ij c_i + e_j dh_out^T x_j)
+      dc_i  = sum_j L_ij D_ij dt_j b_j + exp(cs_i) h_in^T dy_i
+      ddt_j = sum_i S_ij L_ij D_ij + e_j x_j^T dh_out b_j      (direct part)
+
+    The log-decay's gradient dcs_k = c_k . dc_k - dt_k ddt_k (the terms of
+    every product that holds cs_i - cs_j, cs_i or cs_end - cs_j), plus, at
+    the chunk's last row, E + sum_j W_j with E = exp(cs_end) <dh_out, h_in>
+    and W_j = dt_j e_j x_j^T dh_out b_j; dl is its reverse cumsum and ddt_j
+    = ddt_j - A dl_j.  dA = -sum dt dl sums that reverse cumsum of row minus
+    column sums, which loses digits in fp32 (1e-5 to 1e-4 of its largest
+    entry at 256-row chunks, by every fp32 route); it is taken in its direct
+    form instead, each decay's derivative in A with cd the running sum of
+    dt in the chunk and T_ij = S_ij L_ij D_ij dt_j, U_i = exp(cs_i) c_i^T
+    h_in^T dy_i:
+
+      dA = -(sum_{i>=j} T_ij (cd_i - cd_j) + sum_i U_i cd_i
+             + sum_j W_j (cd_end - cd_j) + E cd_end)
+
+    db and dc sum over the heads of a group.  fp32, or fp64 for fp64 inputs.
+    Returns (dxh, dB, dC in the inputs' dtypes, ddt [B,T,H], dA [H], dh0
+    [B,H,P,N] or None when h0 is None)."""
+    Bsz, T, H, Pd = xh.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Q = ssd_chunk_len(T, chunk)
+    nc, rep = T // Q, H // G
+    fold = lambda t: _wide(t).transpose(1, 2).reshape(Bsz * H, T, -1)  # noqa: E731
+    x, g = fold(xh), fold(dy)                                     # [BH, T, P]
+    b = fold(B_.repeat_interleave(rep, dim=2))                    # [BH, T, N]
+    c = fold(C_.repeat_interleave(rep, dim=2))
+    dtf = _wide(dt).transpose(1, 2).reshape(Bsz * H, T)
+    Af = _wide(A).repeat(Bsz)
+    cs = torch.cumsum((-dtf * Af[:, None]).reshape(-1, nc, Q), dim=2)   # [BH, nc, Q]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    chunk_rows = [slice(k * Q, (k + 1) * Q) for k in range(nc)]
+
+    # 1. the chunks' carried-in states
+    h = (torch.zeros((Bsz * H, Pd, N), dtype=x.dtype, device=x.device) if h0 is None
+         else _wide(h0).reshape(Bsz * H, Pd, N))
+    h_in = []
+    for k, r in enumerate(chunk_rows):
+        h_in.append(h)
+        w = dtf[:, r] * torch.exp(cs[:, k, -1:] - cs[:, k])
+        h = torch.exp(cs[:, k, -1])[:, None, None] * h + torch.einsum(
+            "zjp,zjn->zpn", x[:, r] * w[:, :, None], b[:, r])
+
+    # 2. dh carried from the last chunk to the first
+    dh = (torch.zeros_like(h) if dh_final is None
+          else _wide(dh_final).reshape(Bsz * H, Pd, N))
+    dh_out = [None] * nc
+    for k in reversed(range(nc)):
+        r = chunk_rows[k]
+        dh_out[k] = dh
+        dh = torch.exp(cs[:, k, -1])[:, None, None] * dh + torch.einsum(
+            "zip,zin->zpn", g[:, r] * torch.exp(cs[:, k])[:, :, None], c[:, r])
+    dh0 = None if h0 is None else dh.reshape(Bsz, H, Pd, N)
+
+    # 3. each chunk's gradients
+    dx, db, dc, ddt = (torch.empty_like(t) for t in (x, b, c, dtf))
+    dA = torch.zeros_like(Af)
+    for k, r in enumerate(chunk_rows):
+        csk, dtk = cs[:, k], dtf[:, r]
+        cd = torch.cumsum(dtk, 1)                                 # running sum of dt
+        e = torch.exp(csk[:, -1:] - csk)                          # [BH, Q]
+        L = torch.where(mask, torch.exp(torch.where(mask, csk[:, :, None] - csk[:, None, :],
+                                                    0.0)), 0.0)
+        S = torch.einsum("zin,zjn->zij", c[:, r], b[:, r])
+        D = torch.einsum("zip,zjp->zij", g[:, r], x[:, r])
+        SL, LD = S * L, L * D
+        xdh = torch.einsum("zjp,zpn->zjn", x[:, r], dh_out[k])    # x_j^T dh_out, [BH, Q, N]
+        bdh = torch.einsum("zjn,zpn->zjp", b[:, r], dh_out[k])    # dh_out b_j, [BH, Q, P]
+        dx[:, r] = dtk[:, :, None] * (torch.einsum("zij,zip->zjp", SL, g[:, r])
+                                      + e[:, :, None] * bdh)
+        db[:, r] = dtk[:, :, None] * (torch.einsum("zij,zin->zjn", LD, c[:, r])
+                                      + e[:, :, None] * xdh)
+        dc_h = torch.exp(csk)[:, :, None] * torch.einsum("zip,zpn->zin", g[:, r], h_in[k])
+        dc[:, r] = torch.einsum("zij,zjn->zin", LD * dtk[:, None, :], b[:, r]) + dc_h
+        d_state = e * (xdh * b[:, r]).sum(-1)                     # e_j x_j^T dh_out b_j
+        ddt_dir = (SL * D).sum(1) + d_state
+        W = dtk * d_state
+        E = torch.exp(csk[:, -1]) * (dh_out[k] * h_in[k]).sum((1, 2))
+        dcs = (c[:, r] * dc[:, r]).sum(-1) - dtk * ddt_dir
+        dcs[:, -1] += E + W.sum(1)
+        dl = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), 1), (1,))
+        ddt[:, r] = ddt_dir - Af[:, None] * dl
+        Tm = SL * D * dtk[:, None, :]
+        dA -= ((Tm * (cd[:, :, None] - cd[:, None, :])).sum((1, 2))
+               + ((c[:, r] * dc_h).sum(-1) * cd).sum(1)
+               + (W * (cd[:, -1:] - cd)).sum(1) + E * cd[:, -1])
+
+    unfold = lambda t: t.reshape(Bsz, H, T, -1).transpose(1, 2)  # noqa: E731
+    group = lambda t: unfold(t).reshape(Bsz, T, G, rep, -1).sum(3)  # noqa: E731
+    return (unfold(dx).to(xh.dtype), group(db).to(B_.dtype), group(dc).to(C_.dtype),
+            ddt.reshape(Bsz, H, T).transpose(1, 2).contiguous(), dA.reshape(Bsz, H).sum(0),
+            dh0)

@@ -20,6 +20,15 @@ state), with P and N multiples of 8 up to 128.  ``ssd_chunk_cuda`` is the
 one-chunk contract of ``repro.kernels.ops.ssd_chunk`` (``[BH, Q, ...]``, Q
 at most 256, an explicit log-decay l).  Anything else raises; nothing falls
 back to the plain version.
+
+``ssd_chunked_bwd_cuda`` is the backward of ``ssd_chunked_cuda`` (log-decay
+-dt * A only): the gradients of xh, B, C, dt, A and h0 from dy and the final
+state's gradient, fp32 SIMT products, three device kernels a call with one
+chunk and no h0, else five (the chunk-parallel states of dh, the ordered
+reverse carry, the per-tile gradients, the log-decay's reverse cumsum, the
+ordered sums over each group's heads and over the batch).  It reads each
+chunk's carried-in state, which the forward returns.  Its grid is a function of the shapes alone:
+:func:`ssd_bwd_plan`.  See the source for the design.
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ ROW_TILE = 16       # rows of an output warp's tile, keys of its key tile
 WARPS = 4           # warps a block
 
 KERNEL = LaunchCount()   # calls of the scan (one device kernel, or three with several chunks)
+KERNEL_BWD = LaunchCount()   # calls of the backward (three device kernels, or five)
+BWD_TILE = 64            # backward rows a tile
+BWD_THREADS = 256
 
 _fns = {}
 
@@ -50,14 +62,22 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_chunk_scan.argtypes = [i] + [p] * 12 + [i] * 7 + [ll] * 12 + [i] * 2 + [p]
         lib.ssd_chunk_occupancy.argtypes = [i] * 9 + [ctypes.POINTER(i)] * 4
-        for fn in (lib.ssd_chunk_scan, lib.ssd_chunk_occupancy):
+        lib.ssd_chunk_scan_bwd.argtypes = [i] + [p] * 24 + [i] * 8 + [ll] * 12 + [p]
+        lib.ssd_chunk_bwd_occupancy.argtypes = [i] * 2 + [ctypes.POINTER(i)] * 4
+        for fn in (lib.ssd_chunk_scan, lib.ssd_chunk_occupancy, lib.ssd_chunk_scan_bwd,
+                   lib.ssd_chunk_bwd_occupancy):
             fn.restype = ctypes.c_int
-        _fns.update(scan=lib.ssd_chunk_scan, occupancy=lib.ssd_chunk_occupancy)
+        _fns.update(scan=lib.ssd_chunk_scan, occupancy=lib.ssd_chunk_occupancy,
+                    bwd=lib.ssd_chunk_scan_bwd, bwd_occupancy=lib.ssd_chunk_bwd_occupancy)
     return _fns
 
 
 def _scan_fn():
     return _lib()["scan"]
+
+
+def _bwd_fn():
+    return _lib()["bwd"]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -101,9 +121,9 @@ def ssd_device_kernels(nchunks: int) -> int:
 
 def ssd_workspace_floats(B: int, T: int, H: int, G: int, P: int, N: int, Q: int) -> int:
     """fp32 workspace of a call with several chunks: the chunk states ``[B,
-    T/Q, H, P, N]``, each chunk's decay ``[B, T/Q, H]`` and each chunk's c
-    b^T ``[B, T/Q, G, QP, QP]`` (QP = Q rounded up to 16); none for a single
-    chunk."""
+    T/Q, H, P, N]`` (a tensor of their own, returned), each chunk's decay
+    ``[B, T/Q, H]`` and each chunk's c b^T ``[B, T/Q, G, QP, QP]`` (QP = Q
+    rounded up to 16); none for a single chunk."""
     nc, qp = T // Q, -(-Q // ROW_TILE) * ROW_TILE
     return 0 if nc == 1 else B * nc * (H * (P * N + 1) + G * qp * qp) + 3
 
@@ -125,18 +145,12 @@ def occupancy(dtype: torch.dtype, P: int, N: int, T: int, Q: int, H: int, G: int
             "out_smem_bytes": vals[2].value, "state_smem_bytes": vals[3].value}
 
 
-def ssd_chunked_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
-                     dt: torch.Tensor, A: Optional[torch.Tensor], h0: Optional[torch.Tensor],
-                     chunk: int, l: Optional[torch.Tensor] = None):
-    """Launch the scan on the current stream: chunks of Q =
-    ``ssd_chunk_len(T, chunk)`` rows, log-decay ``l`` [B,T,H] when given,
-    else ``-dt * A``; h0 None is a zero state.  Returns (y [B,T,H,P] fp32,
-    h_final [B,H,P,N] fp32)."""
+def _check_scan(xh, B_, C_, dt, A, h0, l=None):
+    """The checks the scan and its backward share; returns (B, T, H, P, G, N)."""
     _check(xh.dim() == 4 and B_.dim() == 4 and C_.dim() == 4,
            "xh must be [B,T,H,P] and B/C [B,T,G,N]")
     Bsz, T, H, P = xh.shape
     G, N = B_.shape[2], B_.shape[3]
-    dev = xh.device
     _check(xh.dtype in _DTYPE_CODE, f"dtype {xh.dtype} (float32 or bfloat16)")
     _check(B_.dtype == xh.dtype and C_.dtype == xh.dtype,
            f"B/C dtype {B_.dtype}/{C_.dtype} with xh {xh.dtype}")
@@ -157,6 +171,22 @@ def ssd_chunked_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
                "l must be float32 with dt's shape and strides")
     _check(h0 is None or (h0.dtype == torch.float32 and tuple(h0.shape) == (Bsz, H, P, N)
                           and h0.is_contiguous()), "h0 must be [B,H,P,N] float32, contiguous")
+    return Bsz, T, H, P, G, N
+
+
+def ssd_chunked_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                     dt: torch.Tensor, A: Optional[torch.Tensor], h0: Optional[torch.Tensor],
+                     chunk: int, l: Optional[torch.Tensor] = None):
+    """Launch the scan on the current stream: chunks of Q =
+    ``ssd_chunk_len(T, chunk)`` rows, log-decay ``l`` [B,T,H] when given,
+    else ``-dt * A``; h0 None is a zero state.  Returns (y [B,T,H,P] fp32,
+    h_final [B,H,P,N] fp32, states): ``states`` is each chunk's carried-in
+    state [B, T/Q, H, P, N] fp32 (chunk 0's is h0, or zeros), a tensor of
+    its own apart from the rest of the workspace, or None with one chunk:
+    what :func:`ssd_chunked_bwd_cuda` reads.  A caller that drops it frees
+    it."""
+    Bsz, T, H, P, G, N = _check_scan(xh, B_, C_, dt, A, h0, l)
+    dev = xh.device
     tensors = [t for t in (xh, B_, C_, dt, h0, A, l) if t is not None]
     _check(on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
     _check(all(aligned16(t) and (t.shape[2] == 1 or t.stride(2) * t.element_size() % 16 == 0)
@@ -169,11 +199,13 @@ def ssd_chunked_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     y = torch.empty((Bsz, T, H, P), dtype=torch.float32, device=dev)
     h_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
     nws = ssd_workspace_floats(Bsz, T, H, G, P, N, Q)
-    ws = torch.empty((nws,), dtype=torch.float32, device=dev) if nws else None
     n_state, n_dec = Bsz * (T // Q) * H * P * N, Bsz * (T // Q) * H
-    # the c b^T part starts at a 16-byte boundary (n_state is a multiple of 64)
-    ptrs = ((ws.data_ptr(), ws[n_state:].data_ptr(), ws[n_state + n_dec + (-n_dec) % 4:]
-             .data_ptr()) if nws else (None, None, None))
+    states = (torch.empty((Bsz, T // Q, H, P, N), dtype=torch.float32, device=dev)
+              if nws else None)
+    ws = torch.empty((nws - n_state,), dtype=torch.float32, device=dev) if nws else None
+    # the c b^T part starts at a 16-byte boundary
+    ptrs = ((states.data_ptr(), ws.data_ptr(), ws[n_dec + (-n_dec) % 4:].data_ptr())
+            if nws else (None, None, None))
     rc = invoke(_scan_fn, dev,
                 _DTYPE_CODE[xh.dtype], xh.data_ptr(), B_.data_ptr(), C_.data_ptr(),
                 dt.data_ptr(), l.data_ptr() if l is not None else None,
@@ -188,7 +220,7 @@ def ssd_chunked_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ssd_chunk kernel launch failed: cudaError {rc}")
     KERNEL.launches += 1
-    return y, h_out
+    return y, h_out, states
 
 
 def ssd_chunk_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -200,6 +232,125 @@ def ssd_chunk_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
            and l.dim() == 2 and h0.dim() == 3, "x/b/c [BH,Q,.], dt/l [BH,Q], h0 [BH,P,N]")
     Q = x.shape[1]
     _check(Q <= MAX_Q, f"Q {Q} > {MAX_Q}")
-    y, h = ssd_chunked_cuda(x[:, :, None], b[:, :, None], c[:, :, None], dt[:, :, None],
-                            None, h0[:, None], chunk=Q, l=l[:, :, None])
+    y, h, _ = ssd_chunked_cuda(x[:, :, None], b[:, :, None], c[:, :, None], dt[:, :, None],
+                               None, h0[:, None], chunk=Q, l=l[:, :, None])
     return y[:, :, 0], h[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the backward
+
+
+def ssd_bwd_device_kernels(nchunks: int, has_h0: bool) -> int:
+    """Device kernels one backward call issues: the per-tile gradients, the
+    log-decay's reverse cumsum and the ordered sums; before them, with
+    several chunks or an h0, the chunk-parallel states of dh and the
+    ordered reverse carry."""
+    return 5 if nchunks > 1 or has_h0 else 3
+
+
+def ssd_bwd_plan(B: int, T: int, H: int, G: int, P: int, N: int, Q: int,
+                 has_h0: bool = False) -> dict:
+    """The backward's grid, from the shapes alone: a block per (batch,
+    chunk, head, tile of 64 rows) for the gradients (each walks its tile as
+    keys against the query tiles after it, then as queries against the key
+    tiles before it: ``tiles + 1`` tile pairs a block); a block per
+    (batch, chunk, head) for the states of dh (with several chunks or an
+    h0) and for the reverse cumsum; one thread per (batch, row, group,
+    state column) for the sums over the group's heads, and one block for
+    dA's.  Also the device kernels a call issues."""
+    nc = T // Q
+    nt = -(-Q // BWD_TILE)
+    states = nc > 1 or has_h0
+    return {"tiles": nt, "chunk_blocks": B * nc * H * nt,
+            "state_blocks": B * nc * H if states else 0, "finish_blocks": B * nc * H,
+            "reduce_blocks": -(-B * T * G * N // BWD_THREADS) + 1,
+            "device_kernels": ssd_bwd_device_kernels(nc, has_h0)}
+
+
+def ssd_bwd_workspace_floats(B: int, T: int, H: int, G: int, P: int, N: int, Q: int,
+                             has_h0: bool = False) -> int:
+    """fp32 workspace of a backward call: with several chunks or an h0, the
+    states of dh ``[B, T/Q, H, P, N]`` and each chunk's decay ``[B, T/Q,
+    H]``; always each head's db and dc ``[B, T, H, N]``, four per-row
+    values ``[B, T, H]`` (c . dc, ddt's direct part, the dh_out term W and
+    the h_in term U of dcs), each key tile's part of dA ``[B, T/Q, H,
+    tiles]`` and each chunk's ``[B, T/Q, H]``."""
+    nc, nt = T // Q, -(-Q // BWD_TILE)
+    states = B * nc * H * (P * N + 1) if nc > 1 or has_h0 else 0
+    return states + 2 * B * T * H * N + 4 * B * T * H + B * nc * H * (nt + 1)
+
+
+def bwd_occupancy(dtype: torch.dtype, P: int) -> dict:
+    """Blocks per SM of the current card for ``ssd_bwd_chunk`` and
+    ``ssd_bwd_states`` at head width P, and their dynamic shared memory, as
+    the CUDA runtime's occupancy calculator gives them."""
+    _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = _lib()["bwd_occupancy"](_DTYPE_CODE[dtype], P, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk backward occupancy query failed: cudaError {rc}")
+    return {"chunk_blocks_per_sm": vals[0].value, "state_blocks_per_sm": vals[1].value,
+            "chunk_smem_bytes": vals[2].value, "state_smem_bytes": vals[3].value}
+
+
+def ssd_chunked_bwd_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                         dt: torch.Tensor, A: torch.Tensor, h0: Optional[torch.Tensor],
+                         chunk: int, dy: torch.Tensor, dh_final: Optional[torch.Tensor] = None,
+                         states: Optional[torch.Tensor] = None):
+    """Launch the backward of ``ssd_chunked_cuda(xh, B_, C_, dt, A, h0,
+    chunk)`` on the current stream: ``dy`` [B,T,H,P] fp32 contiguous, the
+    gradient of y; ``dh_final`` [B,H,P,N] fp32 contiguous, that of the final
+    state, or None (zero); ``states``, each chunk's carried-in state as the
+    forward returns it (None with one chunk).  Returns (dxh,
+    dB, dC in xh's dtype, ddt [B,T,H] fp32, dA [H] fp32, dh0 [B,H,P,N] fp32,
+    or None when h0 is None)."""
+    Bsz, T, H, P, G, N = _check_scan(xh, B_, C_, dt, A, h0)
+    dev = xh.device
+    Q = ssd_chunk_len(T, chunk)
+    _check(Q <= MAX_Q, f"chunk {chunk} gives Q {Q} > {MAX_Q}")
+    nc = T // Q
+    _check(dy.dtype == torch.float32 and tuple(dy.shape) == (Bsz, T, H, P)
+           and dy.is_contiguous(), "dy must be [B,T,H,P] float32, contiguous")
+    _check(dh_final is None or (dh_final.dtype == torch.float32 and dh_final.is_contiguous()
+                                and tuple(dh_final.shape) == (Bsz, H, P, N)),
+           "dh_final must be [B,H,P,N] float32, contiguous")
+    if nc > 1:
+        _check(states is not None and states.dtype == torch.float32 and states.is_contiguous()
+               and tuple(states.shape) == (Bsz, nc, H, P, N),
+               "states must be the forward's [B,T/Q,H,P,N] float32 chunk states")
+    tensors = [t for t in (xh, B_, C_, dt, A, h0, dy, dh_final, states) if t is not None]
+    _check(on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
+    has_h0 = h0 is not None
+    hin = states if nc > 1 else h0
+    dxh = torch.empty((Bsz, T, H, P), dtype=xh.dtype, device=dev)
+    dB = torch.empty((Bsz, T, G, N), dtype=xh.dtype, device=dev)
+    dC = torch.empty((Bsz, T, G, N), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((Bsz, T, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev) if has_h0 else None
+    ws = torch.empty((ssd_bwd_workspace_floats(Bsz, T, H, G, P, N, Q, has_h0),),
+                     dtype=torch.float32, device=dev)
+    n_st = Bsz * nc * H * P * N if nc > 1 or has_h0 else 0
+    n_dec = Bsz * nc * H if n_st else 0
+    rows = Bsz * T * H
+    sizes = (n_st, n_dec, rows * N, rows * N, rows, rows, rows, rows,
+             Bsz * nc * H * -(-Q // BWD_TILE), Bsz * nc * H)
+    parts, off = [], 0
+    for n in sizes:
+        parts.append(ws[off:].data_ptr() if n else None)
+        off += n
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = invoke(_bwd_fn, dev,
+                _DTYPE_CODE[xh.dtype], xh.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                dt.data_ptr(), A.data_ptr(), ptr(hin), ptr(dh_final), dy.data_ptr(),
+                dxh.data_ptr(), dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                ptr(dh0), *parts, Bsz, T, H, G, P, N, Q, int(has_h0),
+                xh.stride(0), xh.stride(1), xh.stride(2),
+                B_.stride(0), B_.stride(1), B_.stride(2),
+                C_.stride(0), C_.stride(1), C_.stride(2),
+                dt.stride(0), dt.stride(1), dt.stride(2))
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk backward launch failed: cudaError {rc}")
+    KERNEL_BWD.launches += 1
+    return dxh, dB, dC, ddt, dA, dh0

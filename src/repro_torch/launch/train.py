@@ -4,9 +4,10 @@
 Runs on the card by default, in float32 (as the JAX launcher trains), at
 the configuration's full width and depth with seeded random weights;
 ``--smoke`` takes the reduced same-family config and ``--device cpu`` the
-CPU (the kernels' plain versions):
+CPU (the kernels' plain versions).  Dense decoders and Mamba-2 train:
 
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 20
+  python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 512 --steps 20
   python -m repro_torch.launch.train --smoke --device cpu --steps 12
 
 It asserts that the loss falls, as the JAX launcher does.  ``main``
@@ -23,7 +24,6 @@ import torch
 
 from repro_torch.configs import registry as R
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import DecoderLM
 from repro_torch.training import (AdamWConfig, DataConfig, batch_at, init_adamw,
                                   make_train_step, save)
 from repro_torch.training.optimizer import leaves
@@ -48,16 +48,12 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 training needs K6's backward, which is not written "
-            "yet (ROADMAP queue 1, item 16)")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"{cfg.family} training (encoder-decoder, VLM) is not "
                                   "ported yet (ROADMAP queue 1, item 12)")
     device = resolve_device(args.device)
     dtype = _DTYPES[args.dtype]
-    model = DecoderLM(cfg)
+    model = R.build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed), dtype, device)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)

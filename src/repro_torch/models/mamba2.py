@@ -16,8 +16,10 @@ rollback is exact.  ``prefill`` writes the cache in place and so does
 ``decode_step`` for the all-positions state; ``commit`` returns the
 selected leaves.
 
-Training waits for K6's backward (ROADMAP queue 1, item 16): ``forward``
-raises when autograd would record it.
+``forward`` also trains: under autograd the scan is K6's forward and its
+hand-written backward on the card (``kernels.ops.ssd_chunked``), and
+A_log, dt_bias, the convolutions and the projections get their gradients
+through torch's own autograd, as the JAX model's do through ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ssd_chunked
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
-from repro_torch.training.optimizer import leaves
 
 
 class Mamba2LM:
@@ -90,8 +91,9 @@ class Mamba2LM:
         nL, H = self.cfg.n_layers, self.nheads
         dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H))
         inv_softplus = torch.log(torch.expm1(dt))
-        p["layers"]["dt_bias"] = inv_softplus.expand(nL, H).to(dtype=dtype, device=device)
-        p["layers"]["A_log"] = torch.log(torch.linspace(1.0, 16.0, H)).expand(nL, H).to(
+        # real [nL, H] tensors, not expanded views: the optimizer updates them in place
+        p["layers"]["dt_bias"] = inv_softplus.repeat(nL, 1).to(dtype=dtype, device=device)
+        p["layers"]["A_log"] = torch.log(torch.linspace(1.0, 16.0, H)).repeat(nL, 1).to(
             dtype=dtype, device=device)
         return p
 
@@ -180,12 +182,9 @@ class Mamba2LM:
     def forward(self, params: Dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, T] -> (logits [B, T, V] fp32, the zero aux loss).
-        Without a gradient only: K6 has no backward yet."""
-        if torch.is_grad_enabled() and any(t.requires_grad for t in leaves(params)):
-            raise NotImplementedError(
-                "Mamba-2 training needs K6's backward, which is not written yet "
-                "(ROADMAP queue 1, item 16); call forward under torch.no_grad()")
+        """tokens [B, T] -> (logits [B, T, V] fp32, the zero aux loss);
+        differentiable in the parameters.  Every activation is kept for the
+        backward (the JAX model's per-layer remat has no counterpart)."""
         if prefix_embeds is not None:
             raise NotImplementedError(
                 "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")

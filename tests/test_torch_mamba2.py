@@ -5,7 +5,8 @@ than ``d_conv``), ``decode_step`` logits and every checkpoint, ``commit`` at
 mixed accept indices, and ``forward``; then the model's own contracts as
 ``tests/test_models_consistency.py`` states them for the JAX package
 (stepwise decoding equals block decoding, rollback is exact, ``forward``
-equals prefill + decode), the configs, and the training guard.
+equals prefill + decode), the configs, and ``forward`` and the training
+launcher under autograd (K6's backward).
 
 fp32 throughout.  Tolerances: 1e-4 absolute and relative against JAX (two
 layers of matrix products and scans summed in another order); 2e-3 for the
@@ -216,14 +217,25 @@ def test_commit_rollback_is_exact(pair):
 
 
 def test_forward_under_grad_raises_until_k6_has_a_backward(pair):
+    """K6 has its backward now: ``forward`` under autograd no longer raises.
+    It gives the no-grad forward's logits bit for bit (the same plain scan
+    on the CPU, its Function around it), and a gradient reaches the
+    parameters before the scan (``in_x``) and those of the decay (``A_log``,
+    ``dt_bias``).  Modality prefixes still raise (item 12)."""
     _, _, tm, tp = pair
-    toks = torch.from_numpy(_tokens(tm.cfg.vocab_size, B=1, T=8))
-    grad_params = {**tp, "embed": tp["embed"].clone().requires_grad_(True)}
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tm.forward(grad_params, toks)
+    toks = torch.from_numpy(_tokens(tm.cfg.vocab_size, B=1, T=16))
+    layers = {k: v.clone().requires_grad_(k in ("in_x", "A_log", "dt_bias"))
+              for k, v in tp["layers"].items()}
+    grad_params = {**tp, "layers": layers}
+    logits, _ = tm.forward(grad_params, toks)
     with torch.no_grad():
-        logits, _ = tm.forward(grad_params, toks)
-    assert logits.shape == (1, 8, tm.padded_vocab)
+        want, _ = tm.forward(grad_params, toks)
+    assert logits.shape == (1, 16, tm.padded_vocab) and torch.equal(logits, want)
+    grads = torch.autograd.grad(logits[..., :tm.cfg.vocab_size].logsumexp(-1).sum(),
+                                [layers[k] for k in ("in_x", "A_log", "dt_bias")])
+    assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tm.forward(grad_params, toks, prefix_embeds=torch.zeros((1, 2, tm.cfg.d_model)))
 
 
 def test_decode_step_rejects_a_block_table(pair):
@@ -270,5 +282,13 @@ def test_build_model_picks_the_family():
 
 
 def test_train_launcher_raises_for_mamba2():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "2"])
+    """The launcher trained dense decoders only until K6 had its backward:
+    it now builds the model by family (``registry.build_model``) and trains
+    Mamba-2 without raising; the loss falls and the parameters are
+    ``Mamba2LM``'s."""
+    res = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "6",
+                        "--batch", "4", "--seq", "32", "--lr", "3e-3"])
+    assert res["losses"][-1] < res["losses"][0] and len(res["losses"]) == 6
+    mparams = Mamba2LM(TR.get_smoke_config(ARCH)).init(torch.Generator().manual_seed(0),
+                                                      device="cpu")
+    assert res["params"] == sum(t.numel() for _, t in _flat(mparams))

@@ -445,14 +445,14 @@ def _stand_in_for_the_card(monkeypatch, calls):
 @pytest.mark.parametrize("T,chunk,zero", [(64, 256, True), (64, 16, False), (48, 16, True)])
 def test_wrapper_hands_the_kernel_its_plan(monkeypatch, T, chunk, zero):
     """The C entry gets the plan of the shapes, a workspace only with several
-    chunks, and a null h0 for a zero state; a call counts once whatever
-    device kernels it issues."""
+    chunks (its chunk states the tensor returned), and a null h0 for a zero
+    state; a call counts once whatever device kernels it issues."""
     calls = []
     _stand_in_for_the_card(monkeypatch, calls)
     B, H, P, G, N = 2, 8, 32, 1, 16
     xh, Bm, Cm, dt, A, hinit = torch_args(make_inputs(B, T, H, P, G, N, seed=6))
     before = K6.KERNEL.launches
-    y, h = K6.ssd_chunked_cuda(xh, Bm, Cm, dt, A, None if zero else hinit, chunk)
+    y, h, states = K6.ssd_chunked_cuda(xh, Bm, Cm, dt, A, None if zero else hinit, chunk)
     assert y.shape == (B, T, H, P) and h.shape == (B, H, P, N)
     assert K6.KERNEL.launches == before + 1
     (a,) = calls
@@ -463,6 +463,8 @@ def test_wrapper_hands_the_kernel_its_plan(monkeypatch, T, chunk, zero):
     assert (a[7] is None) == zero and a[5] is None
     assert all((a[i] is None) == (T == Q) for i in (10, 11, 12))
     assert T == Q or a[12] % 16 == 0
+    # the chunk states are the returned tensor, apart from the rest of the workspace
+    assert (states is None) == (T == Q) and a[10] == (None if T == Q else states.data_ptr())
     assert tuple(a[13:20]) == (B, T, H, G, P, N, Q)
     assert tuple(a[32:34]) == (plan["wr"], plan["nspl"])
 
