@@ -1305,13 +1305,12 @@ def ssd_bwd_bound(torch, ref, c, dh_final):
     and every gradient written once, against the operations these inputs
     need per (batch, chunk): c b^T over the causal half once per group, then
     per head four products over the causal half, D = dy x^T and dx = (S o
-    L)^T dy (P wide), db = (L o D)^T c and dc = (L o D dt) b (N wide) (the
-    kernel's own recompute of S a head is not counted); the dh_out terms
-    (dx, db) where dh_out is not zero (chunks before the last, or a
-    dh_final), the h_in term of dc where h_in is not zero (chunks after the
-    first, or an h0), and the state of dh where it is wanted (the same).
+    L)^T dy (P wide), db = (L o D)^T c and dc = (L o D dt) b (N wide); the
+    dh_out terms (dx, db) where dh_out is not zero (chunks before the last,
+    or a dh_final), the h_in term of dc where h_in is not zero (chunks after
+    the first, or an h0), and the state of dh where it is wanted (the same).
     bf16 at the bf16 peak; fp32 counts three tf32 products at the tf32 peak;
-    ``bound_simt_ms``: at the fp32 SIMT peak, the kernel's route."""
+    ``bound_simt_ms``: the same operations at the fp32 SIMT peak."""
     xh, Bm = c["xh"], c["B"]
     Bsz, T, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -1378,7 +1377,7 @@ def run_ssd_bwd_case(torch, K6, ops, ref, c, with_dh_final, seed):
     Every gradient finite, two calls bit for bit, the same bits through
     autograd (``ops.ssd_chunked`` under grad), whose forward gives the
     no-grad call's y and final state bit for bit, and the device kernels of
-    ``ssd_bwd_device_kernels``, all ``ssd_*``; with its time beside the
+    ``ssd_bwd_device_kernels``, all ``ssd_bwd*``; with its time beside the
     plain backward's and the bound (no library call computes it)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     xh, Bm, Cm, dt, A, h0, chunk = (c[k] for k in ("xh", "B", "C", "dt", "A", "h0", "chunk"))
@@ -1447,13 +1446,14 @@ def run_ssd_bwd_case(torch, K6, ops, ref, c, with_dh_final, seed):
     names = [kernel_name(n) for n in device_kernels(torch, K6.ssd_chunked_bwd_cuda, args,
                                                     expect=plan["device_kernels"])]
     kernels_ok = (len(names) == plan["device_kernels"]
-                  and all(n.startswith("ssd_") for n in names))
+                  and all(n.startswith("ssd_bwd") for n in names))
     row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"]
                + (" dh_final" if with_dh_final else ""), max_abs_err=max(errs.values()),
                grad_max_abs_err=errs, tol=tol, **row_extra, finite=finite,
                bitwise_repeatable=bitwise,
                autograd_bitwise=auto_same, autograd_fwd_bitwise=fwd_same,
-               plan={k: plan[k] for k in ("tiles", "chunk_blocks", "state_blocks")},
+               plan={k: plan[k] for k in ("tiles", "heads_per_block", "key_blocks",
+                                          "query_blocks", "s_blocks", "state_blocks")},
                device_kernels=len(names), kernel_names=names,
                ok=ok and finite and bitwise and auto_same and fwd_same and kernels_ok)
     case_bytes = sum(t.numel() * t.element_size() for t in args[:6] + args[7:]
@@ -3351,9 +3351,9 @@ def main() -> int:
               for dt in ("float32", "bfloat16") for b, t, q in ((8, 16, 16), (1, 256, 256),
                                                                 (4, 2048, 256))
               for plan in [K6.ssd_plan(b, t, 64, 1, 64, 128, q, sms)]}), flush=True)
-    print("  k6 backward occupancy (P 64, N 128): " + json.dumps({
-        dt: K6.bwd_occupancy(getattr(torch, dt), 64) for dt in ("float32", "bfloat16")}),
-        flush=True)
+    print("  k6 backward occupancy (P 64, N 128, Q 256): " + json.dumps({
+        dt: K6.bwd_occupancy(getattr(torch, dt), 64, 128, 256)
+        for dt in ("float32", "bfloat16")}), flush=True)
 
     # ---- 2. kernels ----
     rows = phase_kernels(torch, K1, ref)

@@ -181,13 +181,13 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
 // divide the block (every width of the repo's models), each thread keeps
 // one column and walks the rows with pointer steps: no division per chunk,
 // whose cost the copies otherwise pay at every stage.
-template <typename T>
+template <typename T, int NTH = NT>
 __device__ __forceinline__ void load_rows(T* dst, int R, const T* src, long long rs, int r0,
                                           int nrows, int rvalid, int cvalid, int ccols) {
   constexpr int EPC = 16 / sizeof(T);
   const int cpr = ccols / EPC;
-  if (NT % cpr == 0) {
-    const int rpp = NT / cpr, cc = (threadIdx.x % cpr) * EPC;
+  if (NTH % cpr == 0) {
+    const int rpp = NTH / cpr, cc = (threadIdx.x % cpr) * EPC;
     int rr = threadIdx.x / cpr;
     const T* s = src + (r0 + rr) * rs + cc;
     T* d = dst + rr * R + cc;
@@ -199,7 +199,7 @@ __device__ __forceinline__ void load_rows(T* dst, int R, const T* src, long long
     }
     return;
   }
-  for (int e = threadIdx.x; e < nrows * cpr; e += NT) {
+  for (int e = threadIdx.x; e < nrows * cpr; e += NTH) {
     const int rr = e / cpr, cc = (e % cpr) * EPC, row = r0 + rr;
     const bool ok = row < rvalid && cc < cvalid;
     cp_async16(dst + rr * R + cc, ok ? src + row * rs + cc : src, ok);
@@ -998,33 +998,75 @@ extern "C" int ssd_chunk_occupancy(int dtype, int P, int N, int T, int Q, int H,
 // group, dA over the batch and the chunks.
 //
 // What bounds it on an H100: at the trainer's shape (B 4, T 512, 64 heads
-// of 64, N 128, chunks of 256, fp32) the products, about 26 GFLOP a call.
-// The design is the simple one, fp32 SIMT products from shared memory:
-//   * ssd_bwd_states: each chunk's sum_i exp(cs_i) dy_i c_i^T, in parallel
-//     (the forward's state role with dy and c), and its cs_Q;
-//   * ssd_bwd_carry: the ordered pass from the last chunk to the first,
-//     dh_out of each chunk in place of its state, and dh0 (the mirror of
-//     ssd_carry; run only with several chunks or an h0);
-//   * ssd_bwd_chunk: a block per (batch, chunk, head, tile of 64 rows);
-//     for its tile as keys j it walks the query tiles i >= j (dx, db, ddt's
-//     direct part, the state terms with dh_out, its part of dA's T sum),
-//     then for its tile as queries i the key tiles j <= i (dc with the h_in
-//     term, c_i . dc_i and U_i):
-//     every block walks nt + 1 tile pairs.  4 x 4 (or 4 x 8) outputs a
-//     thread, rows of odd stride, so no shared-memory bank is hit twice;
-//   * ssd_bwd_finish: per (batch, chunk, head) dcs, its reverse cumsum, ddt
-//     and the chunk's part of dA (the tiles' parts in order, then U, W, E);
-//   * ssd_bwd_reduce: db and dc summed over each group's heads in order,
-//     and dA over (batch, chunk) in order.
+// of 64, N 128, chunks of 256, fp32) the products, 17.3 GFLOP a call, each
+// as three tf32 products (0.105 ms at the tf32 peak; the bytes about 0.03
+// ms).  Issued as mma.sync, which is all the card offers short of wgmma,
+// the products run latency-bound: a warp's chain of dependent products and
+// shared-memory reads, with 8 to 16 warps an SM.  What the design does:
+//   * every product on the tensor cores, mma.sync m16n8k8 tf32 with fp32
+//     accumulators, an fp32 operand as big + small (the bit-mask split of
+//     K4's backward and the forward: three products, small * small
+//     dropped).  bf16 inputs take the same route with x, b and c as exact
+//     tf32 operands (their small part is zero: two products); only S = c
+//     b^T has two bf16 operands, and runs on m16n8k16.  The tf32 route and
+//     not bf16 hi + lo pairs for the rest: each of those products has an
+//     fp32 operand (dy is always fp32; S o L, L o D o dt and the states of
+//     dh are fp32 intermediates), a pair costs two products as the tf32
+//     route does, and one code path serves both types;
+//   * a product's three passes run over 4 n8 tiles at a time (each tile's
+//     first pass, then the second, then the third), so no product waits on
+//     the one before it on the same accumulator;
+//   * no product twice: S once per (batch, chunk, group), by the forward's
+//     c b^T role into a workspace that every head of the group reads; D once
+//     per tile pair: the key blocks write L o D o dt of each causal pair of
+//     64-row tiles into a workspace, and the query blocks read it;
+//     n8 tiles wholly above the diagonal or past Q are skipped by the warp
+//     that would compute them;
+//   * blocks of 64 rows, a warp per 16 (4 warps a key block, up to 255 registers
+//     and 89 KB, two an SM; 8 warps a query block, each of a pair of warps
+//     with half of N's columns, 128 registers, two an SM): a key block walks
+//     the query rows at or after its keys, a query block the key rows at or
+//     before its queries, in stages of 32 rows through a two-stage ring of
+//     16-byte cp.async copies (the next stage's copies overlap this one's
+//     products).  Rows are padded so that fragment reads hit each
+//     shared-memory bank once (fp32 rows 4 floats past a multiple of 8 where
+//     read down a column, 8 where read as float2 along a row).  The heaviest
+//     tiles (the first key tile, the last query tile) are launched first;
+//   * a block takes hb heads of one group in order and sums their db (key
+//     blocks) or dc (query blocks) in its registers, so the partials are
+//     [B, T, H / hb, N], summed over a group's slabs in order by
+//     ssd_bwd_reduce;
+//   * the device kernels: ssd_bwd_states (S; with several chunks or an h0
+//     also each chunk's sum_i exp(cs_i) dy_i c_i^T and its cs_Q), then
+//     ssd_bwd_carry (with several chunks or an h0: the ordered reverse pass,
+//     each chunk's dh_out and dh0), ssd_bwd_keys (dx, db's slab partial,
+//     ddt's direct part, W, dA's T sum of each key tile), ssd_bwd_queries
+//     (dc's slab partial, c_i . dc_i, U), ssd_bwd_finish (dcs, its reverse
+//     cumsum, ddt, each chunk's dA) and ssd_bwd_reduce (the slabs, dA);
+//   * dA in its direct form, T_ij (cd_i - cd_j) from the fp32 accumulators
+//     of S and D; the decay masked before its exp.
 // No atomics: every sum has a fixed order, so two calls agree bit for bit.
-// The carried-in states are the forward's (kept from its workspace).
+// The carried-in states are the forward's (kept from its workspace).  The
+// plan (hb) is the wrapper's, from the shapes alone (kernels/ssd_chunk.py,
+// ssd_bwd_plan).  tools/ssd_variants.py --bwd times the ablations (S once a
+// head, D twice, one tf32 product, ...) as edits of this source.
 
 namespace {
 
-constexpr int BT = 256;         // backward threads a block: 16 x 16 (tx along columns)
-constexpr int TQ = 64;          // backward rows a tile
-constexpr int NMAX = 128;       // N at most (tiles are this wide)
-constexpr int SKB = 32;         // ssd_bwd_states: rows a stage
+constexpr int BT = 256;         // threads of ssd_bwd_finish: a chunk row each
+constexpr int TB = 64;          // rows of a key or a query tile
+constexpr int BW = 4;           // warps of a key or state block; slices of 16 rows of a tile
+constexpr int BNT = 32 * BW;
+constexpr int KW = 2 * BW;      // warps of a query block: two a slice of 16 rows
+constexpr int KNT = 32 * KW;
+constexpr int KS = 32;          // rows of a ring stage
+constexpr int NMAX = 128;       // N at most
+constexpr int RSK = TB + 4;     // key blocks: row stride of the staged S rows (read down a column)
+constexpr int RQ = KS + 8;      // query blocks: row stride of the staged S and L o D o dt
+                                // rows (read as float2 along a row)
+// fp32 products as three tf32 products (tools/ssd_variants.py's `tf32x1`
+// times the kernel with one, whose results are wrong)
+constexpr bool kBwd3 = true;
 
 struct BwdParams {
   const void* x;
@@ -1043,8 +1085,11 @@ struct BwdParams {
   float* dh0;             // [B, H, P, N] (with h0)
   float* dhs;             // [B, nc, H, P, N]: sum_i exp(cs_i) dy_i c_i^T, then each dh_out
   float* dec;             // [B, nc, H]: cs_Q * log2(e)
-  float* dbp;             // [B, T, H, N]: each head's db, before the group's sum
-  float* dcp;             // [B, T, H, N]: each head's dc
+  float* sws;             // [B, nc, G, QP, QP]: S = c b^T (QP = Q rounded up to 16)
+  float* lds;             // [B, nc, H, nt (nt + 1) / 2, TB, TB]: L o D o dt of each causal
+                          // tile pair (it, jt) at it (it + 1) / 2 + jt
+  float* dbp;             // [B, T, H / hb, N]: db of each slab of hb heads
+  float* dcp;             // [B, T, H / hb, N]: dc of each slab
   float* rrow;            // [B, T, H]: c_i . dc_i
   float* ddir;            // [B, T, H]: ddt's direct part
   float* wst;             // [B, T, H]: dt_j e_j x_j^T dh_out b_j
@@ -1052,16 +1097,169 @@ struct BwdParams {
   float* dAt;             // [B, nc, H, nt]: each key tile's sum of T_ij (cd_i - cd_j)
   float* dAp;             // [B, nc, H]: each chunk's part of dA
   int B, T, H, G, P, N, Q, nc, nt;
+  int hb;                 // heads a key or query block takes, in order
   int has_h0;             // chunk 0 carries h0 in, and dh0 is wanted
-  int run_states;         // ssd_bwd_states and ssd_bwd_carry run
+  int run_states;         // the states of dh and ssd_bwd_carry run
+  int dspl;               // states of dh: column splits of a state
+  int n_cb;               // blocks of ssd_bwd_states' S role
   long long x_sb, x_st, x_sh;
   long long b_sb, b_st, b_sg;
   long long c_sb, c_st, c_sg;
   long long dt_sb, dt_st, dt_sh;
+  Params cb;              // the forward's c b^T role over the groups
 };
 
 __device__ __forceinline__ void from_f(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16(v); }
+
+__host__ __device__ constexpr int round8(int v) { return (v + 7) / 8 * 8; }
+__host__ __device__ constexpr int al16(int bytes) { return (bytes + 15) / 16 * 16; }
+// row strides (elements) of a staged tile w wide: fp32 rows 4 floats past a
+// multiple of 8 (fragment reads down a column or along a row hit each bank
+// once), bf16 rows 8 past one (the same in 32-bit words)
+template <typename T>
+__host__ __device__ constexpr int rowT(int w) { return round8(w) + (sizeof(T) == 4 ? 4 : 8); }
+__host__ __device__ constexpr int rowF(int w) { return round8(w) + 4; }
+template <typename T>
+__host__ __device__ constexpr int tile_bytes(int rows, int w) {
+  return al16(rows * rowT<T>(w) * static_cast<int>(sizeof(T)));
+}
+
+// key blocks: x_j [TB][P]; a ring of two stages (dy [KS][P] fp32, c [KS][N],
+// S [KS][TB] fp32), after the loop dh_out [P][N] fp32 and b_j [TB][N] in
+// its place; cs, dt, cd; the block sum's 4 floats
+template <typename T>
+__host__ __device__ inline int key_stage_bytes(int P, int N) {
+  return tile_bytes<float>(KS, P) + tile_bytes<T>(KS, N) + al16(KS * RSK * 4);
+}
+template <typename T>
+__host__ __device__ inline int key_ring_bytes(int P, int N) {
+  const int ring = 2 * key_stage_bytes<T>(P, N);
+  const int after = tile_bytes<float>(P, N) + tile_bytes<T>(TB, N);
+  return ring > after ? ring : after;
+}
+template <typename T>
+__host__ __device__ inline int key_smem(int P, int N) {
+  return tile_bytes<T>(TB, P) + key_ring_bytes<T>(P, N) + (3 * MAXQ + BW) * 4;
+}
+
+// query blocks: dy_i [TB][P] fp32; a ring of two stages (b [KS][N], S [TB][KS]
+// fp32 and L o D o dt [TB][KS] fp32), after the loop h_in [P][N] fp32 (rows
+// 8 past a multiple of 8: read down a column) and c_i [TB][N] in its place;
+// cs, dt; the second column half's U
+template <typename T>
+__host__ __device__ inline int query_stage_bytes(int P, int N) {
+  return tile_bytes<T>(KS, N) + al16(TB * RQ * 4) + al16(TB * RQ * 4);
+}
+template <typename T>
+__host__ __device__ inline int query_ring_bytes(int P, int N) {
+  const int ring = 2 * query_stage_bytes<T>(P, N);
+  const int after = al16(P * (round8(N) + 8) * 4) + tile_bytes<T>(TB, N);
+  return ring > after ? ring : after;
+}
+template <typename T>
+__host__ __device__ inline int query_smem(int P, int N) {
+  return tile_bytes<float>(TB, P) + query_ring_bytes<T>(P, N) + (2 * MAXQ + TB) * 4;
+}
+
+// the states of dh: a ring of two stages (dy [KS][P] fp32, c [KS][N]); cs, exp(cs)
+template <typename T>
+__host__ __device__ inline int dhstate_smem(int P, int N) {
+  return 2 * (tile_bytes<float>(KS, P) + tile_bytes<T>(KS, N)) + 2 * MAXQ * 4;
+}
+
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&ab)[4], uint32_t (&as)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_mask(v[q], ab[q], as[q]);
+}
+
+// c[q] += a b_q on the tensor cores for the n8 tiles lo <= q < hi of a
+// group of NB: a 16 x 8 A fragment as big + small, b_q's two values at bq[q
+// sq] and bq[q sq + s1], read and split here.  A_EXACT / B_EXACT: that
+// operand is a bf16 input, an exact tf32 value whose small part is zero,
+// so its product is skipped (two products where both are fp32 take three).  The products
+// of the tiles run a pass apart (every tile's first, then every tile's
+// second and third), so that none waits on its own tile's last one.
+template <bool A_EXACT, bool B_EXACT, int NB, typename TV>
+__device__ __forceinline__ void mma_tiles(float (*c)[4], const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], const TV* bq, int sq, int s1,
+                                          int lo, int hi) {
+  uint32_t bb[NB][2], bs[NB][2];
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+    if (q >= lo && q < hi) {
+      split_mask(to_f(bq[q * sq]), bb[q][0], bs[q][0]);
+      split_mask(to_f(bq[q * sq + s1]), bb[q][1], bs[q][1]);
+    }
+  if (kBwd3 && !A_EXACT)
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+      if (q >= lo && q < hi) mma_tf32(c[q], as, bb[q][0], bb[q][1]);
+  if (kBwd3 && !B_EXACT)
+#pragma unroll
+    for (int q = 0; q < NB; ++q)
+      if (q >= lo && q < hi) mma_tf32(c[q], ab, bs[q][0], bs[q][1]);
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+    if (q >= lo && q < hi) mma_tf32(c[q], ab, bb[q][0], bb[q][1]);
+}
+
+// the same over an accumulator of NT tiles (tiles at or past n of them
+// skipped), in groups of 4
+template <bool A_EXACT, bool B_EXACT, int NT, typename TV>
+__device__ __forceinline__ void mma_row(float (&c)[NT][4], const uint32_t (&ab)[4],
+                                        const uint32_t (&as)[4], const TV* bq, int sq, int s1,
+                                        int n) {
+#pragma unroll
+  for (int q0 = 0; q0 < NT; q0 += 4)
+    if (q0 < n) mma_tiles<A_EXACT, B_EXACT, 4>(c + q0, ab, as, bq + q0 * sq, sq, s1, 0, n - q0);
+}
+
+// An A fragment from rows g and g + 8 of a staged tile (row stride R), each
+// row times its scale: natural k order (slot t <-> column k0 + t, slot t + 4
+// <-> k0 + t + 4), whose B fragment reads rows t and t + 4 ...
+template <typename T>
+__device__ __forceinline__ void frag_rows(float (&v)[4], const T* a, int R, int k0, int lane,
+                                          float s0 = 1.f, float s1 = 1.f) {
+  const T* r = a + (lane >> 2) * R + k0 + (lane & 3);
+  v[0] = to_f(r[0]) * s0;
+  v[1] = to_f(r[8 * R]) * s1;
+  v[2] = to_f(r[4]) * s0;
+  v[3] = to_f(r[8 * R + 4]) * s1;
+}
+
+// ... or permuted (slot t <-> column k0 + 2t, slot t + 4 <-> k0 + 2t + 1: an
+// accumulator's column order), whose B fragment reads rows 2t and 2t + 1
+template <typename T>
+__device__ __forceinline__ void frag_rows_perm(float (&v)[4], const T* a, int R, int k0, int lane,
+                                               float s0, float s1) {
+  const T* r = a + (lane >> 2) * R + k0 + 2 * (lane & 3);
+  v[0] = to_f(r[0]) * s0;
+  v[1] = to_f(r[8 * R]) * s1;
+  v[2] = to_f(r[1]) * s0;
+  v[3] = to_f(r[8 * R + 1]) * s1;
+}
+
+// an accumulator's 16 x 8 tile as an A fragment of depth 8 (permuted order)
+__device__ __forceinline__ void frag_acc(uint32_t (&ab)[4], uint32_t (&as)[4],
+                                         const float (&c)[4]) {
+  const float v[4] = {c[0], c[2], c[1], c[3]};
+  split4(v, ab, as);
+}
+
+template <int MR, int NS>
+__device__ __forceinline__ void zero(float (&acc)[MR][NS]) {
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[r][s] = 0.f;
+}
+
+// the sum over a quad (the 4 lanes of one accumulator row), the same in each
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 // Inclusive prefix sum over a warp of v[0..8) per lane (runs of 8 rows a
 // lane, then a shuffle scan of the run totals), in place.
@@ -1107,8 +1305,9 @@ __device__ void bwd_cumsum(const BwdParams& p, int bb, int h, int t0, float* cs2
   }
 }
 
-// Sum of v over the block in a fixed order (shuffles, then the warps in
-// order); every thread gets it.  `red` holds BT / 32 floats.
+// Sum of v over the block of NWARPS warps in a fixed order (shuffles, then
+// the warps in order); every thread gets it.  `red` holds NWARPS floats.
+template <int NWARPS>
 __device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
@@ -1118,58 +1317,8 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < BT / 32; ++i) s += red[i];
+  for (int i = 0; i < NWARPS; ++i) s += red[i];
   return s;
-}
-
-// rows [0, rows) x cols of dst (row stride R) = src rows [0, nrows) x
-// columns [0, ncols) (row stride rs, unit column stride) as fp32, times
-// scale[row] when given; zeros elsewhere.
-template <typename T, int COLS>
-__device__ __forceinline__ void load_tile(float* dst, int R, const T* src, long long rs,
-                                          int nrows, int ncols, int rows,
-                                          const float* scale = nullptr) {
-  for (int e = threadIdx.x; e < rows * COLS; e += BT) {
-    const int r = e / COLS, cc = e % COLS;
-    float v = 0.f;
-    if (r < nrows && cc < ncols) {
-      v = to_f(src[r * rs + cc]);
-      if (scale != nullptr) v *= scale[r];
-    }
-    dst[r * R + cc] = v;
-  }
-}
-
-// acc[r][s] += sum_{k < K} A[(ty + 16 r) am + k ak] * Bm[(tx + 16 s) bn + k bk]:
-// a thread's MR x NS outputs of a product from shared memory.  The block's
-// threads are a 16 x 16 grid; a warp holds two ty and 16 tx, so its A
-// reads are two addresses and its B reads 16 consecutive ones or 16 rows of
-// odd stride: one shared-memory wavefront each.
-template <int MR, int NS>
-__device__ __forceinline__ void mm_acc(float (&acc)[MR][NS], const float* A, int am, int ak,
-                                       const float* Bm, int bn, int bk, int K, int ty, int tx) {
-  const float* a0 = A + ty * am;
-  const float* b0 = Bm + tx * bn;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float a[MR], bv[NS];
-#pragma unroll
-    for (int r = 0; r < MR; ++r) a[r] = a0[16 * r * am + k * ak];
-#pragma unroll
-    for (int s = 0; s < NS; ++s) bv[s] = b0[16 * s * bn + k * bk];
-#pragma unroll
-    for (int r = 0; r < MR; ++r)
-#pragma unroll
-      for (int s = 0; s < NS; ++s) acc[r][s] = fmaf(a[r], bv[s], acc[r][s]);
-  }
-}
-
-template <int MR, int NS>
-__device__ __forceinline__ void zero(float (&acc)[MR][NS]) {
-#pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) acc[r][s] = 0.f;
 }
 
 __device__ __forceinline__ long long slot_of(const BwdParams& p, int bb, int k, int h) {
@@ -1192,314 +1341,512 @@ __device__ __forceinline__ const float* bwd_h_in(const BwdParams& p, int bb, int
   return p.hin + slot_of(p, bb, k, h) * static_cast<long long>(p.P) * p.N;
 }
 
-// shared memory of ssd_bwd_chunk (floats): x, b, c, dy tiles, two score
-// tiles, cs, dt and the reductions
-template <int PMAX>
-__host__ __device__ constexpr int chunk_smem_floats() {
-  return TQ * (2 * (PMAX + 1) + 2 * (NMAX + 1)) + 2 * TQ * (TQ + 1) + 3 * MAXQ + 9 * TQ;
+// S = c b^T of the (batch, chunk) slot read by head h
+__device__ __forceinline__ const float* bwd_scores(const BwdParams& p, int bb, int k, int h) {
+  const int qp = round16(p.Q);
+  return p.sws + ((static_cast<long long>(bb) * p.nc + k) * p.G + h / (p.H / p.G)) * qp * qp;
 }
 
-template <int PMAX>
-__host__ __device__ constexpr int states_smem_floats() {
-  return SKB * (PMAX + 1 + NMAX + 1) + 2 * MAXQ;
-}
-
-// The chunk's tile t as keys j: for every query tile i >= t, S = c_i b_j^T
-// and D = dy_i x_j^T, then dx_j += (S L)^T dy_i and db_j += (L D)^T c_i; then
-// the dh_out terms; writes dx, db (this head's), ddt's direct part and W.
+// Key blocks: a block per (batch, chunk, slab of hb heads, key tile jt of
+// 64 rows), tile 0 (the most query rows) first.  For each head of the slab
+// in order: for the query rows i >= j in stages of 32, D^T = x_j dy_i^T (the
+// warp's 16 keys by 32 queries), the decay, then dx_j += (dt S o L)^T dy_i
+// and db_j += (dt L o D)^T c_i, L o D o dt into the pair's workspace; after
+// the loop dh_out's terms; writes dx, ddt's direct part, W and the tile's
+// part of dA.  db sums over the slab's heads in the registers.
 template <typename T, int PMAX>
-__device__ __forceinline__ void bwd_keys(const BwdParams& p, float* sm, int bb, int k, int h,
-                                         int t) {
-  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
-  constexpr int PS = PMAX / 16, NS = NMAX / 16, MR = TQ / 16;
-  float* X = sm;
-  float* Bt = X + TQ * RP;
-  float* Cs = Bt + TQ * RN;
-  float* DY = Cs + TQ * RN;
-  float* SL = DY + TQ * RP;
-  float* LD = SL + TQ * RS;
-  float* cs2 = LD + TQ * RS;
+__global__ void __launch_bounds__(BNT, 2) ssd_bwd_keys(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char bsm[];
+  constexpr bool EX = sizeof(T) == 2;   // x, b and c are exact tf32 operands
+  constexpr int PT = PMAX / 8, NT8 = NMAX / 8, KT = KS / 8;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int nslab = p.H / p.hb, per = nslab * p.nc * p.B;
+  const int jt = blockIdx.x / per, slab = blockIdx.x % nslab;
+  const int k = blockIdx.x / nslab % p.nc, bb = blockIdx.x % per / (nslab * p.nc);
+  const int t0 = k * p.Q, j0 = jt * TB;
+  const int RX = rowT<T>(p.P), RY = rowF(p.P), RC = rowT<T>(p.N), RD = rowF(p.N);
+  const int SB = key_stage_bytes<T>(p.P, p.N);
+  const int oc = tile_bytes<float>(KS, p.P), os = oc + tile_bytes<T>(KS, p.N);
+  T* Xs = reinterpret_cast<T*>(bsm);                                   // [TB][RX]
+  unsigned char* ring = bsm + tile_bytes<T>(TB, p.P);
+  float* DH = reinterpret_cast<float*>(ring);                          // after the loop
+  T* Bs = reinterpret_cast<T*>(ring + tile_bytes<float>(p.P, p.N));
+  float* cs2 = reinterpret_cast<float*>(ring + key_ring_bytes<T>(p.P, p.N));
   float* dts = cs2 + MAXQ;
   float* cds = dts + MAXQ;
-  float* red = cds + MAXQ;   // [8][TQ] column sums of each warp, then [TQ] the row sums
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31, w = tid >> 5;
-  const int t0 = k * p.Q, grp = h / (p.H / p.G);
-  const int j0 = t * TQ, nj = min(TQ, p.Q - j0);
-  const T* Xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st;
-  const T* Bg = static_cast<const T*>(p.b) + bb * p.b_sb + grp * p.b_sg + t0 * p.b_st;
-  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
+  float* red = cds + MAXQ;
+  const int grp = slab * p.hb / (p.H / p.G), qp = round16(p.Q);
+  const int nst = (p.Q - j0 + KS - 1) / KS;   // query stages from j0
+  const int jr = 16 * w + g, ja = j0 + jr, jb = ja + 8;
+  const int pairs = p.nt * (p.nt + 1) / 2;
   const long long dy_st = static_cast<long long>(p.H) * p.P;
-  const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
+  const T* Bg = static_cast<const T*>(p.b) + bb * p.b_sb + grp * p.b_sg + t0 * p.b_st;
 
-  load_tile<T, PMAX>(X, RP, Xg + j0 * p.x_st, p.x_st, nj, p.P, TQ);
-  load_tile<T, NMAX>(Bt, RN, Bg + j0 * p.b_st, p.b_st, nj, p.N, TQ);
-  float dx[MR][PS], db[MR][NS], part[MR], tda = 0.f;   // tda: sum of T_ij (cd_i - cd_j)
-  zero(dx);
+  float db[NT8][4];
   zero(db);
-#pragma unroll
-  for (int s = 0; s < MR; ++s) part[s] = 0.f;
-  for (int it = t; it < p.nt; ++it) {
-    const int i0 = it * TQ, ni = min(TQ, p.Q - i0);
-    __syncthreads();  // the previous query tile consumed (and cs in place)
-    load_tile<T, NMAX>(Cs, RN, Cg + i0 * p.c_st, p.c_st, ni, p.N, TQ);
-    load_tile<float, PMAX>(DY, RP, DYg + i0 * dy_st, dy_st, ni, p.P, TQ);
-    __syncthreads();
-    float sc[MR][MR], dd[MR][MR];
-    zero(sc);
-    zero(dd);
-    mm_acc(sc, Cs, RN, 1, Bt, RN, 1, p.N, ty, tx);   // S_ij = c_i . b_j
-    mm_acc(dd, DY, RP, 1, X, RP, 1, p.P, ty, tx);    // D_ij = dy_i . x_j
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int il = ty + 16 * r, i = i0 + il;
-#pragma unroll
-      for (int s = 0; s < MR; ++s) {
-        const int jl = tx + 16 * s, j = j0 + jl;
-        // mask before the exp: above the diagonal the decay would overflow
-        const bool ok = i >= j && il < ni && jl < nj;
-        const float L = ok ? ex2(cs2[i] - cs2[j]) : 0.f;
-        const float sl = ok ? sc[r][s] * L : 0.f;
-        const float sd = sl * (ok ? dd[r][s] : 0.f);
-        SL[il * RS + jl] = sl;
-        LD[il * RS + jl] = ok ? L * dd[r][s] : 0.f;
-        part[s] += sd;
-        if (ok) tda = fmaf(sd * dts[j], cds[i] - cds[j], tda);
-      }
-    }
-    __syncthreads();  // the score tiles in place
-    mm_acc(dx, SL, 1, RS, DY, 1, RP, ni, ty, tx);   // sum_i (S L)_ij dy_i
-    mm_acc(db, LD, 1, RS, Cs, 1, RN, ni, ty, tx);   // sum_i (L D)_ij c_i
-  }
-  __syncthreads();  // c, dy and the score tiles consumed: dh_out goes there
+  for (int hi = 0; hi < p.hb; ++hi) {
+    const int h = slab * p.hb + hi;
+    const long long slot = slot_of(p, bb, k, h);
+    const T* Xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st;
+    const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+    const float* Sg = bwd_scores(p, bb, k, h);
+    auto load_stage = [&](int s) {
+      unsigned char* st = ring + (s & 1) * SB;
+      const int i0 = j0 + s * KS;
+      load_rows<float>(reinterpret_cast<float*>(st), RY, DYg, dy_st, i0, KS, p.Q, p.P,
+                       round8(p.P));
+      load_rows<T>(reinterpret_cast<T*>(st + oc), RC, Cg, p.c_st, i0, KS, p.Q, p.N, round8(p.N));
+      load_rows<float>(reinterpret_cast<float*>(st + os), RSK, Sg + j0, qp, i0, KS, qp, qp - j0,
+                       TB);
+    };
+    if (hi > 0) __syncthreads();   // the previous head's reads of every tile and of cs done
+    load_rows<T>(Xs, RX, Xg, p.x_st, j0, TB, p.Q, p.P, round8(p.P));
+    load_stage(0);
+    cp_async_commit();
+    if (w == 0) bwd_cumsum(p, bb, h, t0, cs2, dts, cds, lane);
 
-  const float* dho = bwd_dh_out(p, bb, k, h);
-  float* DH = Cs;   // [PMAX][RN]
-  if (dho != nullptr) {
-    load_tile<float, NMAX>(DH, RN, dho, p.N, p.P, p.N, PMAX);
+    float dx[PT][4];
+    zero(dx);
+    float rs0 = 0.f, rs1 = 0.f, tda = 0.f;   // rows ja, jb of ddt's direct part; dA's T sum
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<0>();
+      __syncthreads();   // stage s (and x_j, cs) in place; stage s - 1 consumed by every warp
+      if (s + 1 < nst) load_stage(s + 1);
+      cp_async_commit();
+      const unsigned char* st = ring + (s & 1) * SB;
+      const float* dys = reinterpret_cast<const float*>(st);
+      const T* css = reinterpret_cast<const T*>(st + oc);
+      const float* sss = reinterpret_cast<const float*>(st + os);
+      const int i0 = j0 + s * KS;
+      // the stage's n8 tiles of queries the warp's keys see: a tile before
+      // its first key, or past Q, is all masked and skipped
+      const int nlo = max(0, (16 * w + j0 - i0) / 8), nhi = min(KT, (p.Q - i0 + 7) / 8);
+      // D^T = x_j dy_i^T
+      float d[KT][4];
+      zero(d);
+      if (nlo < nhi) {
+        for (int kk = 0; kk < p.P / 8; ++kk) {
+          float v[4];
+          uint32_t ab[4], as[4];
+          frag_rows(v, Xs + 16 * w * RX, RX, kk * 8, lane);
+          split4(v, ab, as);
+          mma_tiles<EX, false, KT>(d, ab, as, dys + g * RY + kk * 8 + t4, 8 * RY, 4, nlo, nhi);
+        }
+      }
+      // per query tile: the decay, masked before its exp (above the diagonal
+      // it would overflow); S o L and L o D scaled by dt_j (the warp's rows)
+      // are the A operands of dx_j += (dt S o L)^T dy_i, db_j += (dt L o D)^T c_i
+      const float dta = dts[ja], dtb = dts[jb], csa = cs2[ja], csb = cs2[jb];
+      const float cda = cds[ja], cdb = cds[jb];
+#pragma unroll
+      for (int n = 0; n < KT; ++n) {
+        if (n < nlo || n >= nhi) continue;
+        float sl[4], ld[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = n * 8 + 2 * t4 + (e & 1), i = i0 + il;
+          const bool up = e >> 1;
+          const bool ok = i >= (up ? jb : ja) && i < p.Q;
+          const float L = ok ? ex2(cs2[i] - (up ? csb : csa)) : 0.f;
+          const float sv = ok ? sss[il * RSK + jr + (up ? 8 : 0)] : 0.f;
+          const float a = sv * L, tv = a * d[n][e], dtj = up ? dtb : dta;
+          if (up) rs1 += tv; else rs0 += tv;
+          tda = fmaf(tv * dtj, cds[i] - (up ? cdb : cda), tda);
+          sl[e] = a * dtj;
+          ld[e] = L * d[n][e] * dtj;
+        }
+        {   // L o D o dt of the pair, read by the query blocks
+          const int it = i0 / TB, pr = it * (it + 1) / 2 + jt;
+          const int il = i0 - it * TB + n * 8 + 2 * t4;
+          float* dst = p.lds + ((slot * pairs + pr) * TB + il) * TB + jr;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[(e & 1) * TB + (e >> 1) * 8] = ld[e];
+        }
+        uint32_t ab[4], as[4];
+        frag_acc(ab, as, sl);
+        mma_row<false, false>(dx, ab, as, dys + (n * 8 + 2 * t4) * RY + g, 8, RY, p.P / 8);
+        frag_acc(ab, as, ld);
+        mma_row<false, EX>(db, ab, as, css + (n * 8 + 2 * t4) * RC + g, 8, RC, p.N / 8);
+      }
+    }
+    __syncthreads();   // every stage consumed: dh_out and b_j go where the ring was
+
+    const float* dho = bwd_dh_out(p, bb, k, h);
+    if (dho != nullptr) {
+      load_rows<float>(DH, RD, dho, p.N, 0, p.P, p.P, p.N, round8(p.N));
+      load_rows<T>(Bs, RC, Bg, p.b_st, j0, TB, p.Q, p.N, round8(p.N));
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-  }
-  const float cl = cs2[p.Q - 1];
-  const long long out_row = static_cast<long long>(p.H) * p.P;
-  T* DX = static_cast<T*>(p.dx) + (static_cast<long long>(bb) * p.T + t0 + j0) * out_row +
-          h * p.P;
-  {  // dx_j = dt_j (sum_i (S L)_ij dy_i + e_j dh_out b_j)
-    float bdh[MR][PS];
-    zero(bdh);
-    if (dho != nullptr) mm_acc(bdh, Bt, RN, 1, DH, RN, 1, p.N, ty, tx);
+    const float cl = cs2[p.Q - 1];
+    const float dta = dts[ja], dtb = dts[jb];
+    const float ea = ex2(cl - cs2[ja]), eb = ex2(cl - cs2[jb]);
+    const float sa = dta * ea, sb = dtb * eb;
+    float xb0 = 0.f, xb1 = 0.f;   // x_j^T dh_out b_j
+    if (dho != nullptr) {   // dx_j += dt_j e_j dh_out b_j
+      float bdh[PT][4];
+      zero(bdh);
+      for (int kk = 0; kk < p.N / 8; ++kk) {
+        float v[4];
+        uint32_t ab[4], as[4];
+        frag_rows(v, Bs + 16 * w * RC, RC, kk * 8, lane);
+        split4(v, ab, as);
+        mma_row<EX, false>(bdh, ab, as, DH + g * RD + kk * 8 + t4, 8 * RD, 4, p.P / 8);
+      }
 #pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int jl = ty + 16 * r, j = j0 + jl;
-      if (jl >= nj) continue;
-      const float dtj = dts[j], ej = ex2(cl - cs2[j]);
+      for (int np = 0; np < PT; ++np)
+        if (np * 8 < p.P)
 #pragma unroll
-      for (int s = 0; s < PS; ++s) {
-        const int pc = tx + 16 * s;
-        if (pc < p.P) from_f(DX + jl * out_row + pc, dtj * fmaf(ej, bdh[r][s], dx[r][s]));
+          for (int e = 0; e < 4; ++e) {
+            const float xv = to_f(Xs[(jr + (e >> 1) * 8) * RX + np * 8 + 2 * t4 + (e & 1)]);
+            if (e >> 1) xb1 = fmaf(xv, bdh[np][e], xb1); else xb0 = fmaf(xv, bdh[np][e], xb0);
+            dx[np][e] = fmaf(e >> 1 ? sb : sa, bdh[np][e], dx[np][e]);
+          }
+    }
+    T* DX = static_cast<T*>(p.dx) + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? jb : ja;
+      if (row < p.Q) {
+#pragma unroll
+        for (int np = 0; np < PT; ++np)
+          if (np * 8 < p.P)
+            store2(DX + row * dy_st + np * 8 + 2 * t4, dx[np][2 * half], dx[np][2 * half + 1]);
       }
     }
-  }
-  {  // db_j = dt_j (sum_i (L D)_ij c_i + e_j dh_out^T x_j); e_j x_j^T dh_out b_j
-    float xdh[MR][NS];
-    zero(xdh);
-    if (dho != nullptr) mm_acc(xdh, X, RP, 1, DH, 1, RN, p.P, ty, tx);
-    const long long nrow = static_cast<long long>(p.H) * p.N;
-    float* DBP = p.dbp + (static_cast<long long>(bb) * p.T + t0 + j0) * nrow + h * p.N;
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int jl = ty + 16 * r, j = j0 + jl;
-      float xb = 0.f;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) xb = fmaf(xdh[r][s], Bt[jl * RN + tx + 16 * s], xb);
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) xb += __shfl_xor_sync(0xffffffffu, xb, o);  // over tx
-      if (jl >= nj) continue;
-      const float dtj = dts[j], ej = ex2(cl - cs2[j]);
-      if (tx == 0) red[8 * TQ + jl] = ej * xb;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int n = tx + 16 * s;
-        if (n < p.N) DBP[jl * nrow + n] = dtj * fmaf(ej, xdh[r][s], db[r][s]);
+    rs0 = quad_sum(rs0);
+    rs1 = quad_sum(rs1);
+    xb0 = quad_sum(xb0);
+    xb1 = quad_sum(xb1);
+    if (t4 == 0) {
+      const long long o = (static_cast<long long>(bb) * p.T + t0) * p.H + h;
+      if (ja < p.Q) {
+        p.ddir[o + static_cast<long long>(ja) * p.H] = rs0 + ea * xb0;
+        p.wst[o + static_cast<long long>(ja) * p.H] = sa * xb0;
+      }
+      if (jb < p.Q) {
+        p.ddir[o + static_cast<long long>(jb) * p.H] = rs1 + eb * xb1;
+        p.wst[o + static_cast<long long>(jb) * p.H] = sb * xb1;
       }
     }
+    if (dho != nullptr) {   // db_j += dt_j e_j dh_out^T x_j
+      for (int kk = 0; kk < p.P / 8; ++kk) {
+        float v[4];
+        uint32_t ab[4], as[4];
+        frag_rows_perm(v, Xs + 16 * w * RX, RX, kk * 8, lane, sa, sb);
+        split4(v, ab, as);
+        mma_row<false, false>(db, ab, as, DH + (kk * 8 + 2 * t4) * RD + g, 8, RD, p.N / 8);
+      }
+    }
+    tda = block_sum<BW>(tda, red);   // (its first barrier: every read of the tiles above is done)
+    if (threadIdx.x == 0) p.dAt[slot * p.nt + jt] = tda;
   }
-  // ddt's intra-chunk part: the column sums of (S L) D, over ty in order
+
+  const int nsl = p.H / p.hb;
+  const long long prow = static_cast<long long>(nsl) * p.N;
+  float* DBP = p.dbp + (static_cast<long long>(bb) * p.T + t0) * prow + slab * p.N;
 #pragma unroll
-  for (int s = 0; s < MR; ++s) {
-    const float v = part[s] + __shfl_xor_sync(0xffffffffu, part[s], 16);
-    if (lane < 16) red[w * TQ + tx + 16 * s] = v;
-  }
-  __syncthreads();
-  if (tid < nj) {
-    float v = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? jb : ja;
+    if (row < p.Q) {
 #pragma unroll
-    for (int i = 0; i < BT / 32; ++i) v += red[i * TQ + tid];
-    const float st = red[8 * TQ + tid];
-    const long long o = (static_cast<long long>(bb) * p.T + t0 + j0 + tid) * p.H + h;
-    p.ddir[o] = v + st;
-    p.wst[o] = dts[j0 + tid] * st;
+      for (int nn = 0; nn < NT8; ++nn)
+        if (nn * 8 < p.N)
+          store2(DBP + row * prow + nn * 8 + 2 * t4, db[nn][2 * half], db[nn][2 * half + 1]);
+    }
   }
-  tda = block_sum(tda, red);   // (its first barrier: every read of red above is done)
-  if (tid == 0) p.dAt[slot_of(p, bb, k, h) * p.nt + t] = tda;
 }
 
-// The chunk's tile t as queries i: for every key tile j <= t, D = dy_i x_j^T
-// and dc_i += (L D dt) b_j; then the h_in term; writes dc (this head's) and
-// c_i . dc_i.
+// Query blocks: a block per (batch, chunk, slab of hb heads, query tile it
+// of 64 rows), the last tile (the most key rows) first; 8 warps, two a
+// slice of 16 queries, each of the two with half of N's columns.  For each
+// head of the slab in order, over the key rows j <= i in stages of 32: dc_i
+// += (L o D o dt)_ij b_j (L o D o dt read from the key blocks' workspace)
+// and, in the first half's warps, the row sums of (L o D o dt) o S; after
+// the loop h_in's term; writes c_i . dc_i and U.  dc sums over the slab's
+// heads in the registers.
 template <typename T, int PMAX>
-__device__ __forceinline__ void bwd_queries(const BwdParams& p, float* sm, int bb, int k, int h,
-                                            int t) {
-  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
-  constexpr int NS = NMAX / 16, MR = TQ / 16;
-  float* X = sm;
-  float* Bt = X + TQ * RP;
-  float* Cs = Bt + TQ * RN;
-  float* DY = Cs + TQ * RN;
-  float* SL = DY + TQ * RP;
-  float* LD = SL + TQ * RS;
-  float* cs2 = LD + TQ * RS;
+__global__ void __launch_bounds__(KNT, 2) ssd_bwd_queries(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char bsm[];
+  constexpr bool EX = sizeof(T) == 2;
+  constexpr int NH8 = NMAX / 16, KT = KS / 8;   // n8 tiles of a column half, at most
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int ws = w % BW, second = w >= BW;   // the warp's 16 queries, its column half
+  const int nslab = p.H / p.hb, per = nslab * p.nc * p.B;
+  const int it = p.nt - 1 - static_cast<int>(blockIdx.x) / per, slab = blockIdx.x % nslab;
+  const int k = blockIdx.x / nslab % p.nc, bb = blockIdx.x % per / (nslab * p.nc);
+  const int t0 = k * p.Q, i0 = it * TB;
+  const int RY = rowF(p.P), RB = rowT<T>(p.N), RH = round8(p.N) + 8;
+  const int n8 = p.N / 8, c0 = second ? (n8 + 1) / 2 : 0, nc8 = second ? n8 / 2 : (n8 + 1) / 2;
+  const int SB = query_stage_bytes<T>(p.P, p.N);
+  const int osq = tile_bytes<T>(KS, p.N), o3 = osq + al16(TB * RQ * 4);
+  float* DYs = reinterpret_cast<float*>(bsm);                          // [TB][RY]
+  unsigned char* ring = bsm + tile_bytes<float>(TB, p.P);
+  float* HIN = reinterpret_cast<float*>(ring);                         // after the loop
+  T* Cs = reinterpret_cast<T*>(ring + al16(p.P * RH * 4));
+  float* cs2 = reinterpret_cast<float*>(ring + query_ring_bytes<T>(p.P, p.N));
   float* dts = cs2 + MAXQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int t0 = k * p.Q, grp = h / (p.H / p.G);
-  const int i0 = t * TQ, ni = min(TQ, p.Q - i0);
-  float u[MR] = {};   // c_i . (h_in^T dy_i), then times exp(cs_i): U_i
-  const T* Xg = static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st;
+  float* ux = dts + MAXQ;   // [TB]: the second half's part of U
+  const int grp = slab * p.hb / (p.H / p.G), qp = round16(p.Q);
+  const int nst = (min(p.Q, i0 + TB) + KS - 1) / KS;   // key stages up to the tile's last row
+  const int ir = 16 * ws + g, ia = i0 + ir, ib = ia + 8;
+  const int pairs = p.nt * (p.nt + 1) / 2;
+  const long long dy_st = static_cast<long long>(p.H) * p.P;
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
   const T* Bg = static_cast<const T*>(p.b) + bb * p.b_sb + grp * p.b_sg + t0 * p.b_st;
-  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
-  const long long dy_st = static_cast<long long>(p.H) * p.P;
-  const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
-  (void)SL;
 
-  __syncthreads();  // the key role's tiles consumed
-  load_tile<T, NMAX>(Cs, RN, Cg + i0 * p.c_st, p.c_st, ni, p.N, TQ);
-  load_tile<float, PMAX>(DY, RP, DYg + i0 * dy_st, dy_st, ni, p.P, TQ);
-  float dc[MR][NS];
+  float dc[NH8][4];   // the warp's columns c0 * 8 ..
   zero(dc);
-  for (int jt = 0; jt <= t; ++jt) {
-    const int j0 = jt * TQ, nj = min(TQ, p.Q - j0);
-    if (jt > 0) __syncthreads();  // the previous key tile consumed
-    load_tile<T, PMAX>(X, RP, Xg + j0 * p.x_st, p.x_st, nj, p.P, TQ);
-    load_tile<T, NMAX>(Bt, RN, Bg + j0 * p.b_st, p.b_st, nj, p.N, TQ);
-    __syncthreads();
-    float dd[MR][MR];
-    zero(dd);
-    mm_acc(dd, DY, RP, 1, X, RP, 1, p.P, ty, tx);    // D_ij = dy_i . x_j
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int il = ty + 16 * r, i = i0 + il;
-#pragma unroll
-      for (int s = 0; s < MR; ++s) {
-        const int jl = tx + 16 * s, j = j0 + jl;
-        const bool ok = i >= j && il < ni && jl < nj;
-        LD[il * RS + jl] = ok ? ex2(cs2[i] - cs2[j]) * dd[r][s] * dts[j] : 0.f;
-      }
-    }
-    __syncthreads();  // the score tile in place
-    mm_acc(dc, LD, RS, 1, Bt, 1, RN, nj, ty, tx);   // sum_j (L D dt)_ij b_j
-  }
-  __syncthreads();  // x, b and the score tile consumed: h_in goes where x and b were
+  for (int hi = 0; hi < p.hb; ++hi) {
+    const int h = slab * p.hb + hi;
+    const long long slot = slot_of(p, bb, k, h);
+    const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
+    const float* Sg = bwd_scores(p, bb, k, h);
+    const float* LDg = p.lds + slot * pairs * TB * TB;
+    auto load_stage = [&](int s) {
+      unsigned char* st = ring + (s & 1) * SB;
+      const int j0 = s * KS;
+      load_rows<T, KNT>(reinterpret_cast<T*>(st), RB, Bg, p.b_st, j0, KS, p.Q, p.N, round8(p.N));
+      load_rows<float, KNT>(reinterpret_cast<float*>(st + osq), RQ, Sg + j0, qp, i0, TB, qp,
+                            qp - j0, KS);
+      const int jt = j0 / TB, pr = it * (it + 1) / 2 + jt;
+      load_rows<float, KNT>(reinterpret_cast<float*>(st + o3), RQ,
+                            LDg + static_cast<long long>(pr) * TB * TB + (j0 - jt * TB), TB, 0,
+                            TB, TB, TB, KS);
+    };
+    if (hi > 0) __syncthreads();   // the previous head's reads of every tile and of cs done
+    load_rows<float, KNT>(DYs, RY, DYg, dy_st, i0, TB, p.Q, p.P, round8(p.P));
+    load_stage(0);
+    cp_async_commit();
+    if (w == 0) bwd_cumsum(p, bb, h, t0, cs2, dts, nullptr, lane);
 
-  const float* hi = bwd_h_in(p, bb, k, h);
-  if (hi != nullptr) {
-    float* HIN = X;   // [PMAX][RN]
-    load_tile<float, NMAX>(HIN, RN, hi, p.N, p.P, p.N, PMAX);
+    float rr0 = 0.f, rr1 = 0.f;   // rows ia, ib of sum_j (L o D o dt)_ij S_ij
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait<0>();
+      __syncthreads();   // stage s (and dy_i, cs) in place; stage s - 1 consumed by every warp
+      if (s + 1 < nst) load_stage(s + 1);
+      cp_async_commit();
+      const unsigned char* st = ring + (s & 1) * SB;
+      const T* bs = reinterpret_cast<const T*>(st);
+      const float* sq = reinterpret_cast<const float*>(st + osq);
+      const int j0 = s * KS;
+      // the stage's n8 tiles of keys the slice's queries see: a tile after
+      // its last query is all masked and skipped, and so is a slice past Q
+      const int iw = i0 + 16 * ws;
+      const int khi = iw >= p.Q ? 0 : max(0, min(KT, (iw - j0 + 16) / 8));
+      if (khi == 0) continue;
+      float a[KT][4];   // (L o D o dt)_ij, an accumulator's layout: rows ia, ib
+      zero(a);
+      {   // read from the key blocks' workspace
+        const float* lq = reinterpret_cast<const float*>(st + o3) + ir * RQ + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+          if (kk < khi) {
+            const float2 u = *reinterpret_cast<const float2*>(lq + kk * 8);
+            const float2 v = *reinterpret_cast<const float2*>(lq + 8 * RQ + kk * 8);
+            a[kk][0] = u.x;
+            a[kk][1] = u.y;
+            a[kk][2] = v.x;
+            a[kk][3] = v.y;
+          }
+      }
+      // the causal mask (the workspace's rows past Q were never written), the
+      // row sums with S (the first half), and dc_i += (L o D o dt) b_j
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        if (kk >= khi) continue;
+        float sval[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!second) {
+          const float2 su = *reinterpret_cast<const float2*>(sq + ir * RQ + kk * 8 + 2 * t4);
+          const float2 sw = *reinterpret_cast<const float2*>(sq + (ir + 8) * RQ + kk * 8 + 2 * t4);
+          sval[0] = su.x;
+          sval[1] = su.y;
+          sval[2] = sw.x;
+          sval[3] = sw.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1 ? ib : ia, j = j0 + kk * 8 + 2 * t4 + (e & 1);
+          const bool ok = j <= i && i < p.Q;
+          a[kk][e] = ok ? a[kk][e] : 0.f;
+          const float r = ok ? a[kk][e] * sval[e] : 0.f;
+          if (e >> 1) rr1 += r; else rr0 += r;
+        }
+        uint32_t ab[4], as[4];
+        frag_acc(ab, as, a[kk]);
+        mma_row<false, EX>(dc, ab, as, bs + (kk * 8 + 2 * t4) * RB + g + c0 * 8, 8, RB, nc8);
+      }
+    }
+    __syncthreads();   // every stage consumed: h_in and c_i go where the ring was
+
+    const float* hin = bwd_h_in(p, bb, k, h);
+    if (hin != nullptr) {
+      load_rows<float, KNT>(HIN, RH, hin, p.N, 0, p.P, p.P, p.N, round8(p.N));
+      load_rows<T, KNT>(Cs, RB, Cg, p.c_st, i0, TB, p.Q, p.N, round8(p.N));
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    float dyh[MR][NS];
-    zero(dyh);
-    mm_acc(dyh, DY, RP, 1, HIN, 1, RN, p.P, ty, tx);   // h_in^T dy_i
-#pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      const int il = ty + 16 * r;
-      const float f = ex2(cs2[i0 + il]);
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        u[r] = fmaf(Cs[il * RN + tx + 16 * s], dyh[r][s], u[r]);
-        dc[r][s] = fmaf(f, dyh[r][s], dc[r][s]);
+    float ua = 0.f, ub = 0.f;   // U of rows ia, ib over the warp's columns
+    if (hin != nullptr) {   // dc_i += exp(cs_i) h_in^T dy_i
+      const float fa = ex2(cs2[ia]), fb = ex2(cs2[ib]);
+      float hv[NH8][4];
+      zero(hv);
+      for (int kk = 0; kk < p.P / 8; ++kk) {
+        float v[4];
+        uint32_t ab[4], as[4];
+        frag_rows(v, DYs + 16 * ws * RY, RY, kk * 8, lane, fa, fb);
+        split4(v, ab, as);
+        mma_row<false, false>(hv, ab, as, HIN + (kk * 8 + t4) * RH + g + c0 * 8, 8, 4 * RH, nc8);
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);  // over tx
-      u[r] *= f;
+      for (int nn = 0; nn < NH8; ++nn)
+        if (nn < nc8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float cv =
+                to_f(Cs[(ir + (e >> 1) * 8) * RB + (c0 + nn) * 8 + 2 * t4 + (e & 1)]);
+            if (e >> 1) ub = fmaf(cv, hv[nn][e], ub); else ua = fmaf(cv, hv[nn][e], ua);
+            dc[nn][e] += hv[nn][e];
+          }
+    }
+    ua = quad_sum(ua);
+    ub = quad_sum(ub);
+    if (second && t4 == 0) {
+      ux[ir] = ua;
+      ux[ir + 8] = ub;
+    }
+    __syncthreads();   // the second half's U in place
+    if (!second) {
+      ua += ux[ir];
+      ub += ux[ir + 8];
+      rr0 = quad_sum(rr0);
+      rr1 = quad_sum(rr1);
+      if (t4 == 0) {
+        const long long o = (static_cast<long long>(bb) * p.T + t0) * p.H + h;
+        if (ia < p.Q) {
+          p.rrow[o + static_cast<long long>(ia) * p.H] = rr0 + ua;
+          p.urow[o + static_cast<long long>(ia) * p.H] = ua;
+        }
+        if (ib < p.Q) {
+          p.rrow[o + static_cast<long long>(ib) * p.H] = rr1 + ub;
+          p.urow[o + static_cast<long long>(ib) * p.H] = ub;
+        }
+      }
     }
   }
-  const long long nrow = static_cast<long long>(p.H) * p.N;
-  float* DCP = p.dcp + (static_cast<long long>(bb) * p.T + t0 + i0) * nrow + h * p.N;
+
+  const int nsl = p.H / p.hb;
+  const long long prow = static_cast<long long>(nsl) * p.N;
+  float* DCP = p.dcp + (static_cast<long long>(bb) * p.T + t0) * prow + slab * p.N + c0 * 8;
 #pragma unroll
-  for (int r = 0; r < MR; ++r) {
-    const int il = ty + 16 * r;
-    float cd = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? ib : ia;
+    if (row < p.Q) {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) cd = fmaf(Cs[il * RN + tx + 16 * s], dc[r][s], cd);
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) cd += __shfl_xor_sync(0xffffffffu, cd, o);  // over tx
-    if (il >= ni) continue;
-    if (tx == 0) {
-      const long long o = (static_cast<long long>(bb) * p.T + t0 + i0 + il) * p.H + h;
-      p.rrow[o] = cd;
-      p.urow[o] = u[r];
-    }
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int n = tx + 16 * s;
-      if (n < p.N) DCP[il * nrow + n] = dc[r][s];
+      for (int nn = 0; nn < NH8; ++nn)
+        if (nn < nc8)
+          store2(DCP + row * prow + nn * 8 + 2 * t4, dc[nn][2 * half], dc[nn][2 * half + 1]);
     }
   }
 }
 
-// A block per (batch, chunk, head, tile): the tile as keys, then as queries
+// The states of dh: sum_i exp(cs_i) dy_i c_i^T of one (batch, chunk, head)
+// over a column split of N into dhs, and cs_Q into dec; chunk 0's only
+// when there is an h0 (it feeds dh0 alone).  A warp per 16 (or 32) rows of
+// P, the chunk's rows in stages of 32 through a two-stage ring.
 template <typename T, int PMAX>
-__global__ void __launch_bounds__(BT) ssd_bwd_chunk(const BwdParams p) {
-  extern __shared__ __align__(16) float bwd_smem[];
-  const int t = blockIdx.x % p.nt, h = blockIdx.x / p.nt, k = blockIdx.y, bb = blockIdx.z;
-  constexpr int RP = PMAX + 1, RN = NMAX + 1, RS = TQ + 1;
-  float* cs2 = bwd_smem + TQ * (2 * RP + 2 * RN) + 2 * TQ * RS;
-  if (threadIdx.x < 32) bwd_cumsum(p, bb, h, k * p.Q, cs2, cs2 + MAXQ, cs2 + 2 * MAXQ,
-                                   threadIdx.x);
-  bwd_keys<T, PMAX>(p, bwd_smem, bb, k, h, t);
-  bwd_queries<T, PMAX>(p, bwd_smem, bb, k, h, t);
-}
-
-// Each chunk's sum_i exp(cs_i) dy_i c_i^T into dhs, and cs_Q into dec;
-// chunk 0's only when there is an h0 (it feeds dh0 alone)
-template <typename T, int PMAX>
-__global__ void __launch_bounds__(BT) ssd_bwd_states(const BwdParams p) {
-  extern __shared__ __align__(16) float bwd_smem[];
-  constexpr int RP = PMAX + 1, RN = NMAX + 1, PS = PMAX / 16, NS = NMAX / 16;
-  const int h = blockIdx.x, k = blockIdx.y, bb = blockIdx.z;
+__device__ __forceinline__ void dh_state_role(const BwdParams& p, unsigned char* smem, int sb) {
+  constexpr bool EX = sizeof(T) == 2;
+  constexpr int SMT = PMAX / 64;   // m16 tiles of P a warp
+  constexpr int SN8 = 16 / SMT;    // n8 tiles of N a block, at most
+  constexpr int KT = KS / 8;
+  const int h = sb / p.dspl, split = sb % p.dspl, k = blockIdx.y, bb = blockIdx.z;
   if (k == 0 && !p.has_h0) return;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float* DYs = bwd_smem;              // [SKB][RP]: dy rows times exp(cs_i)
-  float* Cs = DYs + SKB * RP;         // [SKB][RN]
-  float* cs2 = Cs + SKB * RN;
-  float* fac = cs2 + MAXQ;            // dt, then exp(cs_i)
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int n8 = round8(p.N) / 8, ns8 = (n8 + p.dspl - 1) / p.dspl, nb = split * ns8;
+  const int RY = rowF(p.P), RC = rowT<T>(p.N);
+  const int oc = tile_bytes<float>(KS, p.P), SB = oc + tile_bytes<T>(KS, p.N);
+  float* cs2 = reinterpret_cast<float*>(smem + 2 * SB);
+  float* fac = cs2 + MAXQ;   // dt, then exp(cs_i)
   const int t0 = k * p.Q, grp = h / (p.H / p.G);
-  if (tid < 32) bwd_cumsum(p, bb, h, t0, cs2, fac, nullptr, tid);
-  __syncthreads();
-  fac[tid] = ex2(cs2[tid]);   // MAXQ == BT
-  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
   const long long dy_st = static_cast<long long>(p.H) * p.P;
+  const T* Cg = static_cast<const T*>(p.c) + bb * p.c_sb + grp * p.c_sg + t0 * p.c_st;
   const float* DYg = p.dy + (static_cast<long long>(bb) * p.T + t0) * dy_st + h * p.P;
-  float acc[PS][NS];
-  zero(acc);
-  for (int r0 = 0; r0 < p.Q; r0 += SKB) {
-    const int nr = min(SKB, p.Q - r0);
-    __syncthreads();  // the previous stage consumed (and fac in place)
-    load_tile<float, PMAX>(DYs, RP, DYg + r0 * dy_st, dy_st, nr, p.P, SKB, fac + r0);
-    load_tile<T, NMAX>(Cs, RN, Cg + r0 * p.c_st, p.c_st, nr, p.N, SKB);
-    __syncthreads();
-    mm_acc(acc, DYs, 1, RP, Cs, 1, RN, nr, ty, tx);
+  auto load_stage = [&](int s) {
+    unsigned char* st = smem + (s & 1) * SB;
+    load_rows<float>(reinterpret_cast<float*>(st), RY, DYg, dy_st, s * KS, KS, p.Q, p.P,
+                     round8(p.P));
+    load_rows<T>(reinterpret_cast<T*>(st + oc), RC, Cg, p.c_st, s * KS, KS, p.Q, p.N,
+                 round8(p.N));
+  };
+  const int nst = (p.Q + KS - 1) / KS;
+  load_stage(0);
+  cp_async_commit();
+  if (w == 0) bwd_cumsum(p, bb, h, t0, cs2, fac, nullptr, lane);
+  __syncthreads();
+  for (int i = threadIdx.x; i < MAXQ; i += BNT) fac[i] = ex2(cs2[i]);
+
+  float acc[SMT][SN8][4];
+#pragma unroll
+  for (int mt = 0; mt < SMT; ++mt) zero(acc[mt]);
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage s (and exp(cs)) in place; stage s - 1 consumed
+    if (s + 1 < nst) load_stage(s + 1);
+    cp_async_commit();
+    const float* dys = reinterpret_cast<const float*>(smem + (s & 1) * SB);
+    const T* cq = reinterpret_cast<const T*>(smem + (s & 1) * SB + oc);
+    const float* f = fac + s * KS;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const int r0 = kk * 8 + 2 * t4;
+      const float f0 = f[r0], f1 = f[r0 + 1];
+      const T* cr = cq + r0 * RC + g;
+#pragma unroll
+      for (int mt = 0; mt < SMT; ++mt) {
+        const int p0 = (w * SMT + mt) * 16;
+        if (p0 < p.P) {
+          // A = (exp(cs) dy)^T: rows of P, the chunk rows as its depth (permuted)
+          const float* y0 = dys + r0 * RY + p0 + g;
+          const float v[4] = {y0[0] * f0, y0[8] * f0, y0[RY] * f1, y0[RY + 8] * f1};
+          uint32_t ab[4], as[4];
+          split4(v, ab, as);
+          mma_row<false, EX>(acc[mt], ab, as, cr + nb * 8, 8, RC, min(ns8, n8 - nb));
+        }
+      }
+    }
   }
   const long long slot = slot_of(p, bb, k, h);
   float* dst = p.dhs + slot * static_cast<long long>(p.P) * p.N;
 #pragma unroll
-  for (int r = 0; r < PS; ++r) {
-    const int pr = ty + 16 * r;
-    if (pr >= p.P) continue;
+  for (int mt = 0; mt < SMT; ++mt)
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int n = tx + 16 * s;
-      if (n < p.N) dst[pr * p.N + n] = acc[r][s];
+    for (int half = 0; half < 2; ++half) {
+      const int row = (w * SMT + mt) * 16 + g + 8 * half;
+      if (row < p.P) {
+#pragma unroll
+        for (int n = 0; n < SN8; ++n) {
+          const int col = (nb + n) * 8 + 2 * t4;
+          if (n < ns8 && col < p.N)
+            store2(dst + row * p.N + col, acc[mt][n][2 * half], acc[mt][n][2 * half + 1]);
+        }
+      }
     }
-  }
-  if (tid == 0) p.dec[slot] = cs2[p.Q - 1];
+  if (split == 0 && threadIdx.x == 0) p.dec[slot] = cs2[p.Q - 1];
+}
+
+// S of every (batch, chunk, group) (blockIdx.x below n_cb: the forward's c
+// b^T role) and, past them, the states of dh
+template <typename T, int PMAX>
+__global__ void __launch_bounds__(BNT) ssd_bwd_states(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char bsm[];
+  if (static_cast<int>(blockIdx.x) < p.n_cb)
+    cb_role<T>(p.cb, bsm, blockIdx.x);
+  else
+    dh_state_role<T, PMAX>(p, bsm, blockIdx.x - p.n_cb);
 }
 
 // The ordered pass from the last chunk to the first: dh = dh_final (or 0);
@@ -1557,7 +1904,7 @@ __global__ void __launch_bounds__(BT) ssd_bwd_finish(const BwdParams p) {
     const long long pn = static_cast<long long>(p.P) * p.N;
     for (long long e = tid; e < pn; e += BT) dot = fmaf(dho[e], hi[e], dot);
   }
-  dot = block_sum(dot, red);   // (its barriers also publish cs2, dts and cds)
+  dot = block_sum<BT / 32>(dot, red);   // (its barriers also publish cs2, dts and cds)
   const float eterm = ex2(cs2[p.Q - 1]) * dot, cl = cds[p.Q - 1];
   const long long o = (static_cast<long long>(bb) * p.T + t0 + tid) * p.H + h;
   float dd = 0.f, wv = 0.f, dc = 0.f, da = 0.f;
@@ -1568,7 +1915,7 @@ __global__ void __launch_bounds__(BT) ssd_bwd_finish(const BwdParams p) {
     da = wv * (cl - cds[tid]);                              // W_j (cd_Q - cd_j)
     if (hi != nullptr) da = fmaf(p.urow[o], cds[tid], da);  // U_i cd_i
   }
-  const float wsum = block_sum(wv, red);
+  const float wsum = block_sum<BT / 32>(wv, red);
   if (tid == p.Q - 1) dc += eterm + wsum;
   dcs[tid] = dc;
   __syncthreads();
@@ -1591,7 +1938,7 @@ __global__ void __launch_bounds__(BT) ssd_bwd_finish(const BwdParams p) {
   }
   __syncthreads();
   if (tid < p.Q) p.ddt[o] = dd - p.A[h] * dcs[tid];
-  da = block_sum(da, red);
+  da = block_sum<BT / 32>(da, red);
   if (tid == 0) {
     float tsum = 0.f;   // the key tiles' sums of T_ij (cd_i - cd_j), in order
     for (int t = 0; t < p.nt; ++t) tsum += p.dAt[slot_of(p, bb, k, h) * p.nt + t];
@@ -1599,7 +1946,7 @@ __global__ void __launch_bounds__(BT) ssd_bwd_finish(const BwdParams p) {
   }
 }
 
-// dB, dC: each group's heads summed in order; the last block: dA, the
+// dB, dC: each group's slabs summed in order; the last block: dA, the
 // (batch, chunk) parts summed in order
 template <typename T>
 __global__ void __launch_bounds__(256) ssd_bwd_reduce(const BwdParams p) {
@@ -1619,10 +1966,10 @@ __global__ void __launch_bounds__(256) ssd_bwd_reduce(const BwdParams p) {
   const long long rg = e / p.N;                  // (b, t, g)
   const int g = static_cast<int>(rg % p.G);
   const long long bt = rg / p.G;
-  const int rep = p.H / p.G;
-  const long long base = (bt * p.H + static_cast<long long>(g) * rep) * p.N + n;
+  const int nsl = p.H / p.hb, per = nsl / p.G;   // slabs a group
+  const long long base = (bt * nsl + static_cast<long long>(g) * per) * p.N + n;
   float sb = 0.f, sc = 0.f;
-  for (int i = 0; i < rep; ++i) {
+  for (int i = 0; i < per; ++i) {
     sb += p.dbp[base + static_cast<long long>(i) * p.N];
     sc += p.dcp[base + static_cast<long long>(i) * p.N];
   }
@@ -1630,30 +1977,43 @@ __global__ void __launch_bounds__(256) ssd_bwd_reduce(const BwdParams p) {
   from_f(static_cast<T*>(p.dC) + e, sc);
 }
 
+template <typename T>
+size_t states_smem(const BwdParams& p) {
+  const size_t a = cb_smem<T>(p.cb), b = dhstate_smem<T>(p.P, p.N);
+  return a > b ? a : b;
+}
+
 template <typename T, int PMAX>
 cudaError_t bwd_attributes() {
-  static bool c_chunk[kMaxDevices] = {}, c_states[kMaxDevices] = {};
-  cudaError_t e = allow_smem(ssd_bwd_chunk<T, PMAX>, c_chunk);
+  static bool c_st[kMaxDevices] = {}, c_k[kMaxDevices] = {}, c_q[kMaxDevices] = {};
+  cudaError_t e = allow_smem(ssd_bwd_states<T, PMAX>, c_st);
   if (e != cudaSuccess) return e;
-  return allow_smem(ssd_bwd_states<T, PMAX>, c_states);
+  e = allow_smem(ssd_bwd_keys<T, PMAX>, c_k);
+  if (e != cudaSuccess) return e;
+  return allow_smem(ssd_bwd_queries<T, PMAX>, c_q);
 }
 
 template <typename T, int PMAX>
 cudaError_t bwd_launch(const BwdParams& p, cudaStream_t s) {
   cudaError_t e = bwd_attributes<T, PMAX>();
   if (e != cudaSuccess) return e;
+  const size_t ss = states_smem<T>(p), sk = key_smem<T>(p.P, p.N), sq = query_smem<T>(p.P, p.N);
+  if (ss > kSmemMax || sk > kSmemMax || sq > kSmemMax) return cudaErrorInvalidValue;
   const long long pn = static_cast<long long>(p.P) * p.N;
+  const int n_dh = p.run_states ? p.H * p.dspl : 0, nslab = p.H / p.hb;
+  ssd_bwd_states<T, PMAX><<<dim3(p.n_cb + n_dh, p.nc, p.B), BNT, ss, s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   if (p.run_states) {
-    ssd_bwd_states<T, PMAX><<<dim3(p.H, p.nc, p.B), BT,
-                              sizeof(float) * states_smem_floats<PMAX>(), s>>>(p);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
     ssd_bwd_carry<<<dim3(static_cast<unsigned>((pn + 255) / 256), p.H, p.B), 256, 0, s>>>(p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  ssd_bwd_chunk<T, PMAX><<<dim3(p.nt * p.H, p.nc, p.B), BT,
-                           sizeof(float) * chunk_smem_floats<PMAX>(), s>>>(p);
+  const unsigned nblk = static_cast<unsigned>(p.nt * nslab * p.nc * p.B);
+  ssd_bwd_keys<T, PMAX><<<nblk, BNT, sk, s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_queries<T, PMAX><<<nblk, KNT, sq, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   ssd_bwd_finish<<<dim3(p.H, p.nc, p.B), BT, 0, s>>>(p);
@@ -1669,6 +2029,46 @@ cudaError_t bwd_dispatch(const BwdParams& p, cudaStream_t s) {
   return p.P <= 64 ? bwd_launch<T, 64>(p, s) : bwd_launch<T, 128>(p, s);
 }
 
+// the shapes and the plan; false if the kernels do not take them
+bool make_bwd_params(BwdParams& p, int B, int T, int H, int G, int P, int N, int Q, int hb,
+                     bool has_h0) {
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || G <= 0 || H % G != 0) return false;
+  if (P <= 0 || P > 128 || P % 8 != 0 || N <= 0 || N > NMAX || N % 8 != 0) return false;
+  if (Q <= 0 || Q > MAXQ || T % Q != 0 || T / Q > 65535) return false;
+  if (hb <= 0 || (H / G) % hb != 0) return false;
+  p.B = B; p.T = T; p.H = H; p.G = G; p.P = P; p.N = N; p.Q = Q; p.nc = T / Q;
+  p.nt = (Q + TB - 1) / TB;
+  p.hb = hb;
+  p.has_h0 = has_h0;
+  p.run_states = p.nc > 1 || has_h0;
+  p.dspl = P <= 64 ? 1 : 2;
+  p.n_cb = G * (((Q + TR - 1) / TR + NW - 1) / NW);   // cb_role's bands of 4 row tiles
+  Params& c = p.cb;
+  c.B = B; c.T = T; c.H = H; c.G = G; c.P = P; c.N = N; c.Q = Q; c.nc = p.nc;
+  c.pp = round16(P); c.np = round16(N); c.qp = round16(Q);
+  return static_cast<long long>(p.nt) * (H / hb) * p.nc * B <= 2147483647LL;
+}
+
+template <typename T, int PMAX>
+cudaError_t bwd_occupancy_of(const BwdParams& p, int* kb, int* qb, int* sb) {
+  cudaError_t e = bwd_attributes<T, PMAX>();
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(kb, ssd_bwd_keys<T, PMAX>, BNT,
+                                                    key_smem<T>(p.P, p.N));
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(qb, ssd_bwd_queries<T, PMAX>, KNT,
+                                                    query_smem<T>(p.P, p.N));
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(sb, ssd_bwd_states<T, PMAX>, BNT,
+                                                       states_smem<T>(p));
+}
+
+template <typename T>
+cudaError_t bwd_occupancy_at(const BwdParams& p, int* kb, int* qb, int* sb) {
+  return p.P <= 64 ? bwd_occupancy_of<T, 64>(p, kb, qb, sb)
+                   : bwd_occupancy_of<T, 128>(p, kb, qb, sb);
+}
+
 }  // namespace
 
 // The backward of ssd_chunk_scan with the log-decay -dt * A.  dtype code of
@@ -1676,36 +2076,32 @@ cudaError_t bwd_dispatch(const BwdParams& p, cudaStream_t s) {
 // float32 contiguous; hin: each chunk's carried-in state [B, T/Q, H, P, N]
 // as the forward's workspace leaves it, or with one chunk h0 (null: zero);
 // dh_final [B, H, P, N] or null (zero); has_h0: chunk 0 carries an h0 in
-// and dh0 [B, H, P, N] is written.  Workspace (float32): with several
-// chunks or an h0, dhs B * (T/Q) * H * P * N and dec B * (T/Q) * H; always
-// dbp and dcp B * T * H * N each, rrow, ddir, wst, urow B * T * H each, dAt
-// B * (T/Q) * H * ceil(Q / 64) and dAp B * (T/Q) * H.  Issues ssd_bwd_states and ssd_bwd_carry (several chunks
-// or an h0), then ssd_bwd_chunk, ssd_bwd_finish and ssd_bwd_reduce.
-// Returns a cudaError_t (0 = launched).
+// and dh0 [B, H, P, N] is written.  The plan: hb heads a key or query block
+// (dividing H / G).  Workspace (float32, each part at a 16-byte boundary):
+// with several chunks or an h0, dhs B * (T/Q) * H * P * N and dec B * (T/Q)
+// * H; always sws B * (T/Q) * G * QP * QP (QP = Q rounded up to 16), lds B *
+// (T/Q) * H * nt (nt + 1) / 2 * 64 * 64 (nt = ceil(Q / 64)), dbp and dcp B *
+// T * (H / hb) * N each; rrow, ddir, wst, urow
+// B * T * H each; dAt B * (T/Q) * H * nt and dAp B * (T/Q) * H.  Issues
+// ssd_bwd_states, ssd_bwd_carry (several chunks or an h0), ssd_bwd_keys,
+// ssd_bwd_queries, ssd_bwd_finish and ssd_bwd_reduce.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int ssd_chunk_scan_bwd(
     int dtype, const void* x, const void* b, const void* c, const void* dt, const void* A,
     const void* hin, const void* dh_final, const void* dy, void* dx, void* dB, void* dC,
-    void* ddt, void* dA, void* dh0, void* dhs, void* dec, void* dbp, void* dcp, void* rrow,
-    void* ddir, void* wst, void* urow, void* dAt, void* dAp, int B, int T, int H, int G, int P,
-    int N, int Q,
-    int has_h0, long long x_sb, long long x_st, long long x_sh,
+    void* ddt, void* dA, void* dh0, void* dhs, void* dec, void* sws, void* lds, void* dbp,
+    void* dcp, void* rrow, void* ddir, void* wst, void* urow, void* dAt, void* dAp, int B,
+    int T, int H, int G, int P, int N, int Q, int has_h0, int hb,
+    long long x_sb, long long x_st, long long x_sh,
     long long b_sb, long long b_st, long long b_sg,
     long long c_sb, long long c_st, long long c_sg,
     long long dt_sb, long long dt_st, long long dt_sh, void* stream) {
-  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || G <= 0 || H % G != 0) return cudaErrorInvalidValue;
-  if (P <= 0 || P > 128 || P % 8 != 0 || N <= 0 || N > NMAX || N % 8 != 0)
-    return cudaErrorInvalidValue;
-  if (Q <= 0 || Q > MAXQ || T % Q != 0 || T / Q > 65535) return cudaErrorInvalidValue;
   BwdParams p = {};
-  p.B = B; p.T = T; p.H = H; p.G = G; p.P = P; p.N = N; p.Q = Q; p.nc = T / Q;
-  p.nt = (Q + TQ - 1) / TQ;
-  p.has_h0 = has_h0 != 0;
-  p.run_states = p.nc > 1 || p.has_h0;
-  if (static_cast<long long>(p.nt) * H > 2147483647LL) return cudaErrorInvalidValue;
+  if (!make_bwd_params(p, B, T, H, G, P, N, Q, hb, has_h0 != 0)) return cudaErrorInvalidValue;
   if (dt == nullptr || A == nullptr || dy == nullptr || dx == nullptr || dB == nullptr ||
-      dC == nullptr || ddt == nullptr || dA == nullptr || dbp == nullptr || dcp == nullptr ||
-      rrow == nullptr || ddir == nullptr || wst == nullptr || urow == nullptr ||
-      dAt == nullptr || dAp == nullptr)
+      dC == nullptr || ddt == nullptr || dA == nullptr || sws == nullptr || lds == nullptr ||
+      dbp == nullptr || dcp == nullptr || rrow == nullptr || ddir == nullptr ||
+      wst == nullptr || urow == nullptr || dAt == nullptr || dAp == nullptr)
     return cudaErrorInvalidValue;
   if ((p.nc > 1 || p.has_h0) && hin == nullptr) return cudaErrorInvalidValue;
   if (p.run_states && (dhs == nullptr || dec == nullptr)) return cudaErrorInvalidValue;
@@ -1722,6 +2118,8 @@ extern "C" int ssd_chunk_scan_bwd(
   p.dh0 = static_cast<float*>(dh0);
   p.dhs = static_cast<float*>(dhs);
   p.dec = static_cast<float*>(dec);
+  p.sws = static_cast<float*>(sws);
+  p.lds = static_cast<float*>(lds);
   p.dbp = static_cast<float*>(dbp);
   p.dcp = static_cast<float*>(dcp);
   p.rrow = static_cast<float*>(rrow);
@@ -1734,44 +2132,36 @@ extern "C" int ssd_chunk_scan_bwd(
   p.b_sb = b_sb; p.b_st = b_st; p.b_sg = b_sg;
   p.c_sb = c_sb; p.c_st = c_st; p.c_sg = c_sg;
   p.dt_sb = dt_sb; p.dt_st = dt_st; p.dt_sh = dt_sh;
+  Params& cb = p.cb;
+  cb.b = b; cb.c = c; cb.sws = p.sws;
+  cb.b_sb = b_sb; cb.b_st = b_st; cb.b_sg = b_sg;
+  cb.c_sb = c_sb; cb.c_st = c_st; cb.c_sg = c_sg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd_dispatch<float>(p, s);
   if (dtype == 1) return bwd_dispatch<__nv_bfloat16>(p, s);
   return cudaErrorInvalidValue;
 }
 
-// Blocks per SM of ssd_bwd_chunk and ssd_bwd_states (P <= 64 or <= 128) and
-// their dynamic shared memory
-extern "C" int ssd_chunk_bwd_occupancy(int dtype, int P, int* chunk_blocks, int* state_blocks,
-                                       int* chunk_smem_bytes, int* state_smem_bytes) {
-  const bool wide = P > 64;
-  *chunk_smem_bytes = static_cast<int>(sizeof(float) * (wide ? chunk_smem_floats<128>()
-                                                             : chunk_smem_floats<64>()));
-  *state_smem_bytes = static_cast<int>(sizeof(float) * (wide ? states_smem_floats<128>()
-                                                             : states_smem_floats<64>()));
-  cudaError_t e;
+// Blocks per SM of ssd_bwd_keys, ssd_bwd_queries and ssd_bwd_states at
+// head width P and state width N, and their dynamic shared memory (the
+// states kernel's at chunks of Q rows)
+extern "C" int ssd_chunk_bwd_occupancy(int dtype, int P, int N, int Q, int* key_blocks,
+                                       int* query_blocks, int* state_blocks,
+                                       int* key_smem_bytes, int* query_smem_bytes,
+                                       int* state_smem_bytes) {
+  BwdParams p = {};
+  if (!make_bwd_params(p, 1, Q, 1, 1, P, N, Q, 1, false)) return cudaErrorInvalidValue;
   if (dtype == 0) {
-    e = wide ? bwd_attributes<float, 128>() : bwd_attributes<float, 64>();
-    if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        chunk_blocks, wide ? ssd_bwd_chunk<float, 128> : ssd_bwd_chunk<float, 64>, BT,
-        *chunk_smem_bytes);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        state_blocks, wide ? ssd_bwd_states<float, 128> : ssd_bwd_states<float, 64>, BT,
-        *state_smem_bytes);
+    *key_smem_bytes = key_smem<float>(P, N);
+    *query_smem_bytes = query_smem<float>(P, N);
+    *state_smem_bytes = static_cast<int>(states_smem<float>(p));
+    return bwd_occupancy_at<float>(p, key_blocks, query_blocks, state_blocks);
   }
   if (dtype == 1) {
-    e = wide ? bwd_attributes<__nv_bfloat16, 128>() : bwd_attributes<__nv_bfloat16, 64>();
-    if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        chunk_blocks, wide ? ssd_bwd_chunk<__nv_bfloat16, 128> : ssd_bwd_chunk<__nv_bfloat16, 64>,
-        BT, *chunk_smem_bytes);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        state_blocks,
-        wide ? ssd_bwd_states<__nv_bfloat16, 128> : ssd_bwd_states<__nv_bfloat16, 64>, BT,
-        *state_smem_bytes);
+    *key_smem_bytes = key_smem<__nv_bfloat16>(P, N);
+    *query_smem_bytes = query_smem<__nv_bfloat16>(P, N);
+    *state_smem_bytes = static_cast<int>(states_smem<__nv_bfloat16>(p));
+    return bwd_occupancy_at<__nv_bfloat16>(p, key_blocks, query_blocks, state_blocks);
   }
   return cudaErrorInvalidValue;
 }

@@ -23,12 +23,13 @@ back to the plain version.
 
 ``ssd_chunked_bwd_cuda`` is the backward of ``ssd_chunked_cuda`` (log-decay
 -dt * A only): the gradients of xh, B, C, dt, A and h0 from dy and the final
-state's gradient, fp32 SIMT products, three device kernels a call with one
-chunk and no h0, else five (the chunk-parallel states of dh, the ordered
-reverse carry, the per-tile gradients, the log-decay's reverse cumsum, the
-ordered sums over each group's heads and over the batch).  It reads each
-chunk's carried-in state, which the forward returns.  Its grid is a function of the shapes alone:
-:func:`ssd_bwd_plan`.  See the source for the design.
+state's gradient, every product on the tensor cores (fp32 as three tf32
+products), six device kernels a call, five with one chunk and no h0 (S =
+c b^T once a group and the chunk-parallel states of dh, the ordered reverse
+carry, the key blocks, the query blocks, the log-decay's reverse cumsum, the
+ordered sums over each group's head slabs and over the batch).  It reads
+each chunk's carried-in state, which the forward returns.  Its plan (the
+heads a block takes) is a function of the shapes alone: :func:`ssd_bwd_plan`.  See the source for the design.
 """
 from __future__ import annotations
 
@@ -49,9 +50,10 @@ ROW_TILE = 16       # rows of an output warp's tile, keys of its key tile
 WARPS = 4           # warps a block
 
 KERNEL = LaunchCount()   # calls of the scan (one device kernel, or three with several chunks)
-KERNEL_BWD = LaunchCount()   # calls of the backward (three device kernels, or five)
-BWD_TILE = 64            # backward rows a tile
-BWD_THREADS = 256
+KERNEL_BWD = LaunchCount()   # calls of the backward (five device kernels, or six)
+BWD_TILE = 64            # backward rows of a key or a query tile
+BWD_THREADS = 256        # threads of the backward's reduce blocks
+BWD_MIN_BLOCKS = 512     # key blocks a backward plan keeps, heads a block permitting
 
 _fns = {}
 
@@ -62,8 +64,8 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_chunk_scan.argtypes = [i] + [p] * 12 + [i] * 7 + [ll] * 12 + [i] * 2 + [p]
         lib.ssd_chunk_occupancy.argtypes = [i] * 9 + [ctypes.POINTER(i)] * 4
-        lib.ssd_chunk_scan_bwd.argtypes = [i] + [p] * 24 + [i] * 8 + [ll] * 12 + [p]
-        lib.ssd_chunk_bwd_occupancy.argtypes = [i] * 2 + [ctypes.POINTER(i)] * 4
+        lib.ssd_chunk_scan_bwd.argtypes = [i] + [p] * 26 + [i] * 9 + [ll] * 12 + [p]
+        lib.ssd_chunk_bwd_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)] * 6
         for fn in (lib.ssd_chunk_scan, lib.ssd_chunk_occupancy, lib.ssd_chunk_scan_bwd,
                    lib.ssd_chunk_bwd_occupancy):
             fn.restype = ctypes.c_int
@@ -242,56 +244,89 @@ def ssd_chunk_cuda(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 def ssd_bwd_device_kernels(nchunks: int, has_h0: bool) -> int:
-    """Device kernels one backward call issues: the per-tile gradients, the
-    log-decay's reverse cumsum and the ordered sums; before them, with
-    several chunks or an h0, the chunk-parallel states of dh and the
-    ordered reverse carry."""
-    return 5 if nchunks > 1 or has_h0 else 3
+    """Device kernels one backward call issues: S (with several chunks or an
+    h0 beside the chunk-parallel states of dh), the ordered reverse carry
+    (several chunks or an h0 only), the key blocks, the query blocks, the
+    log-decay's reverse cumsum and the ordered sums."""
+    return 6 if nchunks > 1 or has_h0 else 5
 
 
 def ssd_bwd_plan(B: int, T: int, H: int, G: int, P: int, N: int, Q: int,
                  has_h0: bool = False) -> dict:
-    """The backward's grid, from the shapes alone: a block per (batch,
-    chunk, head, tile of 64 rows) for the gradients (each walks its tile as
-    keys against the query tiles after it, then as queries against the key
-    tiles before it: ``tiles + 1`` tile pairs a block); a block per
-    (batch, chunk, head) for the states of dh (with several chunks or an
-    h0) and for the reverse cumsum; one thread per (batch, row, group,
-    state column) for the sums over the group's heads, and one block for
-    dA's.  Also the device kernels a call issues."""
-    nc = T // Q
-    nt = -(-Q // BWD_TILE)
+    """The backward's plan, from the shapes alone.
+
+    ``heads_per_block``: the heads of one group a key or query block walks
+    in order, summing their db or dc in its registers (so the partials are
+    ``[B, T, H / heads_per_block, N]``): the most of 4, 2 and 1 that
+    divides a group's heads and still gives ``BWD_MIN_BLOCKS`` key blocks
+    (about two waves of two blocks an SM), else 1.  ``tools/ssd_variants.py
+    --bwd``'s sweep at three shapes (PERF.md §6): where 2 and 4 heads a
+    block both keep 512 key blocks or more they tie within 1.3%, ahead of
+    one head a block by 2-5%; every plan left with 256 key blocks or fewer
+    lost 12-77%.  Between 256 and 512 blocks the threshold is not measured.
+
+    Also the blocks of each kernel: a key and a query block per (batch,
+    chunk, slab, 64-row tile), the S role's bands of 64 rows per (batch,
+    chunk, group) beside the states of dh (per (batch, chunk, head), two
+    column splits for P over 64), and the device kernels a call issues."""
+    nc, nt, nq, rep = T // Q, -(-Q // BWD_TILE), -(-Q // ROW_TILE), H // G
+    hb = next(h for h in (4, 2, 1)
+              if rep % h == 0 and (h == 1 or B * nc * nt * (H // h) >= BWD_MIN_BLOCKS))
     states = nc > 1 or has_h0
-    return {"tiles": nt, "chunk_blocks": B * nc * H * nt,
-            "state_blocks": B * nc * H if states else 0, "finish_blocks": B * nc * H,
+    dspl = 1 if P <= 64 else 2
+    return {"tiles": nt, "heads_per_block": hb,
+            "key_blocks": B * nc * nt * (H // hb), "query_blocks": B * nc * nt * (H // hb),
+            "s_blocks": B * nc * G * -(-nq // WARPS),
+            "state_blocks": B * nc * H * dspl if states else 0, "finish_blocks": B * nc * H,
             "reduce_blocks": -(-B * T * G * N // BWD_THREADS) + 1,
             "device_kernels": ssd_bwd_device_kernels(nc, has_h0)}
 
 
+def _bwd_parts(B: int, T: int, H: int, G: int, P: int, N: int, Q: int, has_h0: bool,
+               plan: dict) -> list:
+    """The backward's workspace as (name, floats) in the order the C entry
+    takes them, each part rounded up to 4 floats (a 16-byte boundary); 0
+    for a part the call does not use."""
+    nc, nt, qp = T // Q, -(-Q // BWD_TILE), -(-Q // ROW_TILE) * ROW_TILE
+    states = nc > 1 or has_h0
+    rows, slab_rows = B * T * H, B * T * (H // plan["heads_per_block"])
+    parts = [("dhs", B * nc * H * P * N if states else 0), ("dec", B * nc * H if states else 0),
+             ("sws", B * nc * G * qp * qp),
+             ("lds", B * nc * H * nt * (nt + 1) // 2 * BWD_TILE ** 2),
+             ("dbp", slab_rows * N), ("dcp", slab_rows * N), ("rrow", rows), ("ddir", rows),
+             ("wst", rows), ("urow", rows), ("dAt", B * nc * H * nt), ("dAp", B * nc * H)]
+    return [(n, -(-f // 4) * 4) for n, f in parts]
+
+
 def ssd_bwd_workspace_floats(B: int, T: int, H: int, G: int, P: int, N: int, Q: int,
-                             has_h0: bool = False) -> int:
-    """fp32 workspace of a backward call: with several chunks or an h0, the
+                             has_h0: bool = False, plan: Optional[dict] = None) -> int:
+    """fp32 workspace of a backward call at ``plan`` (default: the shapes'
+    own), each part at a 16-byte boundary: with several chunks or an h0, the
     states of dh ``[B, T/Q, H, P, N]`` and each chunk's decay ``[B, T/Q,
-    H]``; always each head's db and dc ``[B, T, H, N]``, four per-row
-    values ``[B, T, H]`` (c . dc, ddt's direct part, the dh_out term W and
-    the h_in term U of dcs), each key tile's part of dA ``[B, T/Q, H,
-    tiles]`` and each chunk's ``[B, T/Q, H]``."""
-    nc, nt = T // Q, -(-Q // BWD_TILE)
-    states = B * nc * H * (P * N + 1) if nc > 1 or has_h0 else 0
-    return states + 2 * B * T * H * N + 4 * B * T * H + B * nc * H * (nt + 1)
+    H]``; always S ``[B, T/Q, G, QP, QP]`` (QP = Q rounded up to 16), L o D
+    o dt of each causal pair of 64-row tiles ``[B, T/Q, H, tiles (tiles +
+    1) / 2, 64, 64]``, each head slab's db and dc ``[B, T, H /
+    heads_per_block, N]``, four per-row values ``[B, T, H]`` (c . dc, ddt's
+    direct part, the dh_out term W and the h_in term U of dcs), each key
+    tile's part of dA ``[B, T/Q, H, tiles]`` and each chunk's ``[B, T/Q,
+    H]``."""
+    plan = plan or ssd_bwd_plan(B, T, H, G, P, N, Q, has_h0)
+    return sum(f for _, f in _bwd_parts(B, T, H, G, P, N, Q, has_h0, plan))
 
 
-def bwd_occupancy(dtype: torch.dtype, P: int) -> dict:
-    """Blocks per SM of the current card for ``ssd_bwd_chunk`` and
-    ``ssd_bwd_states`` at head width P, and their dynamic shared memory, as
-    the CUDA runtime's occupancy calculator gives them."""
+def bwd_occupancy(dtype: torch.dtype, P: int, N: int = MAX_N, Q: int = MAX_Q) -> dict:
+    """Blocks per SM of the current card for ``ssd_bwd_keys``,
+    ``ssd_bwd_queries`` and ``ssd_bwd_states`` at head width P, state width
+    N and chunks of Q rows, and their dynamic shared memory, as the CUDA runtime's
+    occupancy calculator gives them."""
     _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
-    vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = _lib()["bwd_occupancy"](_DTYPE_CODE[dtype], P, *(ctypes.byref(v) for v in vals))
+    vals = [ctypes.c_int(0) for _ in range(6)]
+    rc = _lib()["bwd_occupancy"](_DTYPE_CODE[dtype], P, N, Q, *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"ssd_chunk backward occupancy query failed: cudaError {rc}")
-    return {"chunk_blocks_per_sm": vals[0].value, "state_blocks_per_sm": vals[1].value,
-            "chunk_smem_bytes": vals[2].value, "state_smem_bytes": vals[3].value}
+    return {"key_blocks_per_sm": vals[0].value, "query_blocks_per_sm": vals[1].value,
+            "state_blocks_per_sm": vals[2].value, "key_smem_bytes": vals[3].value,
+            "query_smem_bytes": vals[4].value, "state_smem_bytes": vals[5].value}
 
 
 def ssd_chunked_bwd_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
@@ -321,7 +356,13 @@ def ssd_chunked_bwd_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
                "states must be the forward's [B,T/Q,H,P,N] float32 chunk states")
     tensors = [t for t in (xh, B_, C_, dt, A, h0, dy, dh_final, states) if t is not None]
     _check(on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
+    _check(all(aligned16(t) and (t.shape[2] == 1 or t.stride(2) * t.element_size() % 16 == 0)
+               for t in (xh, B_, C_)) and all(t.data_ptr() % 16 == 0 for t in (
+                   dy, h0, dh_final, states) if t is not None),
+           "xh and B/C must start and have (b, t, head) strides at multiples of 16 bytes, "
+           "and dy, h0, dh_final and states start at one")
     has_h0 = h0 is not None
+    plan = ssd_bwd_plan(Bsz, T, H, G, P, N, Q, has_h0)
     hin = states if nc > 1 else h0
     dxh = torch.empty((Bsz, T, H, P), dtype=xh.dtype, device=dev)
     dB = torch.empty((Bsz, T, G, N), dtype=xh.dtype, device=dev)
@@ -329,15 +370,10 @@ def ssd_chunked_bwd_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     ddt = torch.empty((Bsz, T, H), dtype=torch.float32, device=dev)
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
     dh0 = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev) if has_h0 else None
-    ws = torch.empty((ssd_bwd_workspace_floats(Bsz, T, H, G, P, N, Q, has_h0),),
-                     dtype=torch.float32, device=dev)
-    n_st = Bsz * nc * H * P * N if nc > 1 or has_h0 else 0
-    n_dec = Bsz * nc * H if n_st else 0
-    rows = Bsz * T * H
-    sizes = (n_st, n_dec, rows * N, rows * N, rows, rows, rows, rows,
-             Bsz * nc * H * -(-Q // BWD_TILE), Bsz * nc * H)
+    sizes = _bwd_parts(Bsz, T, H, G, P, N, Q, has_h0, plan)
+    ws = torch.empty((sum(f for _, f in sizes),), dtype=torch.float32, device=dev)
     parts, off = [], 0
-    for n in sizes:
+    for _, n in sizes:
         parts.append(ws[off:].data_ptr() if n else None)
         off += n
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -346,6 +382,7 @@ def ssd_chunked_bwd_cuda(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
                 dt.data_ptr(), A.data_ptr(), ptr(hin), ptr(dh_final), dy.data_ptr(),
                 dxh.data_ptr(), dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                 ptr(dh0), *parts, Bsz, T, H, G, P, N, Q, int(has_h0),
+                plan["heads_per_block"],
                 xh.stride(0), xh.stride(1), xh.stride(2),
                 B_.stride(0), B_.stride(1), B_.stride(2),
                 C_.stride(0), C_.stride(1), C_.stride(2),

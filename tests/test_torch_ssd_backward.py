@@ -14,8 +14,9 @@ in fp64, the exact value (fp32 autograd is no yardstick for dA: its
 -sum dt dl route carries 1e-6 to 4e-5 of dA's largest entry in rounding,
 which the plain backward's direct form of dA does not); 1e-4 against JAX
 (the grads rule of the port's training tests: another framework's fp32
-sums and exps, dA included).  The kernel's products are plain fp32 FMAs
-(no tf32 split), so no rounding of its operands needs emulating here.
+sums and exps, dA included).  The kernel's tensor-core arithmetic (three
+tf32 products, its tiles and head slabs) is emulated in
+``test_torch_ssd_bwd_numerics.py``.
 """
 import importlib.util
 import math
@@ -234,40 +235,74 @@ def test_no_grad_path_is_unchanged():
 # the backward's plan, workspace and device kernels: plain functions of shapes
 
 
-@pytest.mark.parametrize("B,T,H,G,P,N,Q,h0,tiles,kernels", [
-    (4, 512, 64, 1, 64, 128, 256, False, 4, 5),     # the mamba2-1.3b trainer's call
-    (2, 256, 64, 1, 64, 128, 256, False, 4, 3),     # one chunk, a zero state
-    (2, 256, 64, 1, 64, 128, 256, True, 4, 5),      # one chunk with an h0
-    (2, 300, 64, 1, 64, 128, 150, False, 3, 5),
-    (2, 24, 8, 1, 32, 16, 8, True, 1, 5),           # the smoke widths
-    (1, 257, 64, 1, 64, 128, 1, False, 1, 5),
+@pytest.mark.parametrize("B,T,H,G,P,N,Q,h0,tiles,hb,kernels", [
+    (4, 512, 64, 1, 64, 128, 256, False, 4, 4, 6),     # the mamba2-1.3b trainer's call
+    (2, 256, 64, 1, 64, 128, 256, False, 4, 1, 5),     # one chunk, a zero state
+    (4, 256, 64, 1, 64, 128, 256, True, 4, 2, 6),      # one chunk with an h0
+    (2, 300, 64, 1, 64, 128, 150, False, 3, 1, 6),
+    (2, 24, 8, 1, 32, 16, 8, True, 1, 1, 6),           # the smoke widths
+    (1, 257, 64, 1, 64, 128, 1, False, 1, 4, 6),
+    (1, 512, 64, 8, 64, 128, 256, False, 4, 1, 6),     # 8 heads a group, 512 blocks at 1
+    (4, 2048, 64, 64, 64, 128, 256, False, 4, 1, 6),   # a head a group
+    (16, 512, 12, 2, 128, 64, 256, True, 4, 2, 6),     # 6 heads a group, the wide build
 ])
-def test_bwd_plan_is_a_function_of_shapes(B, T, H, G, P, N, Q, h0, tiles, kernels):
+def test_bwd_plan_is_a_function_of_shapes(B, T, H, G, P, N, Q, h0, tiles, hb, kernels):
+    """Key and query blocks per (batch, chunk, head slab, 64-row tile), the
+    S role's bands of 4 row tiles per (batch, chunk, group), the states of
+    dh per (batch, chunk, head) (two column splits past P 64) only with
+    several chunks or an h0; five device kernels a call, six with the
+    reverse carry."""
     plan = K6.ssd_bwd_plan(B, T, H, G, P, N, Q, h0)
     nc = T // Q
     assert plan["tiles"] == tiles == math.ceil(Q / K6.BWD_TILE)
-    assert plan["chunk_blocks"] == B * nc * H * tiles
+    assert plan["heads_per_block"] == hb and (H // G) % hb == 0
+    # the most heads a block that keeps 512 key blocks
+    assert hb == 1 or plan["key_blocks"] >= 512
+    assert hb == 4 or (H // G) % (2 * hb) or B * nc * tiles * H // (2 * hb) < 512
+    assert plan["key_blocks"] == plan["query_blocks"] == B * nc * (H // hb) * tiles
+    assert plan["s_blocks"] == B * nc * G * math.ceil(math.ceil(Q / 16) / 4)
     assert plan["finish_blocks"] == B * nc * H
-    assert plan["state_blocks"] == (B * nc * H if nc > 1 or h0 else 0)
+    assert plan["state_blocks"] == (B * nc * H * (1 if P <= 64 else 2) if nc > 1 or h0 else 0)
     assert plan["reduce_blocks"] == math.ceil(B * T * G * N / 256) + 1
     assert plan["device_kernels"] == kernels == K6.ssd_bwd_device_kernels(nc, h0)
 
 
-def test_bwd_workspace():
-    # the trainer's call: dh states and decays, db/dc per head, four row
+def _r4(n):
+    return -(-n // 4) * 4
+
+
+@pytest.mark.parametrize("args,plan_over,want", [
+    # the trainer's call: dh states and decays, S once (one group, 256 x 256),
+    # L o D o dt of 10 tile pairs a head, db/dc per slab of 4 heads, four row
     # values, dA's parts of each key tile (4) and of each chunk
-    assert K6.ssd_bwd_workspace_floats(4, 512, 64, 1, 64, 128, 256) == (
-        4 * 2 * 64 * (64 * 128 + 1) + 2 * 4 * 512 * 64 * 128 + 4 * 4 * 512 * 64
-        + 4 * 2 * 64 * 5)
-    # one chunk and no h0: no states
-    assert K6.ssd_bwd_workspace_floats(2, 256, 64, 1, 64, 128, 256) == (
-        2 * 2 * 256 * 64 * 128 + 4 * 2 * 256 * 64 + 2 * 64 * 5)
-    assert K6.ssd_bwd_workspace_floats(2, 256, 64, 1, 64, 128, 256, True) == (
-        2 * 64 * (64 * 128 + 1) + 2 * 2 * 256 * 64 * 128 + 4 * 2 * 256 * 64 + 2 * 64 * 5)
-    # Q 150: three key tiles
-    assert K6.ssd_bwd_workspace_floats(2, 300, 64, 1, 64, 128, 150) == (
-        2 * 2 * 64 * (64 * 128 + 1) + 2 * 2 * 300 * 64 * 128 + 4 * 2 * 300 * 64
-        + 2 * 2 * 64 * 4)
+    ((4, 512, 64, 1, 64, 128, 256), {},
+     4 * 2 * 64 * 64 * 128 + 4 * 2 * 64 + 4 * 2 * 256 * 256 + 4 * 2 * 64 * 10 * 64 * 64
+     + 2 * 4 * 512 * 16 * 128 + 4 * 4 * 512 * 64 + 4 * 2 * 64 * 4 + 4 * 2 * 64),
+    # one chunk and no h0: no states; 512 key blocks at a head a block
+    ((2, 256, 64, 1, 64, 128, 256), {},
+     2 * 256 * 256 + 2 * 64 * 10 * 64 * 64 + 2 * 2 * 256 * 64 * 128 + 4 * 2 * 256 * 64
+     + 2 * 64 * 4 + 2 * 64),
+    ((2, 256, 64, 1, 64, 128, 256, True), {},
+     2 * 64 * 64 * 128 + 2 * 64 + 2 * 256 * 256 + 2 * 64 * 10 * 64 * 64
+     + 2 * 2 * 256 * 64 * 128 + 4 * 2 * 256 * 64 + 2 * 64 * 4 + 2 * 64),
+    # Q 150: three tiles, six pairs, S 160 x 160
+    ((2, 300, 64, 1, 64, 128, 150), {},
+     2 * 2 * 64 * 64 * 128 + 2 * 2 * 64 + 2 * 2 * 160 * 160 + 2 * 2 * 64 * 6 * 64 * 64
+     + 2 * 2 * 300 * 64 * 128 + 4 * 2 * 300 * 64 + 2 * 2 * 64 * 3 + 2 * 2 * 64),
+    # a plan forced to a head a block: db/dc partials per head
+    ((4, 512, 64, 1, 64, 128, 256), dict(heads_per_block=1),
+     4 * 2 * 64 * 64 * 128 + 4 * 2 * 64 + 4 * 2 * 256 * 256 + 4 * 2 * 64 * 10 * 64 * 64
+     + 2 * 4 * 512 * 64 * 128 + 4 * 4 * 512 * 64 + 4 * 2 * 64 * 4 + 4 * 2 * 64),
+    # the smoke widths: parts rounded up to 16-byte boundaries
+    ((2, 24, 8, 1, 32, 16, 8, True), {},
+     2 * 3 * 8 * 32 * 16 + _r4(2 * 3 * 8) + 2 * 3 * 16 * 16 + 2 * 3 * 8 * 64 * 64
+     + 2 * 2 * 24 * 8 * 16 + 4 * 2 * 24 * 8 + 2 * 3 * 8 + _r4(2 * 3 * 8)),
+])
+def test_bwd_workspace(args, plan_over, want):
+    plan = {**K6.ssd_bwd_plan(*args), **plan_over}
+    assert K6.ssd_bwd_workspace_floats(*args, plan=plan) == want
+    if not plan_over:
+        assert K6.ssd_bwd_workspace_floats(*args) == want
 
 
 # ---------------------------------------------------------------------------
@@ -314,15 +349,19 @@ def test_wrapper_hands_the_backward_its_arguments(monkeypatch, T, chunk, h0, dhf
     entry, a = calls[-1]
     assert entry is K6._bwd_fn
     # (dtype, x, b, c, dt, A, hin, dh_final, dy, dx, dB, dC, ddt, dA, dh0, dhs, dec,
-    #  dbp, dcp, rrow, ddir, wst, urow, dAt, dAp, B, T, H, G, P, N, Q, has_h0, 12 strides)
-    assert len(a) == 1 + 24 + 8 + 12
+    #  sws, lds, dbp, dcp, rrow, ddir, wst, urow, dAt, dAp, B, T, H, G, P, N, Q, has_h0,
+    #  heads_per_block, 12 strides)
+    assert len(a) == 1 + 26 + 9 + 12
     assert a[6] == (states.data_ptr() if nc > 1 else (hinit.data_ptr() if h0 else None))
     assert (a[7] is None) == (not dhf) and (a[14] is None) == (not h0)
     runs_states = nc > 1 or h0
     assert all((a[i] is None) == (not runs_states) for i in (15, 16))
-    assert all(a[i] is not None for i in range(17, 25))
-    assert tuple(a[25:33]) == (B, T, H, G, P, N, Q, int(h0))
-    assert tuple(a[33:36]) == xh.stride()[:3] and tuple(a[42:45]) == dt.stride()
+    assert all(a[i] is not None for i in range(17, 27))
+    assert all(a[i] % 16 == 0 for i in range(15, 27) if a[i] is not None)
+    plan = K6.ssd_bwd_plan(B, T, H, G, P, N, Q, h0)
+    assert tuple(a[27:35]) == (B, T, H, G, P, N, Q, int(h0))
+    assert a[35] == plan["heads_per_block"] == 1
+    assert tuple(a[36:39]) == xh.stride()[:3] and tuple(a[45:48]) == dt.stride()
 
 
 def _bwd_args(**over):
@@ -346,6 +385,7 @@ def _bwd_args(**over):
     ({"chunk": 512, "xh": torch.zeros((1, 512, 4, 16)), "B_": torch.zeros((1, 512, 1, 16)),
       "C_": torch.zeros((1, 512, 1, 16)), "dt": torch.zeros((1, 512, 4)),
       "dy": torch.zeros((1, 512, 4, 16))}, "Q 512"),
+    ({"xh": torch.zeros(1 * 16 * 4 * 16 + 1)[1:].view(1, 16, 4, 16)}, "16 bytes"),
 ])
 def test_bwd_wrapper_refuses_what_it_cannot_launch(monkeypatch, over, match):
     """The backward's wrapper checks before any launch, the forward's checks

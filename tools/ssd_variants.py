@@ -4,8 +4,12 @@
 process.
 
     python3 tools/ssd_variants.py [--serve]   # from the repository root, on a GPU
+    python3 tools/ssd_variants.py --bwd [--parent DIR]
 
-``--serve``: the serving prefills only, and no sweep.
+``--serve``: the serving prefills only, and no sweep.  ``--bwd``: the
+backward's ablations instead (below); ``--parent DIR``: also time the
+backward of another checkout unpacked at DIR (``git archive``), before and
+after this one's, in its own process.
 
 Each source variant is a copy of the source with text substitutions, built
 with the same ``nvcc`` flags into ``build/variants/`` (gitignored):
@@ -28,6 +32,32 @@ with the same ``nvcc`` flags into ``build/variants/`` (gitignored):
                   bf16, 3 in fp32), or 2 stages in both;
 - ``divcopy``     every tile copy indexed by a division per 16-byte chunk
                   (the general path) instead of per-thread pointer steps.
+
+The backward's variants (``--bwd``), at phase 2d's trainer case
+(``train_b4_t512``: B 4, T 512, 64 heads of 64, N 128, two chunks) in fp32
+and bf16, and at ``t2048_8chunks`` and ``g8_t512``:
+
+- ``base``         the source as it is;
+- ``noproducts``   every ``mma.sync`` replaced by one add;
+- ``nocopy``       the rings copy only their first stage;
+- ``tf32x1``       one tf32 product where three (or two) run: wrong
+                   results, only its time counts;
+- ``s_each_head``  S = c b^T computed once a head, not once a group (each
+                   head's copy written over its group's slot, so the reads
+                   stay as they are);
+- ``d_twice``      the key blocks write no L o D o dt and the query blocks
+                   recompute D = dy x^T from x staged in its place;
+- forced plans: every ``heads_per_block`` that divides a group's heads;
+- ``parent``      the other checkout's backward (``--parent``), timed in a
+  process of its own before and after.
+
+Each line gives the times of ``base`` first and last and, for ``base``, its
+device time split by kernel (``torch.profiler``).  ``s_each_head``,
+``d_twice`` and the forced plans compute right results: each one's
+``<name>_err`` is the largest over the gradients of max |got - base| over
+max |base|, and ``right`` says whether every gradient is within its limit:
+1e-4 for an fp32 gradient, 1e-2 for a bf16 one (a bf16 gradient summed in
+another order may round one bf16 step apart).
 
 The wrapper is pointed at each library in turn and timed with
 ``chip_smoke.device_ms`` at phase 2d's cases, ``base`` first and last,
@@ -80,16 +110,78 @@ VARIANTS = {
                      "p.pp, lane);",
               "        acc[0][0] += m[0][0] + m[1][3];")],
 }
+BWD_VARIANTS = {
+    "base": [],
+    "noproducts": VARIANTS["noproducts"],
+    "nocopy": [("cu", "      if (s + 1 < nst) load_stage(s + 1);\n", ""),
+               ("cu", "    if (s + 1 < nst) load_stage(s + 1);\n", "")],
+    "tf32x1": [("cu", "constexpr bool kBwd3 = true;", "constexpr bool kBwd3 = false;")],
+    "s_each_head": [
+        ("cu", "  p.n_cb = G * (((Q + TR - 1) / TR", "  p.n_cb = H * (((Q + TR - 1) / TR"),
+        ("cu", "  const int grp = sb / nband, r0", "  const int grp = sb / nband % p.G, r0")],
+    "d_twice": [
+        ("cu", "        {   // L o D o dt of the pair, read by the query blocks\n",
+         "        if (false) {   // L o D o dt of the pair, read by the query blocks\n"),
+        ("cu", "  return tile_bytes<T>(KS, N) + al16(TB * RQ * 4) + al16(TB * RQ * 4);",
+         "  return tile_bytes<T>(KS, N) + al16(TB * RQ * 4) + tile_bytes<T>(KS, P);"),
+        ("cu", """\
+      const int jt = j0 / TB, pr = it * (it + 1) / 2 + jt;
+      load_rows<float, KNT>(reinterpret_cast<float*>(st + o3), RQ,
+                            LDg + static_cast<long long>(pr) * TB * TB + (j0 - jt * TB), TB, 0,
+                            TB, TB, TB, KS);
+""", """\
+      load_rows<T, KNT>(reinterpret_cast<T*>(st + o3), rowT<T>(p.P),
+                        static_cast<const T*>(p.x) + bb * p.x_sb + h * p.x_sh + t0 * p.x_st,
+                        p.x_st, j0, KS, p.Q, p.P, round8(p.P));
+"""),
+        ("cu", """\
+      {   // read from the key blocks' workspace
+        const float* lq = reinterpret_cast<const float*>(st + o3) + ir * RQ + 2 * t4;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+          if (kk < khi) {
+            const float2 u = *reinterpret_cast<const float2*>(lq + kk * 8);
+            const float2 v = *reinterpret_cast<const float2*>(lq + 8 * RQ + kk * 8);
+            a[kk][0] = u.x;
+            a[kk][1] = u.y;
+            a[kk][2] = v.x;
+            a[kk][3] = v.y;
+          }
+      }
+""", """\
+      {   // D = dy_i x_j^T, then the decay and dt_j
+        const T* xq = reinterpret_cast<const T*>(st + o3);
+        const int RX = rowT<T>(p.P);
+        for (int kk = 0; kk < p.P / 8; ++kk) {
+          float v[4];
+          uint32_t ab[4], as[4];
+          frag_rows(v, DYs + 16 * ws * RY, RY, kk * 8, lane);
+          split4(v, ab, as);
+          mma_tiles<false, EX, KT>(a, ab, as, xq + g * RX + kk * 8 + t4, 8 * RX, 4, 0, khi);
+        }
+#pragma unroll
+        for (int n = 0; n < KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1 ? ib : ia, j = j0 + n * 8 + 2 * t4 + (e & 1);
+            a[n][e] = j <= i && i < p.Q ? ex2(cs2[i] - cs2[j]) * a[n][e] * dts[j] : 0.f;
+          }
+      }
+""")],
+}
+# the backward's variants whose results are right (held against base's)
+BWD_RIGHT = ("s_each_head", "d_twice")
+BWD_CASES = ["train_b4_t512", "t2048_8chunks", "g8_t512"]
 SERVE = ["serve_b8_t16", "serve_b1_t64", "serve_b1_t128", "serve_b1_t256", "serve_b1_t256_g8"]
 LONG = ["prefill_b4_t2048_ragged", "t300_q150", "t257_q1"]
 
 
-def variant_dirs() -> dict:
+def variant_dirs(variants: dict) -> dict:
     """name -> directory holding its ssd_chunk.cu and attn_tile.cuh."""
     src = open(SOURCE).read()
     hdr = open(os.path.join(CSRC, "attn_tile.cuh")).read()
     out = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         d = os.path.join(ROOT, "build", "variants", "ssd_" + name)
         os.makedirs(d, exist_ok=True)
         texts = {"cu": src, "cuh": hdr}
@@ -103,9 +195,9 @@ def variant_dirs() -> dict:
     return out
 
 
-def build_variants(build, report) -> dict:
+def build_variants(build, report, variants: dict = VARIANTS) -> dict:
     """Compile every variant at once; name -> library path."""
-    dirs = variant_dirs()
+    dirs = variant_dirs(variants)
     procs = {}
     for name, d in dirs.items():
         lib = os.path.join(d, "libssd_chunk.so")
@@ -133,6 +225,149 @@ def point_wrapper_at(K6, lib: str) -> None:
     fn.restype = ctypes.c_int
     K6._lib()
     K6._fns["scan"] = fn
+
+
+def point_bwd_at(K6, lib: str) -> None:
+    fn = ctypes.CDLL(lib).ssd_chunk_scan_bwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [i] + [p] * 26 + [i] * 9 + [ll] * 12 + [p]
+    fn.restype = ctypes.c_int
+    K6._lib()
+    K6._fns["bwd"] = fn
+
+
+# the other checkout's backward at one of phase 2d's backward cases, in its
+# own process: prints one JSON line {"ms": ...}
+OTHER_BWD = """
+import json, sys
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import ssd_chunk as K6
+torch.backends.cuda.matmul.allow_tf32 = False
+cases = {n: (kw, dhf, i) for i, (n, kw, dhf) in enumerate(cs.SSD_BWD_CASES)}
+kw, dhf, i = cases[sys.argv[2]]
+c = cs.make_ssd_case(torch, sys.argv[2], dtype=sys.argv[3], seed=500 + i, **kw)
+g = torch.Generator(device="cuda").manual_seed(600 + i)
+xh = c["xh"]
+dy = torch.randn(xh.shape[:3] + (xh.shape[3],), generator=g, device="cuda")
+y, h, states = K6.ssd_chunked_cuda(xh, c["B"], c["C"], c["dt"], c["A"], c["h0"], c["chunk"])
+args = (xh, c["B"], c["C"], c["dt"], c["A"], c["h0"], c["chunk"], dy, None, states)
+sets = [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args) for _ in range(4)]
+print(json.dumps({"ms": cs.device_ms(torch, K6.ssd_chunked_bwd_cuda, sets, iters=10)}))
+"""
+
+
+def other_bwd_ms(root: str, name: str, dtype: str):
+    out = subprocess.run([sys.executable, "-c", OTHER_BWD, root, name, dtype],
+                         capture_output=True, text=True, cwd=root)
+    if out.returncode != 0:
+        return {"error": out.stderr[-2000:]}
+    return json.loads(out.stdout.strip().splitlines()[-1])["ms"]
+
+
+def bwd_main(torch, cs, build, ref, K6, report) -> int:
+    """The backward's ablations (module docstring)."""
+    argv = sys.argv[1:]
+    parent = argv[argv.index("--parent") + 1] if "--parent" in argv else None
+    if parent is not None:
+        parent = os.path.abspath(parent)
+        report({"parent_build": other_bwd_ms(parent, "smoke_widths_t24", "float32")})
+    libs = build_variants(build, report, BWD_VARIANTS)
+    cases = {n: (kw, dhf, i) for i, (n, kw, dhf) in enumerate(cs.SSD_BWD_CASES)}
+    rule = K6.ssd_bwd_plan
+
+    def prepared(name, dtype):
+        kw, dhf, i = cases[name]
+        c = cs.make_ssd_case(torch, name, dtype=dtype, seed=500 + i, **kw)
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        dy = torch.randn(c["xh"].shape, generator=g, device="cuda")
+        point_bwd_at(K6, libs["base"])
+        y, h, states = K6.ssd_chunked_cuda(c["xh"], c["B"], c["C"], c["dt"], c["A"], c["h0"],
+                                           c["chunk"])
+        args = (c["xh"], c["B"], c["C"], c["dt"], c["A"], c["h0"], c["chunk"], dy, None, states)
+        return c, [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+                   for _ in range(4)]
+
+    def timed(sets):
+        return cs.device_ms(torch, K6.ssd_chunked_bwd_cuda, sets, iters=10)
+
+    def err(sets, want):
+        """Largest over the gradients of max |got - want| / max |want|, and
+        whether every gradient is within its limit (1e-4 fp32, 1e-2 bf16)."""
+        got = K6.ssd_chunked_bwd_cuda(*sets[0])
+        rel = [(float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(
+            1e-30)), 1e-4 if w.dtype == torch.float32 else 1e-2)
+            for g, w in zip(got, want) if w is not None]
+        return max(r for r, _ in rel), all(r <= lim for r, lim in rel)
+
+    def forced(**over):
+        def plan(*a, **k):
+            return {**rule(*a, **k), **over}
+        return plan
+
+    def by_kernel(sets, calls=5):
+        """Device ms of each kernel a call launches (once each): the mean
+        over its launches, since the profiler now and then drops a call's
+        events and a sum over calls would read low."""
+        from torch.profiler import ProfilerActivity, profile
+        K6.ssd_chunked_bwd_cuda(*sets[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                K6.ssd_chunked_bwd_cuda(*sets[i % len(sets)])
+            torch.cuda.synchronize()
+        tot, cnt = {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = cs.kernel_name(e.name)
+            if name.startswith("ssd_bwd"):
+                tot[name] = tot.get(name, 0.0) + e.device_time_total / 1e3
+                cnt[name] = cnt.get(name, 0) + 1
+        return {n: tot[n] / cnt[n] for n in tot}
+
+    for name in BWD_CASES:
+        for dtype in ("float32", "bfloat16"):
+            if name != BWD_CASES[0] and dtype == "bfloat16":
+                continue
+            c, sets = prepared(name, dtype)
+            B, T, H, P = c["xh"].shape
+            G, N = c["B"].shape[2], c["B"].shape[3]
+            Q = ref.ssd_chunk_len(T, c["chunk"])
+            row = {"case": name, "dtype": dtype, "shape": c["shape"],
+                   "plan": {k: v for k, v in rule(B, T, H, G, P, N, Q).items()
+                            if k == "heads_per_block"}}
+            if parent is not None:
+                row["parent"] = other_bwd_ms(parent, name, dtype)
+            want = K6.ssd_chunked_bwd_cuda(*sets[0])
+            errs, oks = {}, []
+            for v in ["base"] + [n for n in BWD_VARIANTS if n != "base"]:
+                point_bwd_at(K6, libs[v])
+                row[v] = timed(sets)
+                if v in BWD_RIGHT:
+                    errs[v + "_err"], ok = err(sets, want)
+                    oks.append(ok)
+            point_bwd_at(K6, libs["base"])
+            for hb in (1, 2, 4, 8):
+                if (H // G) % hb == 0:
+                    K6.ssd_bwd_plan = forced(heads_per_block=hb)
+                    row[f"hb{hb}"] = timed(sets)
+                    errs[f"hb{hb}_err"], ok = err(sets, want)
+                    oks.append(ok)
+                    K6.ssd_bwd_plan = rule
+            row.update(errs, right=all(oks))
+            row["base_again"] = timed(sets)
+            row["base_by_kernel"] = by_kernel(sets)
+            if parent is not None:
+                row["parent_again"] = other_bwd_ms(parent, name, dtype)
+            b = cs.ssd_bwd_bound(torch, ref, c, None)
+            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            report(row)
+            del c, sets
+            torch.cuda.empty_cache()
+    return 0
 
 
 def legal_plans(K6, B, T, H, G, P, N, Q):
@@ -171,6 +406,8 @@ def main() -> int:
         log.flush()
     report({"nvidia_smi": cs.smi(), "kind": torch.cuda.get_device_name(0)})
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "--bwd" in sys.argv[1:]:
+        return bwd_main(torch, cs, build, ref, K6, report)
     libs = build_variants(build, report)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = dict(cs.SSD_CASES)
