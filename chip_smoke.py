@@ -98,6 +98,24 @@ Phases, one report line each (the last line is the JSON verdict):
             and the first step's logits no further from fp32 than the
             whole route's, 1.5x in relative RMS; the elementwise 1e-2
             comparison and the greedy tokens reported.
+6e. kv_quant  the int8 KV cache (``kv_quant`` on both models): the
+            full-width pair cut to 2 layers, fp32, on phase 6a's trace
+            served paged (12 blocks, preempting), contiguous, chunked and
+            mixed, a shared-prompt trace served with the prefix cache (hits,
+            zero-suffix admissions, one through a copy-on-write), and solo
+            ``generate``: equal tokens; speculative == greedy; every
+            StepTrace replayed; K2 == K3 through the model's paged
+            ``decode_step``; card against CPU (logits 2e-3, codes at most 1
+            apart on at most 1e-3 of them, scales 1e-6 relative).  Then bf16
+            at full depth: phase 6b's pair, trace and LUT on the bf16 pool
+            of 144 blocks and on an int8 pool of 283 blocks (the same
+            bytes): every request finished, no preemption, K1 and K3
+            launched over int8 only, greedy agreement with the bf16 run;
+            layer 0's dequantised rows within 1.01 stored scales of the
+            bf16 rows, every row's largest |code| 127, the first step's
+            logits within 0.05 relative RMS of the fp32 unquantised route;
+            one profiled paged step at B = 16, s = 0 of each pool.  K1's and
+            K3's int8 routes also have phase 2/2b rows at these shapes.
 7.  train   the training path: the full-width OPT-125M draft distilled for
             20 steps against phase 4's OPT-6.7B teacher (the KL must fall;
             acceptance at s = 4 before and after); the internlm2-1.8b
@@ -397,19 +415,20 @@ def run_kernel_case(torch, K1, ref, c):
     sets = [tuple(None if x is None else x.clone() for x in args) for _ in range(copies)]
     kernel_ms = device_ms(torch, kernel, sets)
     plain_ms = device_ms(torch, plain, sets)
-    library_ms = None
-    if not quant:
-        import torch.nn.functional as F
-        G = c["q"].shape[2] // c["k"].shape[2]
-        lib_sets = [(s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-                     visible(torch, dict(c, q_pos=s[3], k_pos=s[4]))[:, None])
-                    for s in sets]
+    import torch.nn.functional as F
+    G = c["q"].shape[2] // c["k"].shape[2]
+    lib_sets = [(s[0].transpose(1, 2), s[1], s[2],
+                 visible(torch, dict(c, q_pos=s[3], k_pos=s[4]))[:, None], s[5], s[6])
+                for s in sets]
 
-        def library(q, k, v, mask):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  enable_gqa=G > 1)
-        library_ms = device_ms(torch, library, lib_sets)
-    del sets
+    def library(q, k, v, mask, ks, vs):
+        if ks is not None:   # int8: dequantise, then SDPA
+            k = (k.float() * ks.float()[..., None]).to(q.dtype)
+            v = (v.float() * vs.float()[..., None]).to(q.dtype)
+        return F.scaled_dot_product_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                              attn_mask=mask, enable_gqa=G > 1)
+    library_ms = device_ms(torch, library, lib_sets)
+    del sets, lib_sets
     B, T, H, hd = c["q"].shape
     KVH, L = c["k"].shape[2], c["k"].shape[1]
     splits = K1.n_splits(B, KVH, (H // KVH) * T, L,
@@ -466,6 +485,12 @@ def k1_specs():
                                           n_ctx=200)),
         ("cont_draft_decode_t1_b16", dict(B=16, T=1, H=D_H, KVH=D_KVH, hd=D_HD, L=512,
                                           n_ctx=201)),
+        # phase 6e (kv_quant): the target prefill of phase 6b's largest
+        # bucket into an int8 ring, and the draft's verify over 16 int8 rings
+        ("cont_target_prefill_t256_int8", dict(B=1, T=256, H=T_H, KVH=T_KVH, hd=T_HD,
+                                               L=512, n_ctx=1, kv_len=212, quant=True)),
+        ("cont_draft_verify_t4_b16_int8", dict(B=16, T=4, H=D_H, KVH=D_KVH, hd=D_HD, L=512,
+                                               n_ctx=200, quant=True)),
         # group sizes of yi-34b (G 7) and 10, where the folded rows span row
         # tiles: a verify and a B = 1 prefill each
         ("gqa_g7_verify_t4", dict(B=8, T=4, H=56, KVH=8, hd=128, L=L, n_ctx=150)),
@@ -630,8 +655,12 @@ def run_paged_case(torch, K23, paged, ref, c):
         return paged.gather_verify_attn(q, k, v, qp, pos, bt, k_scale=ks, v_scale=vs, **kw)
 
     def library(q, k, v, qp, pos, bt, cu, ks, vs):
-        # two calls: the gather, then SDPA with the position mask
+        # the gather (and an int8 pool's dequantisation), then SDPA with the
+        # position mask
         kg, vg = paged.gather_kv_blocks(k, v, bt)
+        if ks is not None:
+            kg = (kg.float() * paged.gather_scales(ks, bt).float()[..., None]).to(q.dtype)
+            vg = (vg.float() * paged.gather_scales(vs, bt).float()[..., None]).to(q.dtype)
         mask = visible(torch, dict(c, q_pos=qp, k_pos=paged.gather_key_positions(pos, bt)))
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
@@ -661,7 +690,7 @@ def run_paged_case(torch, K23, paged, ref, c):
     dense_ms = device_ms(torch, dense, sets)
     ragged_ms = device_ms(torch, ragged, sets)
     plain_ms = device_ms(torch, plain, sets)
-    library_ms = None if quant else device_ms(torch, library, sets)
+    library_ms = device_ms(torch, library, sets)
     bound_ms, bound_by = paged_bound(torch, paged, c)
     del sets
     B, T, H, hd = c["q"].shape
@@ -677,7 +706,8 @@ def run_paged_case(torch, K23, paged, ref, c):
                 empty_rows_zero=zero_rows, n_splits=splits, device_kernels=len(names),
                 kernel_names=[n.split("<")[0].split("::")[-1] for n in names],
                 ms=ragged_ms, dense_ms=dense_ms,
-                plain_ms=plain_ms, library_ms=library_ms, library="gather + SDPA (two calls)",
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="gather + dequantise + SDPA" if quant else "gather + SDPA (two calls)",
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -753,6 +783,7 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
     specs += [
         # a full pool at phase 6b's widths: 16 slots x 12 blocks of 16
         ("opt_pool_full_t1", dict(B=16, T=1, ctx=[192] * 16, **opt)),
+        ("opt_pool_full_t1_int8", dict(B=16, T=1, ctx=[192] * 16, quant=True, **opt)),
         ("gqa_yi9b_t4", dict(B=8, T=4, H=32, KVH=4, hd=128, bs=16, MAXB=32,
                              ctx=ragged_ctx(8, 4), holes=((2, 1),))),
         ("window_64", dict(B=8, T=4, ctx=ragged_ctx(8, 4), window=64, **opt)),
@@ -2578,6 +2609,364 @@ def phase_prefix_serve(torch, np, R, m, lut_table):
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: the int8 KV cache (kv_quant) on the continuous main path
+
+Q8_TOL = dict(logits=2e-3,      # card vs CPU, fp32 on both sides: phase 3's
+              scale_rel=1e-6,   # a scale is its row's largest |value| / 127
+              moved_share=1e-3)  # codes a round-half tie may move by 1
+
+
+def q8_blocks(cfg, bf16_blocks, bs=16):
+    """int8 blocks of ``bs`` rows (codes plus bf16 scales) in the bytes of
+    ``bf16_blocks`` bf16 blocks, the positions (4 bytes a row either way)
+    left out: 283 for OPT-6.7B's 144."""
+    a = cfg.attn
+    bf16 = 2 * bs * a.n_kv_heads * a.head_dim * 2
+    int8 = 2 * bs * a.n_kv_heads * (a.head_dim + 2)
+    return bf16_blocks * bf16 // int8
+
+
+def row_leaves(cache):
+    """A cache's per-row leaves (k, v and an int8 cache's scales)."""
+    return {n: t for n, t in cache.items() if n not in ("pos", "bt")}
+
+
+def codes_against(torch, got, want):
+    """Two int8 caches' row leaves (same shapes, on the CPU): the largest
+    code distance, the share of codes that moved, and the largest relative
+    distance of the nonzero scales."""
+    d = {n: (got[n].to(torch.int16) - want[n].to(torch.int16)).abs()
+         for n in ("k", "v")}
+    scale_rel = max(float(((got[n].float() - want[n].float()).abs()
+                           / want[n].float().clamp_min(1e-30))[want[n] != 0].max())
+                    for n in ("k_scale", "v_scale"))
+    return dict(max_code_distance=max(int(x.max()) for x in d.values()),
+                moved_share=sum(int((x > 0).sum()) for x in d.values())
+                / sum(x.numel() for x in d.values()),
+                moved=sum(int((x > 0).sum()) for x in d.values()),
+                scale_max_rel=scale_rel)
+
+
+def codes_ok(c):
+    return (c["max_code_distance"] <= 1 and c["scale_max_rel"] <= Q8_TOL["scale_rel"]
+            and (c["moved"] <= 1 or c["moved_share"] <= Q8_TOL["moved_share"]))
+
+
+def kvq_prefix_requests(np, Request, vocab, system=32, seed=53):
+    """Six requests sharing a 32-token system prompt (two blocks of 16):
+    one with a 6-token tail, the system prompt alone (a zero-suffix hit
+    whose last feed row lies in a cached block, so ``commit_attached``
+    copies it), the system prompt and one token (a zero-suffix hit without
+    a copy) and three with 3-12-token tails; all arrive at 0, 24 new
+    tokens each."""
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(0, vocab, system).astype(np.int32)
+    tails = [6, 0, 1, 3, 9, 12]
+    out = []
+    for i, n in enumerate(tails):
+        toks = np.concatenate([sys_p, rng.integers(0, vocab, n).astype(np.int32)])
+        out.append(Request(rid=i, arrival=0.0, tokens=toks, prompt_len=len(toks), max_new=24))
+    return out
+
+
+def kvq_parity(torch, np, R, m, tree_to):
+    """fp32, the full-width pair cut to 2 layers, both ``kv_quant``:
+    phase 6a's trace served paged (12 blocks, preempting), contiguous,
+    paged chunked and paged mixed, a shared-prompt trace served paged with
+    the prefix cache (hits and zero-suffix admissions, one through a
+    copy-on-write), and every request's solo ``generate``: equal tokens;
+    speculative (s = 3) == greedy; each StepTrace equals its
+    ``SimStepBackend`` replay; the paged ``decode_step`` gives the same
+    logits through K2 and K3; and the card against the CPU port on the
+    same inputs (a ring prefill and verify, a paged verify): logits, codes
+    and scales within ``Q8_TOL``."""
+    import copy
+    f32 = torch.float32
+    tcfg = R.get_config("opt-6.7b").with_(n_layers=2, kv_quant=True)
+    dcfg = R.get_draft_config("opt-6.7b").with_(n_layers=2, kv_quant=True)
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=24, dtype=f32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tp = eng.target.init(gen, f32, "cuda")
+    dp = eng.draft.init(gen, f32, "cuda")
+    vocab = tcfg.vocab_size
+    reqs = continuous_requests(np, m.Request, vocab, 12, (8, 40), 24, 0.0, 21)
+    preqs = kvq_prefix_requests(np, m.Request, vocab)
+    ctrl = m.fixed_controller(3)
+    geo = dict(capacity=8, cache_len=96)
+    paged_geo = dict(block_size=16, num_blocks=12)
+    budget = dict(token_budget=16, chunk=8)
+    plan = (("paged", reqs, paged_geo, False), ("contiguous", reqs, {}, False),
+            ("paged_chunked", reqs, paged_geo, True),
+            ("paged_mixed", reqs, dict(paged_geo, mixed_launch=True), True),
+            ("paged_prefix_cache", preqs, dict(block_size=16, num_blocks=32,
+                                                prefix_cache=True), False))
+    runs = {}
+    for name, trace, kw, chunked in plan:
+        be = m.ContinuousEngineBackend(eng, tp, dp, collect_outputs=True, warm_s=(3,),
+                                       **geo, **kw)
+        pol = m.PrefillBudgetAdmit(**budget) if chunked else None
+        runs[name] = (m.serve_continuous_live(copy.deepcopy(trace), eng, tp, dp, ctrl,
+                                              backend=be, policy=pol), be)
+    int8_pools = all(be.state.tcache["k"].dtype == torch.int8 and "v_scale" in be.state.tcache
+                     for _, be in runs.values())
+    mismatched = {}
+    for tag, trace, names in (("trace", reqs, [p[0] for p in plan[:4]]),
+                              ("prefix", preqs, ["paged_prefix_cache"])):
+        for r in trace:
+            solo, _, _ = eng.generate(tp, dp, r.tokens[None], np.array([r.prompt_len], np.int32),
+                                      s=3, cache_len=96)
+            bad = [k for k in names
+                   if not np.array_equal(runs[k][1].outputs[r.rid], solo[0][:r.max_new])]
+            if bad:
+                mismatched[f"{tag}:{r.rid}"] = bad
+    # speculative == greedy over the whole trace in one batch
+    P = max(r.prompt_len for r in reqs)
+    toks = np.zeros((len(reqs), P), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :r.prompt_len] = r.tokens
+    lens = np.array([r.prompt_len for r in reqs], np.int32)
+    greedy, _, _ = eng.generate(tp, dp, toks, lens, s=0, cache_len=96)
+    spec, _, _ = eng.generate(tp, dp, toks, lens, s=3, cache_len=96)
+    spec_equal = bool(np.array_equal(greedy, spec))
+    n_pre = {k: sum(len(t.preempted) for t in runs[k][0].trace) for k in runs}
+    replay_equal = {}
+    for name, trace, kw, chunked in plan:
+        pgeo = {k: v for k, v in kw.items() if k in ("block_size", "num_blocks", "prefix_cache")}
+        replay_equal[name] = replays_equal(
+            np, m, runs[name][0], trace, ctrl, m.PrefillBudgetAdmit(**budget) if chunked
+            else None, 8, max_context=96, **pgeo)
+    hits = [h for t in runs["paged_prefix_cache"][0].trace for h in t.cache_hits]
+    plen = {r.rid: r.prompt_len for r in preqs}
+    zero_copy = sum(1 for rid, p in hits if p >= plen[rid])
+    zero_nocopy = sum(1 for rid, p in hits if p == plen[rid] - 1)
+    del runs
+
+    # the model's paged decode_step through K2 and K3, then card against CPU
+    state = eng.init_slots(4, 96, block_size=16)
+    for slot, r in enumerate(reqs[:3]):
+        state = eng.prefill_into(tp, dp, state, slot, r.tokens, r.prompt_len, 96)
+    pk = state.paged
+    for slot in pk.active_slots():
+        pk.ensure(slot, pk.tokens(slot) + 3)
+    tables = pk.device_tables()
+    state.tcache["bt"].copy_(torch.from_numpy(tables))
+    cu = torch.from_numpy(m.host_cu_blocks(tables))
+    feed = torch.from_numpy(np.stack([r.tokens[:4] for r in reqs[:4]]).astype(np.int64))
+    pool0 = {n: t.clone() for n, t in state.tcache.items()}
+    for c in (m.K23.DENSE, m.K23.DENSE_INT8):
+        c.launches = 0
+    lg_dense, _ = eng.target.decode_step(tp, feed.cuda(), state.tcache, state.seq_lens)
+    torch.cuda.synchronize()
+    dense_launches = (m.K23.DENSE.launches, m.K23.DENSE_INT8.launches)
+    pool_card = {n: t.clone() for n, t in pool0.items()}
+    lg_ragged, pool_card = eng.target.decode_step(tp, feed.cuda(), pool_card, state.seq_lens,
+                                                  cu.cuda())
+    model_equal = bool(torch.equal(lg_dense, lg_ragged))
+    tp_cpu = tree_to(tp, "cpu")
+    pool_cpu = tree_to(pool0, "cpu")
+    lg_cpu, pool_cpu = eng.target.decode_step(tp_cpu, feed, pool_cpu, state.seq_lens.cpu(), cu)
+    NB = pool0["pos"].shape[0] - 1          # the trash block takes racing writes
+    below = lambda c: {n: t[:, :NB].cpu() for n, t in row_leaves(c).items()}
+    paged_cmp = dict(codes_against(torch, below(pool_card), below(pool_cpu)),
+                     logits_max_abs_err=float((lg_ragged.cpu() - lg_cpu).abs().max()),
+                     logits_ok=within(torch, lg_ragged.cpu(), lg_cpu, Q8_TOL["logits"])[1])
+    del state, pool0, pool_card, pool_cpu
+    rng = np.random.default_rng(13)
+    ptoks = torch.from_numpy(rng.integers(0, vocab, (2, 40)).astype(np.int64))
+    plens = torch.tensor([40, 33], dtype=torch.int32)
+    vfeed = torch.from_numpy(rng.integers(0, vocab, (2, 4)).astype(np.int64))
+
+    def ring(params, device):
+        model = eng.target
+        cache = model.init_cache(2, 96, f32, device)
+        lg0, cache, seq = model.prefill(params, ptoks.to(device), cache, plens.to(device))
+        lg1, cache = model.decode_step(params, vfeed.to(device), cache, seq + 1)
+        return (torch.cat([lg0[:, None], lg1], 1).cpu(),
+                {n: t.cpu() for n, t in row_leaves(cache).items()})
+    (lg_g, rc_g), (lg_c, rc_c) = ring(tp, "cuda"), ring(tp_cpu, "cpu")
+    ring_cmp = dict(codes_against(torch, rc_g, rc_c),
+                    logits_max_abs_err=float((lg_g - lg_c).abs().max()),
+                    logits_ok=within(torch, lg_g, lg_c, Q8_TOL["logits"])[1])
+    line = dict(requests=len(reqs), prefix_requests=len(preqs), tokens_equal=not mismatched,
+                mismatched=mismatched, spec_equals_greedy=spec_equal, preemptions=n_pre,
+                sim_replay_equal=replay_equal, cache_hits=hits,
+                zero_suffix_hits=dict(copy=zero_copy, no_copy=zero_nocopy),
+                model_decode_k2_equals_k3=model_equal,
+                k2_launches=dict(all=dense_launches[0], int8=dense_launches[1]),
+                card_vs_cpu=dict(ring=ring_cmp, paged=paged_cmp, tol=Q8_TOL))
+    print("  " + json.dumps(line), flush=True)
+    check(int8_pools, "a serving run's pool is not int8 with scales")
+    check(not mismatched, f"int8 routes (paged / contiguous / chunked / mixed / prefix cache) "
+                          f"and solo tokens differ: {mismatched}")
+    check(spec_equal, "int8: speculative tokens differ from greedy")
+    check(n_pre["paged"] > 0 and n_pre["paged_mixed"] > 0,
+          f"the undersized int8 pool never preempted: {n_pre}")
+    check(all(replay_equal.values()),
+          f"an int8 StepTrace differs from its SimStepBackend replay: {replay_equal}")
+    check(zero_copy > 0 and zero_nocopy > 0 and len(hits) >= 4,
+          f"the shared-prompt trace missed the cache or a zero-suffix admission: {hits}")
+    check(model_equal, "the int8 paged decode_step differs between K2 and K3")
+    check(dense_launches[0] > 0 and dense_launches[0] == dense_launches[1],
+          f"the int8 decode_step without cu_blocks ran K2 {dense_launches} (all, int8) times")
+    for name, c in (("ring", ring_cmp), ("paged", paged_cmp)):
+        check(c["logits_ok"] and codes_ok(c), f"int8 {name}: card and CPU differ: {c}")
+    return line
+
+
+def slot_leaves(torch, st, slot, n):
+    """Every per-row leaf of a slot's first ``n`` target rows through its
+    table, ``[nL, n, ...]``."""
+    ids = torch.tensor(st.paged.table(slot), device="cuda")
+    return {name: t[:, ids].flatten(1, 2)[:, :n] for name, t in row_leaves(st.tcache).items()}
+
+
+def kvq_rows_check(torch, np, m, e_bf, e_q8, tp, dp, vocab, plen=200):
+    """One ``plen``-token prompt through ``prefill_into`` on the bf16 and the
+    int8 pool (the same weights): layer 0's rows, dequantised in fp32,
+    within 1.01 of their stored scale of the bf16 rows (layer 0's inputs
+    are equal: half a code, plus 127 times the bf16 rounding of the scale,
+    2^-8, is 0.996 of the fp32 scale); every row's largest |code| 127 but
+    where the scale sits on its 1e-8 floor; and the first step's logits
+    against the fp32 unquantised route (the bf16 weights cast), relative
+    RMS within 0.05, beside the bf16 route's own."""
+    prompt = np.random.default_rng(31).integers(0, vocab, plen).astype(np.int32)
+    toks = np.ones((512,), np.int32)
+    toks[:plen] = prompt
+
+    def whole(e, tparams, dparams):
+        st = e.init_slots(1, 512, block_size=16)
+        return e.prefill_into(tparams, dparams, st, 0, toks, plen, 512)
+    st_bf, st_q8 = whole(e_bf, tp, dp), whole(e_q8, tp, dp)
+    bf, q8 = slot_leaves(torch, st_bf, 0, plen - 1), slot_leaves(torch, st_q8, 0, plen - 1)
+    layer0 = {}
+    floor = torch.tensor(1e-8, dtype=torch.bfloat16, device="cuda")
+    full_scale = True
+    for n in ("k", "v"):
+        sc = q8[n + "_scale"].float()[..., None]
+        deq = q8[n].float() * sc
+        layer0[n] = float(((deq[0] - bf[n][0].float()).abs() / sc[0]).max())
+        full_scale &= bool(((q8[n].abs().amax(-1) == 127)
+                            | (q8[n + "_scale"] == floor)).all())
+    lg = {"bf16": first_step_logits(torch, m, e_bf, tp, st_bf, vocab)[0],
+          "int8": first_step_logits(torch, m, e_q8, tp, st_q8, vocab)[0]}
+    del st_bf, st_q8, bf, q8
+    e32 = m.SpecDecodeEngine(e_bf.tcfg, e_bf.dcfg, max_new=e_bf.max_new, dtype=torch.float32,
+                             device="cuda")
+    tp32, dp32 = (tree_map(lambda t: t.float(), p) for p in (tp, dp))
+    lf = first_step_logits(torch, m, e32, tp32, whole(e32, tp32, dp32), vocab)[0]
+    del e32, tp32, dp32
+    torch.cuda.empty_cache()
+    rel = {k: float(rel_rms_over(v, lf, 0)) for k, v in lg.items()}
+    line = dict(prompt=plen, layer0_err_in_stored_scales=layer0, layer0_bound=1.01,
+                full_scale_codes=full_scale, first_logits_rel_rms_vs_fp32=rel,
+                first_token_equal_bf16=bool(lg["bf16"].argmax() == lg["int8"].argmax()))
+    print("  int8 rows vs bf16 and fp32: " + json.dumps(line), flush=True)
+    check(all(v <= 1.01 for v in layer0.values()),
+          f"int8 layer-0 rows further than 1.01 stored scales from the bf16 rows: {layer0}")
+    check(full_scale, "an int8 row's largest |code| is not 127 above the scale's floor")
+    check(rel["int8"] <= 0.05, f"int8 first logits' relative RMS to fp32 {rel['int8']} > 0.05")
+    return line
+
+
+def kvq_serve(torch, np, R, m, lut_table, live):
+    """bf16, full depth: phase 6b's pair (the same seed), trace and LUT,
+    served on the bf16 pool of 144 blocks and on an int8 pool of
+    ``q8_blocks(144)`` = 283 blocks (the same bytes), both collecting their
+    tokens.  Gated for the int8 run: every request finishes, no preemption
+    (the trace's worst case is 16 x 15 = 240 blocks), K1 and K3 launched
+    over int8 only, no plain version.  Reported beside phase 6b's own
+    numbers: TTFT, ITL, tokens/s, goodput, occupancy, preemptions, pool GB
+    and greedy-token agreement with the bf16 run.  Then the numerics
+    (``kvq_rows_check``) and one profiled paged step at B = 16, s = 0 of
+    each pool (phase 5's)."""
+    import copy
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    e_bf = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
+    e_q8 = m.SpecDecodeEngine(tcfg.with_(kv_quant=True), dcfg.with_(kv_quant=True),
+                              max_new=32, dtype=bf16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = e_bf.target.init(gen, bf16, "cuda")
+    dp = e_bf.draft.init(gen, bf16, "cuda")
+    lut = {int(b): int(v) for b, v in lut_table.items()}
+    reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 32, (64, 192), 32, 0.05, 23)
+    nb = q8_blocks(tcfg, 144)
+    counters = (m.K1.KERNEL, m.K1.KERNEL_INT8, m.K23.DENSE, m.K23.RAGGED, m.K23.RAGGED_INT8,
+                m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN, m.ops.PLAIN_RMSNORM)
+    runs, outputs = {}, {}
+    for name, e, blocks in (("bf16", e_bf, 144), ("int8", e_q8, nb)):
+        ctrl = m.AdaptiveController(lut=m.SpeculationLUT(lut))
+        e.load_kernels(paged=True)
+        be = m.ContinuousEngineBackend(e, tp, dp, capacity=16, cache_len=512, block_size=16,
+                                       num_blocks=blocks, collect_outputs=True,
+                                       warm_s=sorted(set(lut.values())),
+                                       s_cap=m.controller_s_cap(ctrl))
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = m.serve_continuous_live(copy.deepcopy(reqs), e, tp, dp, ctrl, backend=be)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(k1=m.K1.KERNEL.launches, k1_int8=m.K1.KERNEL_INT8.launches,
+                        k2=m.K23.DENSE.launches, k3=m.K23.RAGGED.launches,
+                        k3_int8=m.K23.RAGGED_INT8.launches, k5=m.K5.FWD.launches,
+                        plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                               + m.ops.PLAIN_RMSNORM.launches))
+        done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+        runs[name] = dict(blocks=blocks, pool_gb=sum(t.numel() * t.element_size() for n, t in
+                                                     be.state.tcache.items() if n != "bt") / 1e9,
+                          finished=len(done), **serve_line(m, res, wall), launches=launches)
+        outputs[name] = be.outputs
+        del be, res
+        torch.cuda.empty_cache()
+    same = [np.asarray(outputs["int8"][r.rid]) == np.asarray(outputs["bf16"][r.rid])
+            for r in reqs]
+    keys = ("ttft", "itl", "tokens_per_s", "goodput", "mean_occupancy", "preemptions")
+    line = dict(requests=len(reqs), runs=runs, phase_6b={k: live[k] for k in keys},
+                greedy_agreement_with_bf16=float(np.mean(np.concatenate(same))),
+                requests_identical_to_bf16=sum(bool(s.all()) for s in same))
+    print("  " + json.dumps(line), flush=True)
+    q = runs["int8"]
+    check(q["finished"] == len(reqs), f"int8: {len(reqs) - q['finished']} requests did not finish")
+    check(q["preemptions"] == 0, f"the {nb}-block int8 pool preempted {q['preemptions']} times")
+    check(runs["bf16"]["preemptions"] > 0, "the 144-block bf16 pool never preempted")
+    L = q["launches"]
+    check(L["k1_int8"] > 0 and L["k1_int8"] == L["k1"], f"int8: K1 launches {L}")
+    check(L["k3_int8"] > 0 and L["k3_int8"] == L["k3"], f"int8: K3 launches {L}")
+    check(L["plain"] == 0, "int8: a plain version ran on the card")
+    line["rows"] = kvq_rows_check(torch, np, m, e_bf, e_q8, tp, dp, tcfg.vocab_size)
+    rng = np.random.default_rng(5)
+    ptoks = rng.integers(0, tcfg.vocab_size, (16, 128)).astype(np.int32)
+    prof = {}
+    for name, e in (("bf16", e_bf), ("int8", e_q8)):
+        state = e.init_slots(16, 512, block_size=16, num_blocks=192)
+        for slot in range(16):
+            state = e.prefill_into(tp, dp, state, slot, ptoks[slot], 128, 512)
+        prof[name] = profile_step(torch, e, tp, dp, f"paged_b16_s0_{name}", state, 0)
+        del state
+        torch.cuda.empty_cache()
+    line["profile"] = dict(prof, kernels_added=prof["int8"]["device_kernels"]
+                           - prof["bf16"]["device_kernels"],
+                           busy_added_ms=prof["int8"]["device_busy_ms"]
+                           - prof["bf16"]["device_busy_ms"])
+    check(prof["int8"]["paged_kernel_ms"] > 0, "the profiler saw no K3 in the int8 step")
+    return line
+
+
+def phase_kv_quant(torch, np, R, m, lut_table, live, tree_to):
+    """Phase 6e: ``kvq_parity`` (fp32, 2 layers), then ``kvq_serve`` (bf16,
+    full depth)."""
+    t0 = time.perf_counter()
+    line = dict(parity=kvq_parity(torch, np, R, m, tree_to))
+    torch.cuda.empty_cache()
+    line["serve"] = kvq_serve(torch, np, R, m, lut_table, live)
+    line["seconds"] = time.perf_counter() - t0
+    print(f"  phase 6e: {line['seconds']:.1f}s", flush=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the training path
 
 
@@ -3292,7 +3681,7 @@ def main() -> int:
         PrefixCache=PrefixCache,
         serve_continuous_live=scheduler.serve_continuous_live,
         PrefillBudgetAdmit=scheduler.PrefillBudgetAdmit,
-        ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
+        controller_s_cap=scheduler.controller_s_cap, ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
         goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy,
         R=R, DecoderLM=DecoderLM, train=train, measure_acceptance=adaptive.measure_acceptance,
         DataConfig=training.DataConfig, batch_at=training.batch_at,
@@ -3435,6 +3824,11 @@ def main() -> int:
     print(json.dumps({"phase": "prefix_serve", "ok": True}), flush=True)
     torch.cuda.empty_cache()
 
+    # ---- 6e. the int8 KV cache (kv_quant) on the continuous main path ----
+    kvq = phase_kv_quant(torch, np, R, m, res["lut"], live, tree_to)
+    print(json.dumps({"phase": "kv_quant", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----
     distill = phase_distill(torch, np, R, m)
     print(json.dumps({"phase": "distill", "ok": True}), flush=True)
@@ -3476,6 +3870,13 @@ def main() -> int:
                          "mixed_over_two_launch")
     k3_mixed = [{k: r[k] for k in mixed_keys} for r in prows
                 if r["case"].startswith("mixed_") and r["dtype"] == "bfloat16"]
+    k1_int8 = [{k: r[k] for k in keys} for r in rows
+               if r["case"].startswith("cont_") and "_int8_" in r["case"]]
+    k3_int8 = [{k: r[k] for k in keys} for r in prows
+               if r["case"].startswith("opt_pool_full_t1_int8")]
+    q8_launches = kvq["serve"]["runs"]["int8"]["launches"]
+    q8_from = (f"phase 6e, serve_continuous_live on the "
+               f"{kvq['serve']['runs']['int8']['blocks']}-block int8 pool")
     phead = next(r for r in prows if r["case"] == "opt_pool_full_t1_bf16")
     paged_shape = "target verify s=0, " + phead["shape"] + ", bf16"
     paged_common = {"max_abs_err": phead["max_abs_err"], "plain_ms": phead["plain_ms"],
@@ -3498,6 +3899,8 @@ def main() -> int:
         "chunk": k1_chunk, "launches_chunked": chunked["launches"]["k1"],
         "launches_prefix": {k: prefix[k]["launches"]["k1"]
                             for k in ("cold", "cache", "cache_chunked")},
+        "launches_int8": q8_launches["k1_int8"], "launches_int8_from": q8_from,
+        "int8": k1_int8,
     }, {
         "name": "paged_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify_attn.cu",
@@ -3519,6 +3922,8 @@ def main() -> int:
                   "fused_steps": chunked["mixed_launch"]["fused_steps"]},
         "launches_prefix": {k: prefix[k]["launches"]["k3"]
                             for k in ("cold", "cache", "cache_chunked")},
+        "launches_int8": q8_launches["k3_int8"], "launches_int8_from": q8_from,
+        "int8": k3_int8,
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash,
                                              mtrain["launches"])

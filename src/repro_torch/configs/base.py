@@ -44,6 +44,10 @@ class ModelConfig:
     attn: Optional[AttnConfig] = None
     ssm: Optional[SSMConfig] = None
     norm_eps: float = 1e-6
+    # int8 KV cache with per-(row, kv-head) scales (GQA caches only; MLA's
+    # cache is already rank-compressed).  §Perf lever: halves the decode
+    # cache sweep, the dominant memory term at 32k context.
+    kv_quant: bool = False
     source: str = ""               # citation of the published widths
 
     def with_(self, **kw) -> "ModelConfig":

@@ -285,7 +285,8 @@ class SpecDecodeEngine:
         B = 1 prefill of the (padded) prompt, then a copy of every cache leaf
         into the slot's row of the pool, in place.  A paged pool allocates
         ``ceil(prompt_len / block_size)`` blocks and copies the prefill rows
-        block by block through the slot's new table row."""
+        of every per-row leaf (k, v, an int8 pool's scales, pos) block by
+        block through the slot's new table row."""
         if warm:
             self.load_kernels(state.paged is not None)
             return state
@@ -304,8 +305,10 @@ class SpecDecodeEngine:
             n, bs = len(ids), pk.block_size
             blocks = self._tensor(ids, torch.long)
             tc, t1 = state.tcache, one.tcache
-            for name in ("k", "v"):
-                rows = t1[name][:, 0, :n * bs]               # [nL, n*bs, KVH, hd]
+            for name, leaf in t1.items():          # k, v (and int8 scales)
+                if name == "pos":
+                    continue
+                rows = leaf[:, 0, :n * bs]                   # [nL, n*bs, ...]
                 tc[name][:, blocks] = rows.reshape(rows.shape[0], n, bs,
                                                    *rows.shape[2:])
             tc["pos"][blocks] = t1["pos"][0, :n * bs].reshape(n, bs)
@@ -591,8 +594,8 @@ class SpecDecodeEngine:
         The first decode step writes feed row ``total_len - 1``.  When the
         cached prefix covers it (``n_prefix == total_len``) that row lives
         in a shared block, so ``cow_for_range`` swaps in a fresh copy and
-        every pool leaf but ``bt`` (``k``, ``v``, ``pos``) is copied from
-        the source block to the copy.  Then the table grows to cover
+        every pool leaf but ``bt`` (``k``, ``v``, an int8 pool's ``k_scale``
+        and ``v_scale``, ``pos``) is copied from the source block to the copy.  Then the table grows to cover
         ``total_len``, the evicted blocks are wiped, and the slot takes the
         row state of a chunked (and so of a whole-prompt) admission
         (``_commit_row``).

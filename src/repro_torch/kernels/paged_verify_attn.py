@@ -46,8 +46,10 @@ _BLOCK_DIVIDES = 64      # the block size must divide it
 ROW_TILE = 8             # folded query rows (G * T) per block
 STAGE_KEYS = 32          # keys per pipeline stage (max(32, bs))
 
-DENSE = LaunchCount()    # launches of K2
-RAGGED = LaunchCount()   # launches of K3
+DENSE = LaunchCount()         # launches of K2
+RAGGED = LaunchCount()        # launches of K3
+DENSE_INT8 = LaunchCount()    # those of them over an int8 pool with scales
+RAGGED_INT8 = LaunchCount()
 
 _fn = None
 
@@ -199,6 +201,7 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
         raise RuntimeError(f"paged_verify_attn ({kind}) kernel launch failed: "
                            f"cudaError {rc}")
     (RAGGED if ragged else DENSE).launches += 1
+    (RAGGED_INT8 if ragged else DENSE_INT8).launches += int(quant)
     return out
 
 

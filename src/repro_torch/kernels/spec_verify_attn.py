@@ -57,7 +57,8 @@ class LaunchCount:
     launches: int = 0
 
 
-KERNEL = LaunchCount()   # calls of the CUDA kernel
+KERNEL = LaunchCount()        # calls of the CUDA kernel
+KERNEL_INT8 = LaunchCount()   # those of them over int8 k/v with scales
 
 _fns = {}
 
@@ -213,4 +214,5 @@ def spec_verify_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"spec_verify_attn kernel launch failed: cudaError {rc}")
     KERNEL.launches += 1
+    KERNEL_INT8.launches += int(quant)
     return out

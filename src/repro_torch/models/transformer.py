@@ -23,7 +23,10 @@ rollback after a rejected speculation is a pure length update.  A cache
 with a block table ``bt`` is the paged pool of :meth:`init_paged_cache`
 and takes the paged path.  Unlike the JAX package's pure functions, both
 entry points write the cache in place (one K/V write per layer, no copy of
-the cache) and return it.  Attention goes through
+the cache) and return it.  With ``cfg.kv_quant`` either cache holds int8
+K/V codes with per-(row, kv-head) scales (``k_scale``/``v_scale``, in the
+cache's dtype) beside them; every write site quantises the new rows
+(:func:`_quant_rows`) and the attention kernels dequantise tile by tile.  Attention goes through
 ``kernels.ops.spec_verify_attn`` (ring) and
 ``kernels.paged.paged_verify_attn`` (pool): the CUDA kernels for CUDA
 tensors, their plain versions for CPU tensors.
@@ -41,6 +44,51 @@ from repro_torch.kernels.ops import flash_attn, spec_verify_attn
 from repro_torch.kernels.paged import paged_verify_attn
 from repro_torch.models import common as cm
 from repro_torch.models.common import ParamDef
+
+# the per-layer leaves of a cache that hold rows (``pos`` and the block table
+# ``bt`` are shared by the layers)
+_SHARED = ("pos", "bt")
+
+
+def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(row, kv-head) quantization (``repro.models.
+    transformer._quant_rows``). x: [..., hd] -> int8 codes [..., hd] and
+    fp32 scales [...]: ``amax(|x|) / 127`` floored at 1e-8, codes
+    ``round(x / scale)`` (half to even, as ``jnp.round``) clamped to +-127."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1) / 127.0).clamp_min_(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 codes [..., hd] and their scales [...] -> values in ``dtype``."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _layer(cache: Dict, i: int) -> Dict:
+    """Layer ``i``'s row leaves of a cache (``k``, ``v`` and, in an int8
+    cache, ``k_scale``, ``v_scale``): views, so writes land in the cache."""
+    return {name: t[i] for name, t in cache.items() if name not in _SHARED}
+
+
+def _stored(lc: Dict, k_new: torch.Tensor, v_new: torch.Tensor) -> Dict:
+    """New K/V rows ``[B, T, KVH, hd]`` as the layer cache ``lc`` stores
+    them: cast to its dtype, or int8 codes with scales in the scales'
+    dtype.  k and v are quantised together, in one pass over ``[2, ...]``."""
+    if "k_scale" not in lc:
+        return {"k": k_new.to(lc["k"].dtype), "v": v_new.to(lc["v"].dtype)}
+    codes, scales = _quant_rows(torch.stack([k_new, v_new]))
+    scales = scales.to(lc["k_scale"].dtype)
+    return {"k": codes[0], "v": codes[1], "k_scale": scales[0], "v_scale": scales[1]}
+
+
+def _scales(lc: Dict, rows: slice = slice(None)) -> Dict:
+    """The int8 scale arguments of an attention call over ``lc``'s rows
+    ``[:, rows]`` (none for an unquantised cache)."""
+    if "k_scale" not in lc:
+        return {}
+    return {"k_scale": lc["k_scale"][:, rows], "v_scale": lc["v_scale"][:, rows]}
 
 
 class DecoderLM:
@@ -90,15 +138,27 @@ class DecoderLM:
     def init_cache(self, batch: int, cache_len: int,
                    dtype: torch.dtype = torch.float32,
                    device: torch.device | str = "cuda") -> Dict:
+        """Ring cache: k/v ``[nL, B, L, KVH, hd]`` in ``dtype``, or int8 with
+        ``k_scale``/``v_scale`` ``[nL, B, L, KVH]`` in ``dtype`` under
+        ``cfg.kv_quant``; pos ``[B, L]``, -1 unwritten."""
         c, a = self.cfg, self.cfg.attn
         device = resolve_device(device)
-        shape = (c.n_layers, batch, cache_len, a.n_kv_heads, a.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
-                              device=device),
-        }
+        return self._kv_leaves((c.n_layers, batch, cache_len, a.n_kv_heads), dtype, device,
+                               pos=(batch, cache_len))
+
+    def _kv_leaves(self, rows_shape: Tuple[int, ...], dtype: torch.dtype,
+                   device: torch.device, pos: Tuple[int, int]) -> Dict:
+        """Zeroed k/v ``[*rows_shape, hd]`` (int8 codes and ``rows_shape``
+        scales under ``kv_quant``) and positions ``pos`` at -1."""
+        hd = self.cfg.attn.head_dim
+        kv_dtype = torch.int8 if self.cfg.kv_quant else dtype
+        out = {"k": torch.zeros((*rows_shape, hd), dtype=kv_dtype, device=device),
+               "v": torch.zeros((*rows_shape, hd), dtype=kv_dtype, device=device)}
+        if self.cfg.kv_quant:
+            out["k_scale"] = torch.zeros(rows_shape, dtype=dtype, device=device)
+            out["v_scale"] = torch.zeros(rows_shape, dtype=dtype, device=device)
+        out["pos"] = torch.full(pos, -1, dtype=torch.int32, device=device)
+        return out
 
     def init_paged_cache(self, num_blocks: int, block_size: int,
                          dtype: torch.dtype = torch.float32,
@@ -109,19 +169,17 @@ class DecoderLM:
             k/v : [nL, num_blocks + 1, block_size, KVH, hd]
             pos : [num_blocks + 1, block_size]  absolute position, -1 unwritten
 
+        and under ``cfg.kv_quant`` int8 k/v with ``k_scale``/``v_scale``
+        ``[nL, num_blocks + 1, block_size, KVH]`` in ``dtype``.
+
         Block ``num_blocks`` is a trash block that no table ever names: the
         writes the JAX package drops (``mode="drop"`` at an out-of-range
         block) land there instead, since an in-place index write has no drop
         mode.  Compare ``pos[:num_blocks]``."""
         c, a = self.cfg, self.cfg.attn
         device = resolve_device(device)
-        shape = (c.n_layers, num_blocks + 1, block_size, a.n_kv_heads, a.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((num_blocks + 1, block_size), -1, dtype=torch.int32,
-                              device=device),
-        }
+        return self._kv_leaves((c.n_layers, num_blocks + 1, block_size, a.n_kv_heads),
+                               dtype, device, pos=(num_blocks + 1, block_size))
 
     # ------------------------------------------------------------------
     # layers
@@ -139,44 +197,45 @@ class DecoderLM:
         return q, k, v
 
     def _attn_decode(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                     k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos_arr: torch.Tensor, rows: torch.Tensor, rope,
+                     lc: Dict, pos_arr: torch.Tensor, rows: torch.Tensor, rope,
                      valid: Optional[torch.Tensor] = None,
                      rows_limit: Optional[int] = None) -> torch.Tensor:
-        """Write the new K/V rows at ``rows`` [B,T] (in place), then attend.
-        ``pos_arr`` [B,L] already holds the new rows' positions.
+        """Write the new K/V rows at ``rows`` [B,T] of the layer cache ``lc``
+        (``_layer``; in place), then attend.  ``pos_arr`` [B,L] already
+        holds the new rows' positions.
 
         ``valid`` [B,T] marks the columns to write: a column outside it
-        writes its row's old value back (the ring has no row to drop a
-        write into, as the JAX package's ``mode="drop"`` does), so that row
-        is left as it was.  ``rows_limit`` bounds the attended rows to the
-        first ``rows_limit`` of the ring; the writes still land anywhere."""
+        writes its row's old value back, codes and scales alike (the ring
+        has no row to drop a write into, as the JAX package's
+        ``mode="drop"`` does), so that row is left as it was.
+        ``rows_limit`` bounds the attended rows to the first ``rows_limit``
+        of the ring; the writes still land anywhere."""
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
         bidx = torch.arange(B, device=x.device)[:, None]
-        k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+        new = _stored(lc, k_new, v_new)
         if valid is not None:
-            keep = valid[:, :, None, None]
-            k_new = torch.where(keep, k_new, k_cache[bidx, rows])
-            v_new = torch.where(keep, v_new, v_cache[bidx, rows])
-        k_cache[bidx, rows] = k_new
-        v_cache[bidx, rows] = v_new
+            for name, t in new.items():
+                keep = valid.view(B, T, *(1,) * (t.dim() - 2))
+                new[name] = torch.where(keep, t, lc[name][bidx, rows])
+        for name, t in new.items():
+            lc[name][bidx, rows] = t
         R = pos_arr.shape[1] if rows_limit is None else rows_limit
-        out = spec_verify_attn(q, k_cache[:, :R], v_cache[:, :R], positions,
-                               pos_arr[:, :R], window=a.window)
+        out = spec_verify_attn(q, lc["k"][:, :R], lc["v"][:, :R], positions,
+                               pos_arr[:, :R], window=a.window, **_scales(lc, slice(R)))
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_paged(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                    k_pool: torch.Tensor, v_pool: torch.Tensor,
-                    pos: torch.Tensor, pb: torch.Tensor, off: torch.Tensor,
+                    lc: Dict, pos: torch.Tensor, pb: torch.Tensor, off: torch.Tensor,
                     bt: torch.Tensor, rope,
                     cu_blocks: Optional[torch.Tensor],
                     wide: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
                     ) -> torch.Tensor:
-        """Write the new K/V rows at the physical addresses ``(pb, off)``
-        [B,T] (in place; ``pb`` = the trash block for slots without a block
-        there), then attend against the pool through the block table.
+        """Write the new K/V rows (codes and scales in an int8 pool) at the
+        physical addresses ``(pb, off)`` [B,T] of the layer pool ``lc``
+        (``_layer``; in place; ``pb`` = the trash block for slots without a
+        block there), then attend against the pool through the block table.
 
         ``wide = (b, t, q_pos)`` is the mixed launch's layout: ``x`` is
         ``[1, M, d]`` packed rows, and row m's query sits at ``(b[m],
@@ -186,17 +245,16 @@ class DecoderLM:
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
-        k_pool[pb, off] = k_new.to(k_pool.dtype)
-        v_pool[pb, off] = v_new.to(v_pool.dtype)
+        for name, t in _stored(lc, k_new, v_new).items():
+            lc[name][pb, off] = t
+        kw = dict(window=a.window, cu_blocks=cu_blocks, **_scales(lc))
         if wide is None:
-            out = paged_verify_attn(q, k_pool, v_pool, positions, pos, bt,
-                                    window=a.window, cu_blocks=cu_blocks)
+            out = paged_verify_attn(q, lc["k"], lc["v"], positions, pos, bt, **kw)
         else:
             b, t, q_pos = wide
             qw = q.new_zeros((*q_pos.shape, *q.shape[2:]))
             qw[b, t] = q[0]
-            out = paged_verify_attn(qw, k_pool, v_pool, q_pos, pos, bt,
-                                    window=a.window, cu_blocks=cu_blocks)[b, t]
+            out = paged_verify_attn(qw, lc["k"], lc["v"], q_pos, pos, bt, **kw)[b, t]
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_full(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -235,8 +293,7 @@ class DecoderLM:
                    rows: torch.Tensor, valid: Optional[torch.Tensor] = None,
                    rows_limit: Optional[int] = None) -> Callable:
         return lambda lp, hn, i, rope: self._attn_decode(
-            lp, hn, positions, cache["k"][i], cache["v"][i], cache["pos"], rows, rope,
-            valid, rows_limit)
+            lp, hn, positions, _layer(cache, i), cache["pos"], rows, rope, valid, rows_limit)
 
     def _unembed(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         return cm.unembed(x, params["unembed"], self.cfg.vocab_size)
@@ -293,11 +350,16 @@ class DecoderLM:
         """:meth:`prefill` with the attention of each layer run by K4 over
         the prompt's own K/V (padded rows at position -1, never attended)
         instead of over the cache; the K/V rows are then written to the ring
-        once.  Same contract and results as :meth:`prefill`."""
-        if "bt" in cache or "k_scale" in cache:
+        once.  Same contract as :meth:`prefill`, and the same results over an
+        unquantised ring.  Over an int8 ring K4 attends the unquantised rows
+        and the quantised ones are written after it, as JAX's
+        ``prefill_flash`` does, while :meth:`prefill` attends the quantised
+        rows: the two differ by the quantisation there.  The contiguous ring
+        only, as in JAX."""
+        if "bt" in cache:
             raise NotImplementedError(
-                "prefill_flash covers the contiguous ring without int8 K/V; the "
-                "int8 cache is not ported yet (ROADMAP queue 1, item 2)")
+                "prefill_flash covers the contiguous ring only; the JAX package's "
+                "prefill_flash has no paged form either")
         c = self.cfg
         B, T = tokens.shape
         dev = tokens.device
@@ -314,8 +376,9 @@ class DecoderLM:
         def attn(lp, hn, i, rope):
             q, k, v = self._qkv(lp, hn, positions, rope)
             out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window)
-            cache["k"][i][bidx, rows] = k.to(cache["k"].dtype)
-            cache["v"][i][bidx, rows] = v.to(cache["v"].dtype)
+            lc = _layer(cache, i)
+            for name, t in _stored(lc, k, v).items():
+                lc[name][bidx, rows] = t
             return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, c.d_model)
 
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
@@ -396,8 +459,8 @@ class DecoderLM:
         pb, off = self._pool_rows(cache, bt, slots, positions, valid)
 
         def attn(lp, hn, i, rope):
-            return self._attn_paged(lp, hn, positions, cache["k"][i], cache["v"][i],
-                                    cache["pos"], pb, off, bt, rope, cu_blocks)
+            return self._attn_paged(lp, hn, positions, _layer(cache, i), cache["pos"],
+                                    pb, off, bt, rope, cu_blocks)
 
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
         return self._unembed(params, x), cache
@@ -466,9 +529,8 @@ class DecoderLM:
         pb, off = self._pool_rows(cache, bt_eff, b[None], positions)
 
         def attn(lp, hn, i, rope):
-            return self._attn_paged(lp, hn, positions, cache["k"][i], cache["v"][i],
-                                    cache["pos"], pb, off, bt_eff, rope, cu_blocks,
-                                    wide=(b, t, q_pos))
+            return self._attn_paged(lp, hn, positions, _layer(cache, i), cache["pos"],
+                                    pb, off, bt_eff, rope, cu_blocks, wide=(b, t, q_pos))
 
         x = self._layers(params, cm.embed(toks[None], params["embed"]), positions, attn)
         return self._unembed(params, x[0, vrows].view(B, verify_len, -1)), cache
