@@ -103,10 +103,14 @@ Phases, one report line each (the last line is the JSON verdict):
             served paged (12 blocks, preempting), contiguous, chunked and
             mixed, a shared-prompt trace served with the prefix cache (hits,
             zero-suffix admissions, one through a copy-on-write), and solo
-            ``generate``: equal tokens; speculative == greedy; every
-            StepTrace replayed; K2 == K3 through the model's paged
-            ``decode_step``; card against CPU (logits 2e-3, codes at most 1
-            apart on at most 1e-3 of them, scales 1e-6 relative).  Then bf16
+            ``generate``: equal tokens, but where the solo stream's top-2
+            margin is below 4e-3 (a code that a round-half tie moves shifts
+            the logits by up to 2e-3; such divergences are reported);
+            speculative == greedy; every StepTrace replayed; K2 == K3
+            through the model's paged ``decode_step``; card against CPU
+            (logits 2e-3, codes at most 1 apart on at most 1e-3 of them,
+            layer 0's scales 1e-6 relative, deeper layers' 2e-3, their
+            inputs moved as the logits are by the moved codes).  Then bf16
             at full depth: phase 6b's pair, trace and LUT on the bf16 pool
             of 144 blocks and on an int8 pool of 283 blocks (the same
             bytes): every request finished, no preemption, K1 and K3
@@ -2611,9 +2615,13 @@ def phase_prefix_serve(torch, np, R, m, lut_table):
 # ---------------------------------------------------------------------------
 # phase 6e: the int8 KV cache (kv_quant) on the continuous main path
 
-Q8_TOL = dict(logits=2e-3,      # card vs CPU, fp32 on both sides: phase 3's
-              scale_rel=1e-6,   # a scale is its row's largest |value| / 127
-              moved_share=1e-3)  # codes a round-half tie may move by 1
+Q8_TOL = dict(logits=2e-3,            # card vs CPU, fp32 on both sides: phase 3's
+              scale_rel_layer0=1e-6,   # a scale is its row's largest |value| / 127
+              scale_rel=2e-3,          # deeper layers: inputs moved as the logits are
+              moved_share=1e-3)        # codes a round-half tie may move by 1
+# a route's greedy token may differ from solo's only where solo's top-2
+# logit margin is below twice the logits' deviation that moved codes cause
+Q8_TIE_MARGIN = 2 * Q8_TOL["logits"]
 
 
 def q8_blocks(cfg, bf16_blocks, bs=16):
@@ -2632,24 +2640,39 @@ def row_leaves(cache):
 
 
 def codes_against(torch, got, want):
-    """Two int8 caches' row leaves (same shapes, on the CPU): the largest
-    code distance, the share of codes that moved, and the largest relative
-    distance of the nonzero scales."""
-    d = {n: (got[n].to(torch.int16) - want[n].to(torch.int16)).abs()
-         for n in ("k", "v")}
-    scale_rel = max(float(((got[n].float() - want[n].float()).abs()
-                           / want[n].float().clamp_min(1e-30))[want[n] != 0].max())
-                    for n in ("k_scale", "v_scale"))
-    return dict(max_code_distance=max(int(x.max()) for x in d.values()),
-                moved_share=sum(int((x > 0).sum()) for x in d.values())
-                / sum(x.numel() for x in d.values()),
-                moved=sum(int((x > 0).sum()) for x in d.values()),
-                scale_max_rel=scale_rel)
+    """Two int8 caches' row leaves (same shapes ``[nL, ...]``, on the CPU):
+    the largest code distance, how many codes moved and their share, and
+    each layer's largest relative distance of the nonzero scales.  Layer 0
+    sees equal inputs on both sides, up to the rounding of its products;
+    a code that a round-half tie moves there moves a K/V value by a whole
+    scale step, and with it every later layer's inputs."""
+    d = {n: (got[n].to(torch.int16) - want[n].to(torch.int16)).abs() for n in ("k", "v")}
+    nL = got["k"].shape[0]
+    rel = [max(float(((got[n][i].float() - want[n][i].float()).abs()
+                      / want[n][i].float().clamp_min(1e-30))[want[n][i] != 0].max())
+               for n in ("k_scale", "v_scale")) for i in range(nL)]
+    moved = sum(int((x > 0).sum()) for x in d.values())
+    return dict(max_code_distance=max(int(x.max()) for x in d.values()), moved=moved,
+                moved_share=moved / sum(x.numel() for x in d.values()),
+                scale_max_rel_by_layer=rel)
 
 
 def codes_ok(c):
-    return (c["max_code_distance"] <= 1 and c["scale_max_rel"] <= Q8_TOL["scale_rel"]
+    rel = c["scale_max_rel_by_layer"]
+    return (c["max_code_distance"] <= 1 and rel[0] <= Q8_TOL["scale_rel_layer0"]
+            and max(rel) <= Q8_TOL["scale_rel"]
             and (c["moved"] <= 1 or c["moved_share"] <= Q8_TOL["moved_share"]))
+
+
+def solo_margin(torch, np, model, params, r, tokens, t):
+    """The top-2 logit margin of ``model``'s greedy choice of generated
+    token ``t`` of request ``r`` (``tokens`` its solo stream), from a
+    prefill of the prompt and the first ``t`` tokens."""
+    ctx = np.concatenate([r.tokens[:r.prompt_len], tokens[:t]]).astype(np.int64)
+    lg, _ = greedy_logits(torch, model, params, torch.from_numpy(ctx[None]),
+                          torch.tensor([len(ctx)], dtype=torch.int32), 0,
+                          -(-len(ctx) // 64) * 64, "cuda")
+    return top2_margin(torch, lg)
 
 
 def kvq_prefix_requests(np, Request, vocab, system=32, seed=53):
@@ -2674,12 +2697,15 @@ def kvq_parity(torch, np, R, m, tree_to):
     phase 6a's trace served paged (12 blocks, preempting), contiguous,
     paged chunked and paged mixed, a shared-prompt trace served paged with
     the prefix cache (hits and zero-suffix admissions, one through a
-    copy-on-write), and every request's solo ``generate``: equal tokens;
-    speculative (s = 3) == greedy; each StepTrace equals its
-    ``SimStepBackend`` replay; the paged ``decode_step`` gives the same
-    logits through K2 and K3; and the card against the CPU port on the
-    same inputs (a ring prefill and verify, a paged verify): logits, codes
-    and scales within ``Q8_TOL``."""
+    copy-on-write), and every request's solo ``generate``: equal tokens,
+    but where the solo stream's top-2 margin at the first differing token
+    is below ``Q8_TIE_MARGIN`` (the routes' products run on other numbers
+    of rows, so a round-half tie can move a code by one step on one route
+    and not on the other); speculative (s = 3) == greedy; each StepTrace
+    equals its ``SimStepBackend`` replay; the paged ``decode_step`` gives
+    the same logits through K2 and K3; and the card against the CPU port
+    on the same inputs (a ring prefill and verify, a paged verify):
+    logits, codes and scales within ``Q8_TOL``."""
     import copy
     f32 = torch.float32
     tcfg = R.get_config("opt-6.7b").with_(n_layers=2, kv_quant=True)
@@ -2709,16 +2735,22 @@ def kvq_parity(torch, np, R, m, tree_to):
                                               backend=be, policy=pol), be)
     int8_pools = all(be.state.tcache["k"].dtype == torch.int8 and "v_scale" in be.state.tcache
                      for _, be in runs.values())
-    mismatched = {}
+    # every route's tokens against solo generate; where they part, the
+    # solo stream's top-2 margin at the first differing token
+    divergences = []
     for tag, trace, names in (("trace", reqs, [p[0] for p in plan[:4]]),
                               ("prefix", preqs, ["paged_prefix_cache"])):
         for r in trace:
             solo, _, _ = eng.generate(tp, dp, r.tokens[None], np.array([r.prompt_len], np.int32),
                                       s=3, cache_len=96)
-            bad = [k for k in names
-                   if not np.array_equal(runs[k][1].outputs[r.rid], solo[0][:r.max_new])]
-            if bad:
-                mismatched[f"{tag}:{r.rid}"] = bad
+            solo = solo[0][:r.max_new]
+            for k in names:
+                got = np.asarray(runs[k][1].outputs[r.rid])
+                if not np.array_equal(got, solo):
+                    t = int(np.argmax(got != solo))
+                    divergences.append(dict(
+                        route=k, rid=f"{tag}:{r.rid}", token=t,
+                        solo_top2_margin=solo_margin(torch, np, eng.target, tp, r, solo, t)))
     # speculative == greedy over the whole trace in one batch
     P = max(r.prompt_len for r in reqs)
     toks = np.zeros((len(reqs), P), np.int32)
@@ -2787,8 +2819,9 @@ def kvq_parity(torch, np, R, m, tree_to):
     ring_cmp = dict(codes_against(torch, rc_g, rc_c),
                     logits_max_abs_err=float((lg_g - lg_c).abs().max()),
                     logits_ok=within(torch, lg_g, lg_c, Q8_TOL["logits"])[1])
-    line = dict(requests=len(reqs), prefix_requests=len(preqs), tokens_equal=not mismatched,
-                mismatched=mismatched, spec_equals_greedy=spec_equal, preemptions=n_pre,
+    line = dict(requests=len(reqs), prefix_requests=len(preqs),
+                tokens_equal=not divergences, divergences=divergences,
+                tie_margin=Q8_TIE_MARGIN, spec_equals_greedy=spec_equal, preemptions=n_pre,
                 sim_replay_equal=replay_equal, cache_hits=hits,
                 zero_suffix_hits=dict(copy=zero_copy, no_copy=zero_nocopy),
                 model_decode_k2_equals_k3=model_equal,
@@ -2796,8 +2829,9 @@ def kvq_parity(torch, np, R, m, tree_to):
                 card_vs_cpu=dict(ring=ring_cmp, paged=paged_cmp, tol=Q8_TOL))
     print("  " + json.dumps(line), flush=True)
     check(int8_pools, "a serving run's pool is not int8 with scales")
-    check(not mismatched, f"int8 routes (paged / contiguous / chunked / mixed / prefix cache) "
-                          f"and solo tokens differ: {mismatched}")
+    check(all(d["solo_top2_margin"] < Q8_TIE_MARGIN for d in divergences),
+          f"int8 routes (paged / contiguous / chunked / mixed / prefix cache) and solo "
+          f"tokens differ away from a near-tie: {divergences}")
     check(spec_equal, "int8: speculative tokens differ from greedy")
     check(n_pre["paged"] > 0 and n_pre["paged_mixed"] > 0,
           f"the undersized int8 pool never preempted: {n_pre}")
@@ -3681,7 +3715,8 @@ def main() -> int:
         PrefixCache=PrefixCache,
         serve_continuous_live=scheduler.serve_continuous_live,
         PrefillBudgetAdmit=scheduler.PrefillBudgetAdmit,
-        controller_s_cap=scheduler.controller_s_cap, ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
+        controller_s_cap=scheduler.controller_s_cap,
+        ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
         goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy,
         R=R, DecoderLM=DecoderLM, train=train, measure_acceptance=adaptive.measure_acceptance,
         DataConfig=training.DataConfig, batch_at=training.batch_at,

@@ -595,7 +595,8 @@ class SpecDecodeEngine:
         cached prefix covers it (``n_prefix == total_len``) that row lives
         in a shared block, so ``cow_for_range`` swaps in a fresh copy and
         every pool leaf but ``bt`` (``k``, ``v``, an int8 pool's ``k_scale``
-        and ``v_scale``, ``pos``) is copied from the source block to the copy.  Then the table grows to cover
+        and ``v_scale``, ``pos``) is copied from the source block to the
+        copy.  Then the table grows to cover
         ``total_len``, the evicted blocks are wiped, and the slot takes the
         row state of a chunked (and so of a whole-prompt) admission
         (``_commit_row``).

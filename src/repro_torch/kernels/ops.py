@@ -44,8 +44,7 @@ def spec_verify_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      scale, k_scale, v_scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if k_scale is not None:
-        k = (k.float() * k_scale.float()[..., None]).to(q.dtype)
-        v = (v.float() * v_scale.float()[..., None]).to(q.dtype)
+        k, v = _ref.dequant(k, k_scale, q.dtype), _ref.dequant(v, v_scale, q.dtype)
     PLAIN.launches += 1
     return _ref.gqa_masked_ref(q, k, v, q_pos, k_pos, window, prefix_len, scale)
 

@@ -71,10 +71,8 @@ def gather_verify_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kg, vg = gather_kv_blocks(k, v, block_tables)
     kpos = gather_key_positions(pos, block_tables)
     if k_scale is not None:
-        ks = gather_scales(k_scale, block_tables)
-        vs = gather_scales(v_scale, block_tables)
-        kg = (kg.float() * ks.float()[..., None]).to(q.dtype)
-        vg = (vg.float() * vs.float()[..., None]).to(q.dtype)
+        kg = _ref.dequant(kg, gather_scales(k_scale, block_tables), q.dtype)
+        vg = _ref.dequant(vg, gather_scales(v_scale, block_tables), q.dtype)
     return _ref.gqa_masked_ref(q, kg, vg, q_pos, kpos, window, prefix_len, scale)
 
 

@@ -42,6 +42,13 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkh->bqh", p.to(v.dtype), v)
 
 
+def dequant(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 K/V codes [..., hd] and their per-(row, kv-head) scales [...] ->
+    values in ``dtype``, the product in fp32 (``repro.models.transformer.
+    _dequant``): how the plain paths read an int8 cache."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
 def spec_verify_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, k_pos: torch.Tensor,
                     window: Optional[int] = None, prefix_len: int = 0,

@@ -26,10 +26,11 @@ entry points write the cache in place (one K/V write per layer, no copy of
 the cache) and return it.  With ``cfg.kv_quant`` either cache holds int8
 K/V codes with per-(row, kv-head) scales (``k_scale``/``v_scale``, in the
 cache's dtype) beside them; every write site quantises the new rows
-(:func:`_quant_rows`) and the attention kernels dequantise tile by tile.  Attention goes through
-``kernels.ops.spec_verify_attn`` (ring) and
-``kernels.paged.paged_verify_attn`` (pool): the CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors.
+(:func:`_quant_rows`), and the attention dequantises them (the kernels tile
+by tile, their plain versions through ``kernels.ref.dequant``, JAX's
+``_dequant``).  Attention goes through ``kernels.ops.spec_verify_attn``
+(ring) and ``kernels.paged.paged_verify_attn`` (pool): the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
@@ -59,11 +60,6 @@ def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = (xf.abs().amax(-1) / 127.0).clamp_min_(1e-8)
     q = torch.round(xf / scale[..., None]).clamp_(-127, 127).to(torch.int8)
     return q, scale
-
-
-def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """int8 codes [..., hd] and their scales [...] -> values in ``dtype``."""
-    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 def _layer(cache: Dict, i: int) -> Dict:

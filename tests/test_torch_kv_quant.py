@@ -1,7 +1,8 @@
 """The int8 KV cache (``kv_quant``) in the port against the JAX package, on
 the CPU.
 
-* ``_quant_rows`` / ``_dequant`` bit for bit against JAX's in fp32 and bf16,
+* ``_quant_rows`` and ``kernels.ref.dequant`` bit for bit against JAX's
+  ``_quant_rows`` / ``_dequant`` in fp32 and bf16,
   with all-zero rows (the 1e-8 floor on the scale), rows that reach +-127
   exactly and round-half ties;
 * the int8 cache leaves (names, dtypes, shapes) of the ring and the pool,
@@ -49,7 +50,7 @@ from repro_torch import bridge
 from repro_torch.configs import registry as R
 from repro_torch.core.adaptive import AdaptiveController, SpeculationLUT
 from repro_torch.core.spec_decode import SpecDecodeEngine
-from repro_torch.kernels import tuning
+from repro_torch.kernels import ref, tuning
 from repro_torch.models import transformer as TT
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request
@@ -100,7 +101,7 @@ def _logit_tol(moved: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# _quant_rows and _dequant
+# _quant_rows and dequant
 
 
 def _quant_inputs():
@@ -128,7 +129,7 @@ def test_quant_rows_and_dequant_bit_equal_to_jax(dtype):
     np.testing.assert_array_equal(tq.numpy()[0, 1, 1], np.arange(-127, 128, 8))
     # stored in the cache's dtype, dequantised with the stored scale
     jd = JT._dequant(jq, js.astype(jx.dtype), jx.dtype)
-    td = TT._dequant(tq, ts.to(tx.dtype), tx.dtype)
+    td = ref.dequant(tq, ts.to(tx.dtype), tx.dtype)
     assert td.dtype == tx.dtype
     np.testing.assert_array_equal(td.float().numpy(), np.asarray(jd.astype(jnp.float32)))
 
