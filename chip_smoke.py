@@ -120,6 +120,33 @@ Phases, one report line each (the last line is the JSON verdict):
             logits within 0.05 relative RMS of the fp32 unquantised route;
             one profiled paged step at B = 16, s = 0 of each pool.  K1's and
             K3's int8 routes also have phase 2/2b rows at these shapes.
+6f. sampling  stochastic speculative sampling (``sample=True``): in fp32
+            the full-width OPT-6.7B as its own draft (the same parameters)
+            accepts every draft token at s 3, B 4, in each of 3 steps; the
+            2-layer cut on the card against the CPU, both fed the same draws
+            (made on the CPU, through ``_sample_draws``): tokens equal but
+            at a near-tie (the CPU step's smallest decision margin below
+            twice the greedy logits' card-vs-CPU deviation).  In bf16 on
+            phase 6b's pair and seed: 8192 rows of one 16-token prompt
+            through one s = 3 step and one s = 0 step (1024 rows a call):
+            their first tokens, in 16 bins of equal target mass (the
+            target's softmax from a prefill on the card), pass a chi-square
+            test (p > 1e-3) and the draft's own first proposals fail it;
+            the rate of accepted first draft tokens within 4 sigma of
+            sum_v min(p, q); 0 <= a <= s, committed <= a + 1, tokens in the
+            vocabulary; K1 and K3 launched, no plain version.  Measured:
+            acceptance at s 1, 3 and 5 over 64 prompts, phase 4's profile on
+            a reduced grid (b 1, 4, 8; s 0, 1, 3) greedy and sampled, and
+            step profiles greedy against sampled (ring B 8 s 3, paged B 16
+            s 0 and s 3).
+6g. telemetry  the ``Telemetry`` hub on phase 6b's pair, pool and trace
+            with every arrival at 0, sampled at s = 3: no hub, a hub, and a
+            hub with ``jsonl_path`` and ``profile_dir`` under ``build/``:
+            tokens and StepTrace equal, preempted, every request retired,
+            committed tokens counted, a ``repro/step[...]`` scope in the
+            profiler's trace, ``engine.annotate`` restored; the wall times
+            (not gated), each scope's device time from the trace's
+            ``gpu_user_annotation`` ranges, the acceptance observatory.
 7.  train   the training path: the full-width OPT-125M draft distilled for
             20 steps against phase 4's OPT-6.7B teacher (the KL must fall;
             acceptance at s = 4 before and after); the internlm2-1.8b
@@ -3004,6 +3031,475 @@ def phase_kv_quant(torch, np, R, m, lut_table, live, tree_to):
 # phase 7: the training path
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: stochastic speculative sampling (sample=True)
+
+
+def capture_draws(m, cap, on_cpu=False):
+    """Wrap the engine module's ``_sample_draws`` so that each call's draws
+    land in ``cap["draws"]`` (``on_cpu``: the draws are made once on the CPU
+    from ``cap["gen"]`` and moved to each caller's device, the
+    card-against-CPU replay); returns the original, which the caller puts
+    back."""
+    sd = m.spec_decode
+    orig = sd._sample_draws
+
+    def draws(rng, B, s, V, device):
+        if on_cpu:
+            if "fixed" not in cap:
+                cap["fixed"] = orig(cap["gen"], B, s, V, "cpu")
+            out = tuple(t.to(device) for t in cap["fixed"])
+        else:
+            out = orig(rng, B, s, V, device)
+        cap["draws"] = out
+        return out
+    sd._sample_draws = draws
+    return orig
+
+
+def record_logits(model, rec, key, to_cpu=True):
+    """Record the logits of every ``decode_step`` of ``model`` (an instance
+    attribute over the class method; ``del model.decode_step`` restores)."""
+    fn = type(model).decode_step
+
+    def wrapped(*a, **kw):
+        lg, c = fn(model, *a, **kw)
+        rec.setdefault(key, []).append(lg.float().cpu() if to_cpu else lg)
+        return lg, c
+    model.decode_step = wrapped
+
+
+def eq_mass_bins(np, p, n_bins=16):
+    """Each token's bin among ``n_bins`` bins of equal target mass (tokens in
+    order of falling ``p``) and each bin's exact mass."""
+    order = np.argsort(-p, kind="stable")
+    before = np.cumsum(p[order]) - p[order]
+    bins = np.empty(len(p), np.int64)
+    bins[order] = np.minimum((before * n_bins).astype(np.int64), n_bins - 1)
+    return bins, np.bincount(bins, weights=p, minlength=n_bins)
+
+
+def chi2_against(np, tokens, bins, mass):
+    """Pearson's chi-square of ``tokens`` binned by ``bins`` against the
+    bins' masses (empty bins dropped), and its p-value."""
+    from scipy.stats import chi2
+    keep = mass > 0
+    obs = np.bincount(bins[tokens], minlength=len(mass))[keep]
+    exp = mass[keep] * len(tokens)
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    return dict(stat=stat, df=int(keep.sum()) - 1, p_value=float(chi2.sf(stat, keep.sum() - 1)),
+                observed=obs.tolist(), expected=[round(float(x), 1) for x in exp])
+
+
+def sampled_step_margins(torch, np, draft_lg, verify_lg, draws, a, T):
+    """Per row of one sampled step, the smallest margin of the decisions it
+    took, in logit units: each draft draw's top-2 gap of ``x / T + g``, each
+    acceptance test it ran ``|log u - min(log p - log q, 0)|``, and the
+    residual draw's top-2 gap at its cut ``a``.  From the step's recorded
+    draft logits (``s`` of ``[B, V]``), verify logits ``[B, s + 1, V]`` and
+    draws, fp32 on the CPU."""
+    g_draft, u, g_res = (t.cpu() for t in draws)
+    s, B = len(draft_lg), verify_lg.shape[0]
+
+    def top2(x):
+        v = x.topk(2, -1).values
+        return v[..., 0] - v[..., 1]
+    logp = torch.log_softmax(verify_lg / T, -1)
+    p = logp.exp()
+    out = []
+    for b in range(B):
+        gaps, cut = [], int(a[b])
+        for i, lg in enumerate(draft_lg):
+            x = lg[b] / T + g_draft[i, b]
+            gaps.append(float(top2(x)))
+            if i <= cut and i < s:
+                d = int(x.argmax())
+                logq = torch.log_softmax(lg[b] / T, -1)
+                gaps.append(abs(math.log(max(float(u[b, i]), 1e-45))
+                                - min(float(logp[b, i, d] - logq[d]), 0.0)))
+        resid = p[b, cut] - (torch.softmax(draft_lg[cut][b] / T, -1) if cut < s else 0.0)
+        resid = resid.clamp(min=0.0)
+        resid = resid / resid.sum().clamp(min=1e-20)
+        gaps.append(float(top2(torch.log(resid.clamp(min=1e-30)) + g_res[b])))
+        out.append(min(gaps))
+    return out
+
+
+def sampled_card_vs_cpu(torch, np, R, m, tree_to, steps=3, s=3):
+    """fp32, the full-width pair cut to 2 layers (phase 3's cut): the
+    greedy logits' card-against-CPU deviation, then ``steps`` sampled steps
+    at ``s`` on the card and on the CPU from the same prompts, each fed the
+    same draws (made on the CPU, through ``_sample_draws``).  Tokens and
+    counts must be equal; a row may part only at a near-tie, where the CPU
+    step's smallest decision margin is below twice the greedy deviation."""
+    f32 = torch.float32
+    tcfg = R.get_config("opt-6.7b").with_(n_layers=2)
+    dcfg = R.get_draft_config("opt-6.7b").with_(n_layers=2)
+    gen = torch.Generator().manual_seed(7)
+    e_cpu = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cpu", sample=True)
+    e_gpu = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cuda", sample=True)
+    tp_cpu = e_cpu.target.init(gen, f32, "cpu")
+    dp_cpu = e_cpu.draft.init(gen, f32, "cpu")
+    tp_gpu, dp_gpu = tree_to(tp_cpu, "cuda"), tree_to(dp_cpu, "cuda")
+    rng = np.random.default_rng(19)
+    toks = rng.integers(0, tcfg.vocab_size, (4, 16)).astype(np.int32)
+    lens = np.array([16, 12, 9, 16], np.int32)
+    tt, tl = torch.from_numpy(toks.astype(np.int64)), torch.from_numpy(lens)
+    lg_g, _ = greedy_logits(torch, e_gpu.target, tp_gpu, tt, tl, 8, 64, "cuda")
+    lg_c, _ = greedy_logits(torch, e_cpu.target, tp_cpu, tt, tl, 8, 64, "cpu")
+    dev = float((lg_g - lg_c).abs().max())
+    st_g = e_gpu.prefill(tp_gpu, dp_gpu, toks, lens, 64)
+    st_c = e_cpu.prefill(tp_cpu, dp_cpu, toks, lens, 64)
+    cap, rec = {}, {}
+    orig = capture_draws(m, cap, on_cpu=True)
+    record_logits(e_cpu.draft, rec, "draft")
+    record_logits(e_cpu.target, rec, "verify")
+    parted, divergences, equal_steps = set(), [], 0
+    try:
+        for k in range(steps):
+            cap.clear()
+            rec.clear()
+            cap["gen"] = torch.Generator().manual_seed(100 + k)
+            live = ~st_c.done.numpy()
+            st_g, sg = e_gpu.step(tp_gpu, dp_gpu, st_g, s, torch.Generator(device="cuda"))
+            st_c, sc = e_cpu.step(tp_cpu, dp_cpu, st_c, s, torch.Generator())
+            out_g, out_c = st_g.out.cpu().numpy(), st_c.out.numpy()
+            rows = [b for b in range(4) if live[b] and b not in parted and not (
+                np.array_equal(out_g[b], out_c[b]) and sg.accepted[b] == sc.accepted[b]
+                and sg.committed[b] == sc.committed[b])]
+            equal_steps += not rows
+            if rows:
+                dl = [rec["draft"][0][:, -1]] + [x[:, 0] for x in rec["draft"][1:]]
+                margins = sampled_step_margins(torch, np, dl, rec["verify"][0], cap["draws"],
+                                               sc.accepted, e_cpu.temperature)
+                for b in rows:
+                    parted.add(b)
+                    divergences.append(dict(step=k, row=b, cpu_margin=margins[b]))
+    finally:
+        m.spec_decode._sample_draws = orig
+        del e_cpu.draft.decode_step, e_cpu.target.decode_step
+    return dict(greedy_logits_dev=dev, tie_margin=2 * dev, steps=steps, s=s,
+                equal_steps=equal_steps, divergences=divergences)
+
+
+def sampled_draft_is_target(torch, np, m, tcfg, tp, dtype, steps=3, s=3, B=4):
+    """The target as its own draft, the same parameters: every live row
+    accepts every draft token (p = q) in each of ``steps`` steps."""
+    eng = m.SpecDecodeEngine(tcfg, tcfg, max_new=32, dtype=dtype, device="cuda", sample=True)
+    rng = np.random.default_rng(29)
+    toks = rng.integers(0, tcfg.vocab_size, (B, 16)).astype(np.int32)
+    st = eng.prefill(tp, tp, toks, np.full((B,), 16, np.int32), 64)
+    acc = []
+    for k in range(steps):
+        live = ~st.done.cpu().numpy()
+        st, stats = eng.step(tp, tp, st, s, torch.Generator(device="cuda").manual_seed(k))
+        acc.append(stats.accepted[live].tolist())
+    return acc
+
+
+def sampled_rows(torch, np, m, eng, tp, dp, prompt, s, rows, batch, seed, bounds):
+    """``rows`` rows of one prompt through one sampled step at ``s``,
+    ``batch`` rows a call: each row's first committed token and accept
+    count, and (s > 0) the draft's first proposal, from the draft's first
+    logits and the step's own draws (both captured).  The bounds on every
+    step go into ``bounds``."""
+    cap, rec = {}, {}
+    orig = capture_draws(m, cap)
+    record_logits(eng.draft, rec, "draft", to_cpu=False)
+    first, acc, prop = [], [], []
+    try:
+        for k in range(rows // batch):
+            rec.clear()
+            st = eng.prefill(tp, dp, np.repeat(prompt[None], batch, 0),
+                             np.full((batch,), len(prompt), np.int32), 32)
+            st, stats = eng.step(tp, dp, st, s,
+                                 torch.Generator(device="cuda").manual_seed(seed + k))
+            first.append(st.out[:, 0].cpu().numpy())
+            acc.append(stats.accepted)
+            n_gen = st.n_generated.cpu().numpy()
+            out = st.out.cpu().numpy()
+            bounds["steps"] += 1
+            bounds["ok"] &= bool((stats.accepted >= 0).all() and (stats.accepted <= s).all()
+                                 and (stats.committed <= stats.accepted + 1).all()
+                                 and (n_gen >= 1).all())
+            bounds["ok"] &= all(bool((out[b, :n_gen[b]] < eng.tcfg.vocab_size).all())
+                                for b in range(batch))
+            if s:
+                lg0 = rec["draft"][0][:, -1]
+                prop.append(torch.argmax(lg0 / eng.temperature + cap["draws"][0][0], -1)
+                            .cpu().numpy())
+            cap.clear()
+    finally:
+        m.spec_decode._sample_draws = orig
+        del eng.draft.decode_step
+    return (np.concatenate(first), np.concatenate(acc),
+            np.concatenate(prop) if prop else None)
+
+
+def tip_probs(torch, np, model, params, prompt, vocab):
+    """``model``'s next-token distribution after ``prompt`` (a prefill on
+    the card, bf16), over the true vocabulary, in float64."""
+    cache = model.init_cache(1, 32, torch.bfloat16, "cuda")
+    lg, _, _ = model.prefill(params, torch.from_numpy(prompt[None].astype(np.int64)).cuda(),
+                             cache, torch.tensor([len(prompt)], dtype=torch.int32,
+                                                 device="cuda"))
+    p = torch.softmax(lg[0].double(), -1)[:vocab].cpu().numpy()
+    return p / p.sum()
+
+
+def launch_counts(m):
+    return dict(k1=m.K1.KERNEL.launches, k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+                plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
+                       + m.ops.PLAIN_RMSNORM.launches))
+
+
+def zero_counts(m):
+    for c in (m.K1.KERNEL, m.K23.RAGGED, m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN,
+              m.ops.PLAIN_RMSNORM):
+        c.launches = 0
+
+
+def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
+    """``sample=True`` on the card.  fp32: the full-width OPT-6.7B as its
+    own draft accepts every draft token (3 steps, s 3, B 4); the 2-layer
+    cut against the CPU on the same draws.  bf16 on phase 6b's pair and
+    seed: ``n_rows`` rows of one 16-token prompt through one s = 3 step
+    (and through one s = 0 step, the control): the first committed tokens,
+    binned into 16 bins of equal target mass, pass a chi-square test
+    (p > 1e-3), the draft's own first proposals fail it (the test's power),
+    and the rate of accepted first draft tokens lies within 4 sigma of
+    sum_v min(p, q); the bounds on every step.  Measured: acceptance at
+    s 1, 3 and 5 over 64 prompts, the greedy and the sampled LUT on a
+    reduced grid, and step profiles greedy against sampled."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    vocab = tcfg.vocab_size
+    line = {}
+    # ---- draft = target, fp32 at full width (bf16 reported beside it) ----
+    tp32 = m.DecoderLM(tcfg).init(torch.Generator(device="cuda").manual_seed(17), f32, "cuda")
+    line["draft_is_target_fp32"] = sampled_draft_is_target(torch, np, m, tcfg, tp32, f32)
+    del tp32
+    torch.cuda.empty_cache()
+    # ---- card against CPU, the same draws ----
+    line["card_vs_cpu"] = sampled_card_vs_cpu(torch, np, R, m, tree_to)
+    torch.cuda.empty_cache()
+    # ---- bf16, full width ----
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=64, dtype=bf16, device="cuda", sample=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    eng.load_kernels(paged=True)
+    line["draft_is_target_bf16"] = sampled_draft_is_target(torch, np, m, tcfg, tp, bf16)
+    prompt = np.random.default_rng(31).integers(0, vocab, 16).astype(np.int32)
+    p = tip_probs(torch, np, eng.target, tp, prompt, vocab)
+    q = tip_probs(torch, np, eng.draft, dp, prompt, vocab)
+    bins, mass = eq_mass_bins(np, p)
+    bounds = {"ok": True, "steps": 0}
+    zero_counts(m)
+    t0 = time.perf_counter()
+    first3, acc3, prop = sampled_rows(torch, np, m, eng, tp, dp, prompt, 3, n_rows, batch, 1000,
+                                      bounds)
+    first0, _, _ = sampled_rows(torch, np, m, eng, tp, dp, prompt, 0, n_rows, batch, 5000,
+                                bounds)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    launches_exact = launch_counts(m)
+    expected_rate = float(np.minimum(p, q).sum())
+    rate = float((acc3 >= 1).mean())
+    sigma = math.sqrt(expected_rate * (1 - expected_rate) / n_rows)
+    line["exactness"] = dict(
+        rows=n_rows, batch=batch, seconds=exact_s, p_max=float(p.max()),
+        bin_mass=[round(float(x), 4) for x in mass],
+        spec_s3=chi2_against(np, first3, bins, mass),
+        plain_s0=chi2_against(np, first0, bins, mass),
+        draft_proposals=chi2_against(np, prop, bins, mass),
+        first_accept_rate=rate, expected_rate=expected_rate, sigma=sigma,
+        accepted_hist=np.bincount(acc3, minlength=4).tolist(),
+        tv_draft_target=float(0.5 * np.abs(p - q).sum()),
+        launches=launches_exact, bounds=bounds)
+    # ---- acceptance at s 1, 3, 5 over 64 prompts ----
+    rng = np.random.default_rng(1)
+    ps = m.synthetic_prompts(64, vocab, rng, 8, 16)
+    toks = np.zeros((64, 16), np.int32)
+    for i, pr in enumerate(ps):
+        toks[i, :len(pr)] = pr
+    lens = np.array([len(pr) for pr in ps], np.int32)
+    line["acceptance"] = {}
+    for s in (1, 3, 5):
+        runs = np.asarray(m.measure_acceptance(eng, tp, dp, toks, lens, s=s, gen_tokens=8,
+                                               cache_len=256))
+        line["acceptance"][s] = dict(draws=int(runs.size), mean_accepted=float(runs.mean()),
+                                     per_token=float(runs.mean() / s),
+                                     first_accepted=float((runs >= 1).mean()),
+                                     hist=np.bincount(runs, minlength=s + 1).tolist())
+    # ---- the LUT on a reduced grid, greedy and sampled (phase 4's sample) ----
+    ps = m.synthetic_prompts(8, vocab, np.random.default_rng(1), 8, 16)
+    ptoks = np.zeros((8, 16), np.int32)
+    for i, pr in enumerate(ps):
+        ptoks[i, :len(pr)] = pr
+    plens = np.array([len(pr) for pr in ps], np.int32)
+    line["lut"] = {}
+    for mode in ("greedy", "sampled"):
+        eng.sample = mode == "sampled"
+        zero_counts(m)
+        lut = m.profile_engine(eng, tp, dp, ptoks, plens, batch_sizes=(1, 4, 8),
+                               s_values=(0, 1, 3), gen_tokens=16, cache_len=256)
+        line["lut"][mode] = dict(table=dict(lut.table), launches=launch_counts(m),
+                                 ms_per_token={b: {s: 1e3 * t for s, t in d.items()}
+                                               for b, d in lut.per_token.items()})
+    # ---- step profiles, greedy against sampled ----
+    line["profiles"] = {}
+    ring_toks = np.random.default_rng(5).integers(0, vocab, (8, 16)).astype(np.int32)
+    ptoks = np.random.default_rng(6).integers(0, vocab, (16, 128)).astype(np.int32)
+    launches_prof = {}
+    for mode in ("greedy", "sampled"):
+        eng.sample = mode == "sampled"
+        zero_counts(m)
+        line["profiles"][f"ring_b8_s3_{mode}"] = profile_step(
+            torch, eng, tp, dp, f"ring_b8_s3_{mode}",
+            eng.prefill(tp, dp, ring_toks, np.full((8,), 16, np.int32), 256), 3)
+        for s in (0, 3):
+            st = eng.init_slots(16, 512, block_size=16, num_blocks=192)
+            for slot in range(16):
+                st = eng.prefill_into(tp, dp, st, slot, ptoks[slot], 128, 512)
+            line["profiles"][f"paged_b16_s{s}_{mode}"] = profile_step(
+                torch, eng, tp, dp, f"paged_b16_s{s}_{mode}", st, s)
+        launches_prof[mode] = launch_counts(m)
+    line["profiles"]["launches"] = launches_prof
+    eng.sample = True
+    ex = line["exactness"]
+    print("  " + json.dumps(line), flush=True)
+    check(all(a == 3 for st in line["draft_is_target_fp32"] for a in st),
+          f"fp32 draft = target: a draft token was rejected: {line['draft_is_target_fp32']}")
+    cvc = line["card_vs_cpu"]
+    check(all(d["cpu_margin"] < cvc["tie_margin"] for d in cvc["divergences"]),
+          f"sampled card and CPU tokens part away from a near-tie: {cvc}")
+    check(bounds["ok"] and bounds["steps"] == 2 * n_rows // batch,
+          f"a sampled step broke 0 <= a <= s, committed <= a + 1 or the vocabulary: {bounds}")
+    check(ex["spec_s3"]["p_value"] > 1e-3,
+          f"s = 3 first tokens are not distributed as the target: {ex['spec_s3']}")
+    check(ex["plain_s0"]["p_value"] > 1e-3,
+          f"s = 0 sampled tokens are not distributed as the target: {ex['plain_s0']}")
+    check(ex["draft_proposals"]["p_value"] < 1e-3,
+          f"the draft's proposals pass the test, so it has no power: {ex['draft_proposals']}")
+    check(abs(rate - expected_rate) <= 4 * sigma,
+          f"first-token acceptance {rate} is not within 4 sigma ({sigma}) of sum min(p, q) "
+          f"{expected_rate}")
+    check(launches_exact["k1"] > 0 and launches_prof["sampled"]["k3"] > 0
+          and launches_exact["plain"] == 0 and launches_prof["sampled"]["plain"] == 0,
+          f"the sampled path missed K1 or K3, or ran a plain version: {launches_exact}, "
+          f"{launches_prof}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: the telemetry hub
+
+
+def scope_table(path):
+    """Per ``repro/*`` scope of a Chrome trace: its calls (the host-side
+    ``user_annotation`` ranges), the device time of the kernels, copies and
+    fills inside its ``gpu_user_annotation`` ranges, and that time's share
+    of the trace's device time."""
+    import bisect
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    base = lambda name: name.split("[")[0]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], base(e["name"])) for e in evs
+                    if e.get("cat") == "gpu_user_annotation")
+    starts = [r[0] for r in ranges]
+    calls, dev_us, total = {}, {}, 0.0
+    for e in evs:
+        if e.get("cat") == "user_annotation" and e["name"].startswith("repro/"):
+            calls[base(e["name"])] = calls.get(base(e["name"]), 0) + 1
+        elif e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            total += e["dur"]
+            i = bisect.bisect_right(starts, e["ts"]) - 1
+            name = ranges[i][2] if i >= 0 and e["ts"] < ranges[i][1] else "(no scope)"
+            dev_us[name] = dev_us.get(name, 0.0) + e["dur"]
+    names = {e["name"] for e in evs if e.get("cat") == "user_annotation"}
+    return dict(
+        device_ms=total / 1e3,
+        scopes={k: dict(calls=calls.get(k, 0), device_ms=dev_us.get(k, 0.0) / 1e3,
+                        share=dev_us.get(k, 0.0) / total if total else None)
+                for k in sorted(set(calls) | set(dev_us))},
+        step_scope=any(n.startswith("repro/step[") for n in names))
+
+
+def phase_telemetry(torch, np, R, m):
+    """The telemetry hub on phase 6b's pair, seed, trace (every arrival at 0:
+    the live clock advances by wall time, so the hub-off and hub-on runs
+    admit alike) and pool of 144 blocks, ``sample=True`` at s = 3, so the
+    acceptance observatory has draws: served with no hub, with an enabled
+    hub, and with an enabled hub holding ``jsonl_path`` and ``profile_dir``
+    under ``build/``.  Gates: tokens and StepTrace fields equal, preempted,
+    every request retired, committed tokens counted, a ``repro/step[...]``
+    scope in the profiler's trace, ``engine.annotate`` restored.
+    Measured: wall time in each mode (not gated), the per-scope device
+    time, the observatory's table."""
+    import copy
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda", sample=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 32, (64, 192), 32, 0.0, 23)
+    ctrl = m.fixed_controller(3)
+    out_dir = os.path.join(ROOT, "build", "telemetry")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def run(tel):
+        be = m.ContinuousEngineBackend(eng, tp, dp, capacity=16, cache_len=512,
+                                       block_size=16, num_blocks=144, collect_outputs=True,
+                                       warm_s=(3,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl, backend=be,
+                                      telemetry=tel)
+        torch.cuda.synchronize()
+        return res, be, time.perf_counter() - t0
+
+    fields = ("admitted", "occupancy", "committed", "preempted", "done_rids", "chunked")
+    r_off, b_off, wall_off = run(None)
+    tel_on = m.Telemetry()
+    r_on, b_on, wall_on = run(tel_on)
+    tel = m.Telemetry(jsonl_path=os.path.join(out_dir, "events.jsonl"),
+                      profile_dir=os.path.join(out_dir, "profile"))
+    annotate_before = eng.annotate
+    r_pr, b_pr, wall_pr = run(tel)
+    tel.close()
+    t0 = time.perf_counter()
+    scopes = scope_table(tel.trace_path)
+    parse_s = time.perf_counter() - t0
+
+    def same(res, be):
+        return (all([getattr(t, f) for t in r_off.trace] == [getattr(t, f) for t in res.trace]
+                    for f in fields)
+                and set(b_off.outputs) == set(be.outputs)
+                and all(np.array_equal(b_off.outputs[r], be.outputs[r]) for r in b_off.outputs))
+    line = dict(
+        requests=len(reqs), wall_s=dict(off=wall_off, on=wall_on, on_profiler=wall_pr),
+        trace_parse_s=parse_s, trace_mb=os.path.getsize(tel.trace_path) / 1e6,
+        equal=dict(on=same(r_on, b_on), on_profiler=same(r_pr, b_pr)),
+        steps=len(r_pr.batches), preempted=sum(len(t.preempted) for t in r_pr.trace),
+        counters=tel.counters, tokens_committed=tel.tokens_committed,
+        n_generated=sum(r.n_generated for r in r_pr.requests), iterations=tel.iterations,
+        events=len(tel.events), peaks=tel.peaks, annotate_after=eng.annotate,
+        scopes=scopes, acceptance=tel.acceptance_table(), summary_gauges=tel.gauges)
+    print("  " + json.dumps(line, default=float), flush=True)
+    check(line["equal"]["on"] and line["equal"]["on_profiler"],
+          "tokens or StepTrace differ with the telemetry hub on")
+    check(tel.counters.get("preempt", 0) > 0, "the hub's run never preempted")
+    check(tel.counters.get("retire") == len(reqs),
+          f"retire spans {tel.counters.get('retire')} != {len(reqs)} requests")
+    check(line["tokens_committed"] == line["n_generated"],
+          "the hub's committed tokens differ from the requests' n_generated")
+    check(scopes["step_scope"], "no repro/step[...] scope in the profiler's trace")
+    check(not annotate_before and not eng.annotate, "engine.annotate not restored")
+    return line
+
+
 def tree_map(fn, tree):
     return {k: tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
@@ -3684,6 +4180,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs import registry as R
     from repro_torch.core import adaptive, analytical
+    from repro_torch.core import spec_decode
     from repro_torch.core.spec_decode import SpecDecodeEngine
     from repro_torch import training
     from repro_torch.kernels import build, ops, paged, ref, tuning
@@ -3697,12 +4194,15 @@ def main() -> int:
     from repro_torch.serving import metrics, scheduler
     from repro_torch.serving.prefix_cache import PrefixCache
     from repro_torch.serving.request import Request
+    from repro_torch.serving.telemetry import Telemetry
+    from repro_torch.serving.traffic import synthetic_prompts
     from repro_torch.training import train_step
 
     # what phases 6 and 7 drive, under one name
     m = types.SimpleNamespace(
-        SpecDecodeEngine=SpecDecodeEngine, Request=Request, K1=K1, K23=K23, K4=K4, K5=K5,
-        K6=K6, serve=serve,
+        SpecDecodeEngine=SpecDecodeEngine, spec_decode=spec_decode, Request=Request, K1=K1,
+        K23=K23, K4=K4, K5=K5, K6=K6, serve=serve, Telemetry=Telemetry,
+        synthetic_prompts=synthetic_prompts, profile_engine=adaptive.profile_engine,
         ops=ops, paged=paged, host_cu_blocks=tuning.host_cu_blocks,
         grid_steps_ragged=tuning.grid_steps_ragged,
         grid_steps_dense=tuning.grid_steps_dense,
@@ -3862,6 +4362,20 @@ def main() -> int:
     # ---- 6e. the int8 KV cache (kv_quant) on the continuous main path ----
     kvq = phase_kv_quant(torch, np, R, m, res["lut"], live, tree_to)
     print(json.dumps({"phase": "kv_quant", "ok": True}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 6f. stochastic speculative sampling (sample=True) ----
+    t0 = time.perf_counter()
+    phase_sampling(torch, np, R, m, tree_to)
+    print(json.dumps({"phase": "sampling", "ok": True, "s": time.perf_counter() - t0}),
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 6g. the telemetry hub on the continuous main path ----
+    t0 = time.perf_counter()
+    phase_telemetry(torch, np, R, m)
+    print(json.dumps({"phase": "telemetry", "ok": True, "s": time.perf_counter() - t0}),
+          flush=True)
     torch.cuda.empty_cache()
 
     # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----

@@ -1,5 +1,6 @@
 """Batched speculative decoding (paper §3, Algorithm 1): the port of
-``repro.core.spec_decode`` for greedy verification, without sharded pools.
+``repro.core.spec_decode``, greedy or stochastic verification, without
+sharded pools.
 
 One speculative step at speculation length ``s`` for a batch of ``b``
 ragged requests:
@@ -9,7 +10,8 @@ ragged requests:
   2. verify — the target scores all b x (s+1) positions in one forward
      (ring-buffer writes + position-based masks);
   3. accept — per request, the longest draft prefix matching the target's
-     argmax, plus the target's bonus/correction token;
+     argmax, plus the target's bonus/correction token (``sample=True``:
+     Leviathan/Chen stochastic acceptance and a residual resample);
   4. commit — pure length updates for the attention caches.
 
 ``s = 0`` is plain batched autoregressive decoding with the same code.
@@ -75,14 +77,22 @@ Under pressure a host allocation may evict cache blocks; every allocating
 entry point then wipes their ``pos`` rows (``_drain_evicted``) before the
 next dispatch, so a block never comes back from the free list with
 attendable keys.
+
+Device annotation (serving/telemetry.py): with ``engine.annotate`` set,
+every dispatch runs inside a ``torch.profiler.record_function`` scope named
+as the JAX package's (``repro/step[B=..,s=..]``, ``repro/inject``, ...), so a
+profiler trace attributes device time per serving phase; with it off the
+sites enter one shared null context and format no name.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import build_model
@@ -96,6 +106,10 @@ if TYPE_CHECKING:  # the real import is lazy: serving/ imports this module
 # headroom rows in the per-request output buffer: one speculative step can
 # commit up to s + 1 tokens past max_new.  Also the ceiling on s.
 S_MAX = 8
+
+# the dispatch sites enter this shared context when ``annotate`` is off:
+# no scope object, no name formatted
+_NULLCTX = contextlib.nullcontext()
 
 
 def _slot_axis(full_shape, single_shape) -> Optional[int]:
@@ -159,12 +173,16 @@ class SpecDecodeEngine:
     """Target + draft pair with batched speculative stepping.
 
     ``dtype`` is the KV caches' dtype; the parameters come from the caller.
-    ``device`` defaults to CUDA and raises without it."""
+    ``device`` defaults to CUDA and raises without it.  ``sample=True``
+    verifies stochastically at ``temperature`` (:func:`make_spec_step`);
+    ``annotate`` (off by default; the telemetry hub sets it) wraps every
+    dispatch in a profiler scope."""
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: Optional[ModelConfig],
                  max_new: int = 128, eos_id: int = -1,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 sample: bool = False, temperature: float = 1.0):
         self.tcfg = target_cfg
         self.dcfg = draft_cfg
         self.target = build_model(target_cfg)
@@ -173,6 +191,9 @@ class SpecDecodeEngine:
         self.eos_id = eos_id
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.sample = sample
+        self.temperature = temperature
+        self.annotate: bool = False
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -197,16 +218,18 @@ class SpecDecodeEngine:
             raise ValueError("prompts need >= 3 tokens")
         tokens = self._tensor(tokens, torch.long)
         lens = self._tensor(lens_host)
-        B = tokens.shape[0]
-        tcache, dcache = self._init_caches(B, cache_len)
-        _, tcache, total = self.target.prefill(tparams, tokens, tcache,
-                                               prompt_lens=lens - 1)
-        if self.draft is not None:
-            _, dcache, _ = self.draft.prefill(dparams, tokens, dcache,
-                                              prompt_lens=lens - 2)
-        bidx = torch.arange(B, device=self.device)
-        last2 = torch.stack([tokens[bidx, (lens - 2).long()],
-                             tokens[bidx, (lens - 1).long()]], dim=1).to(torch.int32)
+        B, P = tokens.shape
+        with (record_function(f"repro/prefill[B={B},P={P}]") if self.annotate
+              else _NULLCTX):
+            tcache, dcache = self._init_caches(B, cache_len)
+            _, tcache, total = self.target.prefill(tparams, tokens, tcache,
+                                                   prompt_lens=lens - 1)
+            if self.draft is not None:
+                _, dcache, _ = self.draft.prefill(dparams, tokens, dcache,
+                                                  prompt_lens=lens - 2)
+            bidx = torch.arange(B, device=self.device)
+            last2 = torch.stack([tokens[bidx, (lens - 2).long()],
+                                 tokens[bidx, (lens - 1).long()]], dim=1).to(torch.int32)
         return DecodeState(
             tcache=tcache, dcache=dcache, seq_lens=total + 1, last2=last2,
             out=torch.zeros((B, self.max_new + S_MAX + 1), dtype=torch.int32,
@@ -296,11 +319,20 @@ class SpecDecodeEngine:
             cache_len = pk.logical_len
         one = self.prefill(tparams, dparams, tokens,
                            np.array([prompt_len], np.int32), cache_len)
+        if pk is not None:
+            pk.prefill(slot, prompt_len)
+            self._drain_evicted(state)
+        with record_function("repro/inject") if self.annotate else _NULLCTX:
+            self._inject(state, one, slot)
+        return state
+
+    def _inject(self, state: DecodeState, one: DecodeState, slot: int) -> None:
+        """Copy a B = 1 prefill's caches and row state into row ``slot`` of
+        the pool, in place (a paged pool through the slot's new table)."""
+        pk = state.paged
         if pk is None:
             self._copy_slot(state.tcache, one.tcache, slot)
         else:
-            pk.prefill(slot, prompt_len)
-            self._drain_evicted(state)
             ids = pk.table(slot)
             n, bs = len(ids), pk.block_size
             blocks = self._tensor(ids, torch.long)
@@ -318,7 +350,6 @@ class SpecDecodeEngine:
             self._copy_slot(state.dcache, one.dcache, slot)
         for name in ("seq_lens", "last2", "out", "n_generated", "done"):
             getattr(state, name)[slot] = getattr(one, name)[0]
-        return state
 
     @staticmethod
     def _copy_slot(pool: Dict, one: Dict, slot: int) -> None:
@@ -454,7 +485,8 @@ class SpecDecodeEngine:
                 pk.commit(slot, 1)
                 pk.clear_pending(slot)
                 self._drain_evicted(state)
-            self._commit_row(state, slot, total_len, last2)
+            with record_function("repro/chunk_commit") if self.annotate else _NULLCTX:
+                self._commit_row(state, slot, total_len, last2)
         return state
 
     def _commit_row(self, state: DecodeState, slot: int, total_len: int,
@@ -482,6 +514,12 @@ class SpecDecodeEngine:
         place: on a paged pool the target runs through the slot's one-row
         host table (K3), on a contiguous one through its ring view (K1);
         the draft through its ring view, bounded to ``rows_limit`` rows."""
+        with (record_function(f"repro/chunk[CB={chunk.cb}]") if self.annotate
+              else _NULLCTX):
+            self._chunk_forward_rows(tparams, dparams, state, chunk)
+
+    def _chunk_forward_rows(self, tparams, dparams, state: DecodeState,
+                            chunk: DeferredChunk) -> None:
         toks = self._tensor(chunk.tokens, torch.long)[None]
         off = self._tensor([chunk.start])
         feed_total = chunk.total_len - 1
@@ -515,20 +553,20 @@ class SpecDecodeEngine:
         step stops committing for it and the row can be claimed again.  A
         paged pool also frees the slot's blocks and wipes their ``pos``
         rows, so a recycled block never leaks stale attendable keys."""
-        state.done[slot] = True
-        if state.paged is not None:
-            freed = state.paged.release(slot)
-            if freed:
-                state.tcache["pos"][self._tensor(freed, torch.long)] = -1
-            state.tcache["bt"][slot] = -1
+        with record_function("repro/retire") if self.annotate else _NULLCTX:
+            state.done[slot] = True
+            if state.paged is not None:
+                freed = state.paged.release(slot)
+                if freed:
+                    state.tcache["pos"][self._tensor(freed, torch.long)] = -1
+                state.tcache["bt"][slot] = -1
         return state
 
     # ------------------------------------------------------------------
     # prefix-cache admission (shared blocks; serving/prefix_cache.py is the
     # host index, serving/scheduler.py drives this; paged pools only)
 
-    @staticmethod
-    def _drain_evicted(state: DecodeState) -> None:
+    def _drain_evicted(self, state: DecodeState) -> None:
         """Wipe the ``pos`` rows of the cache blocks that
         reclaim-under-pressure evicted (``PagedKVTables.evicted_pending``)
         and clear the list, in place.
@@ -544,7 +582,8 @@ class SpecDecodeEngine:
             return
         ids, pk.evicted_pending = pk.evicted_pending, []
         pos = state.tcache["pos"]
-        pos[torch.tensor(ids, dtype=torch.long, device=pos.device)] = -1
+        with record_function("repro/evict_clear") if self.annotate else _NULLCTX:
+            pos[torch.tensor(ids, dtype=torch.long, device=pos.device)] = -1
 
     def attach_prefix(self, dparams, state: DecodeState, slot: int, tokens,
                       n_prefix: int, total_len: int, *,
@@ -576,14 +615,19 @@ class SpecDecodeEngine:
             self.load_kernels(paged=True)
             return state
         pk.mark_pending(slot)
+        one = None
         if self.draft is not None:
             toks = self._tensor(np.asarray(tokens, np.int32).reshape(1, -1), torch.long)
             dlim = min(n_prefix, total_len - 2)
-            one = self.draft.init_cache(1, pk.logical_len, self.dtype, self.device)
-            _, one, _ = self.draft.prefill(dparams, toks, one,
-                                           prompt_lens=self._tensor([dlim]))
-            self._copy_slot(state.dcache, one, slot)
-        state.seq_lens[slot] = total_len
+            with (record_function(f"repro/draft_prefill[P={toks.shape[1]}]")
+                  if self.annotate else _NULLCTX):
+                one = self.draft.init_cache(1, pk.logical_len, self.dtype, self.device)
+                _, one, _ = self.draft.prefill(dparams, toks, one,
+                                               prompt_lens=self._tensor([dlim]))
+        with record_function("repro/attach_park") if self.annotate else _NULLCTX:
+            if one is not None:
+                self._copy_slot(state.dcache, one, slot)
+            state.seq_lens[slot] = total_len
         return state
 
     def commit_attached(self, state: DecodeState, slot: int, total_len: int,
@@ -617,15 +661,18 @@ class SpecDecodeEngine:
         self._drain_evicted(state)
         if pairs:
             src, dst = (self._tensor(ids, torch.long) for ids in zip(*pairs))
-            for name, leaf in state.tcache.items():
-                if name == "pos":
-                    leaf[dst] = leaf[src]
-                elif name != "bt":
-                    leaf[:, dst] = leaf[:, src]
-        self._commit_row(state, slot, total_len, last2)
+            with record_function("repro/block_copy") if self.annotate else _NULLCTX:
+                for name, leaf in state.tcache.items():
+                    if name == "pos":
+                        leaf[dst] = leaf[src]
+                    elif name != "bt":
+                        leaf[:, dst] = leaf[:, src]
+        with record_function("repro/chunk_commit") if self.annotate else _NULLCTX:
+            self._commit_row(state, slot, total_len, last2)
         return state
 
-    def step(self, tparams, dparams, state: DecodeState, s: int, *,
+    def step(self, tparams, dparams, state: DecodeState, s: int,
+             rng: Optional[torch.Generator] = None, *,
              warm: bool = False) -> Tuple[DecodeState, StepStats]:
         """One speculative step at length ``s`` for the whole batch.  The
         returned state shares (and has updated in place) the input state's
@@ -636,7 +683,11 @@ class SpecDecodeEngine:
         uploaded only if a table grew, and ``cu_blocks`` comes from the
         same host tables; afterwards the host token mirror advances by the
         commit counts.  ``warm=True`` only loads the kernels and returns the
-        state untouched with zero counts."""
+        state untouched with zero counts.
+
+        ``sample=True`` draws from ``rng``, a ``torch.Generator`` on the
+        engine's device; without one, from a generator seeded with
+        ``sum(n_generated)``, as the JAX engine's fallback key."""
         self._check_s(s)
         B = state.seq_lens.shape[0]
         pk = state.paged
@@ -645,7 +696,8 @@ class SpecDecodeEngine:
             zero = np.zeros(B, np.int32)
             return state, StepStats(accepted=zero, committed=zero.copy())
         fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
-                            max_new=self.max_new, paged=pk is not None)
+                            max_new=self.max_new, paged=pk is not None,
+                            sample=self.sample, temperature=self.temperature)
         args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
                 state.last2, state.out, state.n_generated, state.done)
         if pk is not None:
@@ -653,7 +705,21 @@ class SpecDecodeEngine:
             # blocks: both come from these host tables
             tables = self._grow_tables(state, s)
             args = (*args, torch.from_numpy(host_cu_blocks(tables)).to(self.device))
-        return self._finish_step(state, fn(*args))
+        if self.sample:
+            args = (*args, self._step_rng(state, rng))
+        with (record_function(f"repro/step[B={B},s={s}]") if self.annotate
+              else _NULLCTX):
+            outs = fn(*args)
+        return self._finish_step(state, outs)
+
+    def _step_rng(self, state: DecodeState,
+                  rng: Optional[torch.Generator]) -> torch.Generator:
+        """The step's generator: ``rng``, or the fallback seeded with
+        ``sum(n_generated)`` (one host read at the step boundary)."""
+        if rng is not None:
+            return rng
+        seed = int(state.n_generated.sum().cpu())
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     @staticmethod
     def _check_s(s: int) -> None:
@@ -662,8 +728,7 @@ class SpecDecodeEngine:
                 f"s={s} outside [0, {S_MAX}]: the step's output buffer is "
                 f"sized for at most S_MAX={S_MAX} speculative tokens")
 
-    @classmethod
-    def _grow_tables(cls, state: DecodeState, s: int) -> np.ndarray:
+    def _grow_tables(self, state: DecodeState, s: int) -> np.ndarray:
         """Grow each live, non-pending slot's table to cover its worst-case
         writes this step (``seq_len + s`` rows), wipe the ``pos`` rows of
         the cache blocks the growth evicted, and upload ``bt`` only if a
@@ -673,7 +738,7 @@ class SpecDecodeEngine:
         for slot in pk.active_slots():
             if not pk.is_pending(slot):
                 grew |= bool(pk.ensure(slot, pk.tokens(slot) + s))
-        cls._drain_evicted(state)
+        self._drain_evicted(state)
         tables = pk.device_tables(exclude_pending=True)
         if grew:
             state.tcache["bt"].copy_(torch.from_numpy(tables))
@@ -695,7 +760,9 @@ class SpecDecodeEngine:
                 stats)
 
     def step_with_chunk(self, tparams, dparams, state: DecodeState, s: int,
-                        chunk: DeferredChunk) -> Tuple[DecodeState, StepStats]:
+                        chunk: DeferredChunk,
+                        rng: Optional[torch.Generator] = None
+                        ) -> Tuple[DecodeState, StepStats]:
         """One speculative step with a deferred chunk's forward inside it:
         the mixed verify+chunk launch.
 
@@ -710,7 +777,7 @@ class SpecDecodeEngine:
         ``flush_chunk`` then ``step`` the pool rows below the trash block,
         the row state and the counts are equal in exact arithmetic; the
         products run on another number of rows, so they may round apart.
-        A contiguous pool raises."""
+        A contiguous pool raises.  ``rng`` as in :meth:`step`."""
         self._check_s(s)
         pk = state.paged
         if pk is None:
@@ -726,24 +793,34 @@ class SpecDecodeEngine:
         feed_total = chunk.total_len - 1
         fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
                             max_new=self.max_new, paged=True,
-                            chunk=(chunk.cb, chunk.rows_limit))
-        outs = fn(tparams, dparams, state.tcache, state.dcache, state.seq_lens,
-                  state.last2, state.out, state.n_generated, state.done, ops[:B + 1],
-                  (chunk.slot, ops[B + 1:B + 1 + chunk.cb], chunk.start, feed_total,
-                   feed_total - 1, ops[B + 1 + chunk.cb:]))
+                            chunk=(chunk.cb, chunk.rows_limit),
+                            sample=self.sample, temperature=self.temperature)
+        args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
+                state.last2, state.out, state.n_generated, state.done, ops[:B + 1],
+                (chunk.slot, ops[B + 1:B + 1 + chunk.cb], chunk.start, feed_total,
+                 feed_total - 1, ops[B + 1 + chunk.cb:]))
+        if self.sample:
+            args = (*args, self._step_rng(state, rng))
+        with (record_function(f"repro/step_mixed[B={B},s={s},CB={chunk.cb}]")
+              if self.annotate else _NULLCTX):
+            outs = fn(*args)
         return self._finish_step(state, outs)
 
     def generate(self, tparams, dparams, tokens, prompt_lens, *, s: int,
                  cache_len: int, max_new: Optional[int] = None,
-                 collect_stats: bool = False):
+                 collect_stats: bool = False, key: Optional[int] = None):
         """Generate ``max_new`` tokens for every request with fixed s.
-        Returns (tokens [B, max_new] numpy, list[StepStats], n_steps)."""
+        Returns (tokens [B, max_new] numpy, list[StepStats], n_steps).
+        ``sample=True`` threads one generator seeded with ``key`` (0 by
+        default, as the JAX engine's ``PRNGKey(0)``) through every step."""
         state = self.prefill(tparams, dparams, tokens, prompt_lens, cache_len)
         stats = []
         n_steps = 0
         limit = max_new or self.max_new
+        rng = (torch.Generator(device=self.device).manual_seed(0 if key is None else key)
+               if self.sample else None)
         while True:
-            state, st = self.step(tparams, dparams, state, s)
+            state, st = self.step(tparams, dparams, state, s, rng=rng)
             n_steps += 1
             if collect_stats:
                 stats.append(st)
@@ -763,15 +840,36 @@ class SpecDecodeEngine:
                 self.step(tparams, dparams, state, s)
 
 
+def _sample_draws(rng: torch.Generator, B: int, s: int, V: int, device):
+    """The random draws of one sampled step, from ``rng`` in this order: the
+    draft's Gumbel noise ``[s, B, V]``, the acceptance uniforms ``[B, s]``
+    and the residual's Gumbel noise ``[B, V]``, all fp32.  Every row draws,
+    live or not, so the draws depend on the shapes alone.
+
+    Gumbel-max sampling, ``argmax(x + g)`` with ``g = -log(-log(u))`` and
+    ``u`` in ``[tiny, 1)``, is what ``jax.random.categorical`` computes, and
+    needs no host read."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def gumbel(*shape):
+        u = torch.rand(shape, generator=rng, device=device)
+        return u.clamp_(min=tiny).log_().neg_().log_().neg_()   # in place: s*B*V once
+    g_draft = gumbel(s, B, V)
+    u_acc = torch.rand((B, s), generator=rng, device=device)
+    return g_draft, u_acc, gumbel(B, V)
+
+
 def make_spec_step(tgt, drf, B: int, s: int, *,
                    eos_id: int = -1, max_new: int = 128, paged: bool = False,
-                   chunk: Optional[Tuple[int, int]] = None):
-    """One greedy speculative step (paper Algorithm 1, batched): the port of
+                   chunk: Optional[Tuple[int, int]] = None,
+                   sample: bool = False, temperature: float = 1.0):
+    """One speculative step (paper Algorithm 1, batched): the port of
     ``repro.core.spec_decode.make_spec_step``.
 
     Signature: fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-    n_generated, done[, cu_blocks[, chunk_ops]]) -> (tcache', dcache',
-    seq_lens', last2', out', n_generated', done', accepted, n_commit).
+    n_generated, done[, cu_blocks[, chunk_ops]][, rng]) -> (tcache',
+    dcache', seq_lens', last2', out', n_generated', done', accepted,
+    n_commit).
     ``paged=True`` adds the ``cu_blocks [B + 1]`` operand, which the
     target's verify passes to the paged attention (the ragged kernel K3 on
     the card).  ``tgt`` and ``drf`` are models of ``build_model`` (the
@@ -788,13 +886,26 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
     ``decode_step_mixed``, which carries the chunk's rows in the same
     attention call.  The chunk slot is parked ``done``, so its accept count
     is 0 and its row state does not move.
+
+    ``sample=False`` is the paper's argmax verification.  ``sample=True``
+    is Leviathan/Chen stochastic speculative sampling: the draft samples
+    its proposals from q = softmax(logits / T), the target accepts token
+    t_i with probability min(1, p_i(t_i) / q_i(t_i)) and at the first
+    rejection resamples from norm(max(p - q, 0)), so the tokens are
+    distributed as sampling from the target alone.  It takes a trailing
+    ``rng`` (a ``torch.Generator`` on the device), whose draws come from
+    :func:`_sample_draws`, and reads nothing back to the host either.
     """
     eos = eos_id
     assert chunk is None or paged, "the mixed step is paged-pool only"
 
-    def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
-           n_generated, done, cu_blocks=None, chunk_ops=None):
+    def body(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+             n_generated, done, cu_blocks, chunk_ops, rng):
         dev = seq_lens.device
+        if sample:
+            assert rng is not None, "sample=True needs an rng argument"
+            V = tgt.padded_vocab
+            g_draft, u_acc, g_res = _sample_draws(rng, B, s, V, dev)
         # ---- 0. mixed launch: the draft's chunk forward first ----
         if chunk_ops is not None:
             cslot, ctoks, cstart, ctl, cdl, cbt_row = chunk_ops
@@ -809,12 +920,18 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
             logits, dcache = drf.decode_step(dparams, last2, dcache, seq_lens - 1)
             lg = logits[:, -1]
             drafts = []
+            q_probs = []                                  # draft probs, sampled
             for i in range(s):
                 if i > 0:
                     logits, dcache = drf.decode_step(dparams, d[:, None], dcache,
                                                      seq_lens + i)
                     lg = logits[:, 0]
-                d = torch.argmax(lg, dim=-1).to(torch.int32)
+                if sample:
+                    x = lg / temperature
+                    q_probs.append(torch.softmax(x, dim=-1))          # [B, V]
+                    d = torch.argmax(x + g_draft[i], dim=-1).to(torch.int32)
+                else:
+                    d = torch.argmax(lg, dim=-1).to(torch.int32)
                 drafts.append(d)
             drafts = torch.stack(drafts, dim=1)                       # [B, s]
         else:
@@ -831,15 +948,41 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
                                                   cu_blocks if paged else None)
         bidx = torch.arange(B, device=dev)
 
-        # ---- 3. acceptance (argmax verification) ----
-        pred = torch.argmax(vlogits, dim=-1).to(torch.int32)          # [B, s+1]
-        if s > 0:
-            match = drafts == pred[:, :s]
-            a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        if not sample:
+            # ---- 3a. acceptance (argmax verification) ----
+            pred = torch.argmax(vlogits, dim=-1).to(torch.int32)      # [B, s+1]
+            if s > 0:
+                match = drafts == pred[:, :s]
+                a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+            else:
+                a = torch.zeros((B,), dtype=torch.int32, device=dev)
+            a = torch.where(done, 0, a)
+            bonus = pred[bidx, a.long()]                              # [B]
         else:
-            a = torch.zeros((B,), dtype=torch.int32, device=dev)
-        a = torch.where(done, 0, a)
-        bonus = pred[bidx, a.long()]                                  # [B]
+            # ---- 3b. stochastic acceptance (Leviathan-style) ----
+            p_all = torch.softmax(vlogits / temperature, dim=-1)      # [B, s+1, V]
+            if s > 0:
+                q_all = torch.stack(q_probs, dim=1)                   # [B, s, V]
+                idx = drafts.long()[..., None]
+                p_at = p_all[:, :s].gather(-1, idx)[..., 0]
+                q_at = q_all.gather(-1, idx)[..., 0]
+                ratio = p_at / q_at.clamp(min=1e-20)                  # [B, s]
+                acc = u_acc < ratio.clamp(max=1.0)
+                a = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+                # the residual at the cut (p_s itself when a == s: q_s = 0)
+                cut = a.long()
+                p_cut = p_all[bidx, cut]                              # [B, V]
+                q_cut = torch.where((cut < s)[:, None], q_all[bidx, cut.clamp(max=s - 1)],
+                                    0.0)
+                resid = (p_cut - q_cut).clamp(min=0.0)
+                norm = resid.sum(-1, keepdim=True)
+                resid = torch.where(norm > 1e-20, resid / norm.clamp(min=1e-20), p_cut)
+            else:
+                a = torch.zeros((B,), dtype=torch.int32, device=dev)
+                resid = p_all[:, 0]
+            a = torch.where(done, 0, a)
+            bonus = torch.argmax(torch.log(resid.clamp(min=1e-30)) + g_res,
+                                 dim=-1).to(torch.int32)
 
         # ---- 4. commit ----
         tcache_new = tgt.commit(tcache_out, a)
@@ -871,4 +1014,20 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
         return (tcache_new, dcache, seq_lens, last2, out, n_generated, done,
                 a, n_commit)
 
+    # one signature per variant, each with the trailing rng, as JAX's
+    if chunk is not None:
+        def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+               n_generated, done, cu_blocks, chunk_ops, rng=None):
+            return body(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+                        n_generated, done, cu_blocks, chunk_ops, rng)
+    elif paged:
+        def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+               n_generated, done, cu_blocks, rng=None):
+            return body(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+                        n_generated, done, cu_blocks, None, rng)
+    else:
+        def fn(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+               n_generated, done, rng=None):
+            return body(tparams, dparams, tcache, dcache, seq_lens, last2, out,
+                        n_generated, done, None, None, rng)
     return fn

@@ -32,8 +32,8 @@ are recorded in :class:`StepTrace`; they are pure functions of the block
 accounting, so a :class:`SimStepBackend` built with the same pool geometry
 re-derives them during replay.
 
-The ``run`` loop is the JAX loop without the telemetry branches, so
-StepTraces agree by construction.  Chunked prefill runs on
+The ``run`` loop is the JAX loop, telemetry hooks included, so StepTraces
+agree by construction.  Chunked prefill runs on
 both backends: with a :class:`PrefillBudgetAdmit` policy the live backend
 feeds long prompts in budgeted chunks between speculative steps
 (``SpecDecodeEngine.prefill_chunk_into``; K1 over a ring, K3 over a paged
@@ -55,8 +55,11 @@ nothing is left to feed); every whole prefill and final chunk publishes the
 slot's prompt blocks into the index.  Both backends keep the same cache
 over the same host accounting, so cache hits (``StepTrace.cache_hits``),
 evictions and every decision that follows replay sim against live.
-Sharded pools and the telemetry hub are not ported (ROADMAP queue 1, items
-14 and 11) and raise ``NotImplementedError``.
+Telemetry (``telemetry=``, serving/telemetry.py): phase spans, the (s,
+batch) acceptance observatory and pool gauges, through hooks that fire only
+when an enabled hub is attached; they read the pipeline and never steer it.
+Sharded pools are not ported (ROADMAP queue 1, item 14) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ import torch
 from repro_torch.core.adaptive import AdaptiveController
 from repro_torch.core.analytical import LatencyModel
 from repro_torch.core.spec_decode import S_MAX
+from repro_torch.kernels.tuning import grid_steps_dense, grid_steps_ragged
 from repro_torch.serving.acceptance import GeometricAcceptance
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import BatchRecord, Request
@@ -946,12 +950,24 @@ class ContinuousScheduler:
                  policy: Optional[AdmissionPolicy] = None,
                  observe: bool = False,
                  telemetry=None):
-        if telemetry is not None:
-            raise _not_ported("the telemetry hub", 11)
         self.backend = backend
         self.controller = controller
         self.policy = policy or ImmediateAdmit()
         self.observe = observe
+        self.telemetry = telemetry
+        # zero cost when off: every hook in run() fires through _tel, which
+        # is None unless an *enabled* hub was supplied, so a disabled (or
+        # absent) hub builds no event and reads no clock for telemetry
+        self._tel = (telemetry if telemetry is not None
+                     and getattr(telemetry, "enabled", True) else None)
+        if (self._tel is not None
+                and getattr(self._tel, "expected_acceptance", None) is None
+                and getattr(controller, "model", None) is not None):
+            # the controller carries the analytical model: the acceptance
+            # observatory's drift baseline
+            model = controller.model
+            self._tel.attach_expected_acceptance(
+                lambda s: model.l_of_s(s) / s)
         self.trace: List[StepTrace] = []
         # the controller's speculation ceiling, not the global S_MAX, is the
         # worst-case reservation unit for admission/overflow checks
@@ -1011,6 +1027,7 @@ class ContinuousScheduler:
                            - kv.allocated(sl))
             return tot
 
+        tel = self._tel
         clock, i, n_done, n = 0.0, 0, 0, len(pending)
         while n_done < n:
             while i < n and pending[i].arrival <= clock:
@@ -1041,6 +1058,9 @@ class ContinuousScheduler:
                     # final chunk: the slot joins the decode batch — publish
                     # its prompt blocks into the prefix index
                     self.backend.cache_insert(req, slot)
+                if tel is not None:
+                    tel.span("chunk_continue", len(self.trace), dt,
+                             rid=req.rid, slot=slot, start=start, n=m)
 
             def claim_for(req: Request) -> int:
                 """Shared admission bookkeeping (both admission modes)."""
@@ -1061,7 +1081,8 @@ class ContinuousScheduler:
                 batch (zero uncached suffix) or feed the first
                 ``suffix_chunk`` uncached feed positions."""
                 nonlocal clock
-                feed_total = req.prompt_len + req.n_generated - 1
+                total_len = req.prompt_len + req.n_generated
+                feed_total = total_len - 1
                 cache_hits.append((req.rid, P))
                 a_dt = self.backend.attach(req, slot, P)
                 req.prefill_pos = P
@@ -1070,6 +1091,10 @@ class ContinuousScheduler:
                     clock += a_dt + c_dt
                     prefill_s.append(a_dt + c_dt)
                     self.backend.cache_insert(req, slot)
+                    if tel is not None:
+                        tel.span("prefill", len(self.trace), a_dt + c_dt,
+                                 rid=req.rid, slot=slot,
+                                 tokens=total_len - P, cached=P)
                 else:
                     prefill_s.append(-1.0)
                     feed_chunk(req, slot, suffix_chunk, extra=a_dt)
@@ -1160,6 +1185,10 @@ class ContinuousScheduler:
                         budget_left -= total_len
                         if cache_on:
                             self.backend.cache_insert(req, slot)
+                        if tel is not None:
+                            tel.span("prefill", len(self.trace), p_dt,
+                                     rid=req.rid, slot=slot,
+                                     tokens=total_len)
                     else:
                         # over the remaining budget: admit CHUNKED — never a
                         # whole-prompt burst (bounds this iteration's stall)
@@ -1207,6 +1236,15 @@ class ContinuousScheduler:
                     prefill_s.append(p_dt)
                     if cache_on:
                         self.backend.cache_insert(req, slot)
+                    if tel is not None:
+                        tel.span("prefill", len(self.trace), p_dt,
+                                 rid=req.rid, slot=slot,
+                                 tokens=total_len)
+            if tel is not None and admitted:
+                tel.span("admit", len(self.trace),
+                         sum(dt for dt in prefill_s if dt > 0),
+                         rids=tuple(admitted),
+                         n_chunked=sum(1 for dt in prefill_s if dt < 0))
             if pool.occupancy == 0:
                 if not backlog and i < n:
                     clock = max(clock, pending[i].arrival)
@@ -1242,6 +1280,10 @@ class ContinuousScheduler:
                     req.prefill_pos = 0
                     backlog.insert(0, req)
                     preempted.append(req.rid)
+                    if tel is not None:
+                        tel.span("preempt", len(self.trace), 0.0,
+                                 rid=req.rid, slot=victim,
+                                 n_generated=req.n_generated)
             ds = decode_slots()
             b = len(ds)
             if b > 0:
@@ -1251,6 +1293,11 @@ class ContinuousScheduler:
                     pool.request_at(sl).rid for sl in ds
                     if backend_done[sl]))
                 clock += dt
+                if tel is not None:
+                    tel.span("decode_verify", len(self.trace), dt,
+                             s=s, batch=b)
+                    t_commit0 = time.perf_counter()
+                n_done0 = n_done
                 toks = 0
                 raw: Dict[int, int] = {}
                 accepted_live: List[int] = []
@@ -1273,6 +1320,16 @@ class ContinuousScheduler:
                         pool.retire(slot)
                         self.backend.retire(slot, req)
                         n_done += 1
+                        if tel is not None:
+                            tel.span("retire", len(self.trace), 0.0,
+                                     rid=req.rid, slot=slot,
+                                     n_generated=req.n_generated)
+                if tel is not None:
+                    tel.span("commit", len(self.trace),
+                             time.perf_counter() - t_commit0,
+                             tokens=toks, batch=b, retired=n_done - n_done0)
+                    tel.observe_step(s=s, batch=b, accepted=accepted_live,
+                                     duration=dt)
                 if self.observe and s > 0:
                     # lint: allow-host-sync(accepted_live is already a host list; no device transfer)
                     self.controller.observe(np.asarray(accepted_live), s)
@@ -1297,6 +1354,31 @@ class ContinuousScheduler:
                 done_rids=done_rids, chunked=tuple(chunked),
                 chunk_s=tuple(chunk_s), cache_hits=tuple(cache_hits)))
             prev_done = set(done_rids)
+            if tel is not None:
+                g = dict(occupancy=pool.occupancy, decode_batch=b, s=s,
+                         prefilling=len(prefilling), backlog=len(backlog),
+                         free_slots=pool.free_count,
+                         capacity=self.backend.capacity)
+                if kv is not None:
+                    # ragged-grid occupancy: the share of the dense B*MAXB
+                    # attention grid the ragged kernel launches this
+                    # iteration (read-only over the host block tables;
+                    # kernels/tuning.py owns the arithmetic)
+                    tabs = kv.device_tables(exclude_pending=True)
+                    g.update(free_blocks=kv.free_blocks,
+                             used_blocks=kv.num_blocks - kv.free_blocks,
+                             fragmentation=kv.fragmentation,
+                             grid_occupancy=(grid_steps_ragged(tabs)
+                                             / float(grid_steps_dense(tabs))))
+                if cache_on:
+                    cache = self.backend.cache
+                    g.update(shared_blocks=kv.shared_blocks,
+                             cached_blocks=kv.cached_blocks,
+                             evicted_blocks=kv.evicted_total,
+                             cache_hit_rate=(cache.hits
+                                             / max(cache.lookups, 1)),
+                             cache_hit_tokens=cache.hit_tokens)
+                tel.iteration(len(self.trace) - 1, clock, **g)
         return ServeResult(requests=list(pending), batches=batches)
 
 
@@ -1346,9 +1428,17 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
     explicit ``backend`` pass the flag to the backend instead
     (``ValueError`` here).
 
-    ``mesh`` and ``telemetry`` are the JAX package's sharded pool and
-    telemetry hub; they are not ported yet and raise
-    ``NotImplementedError``.
+    ``telemetry`` attaches a
+    :class:`~repro_torch.serving.telemetry.Telemetry` hub: phase spans, the
+    (s, batch) acceptance observatory and pool/scheduler gauges, plus, when
+    the hub was built with ``annotate_device`` or ``profile_dir``, the
+    engine's per-phase ``record_function`` scopes (``engine.annotate``,
+    restored afterwards) and a ``torch.profiler`` trace around the run.
+    The hub only reads the pipeline: tokens and the StepTrace are the same
+    with it on or off, and a disabled hub costs nothing.
+
+    ``mesh`` is the JAX package's sharded pool; it is not ported yet and
+    raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise _not_ported("a mesh-sharded slot pool", 14)
@@ -1388,6 +1478,17 @@ def serve_continuous_live(requests: Sequence[Request], engine, tparams,
                 f"ring would wrap and corrupt itself")
     sched = ContinuousScheduler(backend, controller, policy, observe=observe,
                                 telemetry=telemetry)
-    result = sched.run(requests)
+    tel = sched._tel
+    prev_annotate = engine.annotate
+    if tel is not None and tel.annotate_device:
+        engine.annotate = True
+    if tel is not None:
+        tel.start(engine.device.type)
+    try:
+        result = sched.run(requests)
+    finally:
+        if tel is not None:
+            tel.stop()
+        engine.annotate = prev_annotate
     result.trace = sched.trace
     return result

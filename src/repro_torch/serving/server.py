@@ -170,7 +170,7 @@ def serve_continuous(requests: Sequence[Request], model: LatencyModel,
     This is the :class:`~repro_torch.serving.scheduler.ContinuousScheduler`
     that drives the live engine, run over
     :class:`~repro_torch.serving.scheduler.SimStepBackend`.  ``telemetry``
-    is not ported yet and raises.
+    attaches a :class:`~repro_torch.serving.telemetry.Telemetry` hub.
     """
     from repro_torch.serving.scheduler import ContinuousScheduler, SimStepBackend
     backend = SimStepBackend(model, capacity=max_batch, seed=seed)

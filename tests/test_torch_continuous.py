@@ -248,8 +248,7 @@ def test_admission_rejects_kv_overflow(engine, block_size):
                               block_size=block_size)
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14"),
-                                     ({"telemetry": object()}, "item 11")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14")])
 def test_unported_features_raise(engine, kw, item):
     eng, tp, dp, tcfg = engine
     with pytest.raises(NotImplementedError, match=item):
