@@ -191,7 +191,8 @@ Phases, one report line each (the last line is the JSON verdict):
             against CPU (prefill of prompts padded to 512, 8 greedy steps),
             the chunked forward (K6) against the token-by-token recurrence,
             and speculative generate(s) == generate(0); then the serve loop
-            of phase 4 on mamba2-1.3b at full width and depth in bf16 (K6,
+            of phase 4 on mamba2-1.3b at full width and depth in bf16, its
+            profile over s 0-3 (K6,
             K5 and K1 counted, no plain version); then
             ``serve_continuous_live`` on a contiguous pool of 8 slots, 16
             requests of 64-256 prompt tokens, with that loop's LUT (K6
@@ -1639,12 +1640,13 @@ def phase_parity(torch, np, R, DecoderLM, SpecDecodeEngine, tree_to):
 # phase 5: where one serving step's time goes
 
 
-def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None):
+def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=True):
     """One engine step at length ``s`` from ``state``: the wall time of an
     unprofiled run of ``steps`` steps against the device time that
     ``torch.profiler`` sees over as many more, with the kernels' shares and
-    the host's most expensive ops.  The state after the steps is appended
-    to ``keep`` when given."""
+    (``host``) the host's most expensive ops; ``host=False`` traces the
+    device alone, which costs the profiler a fraction of the time.  The
+    state after the steps is appended to ``keep`` when given."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(prof):
@@ -1661,14 +1663,15 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None):
     for _ in range(steps):
         state, _ = eng.step(tp, dp, state, s)
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = eng.step(tp, dp, state, s)
     dev = kernels(prof)
     busy_ms = sum(dev.values())
     top_dev = sorted(dev.items(), key=lambda kv: kv[1], reverse=True)[:6]
-    top_cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
-                     reverse=True)[:6]
+    top_cpu = (sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:6] if host else [])
     row = dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
@@ -3135,12 +3138,12 @@ def sampled_card_vs_cpu(torch, np, R, m, tree_to, steps=3, s=3):
     f32 = torch.float32
     tcfg = R.get_config("opt-6.7b").with_(n_layers=2)
     dcfg = R.get_draft_config("opt-6.7b").with_(n_layers=2)
-    gen = torch.Generator().manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
     e_cpu = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cpu", sample=True)
     e_gpu = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cuda", sample=True)
-    tp_cpu = e_cpu.target.init(gen, f32, "cpu")
-    dp_cpu = e_cpu.draft.init(gen, f32, "cpu")
-    tp_gpu, dp_gpu = tree_to(tp_cpu, "cuda"), tree_to(dp_cpu, "cuda")
+    tp_gpu = e_gpu.target.init(gen, f32, "cuda")      # made on the card: seconds, not tens
+    dp_gpu = e_gpu.draft.init(gen, f32, "cuda")
+    tp_cpu, dp_cpu = tree_to(tp_gpu, "cpu"), tree_to(dp_gpu, "cpu")
     rng = np.random.default_rng(19)
     toks = rng.integers(0, tcfg.vocab_size, (4, 16)).astype(np.int32)
     lens = np.array([16, 12, 9, 16], np.int32)
@@ -3269,27 +3272,33 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
     (p > 1e-3), the draft's own first proposals fail it (the test's power),
     and the rate of accepted first draft tokens lies within 4 sigma of
     sum_v min(p, q); the bounds on every step.  Measured: acceptance at
-    s 1, 3 and 5 over 64 prompts, the greedy and the sampled LUT on a
-    reduced grid, and step profiles greedy against sampled."""
+    s 1, 3 and 5 over 64 prompts, the sampled LUT on a reduced grid of
+    phase 4's profile (its greedy grid is phase 4's), and step profiles
+    greedy against sampled; the seconds of each part."""
     bf16, f32 = torch.bfloat16, torch.float32
     tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
     vocab = tcfg.vocab_size
-    line = {}
+    line, secs = {}, {}
+    t0 = time.perf_counter()
     # ---- draft = target, fp32 at full width (bf16 reported beside it) ----
     tp32 = m.DecoderLM(tcfg).init(torch.Generator(device="cuda").manual_seed(17), f32, "cuda")
     line["draft_is_target_fp32"] = sampled_draft_is_target(torch, np, m, tcfg, tp32, f32)
     del tp32
     torch.cuda.empty_cache()
+    secs["draft_is_target_fp32"] = time.perf_counter() - t0
     # ---- card against CPU, the same draws ----
+    t0 = time.perf_counter()
     line["card_vs_cpu"] = sampled_card_vs_cpu(torch, np, R, m, tree_to)
     torch.cuda.empty_cache()
+    secs["card_vs_cpu"] = time.perf_counter() - t0
     # ---- bf16, full width ----
-    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=64, dtype=bf16, device="cuda", sample=True)
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=256, dtype=bf16, device="cuda", sample=True)
     gen = torch.Generator(device="cuda").manual_seed(11)
     tp = eng.target.init(gen, bf16, "cuda")
     dp = eng.draft.init(gen, bf16, "cuda")
     eng.load_kernels(paged=True)
     line["draft_is_target_bf16"] = sampled_draft_is_target(torch, np, m, tcfg, tp, bf16)
+    t0 = time.perf_counter()
     prompt = np.random.default_rng(31).integers(0, vocab, 16).astype(np.int32)
     p = tip_probs(torch, np, eng.target, tp, prompt, vocab)
     q = tip_probs(torch, np, eng.draft, dp, prompt, vocab)
@@ -3302,7 +3311,7 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
     first0, _, _ = sampled_rows(torch, np, m, eng, tp, dp, prompt, 0, n_rows, batch, 5000,
                                 bounds)
     torch.cuda.synchronize()
-    exact_s = time.perf_counter() - t0
+    exact_s = secs["exactness"] = time.perf_counter() - t0
     launches_exact = launch_counts(m)
     expected_rate = float(np.minimum(p, q).sum())
     rate = float((acc3 >= 1).mean())
@@ -3318,6 +3327,7 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
         tv_draft_target=float(0.5 * np.abs(p - q).sum()),
         launches=launches_exact, bounds=bounds)
     # ---- acceptance at s 1, 3, 5 over 64 prompts ----
+    t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     ps = m.synthetic_prompts(64, vocab, rng, 8, 16)
     toks = np.zeros((64, 16), np.int32)
@@ -3332,41 +3342,69 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
                                      per_token=float(runs.mean() / s),
                                      first_accepted=float((runs >= 1).mean()),
                                      hist=np.bincount(runs, minlength=s + 1).tolist())
-    # ---- the LUT on a reduced grid, greedy and sampled (phase 4's sample) ----
+    secs["acceptance"] = time.perf_counter() - t0
+    # ---- phase 4's profile, sampled, on a reduced grid (phase 4's sample) ----
+    t0 = time.perf_counter()
     ps = m.synthetic_prompts(8, vocab, np.random.default_rng(1), 8, 16)
     ptoks = np.zeros((8, 16), np.int32)
     for i, pr in enumerate(ps):
         ptoks[i, :len(pr)] = pr
     plens = np.array([len(pr) for pr in ps], np.int32)
-    line["lut"] = {}
-    for mode in ("greedy", "sampled"):
-        eng.sample = mode == "sampled"
-        zero_counts(m)
-        lut = m.profile_engine(eng, tp, dp, ptoks, plens, batch_sizes=(1, 4, 8),
-                               s_values=(0, 1, 3), gen_tokens=16, cache_len=256)
-        line["lut"][mode] = dict(table=dict(lut.table), launches=launch_counts(m),
-                                 ms_per_token={b: {s: 1e3 * t for s, t in d.items()}
-                                               for b, d in lut.per_token.items()})
-    # ---- step profiles, greedy against sampled ----
+    zero_counts(m)
+    lut = m.profile_engine(eng, tp, dp, ptoks, plens, batch_sizes=(1, 4, 8),
+                           s_values=(0, 1, 3), gen_tokens=8, cache_len=256)
+    line["lut_sampled"] = dict(table=dict(lut.table), launches=launch_counts(m),
+                               ms_per_token={b: {s: 1e3 * t for s, t in d.items()}
+                                             for b, d in lut.per_token.items()})
+    secs["lut"] = time.perf_counter() - t0
+    # ---- step profiles, greedy against sampled; wall times in turns ----
+    t0 = time.perf_counter()
     line["profiles"] = {}
     ring_toks = np.random.default_rng(5).integers(0, vocab, (8, 16)).astype(np.int32)
     ptoks = np.random.default_rng(6).integers(0, vocab, (16, 128)).astype(np.int32)
-    launches_prof = {}
-    for mode in ("greedy", "sampled"):
-        eng.sample = mode == "sampled"
-        zero_counts(m)
-        line["profiles"][f"ring_b8_s3_{mode}"] = profile_step(
-            torch, eng, tp, dp, f"ring_b8_s3_{mode}",
-            eng.prefill(tp, dp, ring_toks, np.full((8,), 16, np.int32), 256), 3)
-        for s in (0, 3):
-            st = eng.init_slots(16, 512, block_size=16, num_blocks=192)
+    launches_prof = {mode: dict.fromkeys(("k1", "k3", "k5", "plain"), 0)
+                     for mode in ("greedy", "sampled")}
+    zero_counts(m)
+    for cfg, s in (("ring_b8_s3", 3), ("paged_b16_s0", 0), ("paged_b16_s3", 3)):
+        keep = []
+        if cfg.startswith("paged"):
+            # one pool for every run of this shape: they add 30-200 tokens to 128
+            st = eng.init_slots(16, 512, block_size=16, num_blocks=448)
             for slot in range(16):
                 st = eng.prefill_into(tp, dp, st, slot, ptoks[slot], 128, 512)
-            line["profiles"][f"paged_b16_s{s}_{mode}"] = profile_step(
-                torch, eng, tp, dp, f"paged_b16_s{s}_{mode}", st, s)
-        launches_prof[mode] = launch_counts(m)
+            keep.append(st)
+
+        def state():
+            return (keep[-1] if keep else
+                    eng.prefill(tp, dp, ring_toks, np.full((8,), 16, np.int32), 256))
+        row = {}
+        for mode in ("greedy", "sampled"):
+            eng.sample = mode == "sampled"
+            before = launch_counts(m)
+            r = profile_step(torch, eng, tp, dp, f"{cfg}_{mode}", state(), s, steps=2,
+                             keep=keep if keep else None, host=False)
+            for k, v in launch_counts(m).items():
+                launches_prof[mode][k] += v - before[k]
+            row[mode] = {k: r[k] for k in ("device_busy_ms", "device_kernels", "idle_share",
+                                           "k1_ms", "paged_kernel_ms", "k5_ms")}
+            row[mode]["wall_ms"] = []
+        # unprofiled wall times in turns (greedy, sampled, sampled, greedy):
+        # the host clock of one process drifts by more than sampling costs
+        for mode in ("greedy", "sampled", "sampled", "greedy"):
+            eng.sample = mode == "sampled"
+            st, _ = eng.step(tp, dp, state(), s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(6):
+                st, _ = eng.step(tp, dp, st, s)
+            row[mode]["wall_ms"].append(1e3 * (time.perf_counter() - t1) / 6)
+            if keep:
+                keep.append(st)
+        line["profiles"][cfg] = row
     line["profiles"]["launches"] = launches_prof
     eng.sample = True
+    secs["profiles"] = time.perf_counter() - t0
+    line["seconds"] = secs
     ex = line["exactness"]
     print("  " + json.dumps(line), flush=True)
     check(all(a == 3 for st in line["draft_is_target_fp32"] for a in st),
@@ -3434,9 +3472,10 @@ def phase_telemetry(torch, np, R, m):
     hub, and with an enabled hub holding ``jsonl_path`` and ``profile_dir``
     under ``build/``.  Gates: tokens and StepTrace fields equal, preempted,
     every request retired, committed tokens counted, a ``repro/step[...]``
-    scope in the profiler's trace, ``engine.annotate`` restored.
-    Measured: wall time in each mode (not gated), the per-scope device
-    time, the observatory's table."""
+    scope in the profiler's trace, ``engine.annotate`` restored, K1 and
+    K3 launched and no plain version.  Measured: wall time and the virtual
+    clock's makespan in each mode (not gated), the per-scope device time,
+    the observatory's table."""
     import copy
     bf16 = torch.bfloat16
     tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
@@ -3461,7 +3500,9 @@ def phase_telemetry(torch, np, R, m):
         return res, be, time.perf_counter() - t0
 
     fields = ("admitted", "occupancy", "committed", "preempted", "done_rids", "chunked")
+    zero_counts(m)
     r_off, b_off, wall_off = run(None)
+    launches = launch_counts(m)
     tel_on = m.Telemetry()
     r_on, b_on, wall_on = run(tel_on)
     tel = m.Telemetry(jsonl_path=os.path.join(out_dir, "events.jsonl"),
@@ -3480,6 +3521,11 @@ def phase_telemetry(torch, np, R, m):
                 and all(np.array_equal(b_off.outputs[r], be.outputs[r]) for r in b_off.outputs))
     line = dict(
         requests=len(reqs), wall_s=dict(off=wall_off, on=wall_on, on_profiler=wall_pr),
+        # the virtual clock: the timed regions alone (the profiled run's wall
+        # also holds the trace's export)
+        makespan_s={k: max(q.finish for q in r.requests)
+                     for k, r in (("off", r_off), ("on", r_on), ("on_profiler", r_pr))},
+        launches_off=launches,
         trace_parse_s=parse_s, trace_mb=os.path.getsize(tel.trace_path) / 1e6,
         equal=dict(on=same(r_on, b_on), on_profiler=same(r_pr, b_pr)),
         steps=len(r_pr.batches), preempted=sum(len(t.preempted) for t in r_pr.trace),
@@ -3497,6 +3543,8 @@ def phase_telemetry(torch, np, R, m):
           "the hub's committed tokens differ from the requests' n_generated")
     check(scopes["step_scope"], "no repro/step[...] scope in the profiler's trace")
     check(not annotate_before and not eng.annotate, "engine.annotate not restored")
+    check(launches["k1"] > 0 and launches["k3"] > 0 and launches["plain"] == 0,
+          f"the sampled serving run missed K1 or K3, or ran a plain version: {launches}")
     return line
 
 
@@ -3957,7 +4005,8 @@ def phase_mamba_parity(torch, np, m, tree_to):
 
 def phase_mamba_serve(torch, m):
     """The paper's profile -> LUT -> adaptive loop on mamba2-1.3b at full
-    width and depth with its dense_draft, bf16, phase 4's other flags; K6,
+    width and depth with its dense_draft, bf16, phase 4's other flags but
+    s 0-3 (cut from 0-6 to make room for phases 6f and 6g); K6,
     K5 and K1 (the draft) counted around it and no plain version."""
     counters = (m.K1.KERNEL, m.K5.FWD, m.K6.KERNEL, m.ops.PLAIN, m.ops.PLAIN_RMSNORM,
                 m.ops.PLAIN_SSD)
@@ -3967,7 +4016,7 @@ def phase_mamba_serve(torch, m):
         c.launches = 0
     res = m.serve.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--dtype", "bfloat16",
                         "--max-batch", "8", "--cache-len", "256", "--profile-bs", "1,2,4,8",
-                        "--s-max", "6", "--requests", "16", "--interval", "0.1",
+                        "--s-max", "3", "--requests", "16", "--interval", "0.1",
                         "--max-new", "32"])
     torch.cuda.synchronize()
     launches = dict(k1=m.K1.KERNEL.launches, k5=m.K5.FWD.launches, k6=m.K6.KERNEL.launches,

@@ -323,33 +323,27 @@ class SpecDecodeEngine:
             pk.prefill(slot, prompt_len)
             self._drain_evicted(state)
         with record_function("repro/inject") if self.annotate else _NULLCTX:
-            self._inject(state, one, slot)
+            if pk is None:
+                self._copy_slot(state.tcache, one.tcache, slot)
+            else:
+                ids = pk.table(slot)
+                n, bs = len(ids), pk.block_size
+                blocks = self._tensor(ids, torch.long)
+                tc, t1 = state.tcache, one.tcache
+                for name, leaf in t1.items():          # k, v (and int8 scales)
+                    if name == "pos":
+                        continue
+                    rows = leaf[:, 0, :n * bs]                   # [nL, n*bs, ...]
+                    tc[name][:, blocks] = rows.reshape(rows.shape[0], n, bs,
+                                                       *rows.shape[2:])
+                tc["pos"][blocks] = t1["pos"][0, :n * bs].reshape(n, bs)
+                tc["bt"][slot] = -1
+                tc["bt"][slot, :n] = blocks.to(torch.int32)
+            if self.draft is not None:
+                self._copy_slot(state.dcache, one.dcache, slot)
+            for name in ("seq_lens", "last2", "out", "n_generated", "done"):
+                getattr(state, name)[slot] = getattr(one, name)[0]
         return state
-
-    def _inject(self, state: DecodeState, one: DecodeState, slot: int) -> None:
-        """Copy a B = 1 prefill's caches and row state into row ``slot`` of
-        the pool, in place (a paged pool through the slot's new table)."""
-        pk = state.paged
-        if pk is None:
-            self._copy_slot(state.tcache, one.tcache, slot)
-        else:
-            ids = pk.table(slot)
-            n, bs = len(ids), pk.block_size
-            blocks = self._tensor(ids, torch.long)
-            tc, t1 = state.tcache, one.tcache
-            for name, leaf in t1.items():          # k, v (and int8 scales)
-                if name == "pos":
-                    continue
-                rows = leaf[:, 0, :n * bs]                   # [nL, n*bs, ...]
-                tc[name][:, blocks] = rows.reshape(rows.shape[0], n, bs,
-                                                   *rows.shape[2:])
-            tc["pos"][blocks] = t1["pos"][0, :n * bs].reshape(n, bs)
-            tc["bt"][slot] = -1
-            tc["bt"][slot, :n] = blocks.to(torch.int32)
-        if self.draft is not None:
-            self._copy_slot(state.dcache, one.dcache, slot)
-        for name in ("seq_lens", "last2", "out", "n_generated", "done"):
-            getattr(state, name)[slot] = getattr(one, name)[0]
 
     @staticmethod
     def _copy_slot(pool: Dict, one: Dict, slot: int) -> None:
@@ -516,28 +510,24 @@ class SpecDecodeEngine:
         the draft through its ring view, bounded to ``rows_limit`` rows."""
         with (record_function(f"repro/chunk[CB={chunk.cb}]") if self.annotate
               else _NULLCTX):
-            self._chunk_forward_rows(tparams, dparams, state, chunk)
-
-    def _chunk_forward_rows(self, tparams, dparams, state: DecodeState,
-                            chunk: DeferredChunk) -> None:
-        toks = self._tensor(chunk.tokens, torch.long)[None]
-        off = self._tensor([chunk.start])
-        feed_total = chunk.total_len - 1
-        if chunk.bt_row is not None:
-            # the pool is the B = 1 cache (writes land through the slot's
-            # host table); the device bt row stays -1 until the commit
-            row = chunk.bt_row[None]
-            t1 = dict(state.tcache, bt=self._tensor(row))
-            self.target.prefill_chunk(tparams, toks, t1, off, self._tensor([feed_total]),
-                                      cu_blocks=self._tensor(host_cu_blocks(row)))
-        else:
-            self.target.prefill_chunk(tparams, toks, ring_view(state.tcache, chunk.slot),
-                                      off, self._tensor([feed_total]),
-                                      rows_limit=chunk.rows_limit)
-        if self.draft is not None:
-            self.draft.prefill_chunk(dparams, toks, ring_view(state.dcache, chunk.slot),
-                                     off, self._tensor([feed_total - 1]),
-                                     rows_limit=chunk.rows_limit)
+            toks = self._tensor(chunk.tokens, torch.long)[None]
+            off = self._tensor([chunk.start])
+            feed_total = chunk.total_len - 1
+            if chunk.bt_row is not None:
+                # the pool is the B = 1 cache (writes land through the slot's
+                # host table); the device bt row stays -1 until the commit
+                row = chunk.bt_row[None]
+                t1 = dict(state.tcache, bt=self._tensor(row))
+                self.target.prefill_chunk(tparams, toks, t1, off, self._tensor([feed_total]),
+                                          cu_blocks=self._tensor(host_cu_blocks(row)))
+            else:
+                self.target.prefill_chunk(tparams, toks, ring_view(state.tcache, chunk.slot),
+                                          off, self._tensor([feed_total]),
+                                          rows_limit=chunk.rows_limit)
+            if self.draft is not None:
+                self.draft.prefill_chunk(dparams, toks, ring_view(state.dcache, chunk.slot),
+                                         off, self._tensor([feed_total - 1]),
+                                         rows_limit=chunk.rows_limit)
 
     def flush_chunk(self, tparams, dparams, state: DecodeState,
                     chunk: DeferredChunk) -> DecodeState:

@@ -7,7 +7,8 @@ The hub is strictly **read-only observability**: it never touches the step
 pipeline's decisions, so token outputs and the :class:`StepTrace` are
 bit-identical with telemetry on or off (tests/test_torch_telemetry.py
 enforces the contract on the live engine for the contiguous,
-paged-under-preemption, chunked-admission and prefix-cache paths).  It is also **zero-overhead when off**: the
+paged-under-preemption, chunked-admission and prefix-cache paths).  It is
+also **zero-overhead when off**: the
 scheduler only wires its hooks when an *enabled* hub is supplied — with
 ``enabled=False`` (or no hub at all) the hot path contains no telemetry
 branches, no ``perf_counter`` calls, and no event construction.
@@ -66,8 +67,7 @@ class Telemetry:
     ``profile_dir`` arms :meth:`start`/:meth:`stop` to wrap the serving run
     in a ``torch.profiler`` trace, exported as a Chrome trace into that
     directory (and implies ``annotate_device=True`` so the trace carries
-    per-phase scopes); ``profile`` then holds the finished profiler, whose
-    events a caller can read.  ``jsonl_path`` streams every event as
+    per-phase scopes); ``trace_path`` then names the trace.  ``jsonl_path`` streams every event as
     one JSON line at emit time; the in-memory ``events`` buffer always holds
     the same records (see :meth:`write_jsonl`).
     """
@@ -95,10 +95,7 @@ class Telemetry:
         self.expected_acceptance: Optional[Callable[[int], float]] = None
         self._jsonl = open(jsonl_path, "w") if jsonl_path else None
         self._profiler = None
-        # the finished profiler and the Chrome trace :meth:`stop` wrote
-        # (None before a profiled run)
-        self.profile = None
-        self.trace_path: Optional[str] = None
+        self.trace_path: Optional[str] = None     # the Chrome trace stop() wrote
 
     # ------------------------------------------------------------------
     # recording hooks (called by the scheduler only when enabled)
@@ -310,7 +307,6 @@ class Telemetry:
             os.makedirs(self.profile_dir, exist_ok=True)
             self.trace_path = os.path.join(self.profile_dir, "trace.json")
             prof.export_chrome_trace(self.trace_path)
-            self.profile = prof
         if self._jsonl is not None:
             self._jsonl.flush()
 

@@ -394,7 +394,7 @@ def test_profile_dir_trace_holds_the_scopes(engine, tmp_path):
     tel = Telemetry(profile_dir=str(tmp_path / "prof"))
     serve_continuous_live(_live_trace(tcfg, n=3), eng, tp, dp, _ctrl(), capacity=2,
                           cache_len=CACHE_LEN, block_size=BLOCK, telemetry=tel)
-    assert eng.annotate is False and tel.profile is not None
+    assert eng.annotate is False and tel.trace_path is not None
     names = {e["name"] for e in json.loads(open(tel.trace_path).read())["traceEvents"]
              if "name" in e}
     for scope in ("repro/step[B=2,s=", "repro/prefill[B=1,P=", "repro/inject",
