@@ -411,6 +411,58 @@ def device_kernels(torch, fn, args, expect=None):
     return list(seen)
 
 
+def serving_kinds():
+    """The serving kernels' launch counts, each beside the names of the
+    device kernels one launch issues (at least one of them), for
+    ``whole_profile``: K1, K2 and K3, K5's forward and K6's forward."""
+    from repro_torch.kernels import paged_verify_attn as K23
+    from repro_torch.kernels import rmsnorm as K5
+    from repro_torch.kernels import spec_verify_attn as K1
+    from repro_torch.kernels import ssd_chunk as K6
+    return [(lambda: K1.KERNEL.launches, {"verify_kernel"}),
+            (lambda: K23.DENSE.launches + K23.RAGGED.launches, {"paged_verify_kernel"}),
+            (lambda: K5.FWD.launches, {"rmsnorm_fwd_kernel"}),
+            (lambda: K6.KERNEL.launches, {"ssd_scan", "ssd_states", "ssd_carry",
+                                           "ssd_outputs"})]
+
+
+def train_kinds(m):
+    """The training kernels' launch counts for ``whole_profile``: K4's
+    forward and backward, K5's and K6's forward and backward."""
+    return [(lambda: m.K4.FWD.launches, {"fwd_kernel"}),
+            (lambda: m.K4.BWD.launches, {"flash_bwd_dq", "flash_bwd_dkv"}),
+            (lambda: m.K5.FWD.launches, {"rmsnorm_fwd_kernel"}),
+            (lambda: m.K5.BWD.launches, {"rmsnorm_bwd_rows"}),
+            (lambda: m.K6.KERNEL.launches, {"ssd_scan", "ssd_states", "ssd_carry",
+                                             "ssd_outputs"}),
+            (lambda: m.K6.KERNEL_BWD.launches, {"ssd_bwd_keys"})]
+
+
+def whole_profile(torch, body, activities, kinds, reset=None, tries=3):
+    """``torch.profiler`` over ``body()``, taken again (``tries`` times at
+    most, ``reset()`` before each retake) while the trace holds no device
+    event, or fewer device kernels of a kind than the kind's launch count
+    rose during it: ``kinds`` pairs a function that reads a launch count
+    with the names of the device kernels each of its launches issues, one
+    at least.  The profiler now and then drops device events (see
+    ``device_kernels``), and a trace that lost a kernel's would read as
+    that kernel's not having run.  Returns the profiler and the takes."""
+    from torch.profiler import profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for take in range(1, tries + 1):
+        if take > 1 and reset is not None:
+            reset()
+        before = [count() for count, _ in kinds]
+        with profile(activities=activities) as prof:
+            body()
+            torch.cuda.synchronize()
+        names = [kernel_name(e.name) for e in prof.events() if e.device_type == cuda]
+        if names and all(sum(n in ks for n in names) >= count() - b
+                         for (count, ks), b in zip(kinds, before)):
+            break
+    return prof, take
+
+
 def run_kernel_case(torch, K1, ref, c):
     from repro_torch.kernels import launch
     kw = dict(window=c["window"], prefix_len=c["prefix_len"])
@@ -1647,7 +1699,7 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=Tr
     (``host``) the host's most expensive ops; ``host=False`` traces the
     device alone, which costs the profiler a fraction of the time.  The
     state after the steps is appended to ``keep`` when given."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     def kernels(prof):
         """Device activity (kernels, copies) by name, in ms per step."""
@@ -1664,9 +1716,12 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=Tr
         state, _ = eng.step(tp, dp, state, s)
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     acts = [ProfilerActivity.CPU] if host else []
-    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
+
+    def body():
+        nonlocal state
         for _ in range(steps):
             state, _ = eng.step(tp, dp, state, s)
+    prof, takes = whole_profile(torch, body, acts + [ProfilerActivity.CUDA], serving_kinds())
     dev = kernels(prof)
     busy_ms = sum(dev.values())
     top_dev = sorted(dev.items(), key=lambda kv: kv[1], reverse=True)[:6]
@@ -1689,7 +1744,8 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=Tr
                            if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
         top_device_ms={k[:60]: t for k, t in top_dev},
         top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
-                     for e in top_cpu})
+                     for e in top_cpu},
+        profile_takes=takes)
     print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
     if keep is not None:
         keep.append(state)
@@ -1706,7 +1762,7 @@ def profile_mixed(torch, np, eng, tp, dp, state, vocab, steps=3, slot=15, plen=4
     step ends in its ``.cpu()`` read of the counts) over ``steps``
     iterations, against the device time ``torch.profiler`` sees over as
     many more; K3's device time and device kernels a step."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     prompt = np.random.default_rng(41).integers(0, vocab, plen).astype(np.int32)
     out = {}
     for name in ("mixed", "flush_then_step"):
@@ -1728,16 +1784,23 @@ def profile_mixed(torch, np, eng, tp, dp, state, vocab, steps=3, slot=15, plen=4
             return time.perf_counter() - t0
         one()
         wall_ms = 1e3 * sum(one() for _ in range(steps)) / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
+
+        def rewind():   # a retake profiles the same chunks again
+            nonlocal state, cur
+            state = eng.retire_slot(state, slot)
+            cur = 0
+            for _ in range(1 + steps):
                 one()
+        prof, takes = whole_profile(torch, lambda: [one() for _ in range(steps)],
+                                    [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                    serving_kinds(), reset=rewind)
         dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.device_time_total for e in dev) / 1e3 / steps
         k3 = [e for e in dev if "paged_verify_kernel" in e.name]
         row = dict(wall_ms=wall_ms, device_busy_ms=busy,
                    idle_share=max(0.0, 1.0 - busy / wall_ms), device_kernels=len(dev) / steps,
                    k3_ms=sum(e.device_time_total for e in k3) / 1e3 / steps,
-                   k3_device_kernels=len(k3) / steps)
+                   k3_device_kernels=len(k3) / steps, profile_takes=takes)
         print("  " + json.dumps({"step": f"paged_b16_s0_chunk{chunk}_{name}", **row}),
               flush=True)
         out[name] = row
@@ -1749,7 +1812,7 @@ def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
     """One target prefill at B = 1 of a prompt of ``n`` tokens padded to
     ``T`` (the continuous run's largest bucket), bf16: its wall time against
     the device time ``torch.profiler`` sees, and K6's share of it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     toks = torch.from_numpy(np.random.default_rng(37).integers(0, vocab, (1, T))
                             .astype(np.int64)).cuda()
     lens = torch.tensor([n], dtype=torch.int32, device="cuda")
@@ -1764,10 +1827,8 @@ def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
         run()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
+    prof, takes = whole_profile(torch, lambda: [run() for _ in range(calls)],
+                                [ProfilerActivity.CUDA], serving_kinds())
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in dev) / 1e3 / calls
     k6 = sum(e.device_time_total for e in dev
@@ -1775,7 +1836,7 @@ def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
     k6_kernels = sum(1 for e in dev if kernel_name(e.name).startswith("ssd_")) / calls
     row = dict(prefill=f"B1 T{T} prompt {n}, bf16", wall_ms=wall_ms, device_busy_ms=busy,
                k6_ms=k6, k6_share=k6 / busy if busy else None, k6_device_kernels=k6_kernels,
-               device_kernels=len(dev) / calls)
+               device_kernels=len(dev) / calls, profile_takes=takes)
     print("  " + json.dumps(row), flush=True)
     return row
 
@@ -3386,7 +3447,8 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
             for k, v in launch_counts(m).items():
                 launches_prof[mode][k] += v - before[k]
             row[mode] = {k: r[k] for k in ("device_busy_ms", "device_kernels", "idle_share",
-                                           "k1_ms", "paged_kernel_ms", "k5_ms")}
+                                           "k1_ms", "paged_kernel_ms", "k5_ms",
+                                           "profile_takes")}
             row[mode]["wall_ms"] = []
         # unprofiled wall times in turns (greedy, sampled, sampled, greedy):
         # the host clock of one process drifts by more than sampling costs
@@ -3618,7 +3680,7 @@ def phase_train(torch, m):
     seq 128, 20 steps on the markov stream (``repro_torch.launch.train``'s
     defaults), every launch count zeroed before it and read after; then
     ``torch.profiler`` over two more steps for the device-busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     counters = (m.K4.FWD, m.K4.BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN_FLASH,
                 m.ops.PLAIN_RMSNORM, m.ops.PLAIN)
     torch.cuda.synchronize()
@@ -3644,11 +3706,14 @@ def phase_train(torch, m):
     params, state, _ = step(params, state, batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def body():
+        nonlocal params, state
         for b in batches[1:]:
-            params, state, met = step(params, state, b)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+            params, state, _ = step(params, state, b)
+    prof, takes = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                train_kinds(m))
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 2 / takes
     by = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3662,7 +3727,8 @@ def phase_train(torch, m):
         device_kernels=sum(1 for e in prof.events()
                            if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
         top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
-                                                     reverse=True)[:6]})
+                                                     reverse=True)[:6]},
+        profile_takes=takes)
     del params, state, batches
     print("  " + json.dumps(res), flush=True)
     check(res["losses"][-1] < res["losses"][0], "the trainer's loss did not fall")
@@ -3723,7 +3789,7 @@ def phase_mamba_train(torch, m):
     version; then, on a second model, two steps timed unprofiled and two
     under ``torch.profiler`` for the device-busy share and K6's and K5's
     shares of the device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     counters = (m.K6.KERNEL, m.K6.KERNEL_BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN_SSD,
                 m.ops.PLAIN_RMSNORM, m.ops.PLAIN, m.ops.PLAIN_FLASH)
     steps, batch, seq = 20, 4, 512
@@ -3756,11 +3822,14 @@ def phase_mamba_train(torch, m):
     torch.cuda.synchronize()
     wall_unprofiled_ms = 1e3 * (time.perf_counter() - t0) / 2
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def body():
+        nonlocal params, state
         for b in batches[3:]:
-            params, state, met = step(params, state, b)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+            params, state, _ = step(params, state, b)
+    prof, takes = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                train_kinds(m))
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 2 / takes
     by = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3783,7 +3852,8 @@ def phase_mamba_train(torch, m):
         device_kernels=sum(1 for e in prof.events()
                            if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
         top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
-                                                     reverse=True)[:8]})
+                                                     reverse=True)[:8]},
+        profile_takes=takes)
     del params, state, batches
     print("  " + json.dumps(res), flush=True)
     nl = cfg.n_layers
@@ -4278,6 +4348,14 @@ def main() -> int:
         return tree_map(lambda t: t.to(device), tree)
 
     t_all = time.perf_counter()
+    t_phase = [t_all]
+
+    def done(phase, **kw):
+        """A phase's report line, with the seconds since the last one."""
+        now = time.perf_counter()
+        print(json.dumps({"phase": phase, "ok": True, **kw, "s": now - t_phase[0]}),
+              flush=True)
+        t_phase[0] = now
     # ---- 1. device + build ----
     card = smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4330,30 +4408,29 @@ def main() -> int:
 
     # ---- 2. kernels ----
     rows = phase_kernels(torch, K1, ref)
-    print(json.dumps({"phase": "kernels", "cases": len(rows), "ok": True}), flush=True)
+    done("kernels", cases=len(rows))
 
     # ---- 2b. paged kernels ----
     prows = phase_paged_kernels(torch, np, K23, paged, ref)
-    print(json.dumps({"phase": "paged_kernels", "cases": len(prows), "ok": True}), flush=True)
+    done("paged_kernels", cases=len(prows))
     torch.cuda.empty_cache()
 
     # ---- 2c. K4 and K5, forward and backward ----
     trows = phase_train_kernels(torch, K4, K5, ref)
-    print(json.dumps({"phase": "train_kernels", "cases": len(trows), "ok": True}), flush=True)
+    done("train_kernels", cases=len(trows))
     torch.cuda.empty_cache()
 
     # ---- 2d. K6, the SSD scan ----
     srows = phase_ssd_kernels(torch, K6, ref)
-    print(json.dumps({"phase": "ssd_kernels", "cases": len(srows), "ok": True}), flush=True)
+    done("ssd_kernels", cases=len(srows))
     torch.cuda.empty_cache()
     brows = phase_ssd_bwd_kernels(torch, K6, ops, ref)
-    print(json.dumps({"phase": "ssd_bwd_kernels", "cases": len(brows), "ok": True}),
-          flush=True)
+    done("ssd_bwd_kernels", cases=len(brows))
     torch.cuda.empty_cache()
 
     # ---- 3. fp32 parity, card against CPU ----
     phase_parity(torch, np, R, DecoderLM, SpecDecodeEngine, tree_to)
-    print(json.dumps({"phase": "parity", "ok": True}), flush=True)
+    done("parity")
     torch.cuda.empty_cache()
 
     # ---- 4. the main path ----
@@ -4371,7 +4448,9 @@ def main() -> int:
     res["kernel_launches"] = launches
     res["k5_launches"] = k5_serve
     res["plain_launches"] = plain_launches
-    print(json.dumps({"phase": "serve", **res}), flush=True)
+    print(json.dumps({"phase": "serve", **res, "s": time.perf_counter() - t_phase[0]}),
+          flush=True)
+    t_phase[0] = time.perf_counter()
     check(launches > 0, "the serving path never launched the verify kernel")
     check(k5_serve > 0, "the serving path never launched K5")
     check(plain_launches == 0, "a plain version ran on the card")
@@ -4385,76 +4464,72 @@ def main() -> int:
 
     # ---- 5. step profile (after the main path: its launches are not counted) ----
     phase_profile(torch, np, R, SpecDecodeEngine)
-    print(json.dumps({"phase": "profile", "ok": True}), flush=True)
+    done("profile")
     torch.cuda.empty_cache()
 
     # ---- 6a. continuous parity, fp32; K2's path: the paged decode_step ----
     cont = phase_continuous_parity(torch, np, R, m)
-    print(json.dumps({"phase": "continuous_parity", "ok": True}), flush=True)
+    done("continuous_parity")
     torch.cuda.empty_cache()
 
     # ---- 6b. the continuous main path, bf16, full depth ----
     live = phase_continuous_serve(torch, np, R, m, res["lut"])
-    print(json.dumps({"phase": "continuous_serve", "ok": True}), flush=True)
+    done("continuous_serve")
     torch.cuda.empty_cache()
 
     # ---- 6c. chunked prefill on the continuous main path, bf16, full depth ----
     chunked = phase_chunked_serve(torch, np, R, m, res["lut"])
-    print(json.dumps({"phase": "chunked_serve", "ok": True}), flush=True)
+    done("chunked_serve")
     torch.cuda.empty_cache()
 
     # ---- 6d. the prefix cache on the continuous main path, bf16, full depth ----
     prefix = phase_prefix_serve(torch, np, R, m, res["lut"])
-    print(json.dumps({"phase": "prefix_serve", "ok": True}), flush=True)
+    done("prefix_serve")
     torch.cuda.empty_cache()
 
     # ---- 6e. the int8 KV cache (kv_quant) on the continuous main path ----
     kvq = phase_kv_quant(torch, np, R, m, res["lut"], live, tree_to)
-    print(json.dumps({"phase": "kv_quant", "ok": True}), flush=True)
+    done("kv_quant")
     torch.cuda.empty_cache()
 
     # ---- 6f. stochastic speculative sampling (sample=True) ----
-    t0 = time.perf_counter()
     phase_sampling(torch, np, R, m, tree_to)
-    print(json.dumps({"phase": "sampling", "ok": True, "s": time.perf_counter() - t0}),
-          flush=True)
+    done("sampling")
     torch.cuda.empty_cache()
 
     # ---- 6g. the telemetry hub on the continuous main path ----
-    t0 = time.perf_counter()
     phase_telemetry(torch, np, R, m)
-    print(json.dumps({"phase": "telemetry", "ok": True, "s": time.perf_counter() - t0}),
-          flush=True)
+    done("telemetry")
     torch.cuda.empty_cache()
 
     # ---- 7. the training path: distillation, the trainer, card vs CPU, prefill_flash ----
     distill = phase_distill(torch, np, R, m)
-    print(json.dumps({"phase": "distill", "ok": True}), flush=True)
+    done("distill")
     torch.cuda.empty_cache()
     trained = phase_train(torch, m)
-    print(json.dumps({"phase": "train", "ok": True}), flush=True)
+    done("train")
     torch.cuda.empty_cache()
     phase_train_parity(torch, np, m, tree_to)
-    print(json.dumps({"phase": "train_parity", "ok": True}), flush=True)
+    done("train_parity")
     torch.cuda.empty_cache()
     mtrain = phase_mamba_train(torch, m)
-    print(json.dumps({"phase": "mamba_train", "ok": True}), flush=True)
+    done("mamba_train")
     torch.cuda.empty_cache()
     phase_mamba_train_parity(torch, np, m, tree_to)
-    print(json.dumps({"phase": "mamba_train_parity", "ok": True}), flush=True)
+    done("mamba_train_parity")
     torch.cuda.empty_cache()
     pflash = phase_prefill_flash(torch, np, R, m)
-    print(json.dumps({"phase": "prefill_flash", "ok": True}), flush=True)
+    done("prefill_flash")
     torch.cuda.empty_cache()
 
     # ---- 8. Mamba-2: card vs CPU, the serve loop and the continuous runtime ----
     phase_mamba_parity(torch, np, m, tree_to)
-    print(json.dumps({"phase": "mamba_parity", "ok": True}), flush=True)
+    done("mamba_parity")
     torch.cuda.empty_cache()
     mserve = phase_mamba_serve(torch, m)
     torch.cuda.empty_cache()
     mlive = phase_mamba_continuous(torch, np, m, mserve["lut"])
-    print(json.dumps({"phase": "mamba_continuous", "ok": True}), flush=True)
+    done("mamba_continuous")
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
