@@ -203,6 +203,13 @@ Phases, one report line each (the last line is the JSON verdict):
 Every serving phase now runs K5 (every norm), and phases 4, 6b and 8 gate
 its launches; phase 5 records its time per step.
 
+Each phase's line gives its seconds (``s``).  Every ``torch.profiler``
+trace that a gate reads is taken again, three times at most, while it
+lacks every kernel of a kind that its launch count says ran
+(``whole_profile``: the profiler now and then drops device events); its
+row gives ``profile_takes`` and ``profile_lost``, the counted launches the
+kept trace lacks.
+
 Exits non-zero, printing no verdict, without CUDA or when any phase fails.
 Everything it prints also goes to ``chiprun_out/chip_smoke.log`` beside it,
 since a remote run may return only the tail of standard output.
@@ -441,12 +448,14 @@ def train_kinds(m):
 def whole_profile(torch, body, activities, kinds, reset=None, tries=3):
     """``torch.profiler`` over ``body()``, taken again (``tries`` times at
     most, ``reset()`` before each retake) while the trace holds no device
-    event, or fewer device kernels of a kind than the kind's launch count
-    rose during it: ``kinds`` pairs a function that reads a launch count
-    with the names of the device kernels each of its launches issues, one
-    at least.  The profiler now and then drops device events (see
-    ``device_kernels``), and a trace that lost a kernel's would read as
-    that kernel's not having run.  Returns the profiler and the takes."""
+    event, or no device kernel of a kind whose launch count rose during it:
+    ``kinds`` pairs a function that reads a launch count with the names of
+    the device kernels each of its launches issues, one at least.  The
+    profiler now and then drops device events (see ``device_kernels``; a
+    step's device kernels are often not a whole number), and a trace that
+    lost a kernel's would read as that kernel's not having run.  Returns
+    the profiler, the takes, and the launches of those kinds that the trace
+    it returns lacks."""
     from torch.profiler import profile
     cuda = torch.autograd.DeviceType.CUDA
     for take in range(1, tries + 1):
@@ -457,10 +466,11 @@ def whole_profile(torch, body, activities, kinds, reset=None, tries=3):
             body()
             torch.cuda.synchronize()
         names = [kernel_name(e.name) for e in prof.events() if e.device_type == cuda]
-        if names and all(sum(n in ks for n in names) >= count() - b
-                         for (count, ks), b in zip(kinds, before)):
+        rose = [count() - b for (count, _), b in zip(kinds, before)]
+        seen = [sum(n in ks for n in names) for _, ks in kinds]
+        if names and all(k > 0 for r, k in zip(rose, seen) if r > 0):
             break
-    return prof, take
+    return prof, take, sum(max(0, r - k) for r, k in zip(rose, seen))
 
 
 def run_kernel_case(torch, K1, ref, c):
@@ -1721,7 +1731,8 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=Tr
         nonlocal state
         for _ in range(steps):
             state, _ = eng.step(tp, dp, state, s)
-    prof, takes = whole_profile(torch, body, acts + [ProfilerActivity.CUDA], serving_kinds())
+    prof, takes, lost = whole_profile(torch, body, acts + [ProfilerActivity.CUDA],
+                                      serving_kinds())
     dev = kernels(prof)
     busy_ms = sum(dev.values())
     top_dev = sorted(dev.items(), key=lambda kv: kv[1], reverse=True)[:6]
@@ -1745,7 +1756,7 @@ def profile_step(torch, eng, tp, dp, name, state, s, steps=4, keep=None, host=Tr
         top_device_ms={k[:60]: t for k, t in top_dev},
         top_host_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / steps
                      for e in top_cpu},
-        profile_takes=takes)
+        profile_takes=takes, profile_lost=lost)
     print("  " + json.dumps({"step": name, "s": s, **row}), flush=True)
     if keep is not None:
         keep.append(state)
@@ -1791,16 +1802,17 @@ def profile_mixed(torch, np, eng, tp, dp, state, vocab, steps=3, slot=15, plen=4
             cur = 0
             for _ in range(1 + steps):
                 one()
-        prof, takes = whole_profile(torch, lambda: [one() for _ in range(steps)],
-                                    [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                    serving_kinds(), reset=rewind)
+        prof, takes, lost = whole_profile(torch, lambda: [one() for _ in range(steps)],
+                                          [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                          serving_kinds(), reset=rewind)
         dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.device_time_total for e in dev) / 1e3 / steps
         k3 = [e for e in dev if "paged_verify_kernel" in e.name]
         row = dict(wall_ms=wall_ms, device_busy_ms=busy,
                    idle_share=max(0.0, 1.0 - busy / wall_ms), device_kernels=len(dev) / steps,
                    k3_ms=sum(e.device_time_total for e in k3) / 1e3 / steps,
-                   k3_device_kernels=len(k3) / steps, profile_takes=takes)
+                   k3_device_kernels=len(k3) / steps, profile_takes=takes,
+                   profile_lost=lost)
         print("  " + json.dumps({"step": f"paged_b16_s0_chunk{chunk}_{name}", **row}),
               flush=True)
         out[name] = row
@@ -1827,8 +1839,8 @@ def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
         run()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / calls
-    prof, takes = whole_profile(torch, lambda: [run() for _ in range(calls)],
-                                [ProfilerActivity.CUDA], serving_kinds())
+    prof, takes, lost = whole_profile(torch, lambda: [run() for _ in range(calls)],
+                                      [ProfilerActivity.CUDA], serving_kinds())
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in dev) / 1e3 / calls
     k6 = sum(e.device_time_total for e in dev
@@ -1836,7 +1848,7 @@ def profile_prefill(torch, np, model, params, vocab, T=256, n=213, calls=3):
     k6_kernels = sum(1 for e in dev if kernel_name(e.name).startswith("ssd_")) / calls
     row = dict(prefill=f"B1 T{T} prompt {n}, bf16", wall_ms=wall_ms, device_busy_ms=busy,
                k6_ms=k6, k6_share=k6 / busy if busy else None, k6_device_kernels=k6_kernels,
-               device_kernels=len(dev) / calls, profile_takes=takes)
+               device_kernels=len(dev) / calls, profile_takes=takes, profile_lost=lost)
     print("  " + json.dumps(row), flush=True)
     return row
 
@@ -3448,7 +3460,7 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
                 launches_prof[mode][k] += v - before[k]
             row[mode] = {k: r[k] for k in ("device_busy_ms", "device_kernels", "idle_share",
                                            "k1_ms", "paged_kernel_ms", "k5_ms",
-                                           "profile_takes")}
+                                           "profile_takes", "profile_lost")}
             row[mode]["wall_ms"] = []
         # unprofiled wall times in turns (greedy, sampled, sampled, greedy):
         # the host clock of one process drifts by more than sampling costs
@@ -3711,8 +3723,9 @@ def phase_train(torch, m):
         nonlocal params, state
         for b in batches[1:]:
             params, state, _ = step(params, state, b)
-    prof, takes = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                train_kinds(m))
+    prof, takes, lost = whole_profile(torch, body,
+                                      [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                      train_kinds(m))
     wall_ms = 1e3 * (time.perf_counter() - t0) / 2 / takes
     by = {}
     for e in prof.events():
@@ -3728,7 +3741,7 @@ def phase_train(torch, m):
                            if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
         top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
                                                      reverse=True)[:6]},
-        profile_takes=takes)
+        profile_takes=takes, profile_lost=lost)
     del params, state, batches
     print("  " + json.dumps(res), flush=True)
     check(res["losses"][-1] < res["losses"][0], "the trainer's loss did not fall")
@@ -3827,8 +3840,9 @@ def phase_mamba_train(torch, m):
         nonlocal params, state
         for b in batches[3:]:
             params, state, _ = step(params, state, b)
-    prof, takes = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                train_kinds(m))
+    prof, takes, lost = whole_profile(torch, body,
+                                      [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                      train_kinds(m))
     wall_ms = 1e3 * (time.perf_counter() - t0) / 2 / takes
     by = {}
     for e in prof.events():
@@ -3853,7 +3867,7 @@ def phase_mamba_train(torch, m):
                            if e.device_type == torch.autograd.DeviceType.CUDA) / 2,
         top_device_ms={k[:60]: t for k, t in sorted(by.items(), key=lambda kv: kv[1],
                                                      reverse=True)[:8]},
-        profile_takes=takes)
+        profile_takes=takes, profile_lost=lost)
     del params, state, batches
     print("  " + json.dumps(res), flush=True)
     nl = cfg.n_layers

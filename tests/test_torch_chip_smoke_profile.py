@@ -2,11 +2,12 @@
 names (``kernel_name``), on the CPU.
 
 ``whole_profile`` takes ``torch.profiler`` over a body again while the
-trace holds fewer device kernels of a kind than the kind's launch count
-rose by.  Here the CPU's operator events stand in for the card's kernels
-(the ``torch`` handed to it names the CPU as its device type), and a body
-that issues fewer ``aten::mul`` than it counts plays a trace that lost a
-kernel's events.
+trace holds no device event, or none of a kind whose launch count rose,
+and says how many counted launches the trace it returns lacks.  Here the
+CPU's operator events stand in for the card's kernels (the ``torch``
+handed to it names the CPU as its device type), and a body that issues
+fewer ``aten::mul`` than it counts plays a trace that lost a kernel's
+events.
 """
 
 import importlib.util
@@ -38,7 +39,8 @@ def cpu_as_device():
 
 def run(smoke, issued, tries=3):
     """Profile a body that counts 2 launches a take and issues
-    ``issued[take]`` multiplications; returns the takes and resets."""
+    ``issued[take]`` multiplications; returns the takes, the launches the
+    returned trace lacks, and the resets."""
     count = {"launches": 0, "take": 0, "resets": 0}
     x = torch.ones(4)
 
@@ -50,20 +52,20 @@ def run(smoke, issued, tries=3):
 
     def reset():
         count["resets"] += 1
-    _, takes = smoke.whole_profile(
+    _, takes, lost = smoke.whole_profile(
         cpu_as_device(), body, [torch.profiler.ProfilerActivity.CPU],
         [(lambda: count["launches"], {"aten::mul"})], reset=reset, tries=tries)
-    return takes, count["resets"]
+    return takes, lost, count["resets"]
 
 
-@pytest.mark.parametrize("issued,takes", [([2], 1), ([3], 1), ([1, 2], 2),
-                                          ([0, 0, 2], 3)])
-def test_whole_profile_retakes_a_trace_that_lost_kernels(smoke, issued, takes):
-    assert run(smoke, issued) == (takes, takes - 1)
+@pytest.mark.parametrize("issued,takes,lost", [([2], 1, 0), ([3], 1, 0), ([1], 1, 1),
+                                               ([0, 2], 2, 0), ([0, 0, 1], 3, 1)])
+def test_whole_profile_retakes_a_trace_without_a_kind(smoke, issued, takes, lost):
+    assert run(smoke, issued) == (takes, lost, takes - 1)
 
 
 def test_whole_profile_stops_after_its_tries(smoke):
-    assert run(smoke, [1], tries=3) == (3, 2)
+    assert run(smoke, [0], tries=3) == (3, 2, 2)
 
 
 def test_whole_profile_retakes_a_trace_without_device_events(smoke):
@@ -73,9 +75,9 @@ def test_whole_profile_retakes_a_trace_without_device_events(smoke):
         if count["take"]:
             torch.mul(torch.ones(2), 2.0)
         count["take"] += 1
-    _, takes = smoke.whole_profile(cpu_as_device(), body,
-                                   [torch.profiler.ProfilerActivity.CPU], [])
-    assert takes == 2
+    _, takes, lost = smoke.whole_profile(cpu_as_device(), body,
+                                         [torch.profiler.ProfilerActivity.CPU], [])
+    assert (takes, lost) == (2, 0)
 
 
 @pytest.mark.parametrize("name,want", [
