@@ -1239,7 +1239,13 @@ def phase_train_kernels(torch, K4, K5, ref):
              # the mamba2-1.3b trainer's rows (B 4, T 512): norm and final_norm
              # at d 2048, norm_y at d 4096
              ("mamba2_train_d2048", 2048, 2048, "float32", True),
-             ("mamba2_train_d4096", 2048, 4096, "float32", True)]
+             ("mamba2_train_d4096", 2048, 4096, "float32", True),
+             # qk_norm's per-head rows at d 128: qwen3-8b's q (32 heads) and
+             # k (8 kv-heads) rows at phase 9b's largest prefill (256
+             # tokens), and q rows at the trainer's B 8, T 128 (fwd + bwd)
+             ("qwen3_8b_q_prefill_t256", 8192, 128, "bfloat16", False),
+             ("qwen3_8b_k_prefill_t256", 2048, 128, "bfloat16", False),
+             ("qk_norm_train_b8_t128", 16384, 128, "float32", True)]
     for i, (name, n, d, dtype, grads) in enumerate(norms):
         r = run_norm_case(torch, K5, ref, "rmsnorm_" + name, n, d, dtype, grads, 300 + i)
         rows.append(r)
@@ -4189,6 +4195,381 @@ def phase_mamba_continuous(torch, np, m, lut_table):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Qwen3 and Yi configs (qwen3-8b, yi-34b, qwen3-moe-30b-a3b)
+
+
+QWEN_YI = ("qwen3-8b", "yi-34b", "qwen3-moe-30b-a3b")
+
+
+def no_drop(cfg):
+    """``cfg`` with a MoE capacity factor of n_experts / top_k (16 for
+    qwen3-moe-30b-a3b): the capacity is then at least a group's tokens, and
+    since a token picks an expert at most once no assignment can drop, so a
+    token's output does not depend on the rows dispatched with it.  A dense
+    config is returned as it is."""
+    if cfg.moe is None:
+        return cfg
+    return cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def k5_per_layer(cfg):
+    """K5 calls a decoder layer: the attention and MLP norms, and the q and k
+    norms under ``qk_norm``."""
+    return 4 if cfg.attn.qk_norm else 2
+
+
+def predicted_launches(tcfg, dcfg, prefills, s_steps):
+    """K1, K3 and K5 launches of a paged ``serve_continuous_live`` run that
+    admits whole prompts: each admission (``prefill_into``) is a target and
+    a draft prefill on a ring (K1 a layer; K5 a layer's norms and the final
+    norm); each step at s runs s draft forwards (K1 a draft layer, 2 K5 a
+    draft layer and its final norm) and one paged verify of the target (K3
+    a layer, K5 a layer's norms and the final norm)."""
+    nt, nd = tcfg.n_layers, dcfg.n_layers
+    kt, kd = k5_per_layer(tcfg) * nt + 1, 2 * nd + 1
+    drafts = sum(s_steps)
+    return dict(k1=prefills * (nt + nd) + drafts * nd, k3=len(s_steps) * nt,
+                k5=prefills * (kt + kd) + len(s_steps) * kt + drafts * kd)
+
+
+def paged_tokens(eng, tp, dp, toks, lens, s, cache_len=64, block=16):
+    """Greedy (or speculative, s > 0) generation of ``eng.max_new`` tokens
+    for each prompt through a paged slot pool: ``prefill_into`` each row,
+    then steps until every slot is done.  Returns the tokens [B, max_new]."""
+    B = toks.shape[0]
+    state = eng.init_slots(B, cache_len, block_size=block)
+    for b in range(B):
+        state = eng.prefill_into(tp, dp, state, b, toks[b, :lens[b]], int(lens[b]), cache_len)
+    while not bool(state.done.all().cpu()):
+        state, _ = eng.step(tp, dp, state, s)
+    return state.out[:, :eng.max_new].cpu().numpy()
+
+
+def card_vs_cpu_logits(torch, np, m, tcfg, dcfg, tps, dps, toks, lens, feed):
+    """Prefill logits, a ring s = 3 verify's and a paged s = 3 verify's
+    (after ``prefill_into`` of each prompt), on the CPU and on the card from
+    the same parameters.  Returns {name: (cpu, card)}."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tp, dp = tps[dev], dps[dev]
+        model = m.DecoderLM(tcfg)
+        t = torch.from_numpy(toks).to(dev)
+        ln = torch.from_numpy(lens).to(dev)
+        f = torch.from_numpy(feed).to(dev)
+        cache = model.init_cache(t.shape[0], 64, torch.float32, dev)
+        pre, cache, seq = model.prefill(tp, t, cache, ln)
+        ring, _ = model.decode_step(tp, f, cache, seq + 1)
+        eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=8, dtype=torch.float32, device=dev)
+        st = eng.init_slots(t.shape[0], 64, block_size=16)
+        for b in range(t.shape[0]):
+            st = eng.prefill_into(tp, dp, st, b, toks[b, :lens[b]], int(lens[b]), 64)
+        cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).to(dev)
+        paged, _ = model.decode_step(tp, f, st.tcache, st.seq_lens, cu)
+        for name, x in (("prefill", pre), ("ring_s3", ring), ("paged_s3", paged)):
+            out.setdefault(name, []).append(x.float().cpu())
+    return out
+
+
+def moe_dispatch_check(torch, m, tcfg, lp, n=256, seed=29):
+    """``moe_forward`` through both dispatches on the card, on layer 0's
+    parameters and ``n`` random rows at full width, fp32: at the no-drop
+    factor and at the config's 1.25 (drops asserted), outputs and aux within
+    1e-5 relative, and at 1.25 the same assignments kept (the cumulative-sum
+    ranks of ``einsum`` against the stable-sort dispatch's weights)."""
+    mo = m.moe
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, n, tcfg.d_model), generator=g, device="cuda")
+    row = {}
+    for name, cfg in (("no_drop", no_drop(tcfg)), ("cf_1.25", tcfg)):
+        res = {}
+        for disp in ("einsum", "gather"):
+            c = cfg.with_(moe=dataclasses.replace(cfg.moe, dispatch=disp))
+            res[disp] = mo.moe_forward(c, lp, x)
+        y_e, a_e = res["einsum"]
+        y_g, a_g = res["gather"]
+        mc = cfg.moe
+        _, top_p, top_i = mo.route(mc, lp["router"], x)
+        C = mo.capacity(n, mc.top_k, mc.n_experts, mc.capacity_factor)
+        kept = mo.slot_ranks(top_i, mc.n_experts) < C
+        _, _, w, _ = mo._dispatch_gather(mc, x, top_i, top_p, C)
+        row[name] = dict(
+            capacity=C, dropped=int((~kept).sum()), assignments=kept.numel(),
+            out_rel_err=float((y_e - y_g).abs().max() / y_e.abs().max()),
+            aux_rel_err=abs(float(a_e) - float(a_g)) / abs(float(a_e)),
+            same_kept=bool(torch.equal(kept, w > 0)))
+    ok = (all(r["out_rel_err"] <= 1e-5 and r["aux_rel_err"] <= 1e-5 and r["same_kept"]
+              for r in row.values())
+          and row["no_drop"]["dropped"] == 0 and row["cf_1.25"]["dropped"] > 0)
+    return row, ok
+
+
+def mixed_equals_flush(torch, np, m, tcfg, dcfg, tp, dp, s=3, cache_len=96, block=16):
+    """One mixed verify+chunk step against the chunk's own forward then the
+    step, on the card: two decoding slots and a 48-token chunk of a pending
+    third.  Returns whether the tokens, counts and lengths agree."""
+    rng = np.random.default_rng(31)
+    v = tcfg.vocab_size
+    p0, p1, long_p = (rng.integers(0, v, (n,)).astype(np.int32) for n in (21, 37, 80))
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=torch.float32, device="cuda")
+    outs = []
+    for mixed in (False, True):
+        st = eng.init_slots(3, cache_len, block_size=block)
+        st = eng.prefill_into(tp, dp, st, 0, p0, len(p0), cache_len)
+        st = eng.prefill_into(tp, dp, st, 1, p1, len(p1), cache_len)
+        st, ch = eng.prefill_chunk_into(tp, dp, st, 2, long_p[:48].copy(), 0, 48, len(long_p),
+                                        defer=True)
+        if mixed:
+            st, stats = eng.step_with_chunk(tp, dp, st, s, ch)
+        else:
+            st = eng.flush_chunk(tp, dp, st, ch)
+            st, stats = eng.step(tp, dp, st, s)
+        outs.append([np.asarray(stats.committed)] + [
+            getattr(st, k).cpu().numpy() for k in ("out", "n_generated", "seq_lens", "last2")])
+    return all(np.array_equal(a, b) for a, b in zip(*outs))
+
+
+def qwen_parity(torch, np, R, m, tree_to, arch):
+    """9a for one config: the target and its draft cut to 2 layers at full
+    width, fp32, on the same parameters on the CPU and the card."""
+    f32 = torch.float32
+    tcfg = R.get_config(arch).with_(n_layers=2)
+    dcfg = R.get_draft_config(arch).with_(n_layers=2)
+    gen = torch.Generator().manual_seed(19)
+    tp_cpu = m.DecoderLM(tcfg).init(gen, f32, "cpu")
+    dp_cpu = m.DecoderLM(dcfg).init(gen, f32, "cpu")
+    tp, dp = tree_to(tp_cpu, "cuda"), tree_to(dp_cpu, "cuda")
+    rng = np.random.default_rng(13)
+    B = 4
+    toks = rng.integers(0, tcfg.vocab_size, (B, 16)).astype(np.int64)
+    lens = np.array([16, 11, 14, 9], np.int32)
+    feed = rng.integers(0, tcfg.vocab_size, (B, 4)).astype(np.int32)
+    tol = 2e-3   # PR 31's card-against-CPU rule: fp32, long dot products in another order
+    logits = card_vs_cpu_logits(torch, np, m, tcfg, dcfg, {"cpu": tp_cpu, "cuda": tp},
+                                {"cpu": dp_cpu, "cuda": dp}, toks, lens, feed)
+    del tp_cpu, dp_cpu
+    errs = {k: float((g - c).abs().max()) for k, (c, g) in logits.items()}
+    ok_logits = all(bool(((g - c).abs() <= tol + tol * c.abs()).all())
+                    for c, g in logits.values())
+    # K5's calls a layer, counted around one prefill on the card
+    m.K5.FWD.launches = 0
+    model = m.DecoderLM(tcfg)
+    model.prefill(tp, torch.from_numpy(toks).cuda(), model.init_cache(B, 64, f32, "cuda"),
+                  torch.from_numpy(lens).cuda())
+    torch.cuda.synchronize()
+    k5 = m.K5.FWD.launches
+    # speculative (s 3) = greedy (s 0), ring and paged, at the no-drop factor
+    eng = m.SpecDecodeEngine(no_drop(tcfg), dcfg, max_new=16, dtype=f32, device="cuda")
+    lens_np = lens.astype(np.int32)
+    spec = {}
+    for route in ("ring", "paged"):
+        got = {}
+        for s in (0, 3):
+            if route == "ring":
+                got[s] = eng.generate(tp, dp, toks.astype(np.int32), lens_np, s=s,
+                                      cache_len=64)[0]
+            else:
+                got[s] = paged_tokens(eng, tp, dp, toks.astype(np.int32), lens_np, s)
+        spec[route] = bool(np.array_equal(got[0], got[3]))
+    line = dict(arch=arch, n_layers=2, logits_max_abs_err=errs, tol=tol,
+                k5_launches_prefill=k5, k5_expected=k5_per_layer(tcfg) * 2 + 1,
+                spec_equals_greedy=spec)
+    checks = [(ok_logits, f"{arch}: card vs CPU logits differ: {errs} (tol {tol})"),
+              (k5 == line["k5_expected"], f"{arch}: K5 launched {k5} times in a 2-layer "
+                                          f"prefill, not {line['k5_expected']}"),
+              (all(spec.values()), f"{arch}: speculative tokens differ from greedy: {spec}")]
+    if tcfg.moe is not None:
+        lp0 = {k: v[0] for k, v in tp["layers"]["moe"].items()}
+        line["dispatch"], ok_disp = moe_dispatch_check(torch, m, tcfg, lp0)
+        line["mixed_equals_flush"] = mixed_equals_flush(torch, np, m, no_drop(tcfg), dcfg,
+                                                        tp, dp)
+        checks += [(ok_disp, f"{arch}: the einsum and gather dispatches disagree: "
+                             f"{line['dispatch']}"),
+                   (line["mixed_equals_flush"],
+                    f"{arch}: the mixed step's tokens differ from flush-then-step")]
+    print("  " + json.dumps({"qwen_parity": line}), flush=True)
+    for cond, msg in checks:
+        check(cond, msg)
+    return line
+
+
+def phase_qwen_parity(torch, np, R, m, tree_to):
+    out = {}
+    for arch in QWEN_YI:
+        out[arch] = qwen_parity(torch, np, R, m, tree_to, arch)
+        torch.cuda.empty_cache()
+    return out
+
+
+def record_router_inputs(m):
+    """Keep (config, router, x) of every ``moe_forward`` call until
+    ``drop_share`` reads them (references only: no work on the card during
+    the run).  Returns the list and the function that restores the module."""
+    seen, inner = [], m.moe.moe_forward
+
+    def recording(cfg, params, x):
+        seen.append((cfg, params["router"], x))
+        return inner(cfg, params, x)
+    m.moe.moe_forward = recording
+
+    def restore():
+        m.moe.moe_forward = inner
+    return seen, restore
+
+
+def drop_share(torch, m, seen):
+    """Dropped assignments over all assignments of the recorded calls, from
+    their router outputs (``route``, ``slot_ranks``, ``capacity``)."""
+    mo = m.moe
+    dropped = total = 0
+    for cfg, router, x in seen:
+        mc = cfg.moe
+        B, T, d = x.shape
+        tg = mo.group_size(B * T)
+        _, _, top_i = mo.route(mc, router, x.reshape(-1, tg, d))
+        C = mo.capacity(tg, mc.top_k, mc.n_experts, mc.capacity_factor)
+        dropped += int((mo.slot_ranks(top_i, mc.n_experts) >= C).sum())
+        total += top_i.numel()
+    return dict(dropped=dropped, assignments=total, share=dropped / max(total, 1),
+                calls=len(seen))
+
+
+def qwen_serve(torch, np, R, m, arch):
+    """9b for one config: full size in bf16 with its dense draft."""
+    import copy
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config(arch), R.get_draft_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # sampled (random weights accept nothing greedily): the grid and the
+    # serving run; the step profiles run on a twin with room for 64 tokens
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda", sample=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    eng.load_kernels(paged=True)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in m.leaves(tp))
+    line = dict(arch=arch, weights_gb=weight_bytes / 1e9, init_s=time.perf_counter() - t0,
+                weight_floor_ms=1e3 * weight_bytes / HBM_BYTES_PER_S)
+    # ---- the per-token latency grid and its LUT ----
+    rng = np.random.default_rng(1)
+    sample = m.synthetic_prompts(8, tcfg.vocab_size, rng, 8, 16)
+    toks = np.zeros((8, max(len(p) for p in sample)), np.int32)
+    lens = np.array([len(p) for p in sample], np.int32)
+    for i, p in enumerate(sample):
+        toks[i, :len(p)] = p
+    t0 = time.perf_counter()
+    lut = m.profile_engine(eng, tp, dp, toks, lens, batch_sizes=(1, 8, 16), s_values=(0, 3),
+                           gen_tokens=16, cache_len=256)
+    line.update(grid_s=time.perf_counter() - t0,
+                grid_ms_per_token={b: {s: 1e3 * t for s, t in d.items()}
+                                   for b, d in lut.per_token.items()},
+                lut=dict(lut.table))
+    torch.cuda.empty_cache()
+    # ---- the pool: as many blocks of 16 as memory allows, up to the worst case ----
+    a = tcfg.attn
+    per_block = tcfg.n_layers * 2 * 16 * a.n_kv_heads * a.head_dim * 2
+    free = torch.cuda.mem_get_info()[0]
+    blocks = int(min(16 * 512 // 16, (free - 6e9) // per_block))
+    line["blocks"] = blocks
+    check(blocks >= 144, f"{arch}: {blocks} blocks of 16 fit the card, fewer than 144")
+    # ---- serve_continuous_live, sampled, 16 requests of phase 6b's trace ----
+    eng_s = eng
+    rec = dict(prefills=0, s=[], accepted=0, proposed=0)
+    pi, st = eng_s.prefill_into, eng_s.step
+
+    def prefill_into(*a_, **kw):
+        if not kw.get("warm"):
+            rec["prefills"] += 1
+        return pi(*a_, **kw)
+
+    def step(*a_, **kw):
+        out = st(*a_, **kw)
+        if not kw.get("warm"):
+            s = a_[3] if len(a_) > 3 else kw["s"]
+            live = out[1].committed > 0
+            rec["s"].append(s)
+            rec["accepted"] += int(out[1].accepted[live].sum())
+            rec["proposed"] += s * int(live.sum())
+        return out
+    eng_s.prefill_into, eng_s.step = prefill_into, step
+    ctrl = m.AdaptiveController(lut=m.SpeculationLUT(dict(lut.table)))
+    reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 16, (64, 192), 32, 0.05, 23)
+    be = m.ContinuousEngineBackend(eng_s, tp, dp, capacity=16, cache_len=512, block_size=16,
+                                   num_blocks=blocks, collect_outputs=True,
+                                   warm_s=sorted(set(lut.table.values())),
+                                   s_cap=m.controller_s_cap(ctrl))
+    seen, restore = (record_router_inputs(m) if tcfg.moe is not None else ([], lambda: None))
+    torch.cuda.synchronize()
+    zero_counts(m)
+    t0 = time.perf_counter()
+    try:
+        res = m.serve_continuous_live(copy.deepcopy(reqs), eng_s, tp, dp, ctrl, backend=be)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(m)
+    want = predicted_launches(tcfg, dcfg, rec["prefills"], rec["s"])
+    done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
+    outs = [np.asarray(be.outputs[r.rid]) for r in res.requests if r.rid in be.outputs]
+    in_vocab = bool(outs) and all(o.size and 0 <= o.min() and o.max() < tcfg.vocab_size
+                                  for o in outs)
+    line["serve"] = dict(requests=len(reqs), finished=len(done), **serve_line(m, res, wall),
+                         admissions=rec["prefills"], steps_by_s={
+                             int(s): rec["s"].count(s) for s in sorted(set(rec["s"]))},
+                         acceptance=rec["accepted"] / max(rec["proposed"], 1),
+                         launches=launches, predicted=want, tokens_in_vocab=in_vocab)
+    if tcfg.moe is not None:
+        line["serve"]["moe_drops_cf_1.25"] = drop_share(torch, m, seen)
+    del seen, be, res
+    eng.__dict__.pop("prefill_into")
+    eng.__dict__.pop("step")
+    torch.cuda.empty_cache()
+    # ---- step profiles at B 16, s 0 and 3, on a paged pool ----
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=64, dtype=bf16, device="cuda", sample=True)
+    state = eng.init_slots(16, 512, block_size=16, num_blocks=blocks)
+    ptoks = np.random.default_rng(5).integers(0, tcfg.vocab_size, (16, 128)).astype(np.int32)
+    for slot in range(16):
+        state = eng.prefill_into(tp, dp, state, slot, ptoks[slot], 128, 512)
+    prof = {}
+    for s in (0, 3):
+        keep = []
+        r = profile_step(torch, eng, tp, dp, f"{arch}_paged_b16_s{s}", state, s, keep=keep,
+                         host=False)
+        state = keep[0]
+        busy = r["device_busy_ms"]
+        prof[f"paged_b16_s{s}"] = dict(
+            wall_ms=r["wall_ms"], device_busy_ms=busy, idle_share=r["idle_share"],
+            device_kernels=r["device_kernels"], top5_device_ms=dict(
+                list(r["top_device_ms"].items())[:5]),
+            k3_share=r["paged_kernel_ms"] / busy if busy else None,
+            k5_share=r["k5_ms"] / busy if busy else None,
+            k3_device_kernels=r["paged_device_kernels"], k5_launches=r["k5_launches"],
+            profile_takes=r["profile_takes"], profile_lost=r["profile_lost"])
+    line["profiles"] = prof
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    line["card_memory_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
+    del state, eng, eng_s, tp, dp
+    torch.cuda.empty_cache()
+    print("  " + json.dumps({"qwen_serve": line}, default=float), flush=True)
+    sv = line["serve"]
+    check(sv["finished"] == len(reqs), f"{arch}: {len(reqs) - sv['finished']} requests did "
+                                       "not finish")
+    check(in_vocab, f"{arch}: a generated token lies outside the true vocabulary")
+    check(all(launches[k] == want[k] for k in ("k1", "k3", "k5")),
+          f"{arch}: launches {launches} differ from the prediction {want}")
+    check(launches["plain"] == 0, f"{arch}: a plain version ran on the card")
+    check(line["peak_memory_gb"] < line["card_memory_gb"], f"{arch}: peak memory over the card")
+    return line
+
+
+def phase_qwen_serve(torch, np, R, m):
+    return {arch: qwen_serve(torch, np, R, m, arch) for arch in QWEN_YI}
+
+
 def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba_launches):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
     trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches
@@ -4324,6 +4705,7 @@ def main() -> int:
     from repro_torch.kernels import spec_verify_attn as K1
     from repro_torch.kernels import ssd_chunk as K6
     from repro_torch.launch import serve, train
+    from repro_torch.models import moe
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import metrics, scheduler
     from repro_torch.serving.prefix_cache import PrefixCache
@@ -4331,6 +4713,7 @@ def main() -> int:
     from repro_torch.serving.telemetry import Telemetry
     from repro_torch.serving.traffic import synthetic_prompts
     from repro_torch.training import train_step
+    from repro_torch.training.optimizer import leaves
 
     # what phases 6 and 7 drive, under one name
     m = types.SimpleNamespace(
@@ -4357,7 +4740,7 @@ def main() -> int:
         AdamWConfig=training.AdamWConfig, init_adamw=training.init_adamw,
         adamw_update=training.adamw_update, make_train_step=training.make_train_step,
         make_loss_fn=training.make_loss_fn, make_distill_step=training.make_distill_step,
-        value_and_grad=train_step.value_and_grad)
+        value_and_grad=train_step.value_and_grad, moe=moe, leaves=leaves)
 
     def tree_to(tree, device):
         return tree_map(lambda t: t.to(device), tree)
@@ -4545,6 +4928,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     mlive = phase_mamba_continuous(torch, np, m, mserve["lut"])
     done("mamba_continuous")
+    torch.cuda.empty_cache()
+
+    # ---- 9. qwen3-8b, yi-34b and qwen3-moe-30b-a3b: card vs CPU, then full size ----
+    phase_qwen_parity(torch, np, R, m, tree_to)
+    done("qwen_parity")
+    qserve = phase_qwen_serve(torch, np, R, m)
+    done("qwen_serve")
+    qlaunch = {a: q["serve"]["launches"] for a, q in qserve.items()}
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
@@ -4572,7 +4963,7 @@ def main() -> int:
                     "library_ms": phead["library_ms"], "library": phead["library"],
                     "n_splits": phead["n_splits"],
                     "device_kernels_per_call": phead["device_kernels"], "shape": paged_shape}
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "spec_verify_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spec_verify_attn.cu",
         "replaces": "src/repro/kernels/spec_verify_attn.py:126",
@@ -4615,10 +5006,24 @@ def main() -> int:
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash,
                                              mtrain["launches"])
-        + [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
-                          mtrain["launches"]["k6_fwd"]),
-           ssd_bwd_kernel_row(brows, mtrain)]}),
-        flush=True)
+    kernels += [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
+                               mtrain["launches"]["k6_fwd"]),
+                ssd_bwd_kernel_row(brows, mtrain)]
+    # phase 9b's launches on the three configs' paged serving runs, and K5's
+    # rows at qk_norm's per-head width
+    for row in kernels:
+        key = {"spec_verify_attn": "k1", "ragged_paged_verify_attn": "k3",
+               "rmsnorm_fwd": "k5"}.get(row["name"])
+        if key:
+            row["launches_qwen_yi"] = {a: q[key] for a, q in qlaunch.items()}
+            row["launches_qwen_yi_from"] = "phase 9b, serve_continuous_live at full size"
+        if row["name"] == "rmsnorm_fwd":
+            row["qk_norm"] = [{k: r[k] for k in ("case", "shape", "dtype", "max_abs_err", "ms",
+                                                 "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by")}
+                              for r in trows if r["case"].startswith(("rmsnorm_qwen3",
+                                                                      "rmsnorm_qk_norm"))]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Configuration dataclasses for the families the port covers: dense GQA
-decoders and Mamba-2 (SSD).
+decoders (with Qwen3's per-head q/k norm), mixture-of-experts GQA decoders
+and Mamba-2 (SSD).
 
-The dense-GQA and SSM parts of ``repro.configs.base``, cut to the fields
-the port's models, engine and launchers read (untied embeddings, no q/k
-norm, no modality prefix; the dtype is the caller's).  Configs are frozen
+The GQA, MoE and SSM parts of ``repro.configs.base``, cut to the fields
+the port's models, engine and launchers read (untied embeddings, no MLA,
+no modality prefix; the dtype is the caller's).  Configs are frozen
 dataclasses.
 """
 from __future__ import annotations
@@ -18,8 +19,23 @@ class AttnConfig:
     n_heads: int = 8
     n_kv_heads: int = 8
     head_dim: int = 128
+    qk_norm: bool = False          # Qwen3-style per-head RMSNorm on q,k
     rope_theta: float = 10_000.0
     window: Optional[int] = None   # sliding-window size; None = full causal
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0              # DeepSeek-style always-on shared experts
+    d_ff_shared: int = 0           # d_ff of the shared-expert block
+    capacity_factor: float = 1.25  # GShard-style dispatch capacity
+    router_aux_weight: float = 1e-2
+    # dispatch implementation: "einsum" = GShard one-hot matmuls, "gather" =
+    # stable-sort ragged dispatch; both drop the same tokens
+    dispatch: str = "einsum"
 
 
 @dataclass(frozen=True)
@@ -36,12 +52,13 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense" or "ssm" (the families ported)
+    family: str                    # "dense", "moe" or "ssm" (the families ported)
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: Optional[AttnConfig] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     norm_eps: float = 1e-6
     # int8 KV cache with per-(row, kv-head) scales (GQA caches only; MLA's

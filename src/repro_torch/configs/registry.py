@@ -1,6 +1,7 @@
 """``--arch <id>`` resolution for the port: the paper's OPT pair, yi-9b,
-internlm2-1.8b (the training launcher's default) and mamba2-1.3b; and
-``build_model``, the model class for a config's family."""
+yi-34b, qwen3-8b, qwen3-moe-30b-a3b, internlm2-1.8b (the training
+launcher's default) and mamba2-1.3b; and ``build_model``, the model class
+for a config's family."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,9 @@ from repro_torch.configs.base import ModelConfig
 _MODULES: Dict[str, str] = {
     "opt-6.7b": "repro_torch.configs.opt_pair",
     "yi-9b": "repro_torch.configs.yi_9b",
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
@@ -36,9 +40,9 @@ def get_draft_config(arch_id: str) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
-    """The model for a config's family: ``DecoderLM`` (dense) or
+    """The model for a config's family: ``DecoderLM`` (dense, moe) or
     ``Mamba2LM`` (ssm), as ``repro.configs.registry.build_model``."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg)
     if cfg.family == "ssm":

@@ -11,7 +11,13 @@ config and ``--device cpu`` the CPU (plain kernels):
       --dtype float32 --requests 6 --max-new 8 --profile-bs 1,2 --s-max 2
 
 ``--arch mamba2-1.3b`` serves the Mamba-2 target (its prefill through the
-SSD kernel K6) with its dense draft.
+SSD kernel K6) with its dense draft.  ``--arch qwen3-8b`` (per-head q/k
+norms through K5), ``yi-34b`` (seven query heads per kv-head) and
+``qwen3-moe-30b-a3b`` (128 experts, top-8) serve the dense and MoE Qwen3 /
+Yi targets, each with its dense draft:
+
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \
+      --device cpu --dtype float32 --requests 6 --max-new 8 --profile-bs 1,2 --s-max 2
 
 ``main`` returns what it printed as a dict: the profiled per-token latency
 grid, the LUT, the adaptive and ``s = 0`` summaries and throughputs, and the

@@ -4,11 +4,13 @@
 Runs on the card by default, in float32 (as the JAX launcher trains), at
 the configuration's full width and depth with seeded random weights;
 ``--smoke`` takes the reduced same-family config and ``--device cpu`` the
-CPU (the kernels' plain versions).  Dense decoders and Mamba-2 train:
+CPU (the kernels' plain versions).  Dense and MoE decoders (the loss
+adds the router's load-balance aux loss, as JAX's) and Mamba-2 train:
 
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 20
   python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 512 --steps 20
   python -m repro_torch.launch.train --smoke --device cpu --steps 12
+  python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 12
 
 It asserts that the loss falls, as the JAX launcher does.  ``main``
 returns what it printed as a dict: the per-step losses, the parameter
@@ -48,7 +50,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"{cfg.family} training (encoder-decoder, VLM) is not "
                                   "ported yet (ROADMAP queue 1, item 12)")
     device = resolve_device(args.device)

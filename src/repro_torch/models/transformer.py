@@ -1,6 +1,8 @@
-"""Dense GQA decoder on a contiguous ring KV cache or a paged KV pool: the
-dense branch of ``repro.models.transformer.DecoderLM`` (the OPT pair, the
-yi family and internlm2).
+"""GQA decoder on a contiguous ring KV cache or a paged KV pool: the GQA
+branch of ``repro.models.transformer.DecoderLM``, dense (the OPT pair, the
+yi family, internlm2, qwen3-8b) or mixture-of-experts (qwen3-moe-30b-a3b,
+``models/moe.py``), with Qwen3's per-head q/k RMSNorm where the config
+asks for it (``qk_norm``: after the projections, before RoPE).
 
 Entry points:
   ``forward``        full-sequence forward for training and scoring
@@ -44,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attn, spec_verify_attn
 from repro_torch.kernels.paged import paged_verify_attn
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 from repro_torch.models.common import ParamDef
 
 # the per-layer leaves of a cache that hold rows (``pos`` and the block table
@@ -79,6 +82,16 @@ def _stored(lc: Dict, k_new: torch.Tensor, v_new: torch.Tensor) -> Dict:
     return {"k": codes[0], "v": codes[1], "k_scale": scales[0], "v_scale": scales[1]}
 
 
+def _unbind(tree: Dict) -> Dict:
+    """Each stacked leaf of a (nested) layer tree split into its layers."""
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+
+
+def _pick(tree: Dict, i: int) -> Dict:
+    """Layer ``i``'s parameters of an ``_unbind`` tree."""
+    return {k: _pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
 def _scales(lc: Dict, rows: slice = slice(None)) -> Dict:
     """The int8 scale arguments of an attention call over ``lc``'s rows
     ``[:, rows]`` (none for an unquantised cache)."""
@@ -91,9 +104,10 @@ class DecoderLM:
     """Decoder-only LM for one config; parameters and caches are passed in."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.attn is None:
+        if cfg.family not in ("dense", "moe") or cfg.attn is None or (
+                (cfg.family == "moe") != (cfg.moe is not None)):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers dense GQA decoders only; MLA, MoE "
+                f"{cfg.name}: the port covers dense and MoE GQA decoders only; MLA "
                 "and the other families are not ported yet (ROADMAP queue 1, item 12)")
         self.cfg = cfg
         self.padded_vocab = pad_vocab(cfg.vocab_size)
@@ -105,21 +119,28 @@ class DecoderLM:
         c, a = self.cfg, self.cfg.attn
         d, hd = c.d_model, a.head_dim
         H, KVH = a.n_heads, a.n_kv_heads
+        layer: Dict = {
+            "attn_norm": ParamDef((d,), init="ones", stacked=True),
+            "mlp_norm": ParamDef((d,), init="ones", stacked=True),
+            "wq": ParamDef((d, H, hd), stacked=True),
+            "wk": ParamDef((d, KVH, hd), stacked=True),
+            "wv": ParamDef((d, KVH, hd), stacked=True),
+            "wo": ParamDef((H, hd, d), stacked=True),
+        }
+        if a.qk_norm:
+            layer["q_norm"] = ParamDef((hd,), init="ones", stacked=True)
+            layer["k_norm"] = ParamDef((hd,), init="ones", stacked=True)
+        if c.moe is not None:
+            layer["moe"] = moe.moe_defs(c)
+        else:
+            layer["w_gate"] = ParamDef((d, c.d_ff), stacked=True)
+            layer["w_up"] = ParamDef((d, c.d_ff), stacked=True)
+            layer["w_down"] = ParamDef((c.d_ff, d), stacked=True)
         return {
             "embed": ParamDef((self.padded_vocab, d), scale=0.02),
             "final_norm": ParamDef((d,), init="ones"),
             "unembed": ParamDef((self.padded_vocab, d), scale=0.02),
-            "layers": {
-                "attn_norm": ParamDef((d,), init="ones", stacked=True),
-                "mlp_norm": ParamDef((d,), init="ones", stacked=True),
-                "wq": ParamDef((d, H, hd), stacked=True),
-                "wk": ParamDef((d, KVH, hd), stacked=True),
-                "wv": ParamDef((d, KVH, hd), stacked=True),
-                "wo": ParamDef((H, hd, d), stacked=True),
-                "w_gate": ParamDef((d, c.d_ff), stacked=True),
-                "w_up": ParamDef((d, c.d_ff), stacked=True),
-                "w_down": ParamDef((c.d_ff, d), stacked=True),
-            },
+            "layers": layer,
         }
 
     def init(self, generator: torch.Generator, dtype: torch.dtype = torch.float32,
@@ -182,12 +203,17 @@ class DecoderLM:
 
     def _qkv(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, rope):
         """x: [B,T,d] -> q [B,T,H,hd], k/v [B,T,KVH,hd] with RoPE applied
-        (``rope`` is the forward's ``cm.rope_table``)."""
+        (``rope`` is the forward's ``cm.rope_table``).  Under ``qk_norm`` q
+        and k are RMS-normalised per head before RoPE, as JAX's
+        ``_qkv_gqa``: one K5 call each over their ``[B*T*heads, hd]`` rows."""
         a = self.cfg.attn
         B, T, d = x.shape
         q = (x @ lp["wq"].reshape(d, -1)).view(B, T, a.n_heads, a.head_dim)
         k = (x @ lp["wk"].reshape(d, -1)).view(B, T, a.n_kv_heads, a.head_dim)
         v = (x @ lp["wv"].reshape(d, -1)).view(B, T, a.n_kv_heads, a.head_dim)
+        if a.qk_norm:
+            q = cm.rms_norm(q, lp["q_norm"], self.cfg.norm_eps)
+            k = cm.rms_norm(k, lp["k_norm"], self.cfg.norm_eps)
         q = cm.apply_rope(q, positions, a.rope_theta, rope)
         k = cm.apply_rope(k, positions, a.rope_theta, rope)
         return q, k, v
@@ -265,24 +291,31 @@ class DecoderLM:
                          prefix_len=prefix_len)
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
-    def _mlp(self, lp: Dict, x: torch.Tensor) -> torch.Tensor:
-        return cm.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    def _mlp(self, lp: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(out, the MoE load-balance aux loss; None for a dense MLP)."""
+        if self.cfg.moe is not None:
+            return moe.moe_forward(self.cfg, lp["moe"], x)
+        return cm.swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"]), None
 
     def _layers(self, params: Dict, x: torch.Tensor, positions: torch.Tensor,
-                attn: Callable) -> torch.Tensor:
+                attn: Callable, aux: Optional[list] = None) -> torch.Tensor:
         """The decoder stack; ``attn(lp, hn, layer, rope)`` is the attention
-        block of one layer (ring or paged)."""
+        block of one layer (ring or paged).  A MoE model appends each
+        layer's aux loss to ``aux`` when given (the serving paths drop it)."""
         c = self.cfg
         rope = cm.rope_table(positions, c.attn.head_dim, c.attn.rope_theta)
         # one unbind per stacked weight: its backward stacks the layers'
         # gradients once, where indexing layer by layer would add a
         # full-size zero-padded gradient per layer
-        layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+        layers = _unbind(params["layers"])
         for i in range(c.n_layers):
-            lp = {k: v[i] for k, v in layers.items()}
+            lp = _pick(layers, i)
             hn = cm.rms_norm(x, lp["attn_norm"], c.norm_eps)
             x = x + attn(lp, hn, i, rope)
-            x = x + self._mlp(lp, cm.rms_norm(x, lp["mlp_norm"], c.norm_eps))
+            m_out, l_aux = self._mlp(lp, cm.rms_norm(x, lp["mlp_norm"], c.norm_eps))
+            x = x + m_out
+            if aux is not None and l_aux is not None:
+                aux.append(l_aux)
         return cm.rms_norm(x, params["final_norm"], c.norm_eps)
 
     def _ring_attn(self, cache: Dict, positions: torch.Tensor,
@@ -300,20 +333,24 @@ class DecoderLM:
     def forward(self, params: Dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the zero
-        fp32 scalar of a dense model (the JAX model's MoE aux loss).  No
-        per-layer recompute: every layer's activations are kept for the
-        backward."""
+        """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the MoE
+        load-balance loss summed over the layers in fp32 (the JAX model's),
+        a zero scalar for a dense model.  No per-layer recompute: every
+        layer's activations are kept for the backward."""
         if prefix_embeds is not None:
             raise NotImplementedError(
                 "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
         B, T = tokens.shape
         dev = tokens.device
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+        aux = [torch.zeros((), dtype=torch.float32, device=dev)]
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
-                         lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, 0, rope))
-        return (self._unembed(params, x),
-                torch.zeros((), dtype=torch.float32, device=dev))
+                         lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, 0, rope),
+                         aux)
+        total = aux[0]
+        for a in aux[1:]:     # in layer order, as JAX's scan carries it
+            total = total + a
+        return self._unembed(params, x), total
 
     # ------------------------------------------------------------------
     # prefill: forward + cache population
@@ -479,15 +516,22 @@ class DecoderLM:
         paged attention call per layer (K3 with ``cu_blocks``, which must
         describe ``bt`` with the chunk row patched in).
 
-        The JAX function pads every slot to ``Tm = max(verify_len, CB)``
-        columns for the whole layer.  Here only the rows that carry a token
-        go through the embedding, K5, RoPE and the products, packed into
-        one ``[1, M]`` sequence (each other slot's ``verify_len`` columns
-        and the chunk's ``n`` real columns): the attention alone widens to
-        ``[B, Tm]``, ``Tm = max(verify_len, n)``, with position -1 on every
-        padding column (it sees nothing and writes nowhere).  The values
-        are JAX's; only the roundings of the products differ, which run on
-        another number of rows.
+        The JAX function pads every slot to ``Tm`` columns for the whole
+        layer (``Tm = max(T, CB)``, ``T`` the width of ``tokens``, ``CB``
+        the chunk's bucket; its engine passes them padded with zeros to
+        ``max(s + 1, CB)``).  For a dense model only the rows that carry a
+        token go through the embedding, K5, RoPE and the products here,
+        packed into one ``[1, M]`` sequence (each other slot's
+        ``verify_len`` columns and the chunk's ``n`` real columns): the
+        attention alone widens to ``[B, Tm]``, ``Tm = max(verify_len, n)``,
+        with position -1 on every padding column (it sees nothing and
+        writes nowhere).  A dense row's value does not depend on the rows
+        beside it, so the values are JAX's; only the roundings of the
+        products differ, which run on another number of rows.  A MoE
+        layer's do depend on them (the padding rows are routed and take
+        expert capacity), so a MoE model carries JAX's ``[B, Tm]`` layout,
+        padding tokens and all, through every layer
+        (:meth:`_decode_step_mixed_wide`).
 
         The device table ``cache["bt"]`` is not patched: the pending slot's
         row stays -1 until its final chunk commits, and the patched table
@@ -501,6 +545,12 @@ class DecoderLM:
         if n < 1 or not 0 <= chunk_slot < B:
             raise ValueError(f"no chunk rows: slot {chunk_slot} of {B}, positions "
                              f"[{chunk_start}, {chunk_limit}) in a {chunk_tokens.shape[0]} bucket")
+        bt_eff = cache["bt"].clone()
+        bt_eff[chunk_slot] = chunk_bt_row
+        if self.cfg.moe is not None:
+            return self._decode_step_mixed_wide(params, tokens, cache, seq_lens, chunk_slot,
+                                                chunk_tokens, chunk_start, chunk_limit,
+                                                bt_eff, verify_len, cu_blocks)
         # the packed layout, built on the host: row m is column t[m] of slot b[m]
         counts = np.full(B, verify_len)
         counts[chunk_slot] = n
@@ -519,8 +569,6 @@ class DecoderLM:
         positions[c0:c0 + n] = chunk_start + t[c0:c0 + n].to(torch.int32)
         q_pos = torch.full((B, max(verify_len, n)), -1, dtype=torch.int32, device=dev)
         q_pos[b, t] = positions
-        bt_eff = cache["bt"].clone()
-        bt_eff[chunk_slot] = chunk_bt_row
         positions = positions[None]
         pb, off = self._pool_rows(cache, bt_eff, b[None], positions)
 
@@ -530,6 +578,41 @@ class DecoderLM:
 
         x = self._layers(params, cm.embed(toks[None], params["embed"]), positions, attn)
         return self._unembed(params, x[0, vrows].view(B, verify_len, -1)), cache
+
+    def _decode_step_mixed_wide(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                                seq_lens: torch.Tensor, chunk_slot: int,
+                                chunk_tokens: torch.Tensor, chunk_start: int,
+                                chunk_limit: int, bt_eff: torch.Tensor, verify_len: int,
+                                cu_blocks: Optional[torch.Tensor],
+                                ) -> Tuple[torch.Tensor, Dict]:
+        """:meth:`decode_step_mixed` in JAX's layout: every slot's ``Tm``
+        columns through every layer, ``tokens`` and ``chunk_tokens``
+        zero-padded to ``Tm = max(T, CB)``; a verify column at or past
+        ``verify_len``, and a chunk column at or past ``chunk_limit``, sits
+        at position -1 (attends nothing, writes into the trash block) but
+        is embedded, normed and routed like any other row."""
+        B, T = tokens.shape
+        dev = seq_lens.device
+        CB = int(chunk_tokens.shape[0])
+        Tm = max(T, CB)
+        toks = tokens.new_zeros((B, Tm))
+        toks[:, :T] = tokens
+        toks[chunk_slot] = 0
+        toks[chunk_slot, :CB] = chunk_tokens.to(toks.dtype)
+        col = torch.arange(Tm, dtype=torch.int32, device=dev)[None]
+        positions = torch.where(col < verify_len, (seq_lens - 1)[:, None] + col,
+                                -1).to(torch.int32)
+        cpos = chunk_start + col[0]
+        positions[chunk_slot] = torch.where(cpos < chunk_limit, cpos, -1)
+        slots = torch.arange(B, device=dev)[:, None]
+        pb, off = self._pool_rows(cache, bt_eff, slots, positions, positions >= 0)
+
+        def attn(lp, hn, i, rope):
+            return self._attn_paged(lp, hn, positions, _layer(cache, i), cache["pos"],
+                                    pb, off, bt_eff, rope, cu_blocks)
+
+        x = self._layers(params, cm.embed(toks, params["embed"]), positions, attn)
+        return self._unembed(params, x[:, :verify_len]), cache
 
     # ------------------------------------------------------------------
     # chunked prefill (prefix extension)

@@ -276,7 +276,7 @@ def test_build_model_picks_the_family():
     assert isinstance(TR.build_model(TR.get_smoke_config(ARCH)), Mamba2LM)
     assert isinstance(TR.build_model(TR.get_smoke_config("yi-9b")), DecoderLM)
     with pytest.raises(NotImplementedError, match="item 12"):
-        TR.build_model(TR.get_smoke_config("yi-9b").with_(family="moe"))
+        TR.build_model(TR.get_smoke_config("yi-9b").with_(family="hybrid"))
     with pytest.raises(ValueError):
         Mamba2LM(TR.get_smoke_config("yi-9b"))
 

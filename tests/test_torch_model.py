@@ -197,7 +197,7 @@ def test_sliding_window_matches_jax():
 
 
 def test_decoder_rejects_families_it_does_not_cover():
-    cfg = TR.get_smoke_config("opt-6.7b").with_(family="moe")
+    cfg = TR.get_smoke_config("opt-6.7b").with_(family="hybrid")
     with pytest.raises(NotImplementedError):
         DecoderLM(cfg)
 
