@@ -199,9 +199,39 @@ Phases, one report line each (the last line is the JSON verdict):
             counted inside ``prefill_into``), one step of that pair at
             B = 8, s = 0 and 3 under ``torch.profiler``, and one B = 1,
             T 256 target prefill under it (device time, K6's share).
+9.  qwen3 / yi  qwen3-8b (per-head q/k norms through K5), yi-34b (G 7) and
+            qwen3-moe-30b-a3b (128 experts, top-8).  9a: each cut to 2
+            layers at full width with its draft cut to 2, fp32, on the
+            same parameters on the CPU and the card: prefill logits and a
+            ring and a paged s = 3 verify's within 2e-3; K5 launched
+            4 (Qwen3) or 2 (yi) times a layer and once for the final
+            norm in a prefill; speculative (s 3) = greedy (s 0) tokens
+            over 16 new tokens at B 4, ring and paged; for the MoE, at
+            the capacity factor n_experts / top_k (16: no assignment can
+            drop, so a token does not depend on the rows beside it), and
+            there the mixed step's tokens equal flush-then-step's; the
+            ``einsum`` and ``gather`` dispatches on layer 0 within 1e-5
+            relative (outputs and aux) at 16 and at the config's 1.25,
+            where both keep the same assignments and some drop.  9b: each
+            at full size in bf16, one after the other (each freed before
+            the next): the sampled per-token grid at b 1, 8, 16 x s 0, 3
+            and its LUT; ``serve_continuous_live`` of 16 requests of
+            phase 6b's trace, sampled, with that LUT on 16 slots and as
+            many blocks of 16 as memory allows (at most 512, at least
+            144): every request finished, every token in the true
+            vocabulary, K1, K3 and K5 launched exactly as
+            ``predicted_launches`` counts them from the run's admissions
+            and steps, no plain version, peak memory below the card's;
+            TTFT, ITL, tokens/s, acceptance, and for the MoE the share of
+            dropped assignments at 1.25 (from the recorded router inputs,
+            real rows apart); then paged B 16 steps at s 0 and 3 under
+            ``torch.profiler`` (wall, busy, idle share, device kernels,
+            the five costliest kernels, K3's and K5's shares) beside the
+            weight bytes over 3.35 TB/s.  Phase 2c holds K5 at the
+            ``qk_norm`` rows (d 128) too.
 
-Every serving phase now runs K5 (every norm), and phases 4, 6b and 8 gate
-its launches; phase 5 records its time per step.
+Every serving phase now runs K5 (every norm), and phases 4, 6b, 8 and 9
+gate its launches; phase 5 records its time per step.
 
 Each phase's line gives its seconds (``s``).  Every ``torch.profiler``
 trace that a gate reads is taken again, three times at most, while it
@@ -4402,14 +4432,17 @@ def phase_qwen_parity(torch, np, R, m, tree_to):
     return out
 
 
-def record_router_inputs(m):
-    """Keep (config, router, x) of every ``moe_forward`` call until
-    ``drop_share`` reads them (references only: no work on the card during
-    the run).  Returns the list and the function that restores the module."""
+def record_router_inputs(m, rows):
+    """Keep (config, router, x, the call's kind and real rows) of every
+    ``moe_forward`` call until ``drop_share`` reads them (references only:
+    no work on the card during the run); ``rows`` holds the kind and the
+    real rows of the engine call in progress (set by the caller's
+    wrappers).  Returns the list and the function that restores the
+    module."""
     seen, inner = [], m.moe.moe_forward
 
     def recording(cfg, params, x):
-        seen.append((cfg, params["router"], x))
+        seen.append((cfg, params["router"], x, dict(rows)))
         return inner(cfg, params, x)
     m.moe.moe_forward = recording
 
@@ -4420,19 +4453,39 @@ def record_router_inputs(m):
 
 def drop_share(torch, m, seen):
     """Dropped assignments over all assignments of the recorded calls, from
-    their router outputs (``route``, ``slot_ranks``, ``capacity``)."""
+    their router outputs (``route``, ``slot_ranks``, ``capacity``), by kind
+    of call (a B = 1 prefill of a bucket-padded prompt, a step), over every
+    row and over the rows that carry a token (a prefill's first
+    ``prompt_len - 1`` columns; a step's live slots).  A prefill's padding
+    rows come after its real ones in (t, k) order, so they take no slot a
+    real row would have had; a step's idle slots can."""
     mo = m.moe
-    dropped = total = 0
-    for cfg, router, x in seen:
+    out = {}
+    for cfg, router, x, rows in seen:
         mc = cfg.moe
         B, T, d = x.shape
         tg = mo.group_size(B * T)
         _, _, top_i = mo.route(mc, router, x.reshape(-1, tg, d))
         C = mo.capacity(tg, mc.top_k, mc.n_experts, mc.capacity_factor)
-        dropped += int((mo.slot_ranks(top_i, mc.n_experts) >= C).sum())
-        total += top_i.numel()
-    return dict(dropped=dropped, assignments=total, share=dropped / max(total, 1),
-                calls=len(seen))
+        drop = (mo.slot_ranks(top_i, mc.n_experts) >= C).reshape(B, T, -1)
+        if rows["kind"] == "prefill":
+            real = torch.arange(T, device=x.device)[None] < rows["n"]
+        else:
+            real = rows["live"].to(x.device)[:, None].expand(B, T)
+        o = out.setdefault(rows["kind"], dict(calls=0, dropped=0, assignments=0,
+                                              dropped_real=0, assignments_real=0))
+        o["calls"] += 1
+        o["dropped"] += int(drop.sum())
+        o["assignments"] += drop.numel()
+        o["dropped_real"] += int(drop[real].sum())
+        o["assignments_real"] += int(real.sum()) * drop.shape[2]
+    for o in out.values():
+        o["share"] = o["dropped"] / max(o["assignments"], 1)
+        o["share_real"] = o["dropped_real"] / max(o["assignments_real"], 1)
+    tot = {k: sum(o[k] for o in out.values()) for k in ("dropped", "assignments",
+                                                       "dropped_real", "assignments_real")}
+    return dict(out, share=tot["dropped"] / max(tot["assignments"], 1),
+                share_real=tot["dropped_real"] / max(tot["assignments_real"], 1))
 
 
 def qwen_serve(torch, np, R, m, arch):
@@ -4476,16 +4529,20 @@ def qwen_serve(torch, np, R, m, arch):
     line["blocks"] = blocks
     check(blocks >= 144, f"{arch}: {blocks} blocks of 16 fit the card, fewer than 144")
     # ---- serve_continuous_live, sampled, 16 requests of phase 6b's trace ----
-    eng_s = eng
     rec = dict(prefills=0, s=[], accepted=0, proposed=0)
-    pi, st = eng_s.prefill_into, eng_s.step
+    pi, st = eng.prefill_into, eng.step
+    rows = {"kind": None}     # the engine call in progress, for drop_share
 
     def prefill_into(*a_, **kw):
         if not kw.get("warm"):
             rec["prefills"] += 1
+            # the target's prefill feeds prompt_len - 1 rows
+            rows.update(kind="prefill", n=(a_[5] if len(a_) > 5 else kw["prompt_len"]) - 1)
         return pi(*a_, **kw)
 
     def step(*a_, **kw):
+        if tcfg.moe is not None and not kw.get("warm"):
+            rows.update(kind="step", live=~a_[2].done.cpu())
         out = st(*a_, **kw)
         if not kw.get("warm"):
             s = a_[3] if len(a_) > 3 else kw["s"]
@@ -4494,19 +4551,20 @@ def qwen_serve(torch, np, R, m, arch):
             rec["accepted"] += int(out[1].accepted[live].sum())
             rec["proposed"] += s * int(live.sum())
         return out
-    eng_s.prefill_into, eng_s.step = prefill_into, step
+    eng.prefill_into, eng.step = prefill_into, step
     ctrl = m.AdaptiveController(lut=m.SpeculationLUT(dict(lut.table)))
     reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 16, (64, 192), 32, 0.05, 23)
-    be = m.ContinuousEngineBackend(eng_s, tp, dp, capacity=16, cache_len=512, block_size=16,
+    be = m.ContinuousEngineBackend(eng, tp, dp, capacity=16, cache_len=512, block_size=16,
                                    num_blocks=blocks, collect_outputs=True,
                                    warm_s=sorted(set(lut.table.values())),
                                    s_cap=m.controller_s_cap(ctrl))
-    seen, restore = (record_router_inputs(m) if tcfg.moe is not None else ([], lambda: None))
+    seen, restore = (record_router_inputs(m, rows) if tcfg.moe is not None
+                     else ([], lambda: None))
     torch.cuda.synchronize()
     zero_counts(m)
     t0 = time.perf_counter()
     try:
-        res = m.serve_continuous_live(copy.deepcopy(reqs), eng_s, tp, dp, ctrl, backend=be)
+        res = m.serve_continuous_live(copy.deepcopy(reqs), eng, tp, dp, ctrl, backend=be)
         torch.cuda.synchronize()
     finally:
         restore()
@@ -4552,7 +4610,7 @@ def qwen_serve(torch, np, R, m, arch):
     line["profiles"] = prof
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     line["card_memory_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
-    del state, eng, eng_s, tp, dp
+    del state, eng, tp, dp
     torch.cuda.empty_cache()
     print("  " + json.dumps({"qwen_serve": line}, default=float), flush=True)
     sv = line["serve"]

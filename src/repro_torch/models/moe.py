@@ -68,6 +68,13 @@ def route(m, router: torch.Tensor, xg: torch.Tensor
     return probs, top_p, top_i
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 one-hot of ``idx`` over ``n`` classes (an index outside them
+    gives a zero row); unlike ``F.one_hot`` it never reads the device from
+    the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.int32)
+
+
 def slot_ranks(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Each (token, k) assignment's rank among its expert's assignments in
     (t, k)-major order, [G, tg, k]: the cumulative sum of the one-hot
@@ -75,7 +82,7 @@ def slot_ranks(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
     are the dropped assignments."""
     G, tg, k = top_i.shape
     flat = top_i.reshape(G, tg * k, 1)
-    counts = F.one_hot(flat[..., 0], n_experts).cumsum(1)          # [G, tg*k, E]
+    counts = _one_hot(flat[..., 0], n_experts).cumsum(1, dtype=torch.int32)  # [G, tg*k, E]
     return (counts.gather(2, flat)[..., 0] - 1).reshape(G, tg, k)
 
 
@@ -168,6 +175,6 @@ def _dispatch_gather(m, xg: torch.Tensor, top_i: torch.Tensor, top_p: torch.Tens
     combine_idx = torch.where(keep, slot, E * C - 1)          # safe gather id
     combine_w = torch.where(keep, top_p.reshape(G, tg * k), 0.0)
     # routed fraction per expert (kept assignments only), for the aux loss
-    f_e = F.one_hot(torch.where(keep, e_flat, E), E + 1)[..., :E].sum(1).float() / tg
+    f_e = _one_hot(torch.where(keep, e_flat, E), E).sum(1).float() / tg
     return (xe, combine_idx.reshape(G, tg, k),
             combine_w.reshape(G, tg, k).float(), f_e)

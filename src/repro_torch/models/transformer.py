@@ -343,14 +343,13 @@ class DecoderLM:
         B, T = tokens.shape
         dev = tokens.device
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
-        aux = [torch.zeros((), dtype=torch.float32, device=dev)]
+        aux = []
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
                          lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, 0, rope),
                          aux)
-        total = aux[0]
-        for a in aux[1:]:     # in layer order, as JAX's scan carries it
-            total = total + a
-        return self._unembed(params, x), total
+        # summed in layer order from zero, as JAX's scan carries it
+        return (self._unembed(params, x),
+                sum(aux, torch.zeros((), dtype=torch.float32, device=dev)))
 
     # ------------------------------------------------------------------
     # prefill: forward + cache population

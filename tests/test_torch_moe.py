@@ -40,7 +40,6 @@ from repro.configs import registry as JR
 from repro.core.spec_decode import SpecDecodeEngine as JEngine
 from repro.models import common as jcm
 from repro.models import moe as jmoe
-from repro.models.transformer import DecoderLM as JDecoderLM
 from repro_torch import bridge
 from repro_torch.configs import registry as TR
 from repro_torch.core.spec_decode import SpecDecodeEngine
