@@ -557,7 +557,7 @@ def run_kernel_case(torch, K1, ref, c):
     KVH, L = c["k"].shape[2], c["k"].shape[1]
     splits = K1.n_splits(B, KVH, (H // KVH) * T, L,
                          torch.cuda.get_device_properties(0).multi_processor_count)
-    names = device_kernels(torch, kernel, args)
+    names = device_kernels(torch, kernel, args, expect=launch.device_kernels(splits))
     # every device kernel of a call is K1's under phase 5's name filter
     names_ok = (len(names) == launch.device_kernels(splits)
                 and all("verify_kernel" in n and "paged" not in n for n in names))
@@ -821,7 +821,7 @@ def run_paged_case(torch, K23, paged, ref, c):
     KVH, bs, MAXB = c["k"].shape[2], c["k"].shape[1], c["bt"].shape[1]
     splits = K23.n_splits(B, KVH, (H // KVH) * T, MAXB, bs,
                           torch.cuda.get_device_properties(0).multi_processor_count)
-    names = device_kernels(torch, ragged, args)
+    names = device_kernels(torch, ragged, args, expect=launch.device_kernels(splits))
     # every device kernel of a call is K3's under phase 5's name filter
     names_ok = (len(names) == launch.device_kernels(splits)
                 and all("paged_verify_kernel" in n for n in names))
@@ -1115,7 +1115,7 @@ def run_flash_case(torch, K4, ref, c):
         KVH = k.shape[2]
         splits = K4.bwd_n_splits(B, KVH, (H // KVH) * T, T,
                                  torch.cuda.get_device_properties(0).multi_processor_count)
-        names = device_kernels(torch, bwd, args)
+        names = device_kernels(torch, bwd, args, expect=K4.bwd_device_kernels(splits))
         row["bwd_n_splits"] = splits
         row["bwd_device_kernels"] = len(names)
         row["bwd_kernel_names"] = [n.split("<")[0].split("::")[-1] for n in names]
@@ -1188,7 +1188,7 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
         row["grad_max_abs_err"], row["grad_tol"] = max(errs), gtol
         plan = K5.bwd_plan(n, d, torch.cuda.get_device_properties(0).multi_processor_count,
                            nb)
-        names = device_kernels(torch, bwd, args)
+        names = device_kernels(torch, bwd, args, expect=plan["device_kernels"])
         row["bwd_plan"] = {k: plan[k] for k in K5.BWD_ARGS + ("combine_blocks",)}
         row["bwd_device_kernels"] = len(names)
         row["bwd_kernel_names"] = [kernel_name(n_) for n_ in names]
@@ -1404,7 +1404,8 @@ def run_ssd_case(torch, K6, ref, c):
     eh, okh = within(torch, h, wh, tol)
     finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     bitwise = bool(torch.equal(y, y2)) and bool(torch.equal(h, h2))
-    names = [kernel_name(n) for n in device_kernels(torch, kernel, args)]
+    names = [kernel_name(n) for n in device_kernels(torch, kernel, args,
+                                                    expect=plan["device_kernels"])]
     kernels_ok = (len(names) == plan["device_kernels"]
                   and all(n.startswith("ssd_") for n in names))
     row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=max(ey, eh),
