@@ -139,8 +139,9 @@ Phases, one report line each (the last line is the JSON verdict):
             a reduced grid (b 1, 4, 8; s 0, 1, 3) greedy and sampled, and
             step profiles greedy against sampled (ring B 8 s 3, paged B 16
             s 0 and s 3).
-6g. telemetry  the ``Telemetry`` hub on phase 6b's pair, pool and trace
-            with every arrival at 0, sampled at s = 3: no hub, a hub, and a
+6g. telemetry  the ``Telemetry`` hub on phase 6b's pair (the target cut
+            to 16 layers since phase 9), pool and trace with every arrival
+            at 0, sampled at s = 3: no hub, a hub, and a
             hub with ``jsonl_path`` and ``profile_dir`` under ``build/``:
             tokens and StepTrace equal, preempted, every request retired,
             committed tokens counted, a ``repro/step[...]`` scope in the
@@ -191,7 +192,8 @@ Phases, one report line each (the last line is the JSON verdict):
             against CPU (prefill of prompts padded to 512, 8 greedy steps),
             the chunked forward (K6) against the token-by-token recurrence,
             and speculative generate(s) == generate(0); then the serve loop
-            of phase 4 on mamba2-1.3b at full width and depth in bf16, its
+            of phase 4 on mamba2-1.3b at full width, cut to 24 of its 48
+            layers since phase 9 (``MAMBA_SERVE_LAYERS``), in bf16, its
             profile over s 0-3, 8 requests (K6,
             K5 and K1 counted, no plain version); then
             ``serve_continuous_live`` on a contiguous pool of 8 slots, 16
@@ -246,6 +248,7 @@ since a remote run may return only the tail of standard output.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3576,7 +3579,8 @@ def scope_table(path):
 
 
 def phase_telemetry(torch, np, R, m):
-    """The telemetry hub on phase 6b's pair, seed, trace (every arrival at 0:
+    """The telemetry hub on phase 6b's pair (the target cut to 16 layers),
+    seed, trace (every arrival at 0:
     the live clock advances by wall time, so the hub-off and hub-on runs
     admit alike) and pool of 144 blocks, ``sample=True`` at s = 3, so the
     acceptance observatory has draws: served with no hub, with an enabled
@@ -3589,7 +3593,10 @@ def phase_telemetry(torch, np, R, m):
     the observatory's table."""
     import copy
     bf16 = torch.bfloat16
-    tcfg, dcfg = R.get_config("opt-6.7b"), R.get_draft_config("opt-6.7b")
+    # the target cut to 16 of its 32 layers (widths kept), to keep the
+    # script near 800 s with phase 9; the hub's contract does not depend on it
+    tcfg = R.get_config("opt-6.7b").with_(n_layers=16)
+    dcfg = R.get_draft_config("opt-6.7b")
     eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda", sample=True)
     gen = torch.Generator(device="cuda").manual_seed(11)
     tp = eng.target.init(gen, bf16, "cuda")
@@ -4124,22 +4131,41 @@ def phase_mamba_parity(torch, np, m, tree_to):
     return line
 
 
+# phase 8 serves mamba2-1.3b cut to its first 24 of 48 layers (widths kept),
+# to keep the script near 800 s with phase 9; phase 7 trains it at full depth
+MAMBA_SERVE_LAYERS = 24
+
+
+@contextlib.contextmanager
+def cut_depth(R, n_layers):
+    """While the block runs, ``R.get_config`` gives each config cut to its
+    first ``n_layers`` layers (widths kept), for an entry point that builds
+    its own (``serve.main``)."""
+    get = R.get_config
+    R.get_config = lambda arch: get(arch).with_(n_layers=n_layers)
+    try:
+        yield
+    finally:
+        R.get_config = get
+
+
 def phase_mamba_serve(torch, m):
     """The paper's profile -> LUT -> adaptive loop on mamba2-1.3b at full
-    width and depth with its dense_draft, bf16, phase 4's other flags but
-    s 0-3 and 8 requests (cut from 0-6 and 16 to make room for phases 6f
-    and 6g); K6, K5 and K1 (the draft) counted around it and no plain
-    version."""
+    width, cut to ``MAMBA_SERVE_LAYERS`` layers, with its dense_draft,
+    bf16, phase 4's other flags but s 0-3 and 8 requests (cut from 0-6 and
+    16 to make room for phases 6f and 6g); K6, K5 and K1 (the draft)
+    counted around it and no plain version."""
     counters = (m.K1.KERNEL, m.K5.FWD, m.K6.KERNEL, m.ops.PLAIN, m.ops.PLAIN_RMSNORM,
                 m.ops.PLAIN_SSD)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    res = m.serve.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--dtype", "bfloat16",
-                        "--max-batch", "8", "--cache-len", "256", "--profile-bs", "1,2,4,8",
-                        "--s-max", "3", "--requests", "8", "--interval", "0.1",
-                        "--max-new", "32"])
+    with cut_depth(m.R, MAMBA_SERVE_LAYERS):
+        res = m.serve.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--dtype",
+                            "bfloat16", "--max-batch", "8", "--cache-len", "256",
+                            "--profile-bs", "1,2,4,8", "--s-max", "3", "--requests", "8",
+                            "--interval", "0.1", "--max-new", "32"])
     torch.cuda.synchronize()
     launches = dict(k1=m.K1.KERNEL.launches, k5=m.K5.FWD.launches, k6=m.K6.KERNEL.launches,
                     plain=m.ops.PLAIN.launches, plain_rmsnorm=m.ops.PLAIN_RMSNORM.launches,
@@ -4160,11 +4186,13 @@ def phase_mamba_serve(torch, m):
 
 
 def phase_mamba_continuous(torch, np, m, lut_table):
-    """bf16, full width and depth: serve_continuous_live on a contiguous
-    pool of 8 slots, 16 requests of 64-256 prompt tokens and 32 new, with
-    the LUT of the Mamba-2 serve loop; K6 counted inside prefill_into."""
+    """bf16, full width, ``MAMBA_SERVE_LAYERS`` layers: serve_continuous_live
+    on a contiguous pool of 8 slots, 16 requests of 64-256 prompt tokens and
+    32 new, with the LUT of the Mamba-2 serve loop; K6 counted inside
+    prefill_into."""
     R, bf16 = m.R, torch.bfloat16
-    tcfg, dcfg = R.get_config("mamba2-1.3b"), R.get_draft_config("mamba2-1.3b")
+    tcfg = R.get_config("mamba2-1.3b").with_(n_layers=MAMBA_SERVE_LAYERS)
+    dcfg = R.get_draft_config("mamba2-1.3b")
     eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(23)
     tp = eng.target.init(gen, bf16, "cuda")
@@ -4367,10 +4395,10 @@ def qwen_parity(torch, np, R, m, tree_to, arch):
     f32 = torch.float32
     tcfg = R.get_config(arch).with_(n_layers=2)
     dcfg = R.get_draft_config(arch).with_(n_layers=2)
-    gen = torch.Generator().manual_seed(19)
-    tp_cpu = m.DecoderLM(tcfg).init(gen, f32, "cpu")
-    dp_cpu = m.DecoderLM(dcfg).init(gen, f32, "cpu")
-    tp, dp = tree_to(tp_cpu, "cuda"), tree_to(dp_cpu, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)   # drawn on the card: faster
+    tp = m.DecoderLM(tcfg).init(gen, f32, "cuda")
+    dp = m.DecoderLM(dcfg).init(gen, f32, "cuda")
+    tp_cpu, dp_cpu = tree_to(tp, "cpu"), tree_to(dp, "cpu")
     rng = np.random.default_rng(13)
     B = 4
     toks = rng.integers(0, tcfg.vocab_size, (B, 16)).astype(np.int64)
