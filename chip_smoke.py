@@ -4404,7 +4404,7 @@ def qwen_parity(torch, np, R, m, tree_to, arch):
     toks = rng.integers(0, tcfg.vocab_size, (B, 16)).astype(np.int64)
     lens = np.array([16, 11, 14, 9], np.int32)
     feed = rng.integers(0, tcfg.vocab_size, (B, 4)).astype(np.int32)
-    tol = 2e-3   # PR 31's card-against-CPU rule: fp32, long dot products in another order
+    tol = 2e-3   # the card-against-CPU rule of phases 3 and 6e: fp32 sums in another order
     logits = card_vs_cpu_logits(torch, np, m, tcfg, dcfg, {"cpu": tp_cpu, "cuda": tp},
                                 {"cpu": dp_cpu, "cuda": dp}, toks, lens, feed)
     del tp_cpu, dp_cpu
