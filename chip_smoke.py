@@ -1137,6 +1137,33 @@ def run_flash_case(torch, K4, ref, c):
     return row
 
 
+# K5's phase 2c cases: (name, n, d, dtype, with the backward); every one
+# runs the forward
+NORM_CASES = [("internlm2_train", 1024, 2048, "float32", True),
+              ("opt125m_distill", 1024, 768, "float32", True),
+              ("internlm2_train_bf16", 1024, 2048, "bfloat16", True),
+              ("opt67b_teacher", 1024, 4096, "bfloat16", False),
+              ("opt67b_serve_b8_t4", 32, 4096, "bfloat16", False),
+              ("opt125m_serve_b16_t1", 16, 768, "bfloat16", False),
+              ("opt67b_prefill_t256", 256, 4096, "bfloat16", False),
+              # the card-vs-CPU train step's rows (B 2, T 64): one row a unit;
+              # rows and width that fill no access pattern evenly (d 1000: 250
+              # 16-byte accesses over 128 threads); d 1001: one-value accesses
+              ("small_n128", 128, 2048, "float32", True),
+              ("odd_d1000", 257, 1000, "float32", True),
+              ("odd_d1001_bf16", 257, 1001, "bfloat16", True),
+              # the mamba2-1.3b trainer's rows (B 4, T 512): norm and final_norm
+              # at d 2048, norm_y at d 4096
+              ("mamba2_train_d2048", 2048, 2048, "float32", True),
+              ("mamba2_train_d4096", 2048, 4096, "float32", True),
+              # qk_norm's per-head rows at d 128: qwen3-8b's q (32 heads) and
+              # k (8 kv-heads) rows at phase 9b's largest prefill (256
+              # tokens), and q rows at the trainer's B 8, T 128 (fwd + bwd)
+              ("qwen3_8b_q_prefill_t256", 8192, 128, "bfloat16", False),
+              ("qwen3_8b_k_prefill_t256", 2048, 128, "bfloat16", False),
+              ("qk_norm_train_b8_t128", 16384, 128, "float32", True)]
+
+
 def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1152,6 +1179,26 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
     err, ok = within(torch, y, ref.rmsnorm_ref(x, gamma), tol)
     row = dict(case=name, dtype=dtype, shape=f"n{n} d{d}", max_abs_err=err, tol=tol)
     nb = x.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fplan = K5.fwd_plan(n, d, sms, nb)
+    row["fwd_plan"] = {k: fplan[k] for k in K5.FWD_ARGS + ("threads",)}
+    fwd = lambda x_, gm: K5.rmsnorm_fwd_cuda(x_, gm, save_rstd=True)  # noqa: E731
+    names = device_kernels(torch, fwd, (x, gamma), expect=fplan["device_kernels"])
+    row["fwd_device_kernels"] = len(names)
+    row["fwd_kernel_names"] = [kernel_name(n_) for n_ in names]
+    ok &= len(names) == fplan["device_kernels"] and all(
+        kernel_name(n_).startswith("rmsnorm_fwd_kernel") for n_ in names)
+    # a row's bits may not depend on the rows beside it in a call: the full
+    # call against calls of 1 row, of the first 37 (fewer where n is
+    # smaller) and of the rest
+    cut = min(37, n - 1)
+    parts = [fwd(x[:1], gamma)] + ([fwd(x[:cut], gamma), fwd(x[cut:], gamma)] if cut else [])
+    spans = [(0, 1)] + ([(0, cut), (cut, n)] if cut else [])
+    torch.cuda.synchronize()
+    row["row_independent"] = all(
+        torch.equal(py, y[lo:hi]) and torch.equal(pr, rstd[lo:hi])
+        for (py, pr), (lo, hi) in zip(parts, spans))
+    ok &= row["row_independent"]
     copies = min(64, max(2, math.ceil(2 * 50e6 / (3 * n * d * nb))))
     sets = [tuple(t.clone() for t in (x, gamma, dy, rstd)) for _ in range(copies)]
     row["ms"] = device_ms(torch, lambda x, gm, *_: K5.rmsnorm_fwd_cuda(x, gm, save_rstd=True),
@@ -1256,30 +1303,7 @@ def phase_train_kernels(torch, K4, K5, ref):
                                                            seed=200 + i, **kw))
         rows.append(r)
         print("  " + json.dumps(r), flush=True)
-    norms = [("internlm2_train", 1024, 2048, "float32", True),
-             ("opt125m_distill", 1024, 768, "float32", True),
-             ("internlm2_train_bf16", 1024, 2048, "bfloat16", True),
-             ("opt67b_teacher", 1024, 4096, "bfloat16", False),
-             ("opt67b_serve_b8_t4", 32, 4096, "bfloat16", False),
-             ("opt125m_serve_b16_t1", 16, 768, "bfloat16", False),
-             ("opt67b_prefill_t256", 256, 4096, "bfloat16", False),
-             # the card-vs-CPU train step's rows (B 2, T 64): one row a unit;
-             # rows and width that fill no access pattern evenly (d 1000: 250
-             # 16-byte accesses over 128 threads); d 1001: one-value accesses
-             ("small_n128", 128, 2048, "float32", True),
-             ("odd_d1000", 257, 1000, "float32", True),
-             ("odd_d1001_bf16", 257, 1001, "bfloat16", True),
-             # the mamba2-1.3b trainer's rows (B 4, T 512): norm and final_norm
-             # at d 2048, norm_y at d 4096
-             ("mamba2_train_d2048", 2048, 2048, "float32", True),
-             ("mamba2_train_d4096", 2048, 4096, "float32", True),
-             # qk_norm's per-head rows at d 128: qwen3-8b's q (32 heads) and
-             # k (8 kv-heads) rows at phase 9b's largest prefill (256
-             # tokens), and q rows at the trainer's B 8, T 128 (fwd + bwd)
-             ("qwen3_8b_q_prefill_t256", 8192, 128, "bfloat16", False),
-             ("qwen3_8b_k_prefill_t256", 2048, 128, "bfloat16", False),
-             ("qk_norm_train_b8_t128", 16384, 128, "float32", True)]
-    for i, (name, n, d, dtype, grads) in enumerate(norms):
+    for i, (name, n, d, dtype, grads) in enumerate(NORM_CASES):
         r = run_norm_case(torch, K5, ref, "rmsnorm_" + name, n, d, dtype, grads, 300 + i)
         rows.append(r)
         print("  " + json.dumps(r), flush=True)
@@ -4710,6 +4734,7 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba
     k5b["bf16"] = {k: nbf[k] for k in ("shape", "bwd_ms", "fwd_plus_bwd_ms", "bwd_library_ms",
                                        "bwd_bound_ms", "grad_max_abs_err", "grad_tol",
                                        "bwd_device_kernels")}
+    out[2]["plan"] = norm["fwd_plan"]
     out[2]["launches_serving"] = {"phase 4": k5_serve, "phase 6b": k5_live}
     out[2]["launches_mamba_train"] = mamba_launches["k5_fwd"]   # 97 a step
     out[3]["launches_mamba_train"] = mamba_launches["k5_bwd"]
@@ -4881,6 +4906,20 @@ def main() -> int:
                                ("bfloat16", 1024, 2048), ("float32", 128, 2048),
                                ("float32", 257, 1000), ("bfloat16", 257, 1001))
               for plan in [K5.bwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}), flush=True)
+    # every forward instance fwd_plan can name is in the library (a query
+    # for a missing one raises), and the blocks an SM at phase 2c's plans
+    k5_fwd_built = {f"{dt}_vec{vec}_c{c}": K5.fwd_occupancy(getattr(torch, dt), dict(
+        vec=vec, chunks=c, lanes=32, gpb=1))
+        for dt in ("float32", "bfloat16") for vec in (16 // getattr(torch, dt).itemsize, 1)
+        for c in K5.FWD_CHUNKS[vec]}
+    print("  k5 forward instances built (blocks an SM at 32 threads): "
+          + json.dumps(k5_fwd_built), flush=True)
+    print("  k5 forward occupancy (blocks an SM at the plans of phase 2c's cases): "
+          + json.dumps({name: dict(plan={k: plan[k] for k in ("vec", "chunks", "lanes", "gpb")},
+                                   blocks_per_sm=K5.fwd_occupancy(getattr(torch, dt), plan))
+                        for name, n, d, dt, _ in NORM_CASES
+                        for plan in [K5.fwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}),
+          flush=True)
     print("  k6 occupancy (mamba2-1.3b, plans at B 8 T 16, B 1 T 256, B 4 T 2048): "
           + json.dumps({f"{dt}_b{b}_t{t}": dict(plan=plan, **K6.occupancy(
               getattr(torch, dt), 64, 128, t, q, 64, 1, plan))
@@ -5107,7 +5146,7 @@ def main() -> int:
         if row["name"] == "rmsnorm_fwd":
             row["qk_norm"] = [{k: r[k] for k in ("case", "shape", "dtype", "max_abs_err", "ms",
                                                  "plain_ms", "library_ms", "bound_ms",
-                                                 "bound_by")}
+                                                 "bound_by", "fwd_plan", "row_independent")}
                               for r in trows if r["case"].startswith(("rmsnorm_qwen3",
                                                                       "rmsnorm_qk_norm"))]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,21 @@
 // What bounds it on an H100: bytes.  A row of d values takes 3 operations
 // per element against 2 (forward) or 3 (backward) element reads and writes,
 // far below the ~20 fp32 operations per byte where arithmetic would bind.
-// Forward: one block per row reads x once from device memory into
-// registers, reduces in fp32 with warp shuffles, and writes y once.
+// Forward, one device kernel a call, `rmsnorm_fwd_kernel`: groups of
+// `lanes` threads (a power of two up to 256: a few lanes, a warp or several
+// warps; several groups a block), each owning a contiguous, fixed range of
+// `rpg` rows.  Thread t of a group owns accesses j = t + k * lanes (k <
+// chunks) of every row, 16 bytes each (4 fp32 or 8 bf16 values; one value
+// where d or a base is not 16-byte aligned), and keeps its columns of gamma
+// in registers across the group's rows.  The next row is loaded into a
+// second register set before the current row is reduced and stored (where
+// a thread's share of a row is at most 64 bytes).  A row's sum of squares
+// is each thread's own over its accesses in order, a butterfly of shuffles
+// over the group's lanes inside a warp (under the group's lane mask), then,
+// for groups of several warps, the warps in order after one named barrier
+// of the group's warps.  So a row's bits depend on d, the dtype and the
+// alignment (which set lanes and the accesses), never on n: rows a group
+// and groups a block only change which group takes a row.
 // Backward, two device kernels a call, neither with atomics, so dx and
 // dgamma do not change from run to run:
 // - `rmsnorm_bwd_rows`: units of `wpr` warps (several a block), each unit
@@ -35,8 +48,9 @@
 //   rows rg, rg + groups, ... in order, then a shuffle tree and the warps in
 //   order), as a programmatic dependent launch whose blocks wait for the
 //   rows kernel to finish before reading.
-// The wrapper (kernels/rmsnorm.py, `bwd_plan`) chooses the grid and sizes
-// the scratch; the rule was set from tools/rmsnorm_variants.py's sweep.
+// The wrapper (kernels/rmsnorm.py, `fwd_plan` and `bwd_plan`) chooses the
+// grids and sizes the scratch; the rules were set from
+// tools/rmsnorm_variants.py's sweeps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -44,8 +58,7 @@
 
 namespace {
 
-constexpr int NT = 256;        // threads per block
-constexpr int MAXV = 32;       // values per thread at most: d <= NT * MAXV = 8192
+constexpr int MAX_D = 8192;    // the widest row either direction takes
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -61,53 +74,8 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// sum over the block; `red` holds NT / 32 floats; every thread gets the sum
-__device__ __forceinline__ float block_sum(float x, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // red may still be read from the previous call
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) s += red[w];
-  return s;
-}
-
-// one block per row; thread t owns columns t, t + NT, ... (V of them)
-template <typename T, int V>
-__global__ void __launch_bounds__(NT) rmsnorm_fwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ gamma, T* __restrict__ y,
-    float* __restrict__ rstd_out, int d, float eps) {
-  __shared__ float red[NT / 32];
-  const long long row = blockIdx.x;
-  const T* xr = x + row * d;
-  float xv[V];
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = threadIdx.x + i * NT;
-    xv[i] = c < d ? to_f(xr[c]) : 0.f;
-    ss = fmaf(xv[i], xv[i], ss);
-  }
-  const float rstd = rsqrtf(block_sum(ss, red) / d + eps);
-  T* yr = y + row * d;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = threadIdx.x + i * NT;
-    if (c < d) yr[c] = from_f<T>(round_to<T>(xv[i] * rstd) * to_f(gamma[c]));
-  }
-  if (rstd_out != nullptr && threadIdx.x == 0) rstd_out[row] = rstd;
-}
-
 // ---------------------------------------------------------------------------
-// backward
-
-constexpr int BWD_NT = 256;       // threads of a rows block at most: units x warps <= 8
-constexpr int BWD_MAX_UNITS = 8;  // units a block at most (one warp each)
-constexpr int BWD_MAX_WPR = 8;    // warps a unit at most
-constexpr int COMBINE_NT = 256;   // threads of a combine block
+// what the forward and the backward share
 
 __device__ __forceinline__ void allow_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -117,7 +85,8 @@ __device__ __forceinline__ void wait_for_prior_grid() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// a barrier of `threads` threads (a unit's warps) under id `id` (1..8)
+// a barrier of `threads` threads (a backward unit's or a forward group's
+// warps) under id `id` (1..8)
 __device__ __forceinline__ void unit_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -163,6 +132,136 @@ template <typename T> struct Acc<T, 1> {
     *p = from_f<T>(v[0]);
   }
 };
+
+// ---------------------------------------------------------------------------
+// forward
+
+constexpr int FWD_NT = 256;  // threads of a forward block at most: groups x lanes <= 256
+
+struct FwdArgs {
+  const void* x;
+  const void* gamma;
+  void* y;
+  float* rstd;            // [n] fp32, or null
+  int n, d;
+  float eps;
+  int lanes, gpb, rpg, groups;  // lanes a group, groups a block, rows a group, groups
+};
+
+// Group g = blockIdx.x * gpb + threadIdx.x / lanes owns rows [g * rpg,
+// min(n, (g + 1) * rpg)); its thread t owns accesses j = t + k * lanes (k <
+// C) of every row, columns [j * VEC, (j + 1) * VEC).
+template <typename T, int VEC, int C>
+__global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
+  using A = Acc<T, VEC>;
+  using R = typename A::R;
+  __shared__ float red[2][FWD_NT / 32];
+  const int L = a.lanes;
+  const int gi = threadIdx.x / L, t = threadIdx.x % L, lane = threadIdx.x % 32;
+  const int g = blockIdx.x * a.gpb + gi;
+  if (g >= a.groups) return;  // a whole group leaves: the others' masks exclude it
+  // the group's lanes in its warp (all 32 for a group of a warp or more)
+  const unsigned mask = L >= 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane & ~(L - 1));
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+  const int nacc = (a.d + VEC - 1) / VEC;  // accesses a row (VEC > 1: d % VEC == 0)
+  const int r0 = g * a.rpg, r1 = min(a.n, r0 + a.rpg);
+  // gamma kept in registers, except for one-value accesses above 8 a
+  // thread (read where used, from L1), which would spill
+  constexpr bool keep_gamma = VEC > 1 || C <= 8;
+  const T* gamma = static_cast<const T*>(a.gamma);
+  R gm[keep_gamma ? C : 1];
+  if constexpr (keep_gamma) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * L;
+      gm[k] = j < nacc ? A::load(gamma + j * VEC) : R{};
+    }
+  }
+  auto gam = [&](int k, int j) -> R {
+    if constexpr (keep_gamma) return gm[k];
+    else return A::load(gamma + j * VEC);
+  };
+
+  auto fetch = [&](int r, R(&xv)[C]) {
+    const long long off = static_cast<long long>(r) * a.d;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * L;
+      if (j < nacc) xv[k] = A::load(x + off + j * VEC);
+    }
+  };
+
+  auto row = [&](int r, const R(&xv)[C]) {
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * L;
+      if (j < nacc) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float v = A::get(xv[k], e);
+          ss = fmaf(v, v, ss);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < L) ss += __shfl_xor_sync(mask, ss, o);
+    if (L > 32) {  // the group's warps add their sums in a fixed order
+      const int wpg = L / 32;
+      float* slot = red[r & 1] + gi * wpg;
+      if (lane == 0) slot[t / 32] = ss;
+      unit_barrier(1 + gi, L);
+      ss = 0.f;
+      for (int i = 0; i < wpg; ++i) ss += slot[i];
+    }
+    const float rs = rsqrtf(ss / a.d + a.eps);
+    const long long off = static_cast<long long>(r) * a.d;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = t + k * L;
+      if (j < nacc) {
+        const R gk = gam(k, j);
+        float o[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);
+        A::store(y + off + j * VEC, o);
+      }
+    }
+    if (a.rstd != nullptr && t == 0) a.rstd[r] = rs;
+  };
+
+  R xa[C];
+  if constexpr (C * sizeof(R) <= 64) {
+    // rows in pairs, two register sets in turn: the next row's loads are
+    // in flight while this one is reduced and stored
+    R xb[C];
+    fetch(r0, xa);
+    for (int r = r0; r < r1; r += 2) {
+      if (r + 1 < r1) fetch(r + 1, xb);
+      row(r, xa);
+      if (r + 1 >= r1) break;
+      if (r + 2 < r1) fetch(r + 2, xa);
+      row(r + 1, xb);
+    }
+  } else {
+    // a thread's share of a row above 64 bytes: one set, or it would spill
+    for (int r = r0; r < r1; ++r) {
+      fetch(r, xa);
+      row(r, xa);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+
+constexpr int BWD_NT = 256;       // threads of a rows block at most: units x warps <= 8
+constexpr int BWD_MAX_UNITS = 8;  // units a block at most (one warp each)
+constexpr int BWD_MAX_WPR = 8;    // warps a unit at most
+constexpr int COMBINE_NT = 256;   // threads of a combine block
 
 struct BwdArgs {
   const void* x;
@@ -353,23 +452,39 @@ __global__ void __launch_bounds__(COMBINE_NT) rmsnorm_bwd_dgamma(
   }
 }
 
-template <typename T, int V>
-cudaError_t fwd_v(const void* x, const void* gamma, void* y, float* rstd, int n, int d,
-                  float eps, cudaStream_t s) {
-  rmsnorm_fwd_kernel<T, V><<<n, NT, 0, s>>>(static_cast<const T*>(x),
-                                            static_cast<const T*>(gamma),
-                                            static_cast<T*>(y), rstd, d, eps);
-  return cudaGetLastError();
+using FwdKernel = void (*)(const FwdArgs);
+
+// the forward kernel for `chunks` accesses a thread a row: 1, 2, 4 or
+// (fp32) 8 of 16 bytes, or 1-32 (powers of two) of one value; null for any
+// other count
+template <typename T>
+FwdKernel fwd_kernel(bool vec, int chunks) {
+  constexpr int VW = 16 / sizeof(T);
+  if (vec) {
+    switch (chunks) {
+      case 1: return rmsnorm_fwd_kernel<T, VW, 1>;
+      case 2: return rmsnorm_fwd_kernel<T, VW, 2>;
+      case 4: return rmsnorm_fwd_kernel<T, VW, 4>;
+      case 8:
+        if constexpr (VW == 4) return rmsnorm_fwd_kernel<T, VW, 8>;
+    }
+    return nullptr;
+  }
+  switch (chunks) {
+    case 1: return rmsnorm_fwd_kernel<T, 1, 1>;
+    case 2: return rmsnorm_fwd_kernel<T, 1, 2>;
+    case 4: return rmsnorm_fwd_kernel<T, 1, 4>;
+    case 8: return rmsnorm_fwd_kernel<T, 1, 8>;
+    case 16: return rmsnorm_fwd_kernel<T, 1, 16>;
+    case 32: return rmsnorm_fwd_kernel<T, 1, 32>;
+  }
+  return nullptr;
 }
 
-// registers per thread follow the row width: 4, 8, 16 or 32 values
-template <typename T>
-cudaError_t fwd(const void* x, const void* gamma, void* y, float* rstd, int n, int d,
-                float eps, cudaStream_t s) {
-  if (d <= 4 * NT) return fwd_v<T, 4>(x, gamma, y, rstd, n, d, eps, s);
-  if (d <= 8 * NT) return fwd_v<T, 8>(x, gamma, y, rstd, n, d, eps, s);
-  if (d <= 16 * NT) return fwd_v<T, 16>(x, gamma, y, rstd, n, d, eps, s);
-  return fwd_v<T, MAXV>(x, gamma, y, rstd, n, d, eps, s);
+FwdKernel fwd_kernel(int dtype, bool vec, int chunks) {
+  if (dtype == 0) return fwd_kernel<float>(vec, chunks);
+  if (dtype == 1) return fwd_kernel<__nv_bfloat16>(vec, chunks);
+  return nullptr;
 }
 
 using RowsKernel = void (*)(const BwdArgs);
@@ -426,15 +541,41 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x, y [n, d] and gamma [d]
 // contiguous in one dtype; rstd [n] fp32, or null when no backward follows.
-// Returns a cudaError_t (0 = launched).
+// The grid is the wrapper's plan (fwd_plan in kernels/rmsnorm.py): vec 1
+// for one-value accesses, else 16 / sizeof(T) (d a multiple of it, x,
+// gamma and y 16-byte aligned); lanes a group (a power of two up to 256),
+// chunks accesses a thread a row, gpb groups a block (lanes * gpb <= 256),
+// rpg rows a group, groups = ceil(n / rpg) groups in blocks = ceil(groups
+// / gpb) blocks.  One launch; anything else is refused before it.  Returns
+// a cudaError_t (0 = launched).
 extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
-                           void* rstd, int n, int d, float eps, void* stream) {
-  if (n <= 0 || d <= 0 || d > NT * MAXV) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* r = static_cast<float*>(rstd);
-  if (dtype == 0) return fwd<float>(x, gamma, y, r, n, d, eps, s);
-  if (dtype == 1) return fwd<__nv_bfloat16>(x, gamma, y, r, n, d, eps, s);
-  return cudaErrorInvalidValue;
+                           void* rstd, int n, int d, float eps, int vec, int lanes,
+                           int chunks, int gpb, int rpg, int groups, int blocks,
+                           void* stream) {
+  const int es = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (es == 0 || n <= 0 || d <= 0 || d > MAX_D) return cudaErrorInvalidValue;
+  if (vec != 1 && !(vec == 16 / es && d % vec == 0 && aligned16(x) && aligned16(gamma)
+                    && aligned16(y)))
+    return cudaErrorInvalidValue;
+  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
+  if (kern == nullptr || lanes < 1 || lanes > FWD_NT || (lanes & (lanes - 1)) != 0
+      || gpb < 1 || lanes * gpb > FWD_NT
+      || static_cast<long long>(chunks) * lanes * vec < d || rpg < 1
+      || groups != (n + rpg - 1) / rpg || blocks != (groups + gpb - 1) / gpb)
+    return cudaErrorInvalidValue;
+  const FwdArgs a = {x, gamma, y, static_cast<float*>(rstd), n, d, eps, lanes, gpb, rpg,
+                     groups};
+  kern<<<blocks, lanes * gpb, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// Blocks per SM of the forward kernel at a plan's (dtype, vec, chunks,
+// lanes, gpb), as the CUDA runtime's occupancy calculator gives them.
+extern "C" int rmsnorm_fwd_occupancy(int dtype, int vec, int chunks, int lanes, int gpb,
+                                     int* blocks) {
+  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, lanes * gpb, 0);
 }
 
 // dx [n, d] and dgamma [d] in x's dtype from the forward's rstd [n]; part is
@@ -451,7 +592,7 @@ extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* gamma, const vo
                            int d, int vec, int wpr, int chunks, int upb, int rpu, int units,
                            int blocks, int ldp, int strip, void* stream) {
   const int es = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  if (es == 0 || n <= 0 || d <= 0 || d > NT * MAXV) return cudaErrorInvalidValue;
+  if (es == 0 || n <= 0 || d <= 0 || d > MAX_D) return cudaErrorInvalidValue;
   if (vec != 1 && !(vec == 16 / es && d % vec == 0 && aligned16(x) && aligned16(gamma)
                     && aligned16(dy) && aligned16(dx)))
     return cudaErrorInvalidValue;

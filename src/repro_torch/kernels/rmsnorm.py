@@ -11,8 +11,9 @@ Both take contiguous rows ``x [n, d]`` and ``gamma [d]`` of one dtype,
 float32 or bfloat16, with d <= 8192.  Anything else raises.  The forward
 writes the fp32 ``rstd [n]`` the backward reads only when asked to; the
 backward returns ``dx`` and ``dgamma``, the latter summed over the rows
-without atomics (the same result from run to run).  One choice is made
-here, from the shapes alone: :func:`bwd_plan`, the backward's grid.
+without atomics (the same result from run to run).  Two choices are made
+here, from the shapes alone: :func:`fwd_plan` and :func:`bwd_plan`, the
+forward's and the backward's grids.
 """
 from __future__ import annotations
 
@@ -30,10 +31,17 @@ MAX_D = 8192
 # for them: of 16 bytes (fp32, bf16), or of one value (d or a base not
 # 16-byte aligned)
 CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (2, 8, 32)}
+# ... and as the forward kernel is built for them: every plan fwd_plan can
+# give for d <= MAX_D names one of these
+FWD_CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (1, 2, 4, 8, 16, 32)}
+FWD_THREADS = 256      # threads of a forward block at most (groups x lanes)
+SM_THREADS = 2048      # threads an SM holds at once
 BLOCK_WARPS = 8        # warps of a rows block at most (units x warps a unit)
 COMBINE_THREADS = 256  # threads of a dgamma combine block
 
-# the plan's entries rmsnorm_bwd takes after n and d, in its order
+# the plans' entries rmsnorm_fwd (after eps) and rmsnorm_bwd (after n and
+# d) take, in their order
+FWD_ARGS = ("vec", "lanes", "chunks", "gpb", "rpg", "groups", "blocks")
 BWD_ARGS = ("vec", "wpr", "chunks", "upb", "rpu", "units", "blocks", "ldp", "strip")
 
 FWD = LaunchCount()   # launches of the forward kernel
@@ -44,18 +52,25 @@ _fns = {}
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, p]
+    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float] + [i] * 7 + [p]
     lib.rmsnorm_bwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
+    lib.rmsnorm_fwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.rmsnorm_bwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-    for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_bwd_occupancy):
+    for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_fwd_occupancy,
+              lib.rmsnorm_bwd_occupancy):
         f.restype = ctypes.c_int
-    _fns.update(fwd=lib.rmsnorm_fwd, bwd=lib.rmsnorm_bwd, occupancy=lib.rmsnorm_bwd_occupancy)
+    _fns.update(fwd=lib.rmsnorm_fwd, bwd=lib.rmsnorm_bwd,
+                fwd_occupancy=lib.rmsnorm_fwd_occupancy, occupancy=lib.rmsnorm_bwd_occupancy)
 
 
 def _lib():
     if not _fns:
         _bind(build.load("rmsnorm"))
     return _fns
+
+
+def _fwd_fn():
+    return _lib()["fwd"]
 
 
 def _bwd_fn():
@@ -79,6 +94,66 @@ def _check_rows(x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> 
            "every tensor must lie on one CUDA device")
 
 
+def _pow2_at_most(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
+             lanes: int = 0, rpg: int = 0, gpb: int = 0) -> dict:
+    """The forward's grid, from the shapes and the SM count alone.
+
+    ``vec``: values an access, 16 bytes' worth when d and the bases allow
+    (else 1).  ``lanes``: threads that share a row (a group), the fewest
+    powers of two up to 256 that leave each thread one access of a row;
+    ``chunks`` the accesses a thread makes, rounded up to a count the kernel
+    is built for.  A row's summation order follows from these two alone,
+    and they follow from d, the dtype and the alignment: a row gives the
+    same bits in a call of any n.  ``rpg``: rows a group, so that the
+    groups fit on the card at once (``SM_THREADS // lanes`` an SM); each
+    group owns rows ``[g * rpg, (g + 1) * rpg)``, ``groups = ceil(n /
+    rpg)``.  ``gpb``: groups a block, ``FWD_THREADS // lanes``, fewer (a
+    power of two) where that would leave SMs without a block.  Nonzero
+    ``lanes``, ``rpg`` or ``gpb`` force that choice, and a forced entry the
+    kernel cannot take raises (``tools/rmsnorm_variants.py --fwd``'s sweep,
+    which set this rule: PERF.md §6).  ``instance``: the kernel's template
+    (vec, chunks), one of ``FWD_CHUNKS``; ``device_kernels``: 1."""
+    vw = 16 // elem_bytes
+    vec = vw if aligned and d % vw == 0 else 1
+    nacc = -(-d // vec)
+    if lanes:
+        _check(lanes & (lanes - 1) == 0 and 1 <= lanes <= FWD_THREADS,
+               f"lanes {lanes} (a power of two up to {FWD_THREADS})")
+    else:
+        lanes = 1
+        while lanes < FWD_THREADS and lanes < nacc:
+            lanes *= 2
+    chunks = next((c for c in FWD_CHUNKS[vec] if c * lanes >= nacc), None)
+    _check(chunks is not None, f"no forward kernel for d {d} at {lanes} lanes (vec {vec})")
+    rpg = rpg or max(1, -(-n // (sms * (SM_THREADS // lanes))))
+    groups = -(-n // rpg)
+    if gpb:
+        _check(1 <= gpb and lanes * gpb <= FWD_THREADS,
+               f"{gpb} groups of {lanes} lanes a block (at most {FWD_THREADS} threads)")
+    else:
+        gpb = min(FWD_THREADS // lanes, _pow2_at_most(groups // sms))
+    return {"vec": vec, "lanes": lanes, "chunks": chunks, "gpb": gpb, "rpg": rpg,
+            "groups": groups, "blocks": -(-groups // gpb), "threads": lanes * gpb,
+            "instance": (vec, chunks), "device_kernels": 1}
+
+
+def fwd_occupancy(dtype: torch.dtype, plan: dict) -> int:
+    """Blocks per SM of the forward kernel at ``plan`` on the current card
+    (the CUDA runtime's occupancy calculator); raises for an instance the
+    library was not built with."""
+    _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
+    out = ctypes.c_int(0)
+    rc = _lib()["fwd_occupancy"](_DTYPE_CODE[dtype], *(plan[k] for k in (
+        "vec", "chunks", "lanes", "gpb")), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm forward occupancy query failed: cudaError {rc}")
+    return out.value
+
+
 def rmsnorm_fwd_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
                      save_rstd: bool = False):
     """``y [n, d]`` in x's dtype, and ``rstd [n]`` fp32 when ``save_rstd``
@@ -87,11 +162,11 @@ def rmsnorm_fwd_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
     n, d = x.shape
     y = torch.empty_like(x)
     rstd = torch.empty((n,), dtype=torch.float32, device=x.device) if save_rstd else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib()["fwd"](_DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(),
-                           y.data_ptr(), rstd.data_ptr() if save_rstd else None, n, d,
-                           float(eps), stream)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, y))
+    plan = fwd_plan(n, d, sm_count(x.device), x.element_size(), aligned)
+    rc = invoke(_fwd_fn, x.device, _DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(),
+                y.data_ptr(), rstd.data_ptr() if save_rstd else None, n, d, float(eps),
+                *(plan[k] for k in FWD_ARGS))
     if rc != 0:
         raise RuntimeError(f"rmsnorm forward launch failed: cudaError {rc}")
     FWD.launches += 1

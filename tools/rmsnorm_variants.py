@@ -1,9 +1,25 @@
 #!/usr/bin/env python3
-"""What limits K5's backward (RMSNorm dx + dgamma) on the card: its device
-kernels one by one, variants of ``src/repro_torch/kernels/csrc/rmsnorm.cu``
-and forced plans, timed in one process.
+"""What limits K5 (RMSNorm) on the card: the backward's device kernels one
+by one, variants of ``src/repro_torch/kernels/csrc/rmsnorm.cu`` and forced
+plans of either direction, timed in one process.
 
     python3 tools/rmsnorm_variants.py [--profile] [--root DIR]   # on a GPU
+    python3 tools/rmsnorm_variants.py --fwd [--old FILE]         # on a GPU
+    python3 tools/rmsnorm_variants.py --write-old REV [--old FILE]
+
+``--fwd``: the forward at every one of phase 2c's cases
+(``chip_smoke.NORM_CASES``), each timed in turns (old, new, ``F.rms_norm``,
+new, old) against an older source of the kernel (``--old``, by default
+``build/variants/rmsnorm_old.cu``, which ``--write-old REV`` writes from
+``git show REV:src/repro_torch/kernels/csrc/rmsnorm.cu`` before a card run:
+the copy on the card has no git), called through its own C entry point;
+then ablations of the new forward that only time (``fwd_nostores``: no y
+stores; ``fwd_oneload``: every row of a group read from its first row's
+address; ``fwd_nogamma``: no gamma loads or product; ``fwd_noprefetch``: one
+register set, the next row loaded after this one's stores); then
+``fwd_plan`` forced to every legal lanes, rows a group and groups a block
+(``legal_fwd_plans``), each result held against the plain version: what
+the forward's rule is set from.
 
 First, at phase 2c's K5 grads cases: the backward's time a call
 (``chip_smoke.device_ms``), the forward's, ``F.rms_norm``'s forward +
@@ -60,7 +76,10 @@ CASES = [("internlm2_train", 1024, 2048, "float32"),
 VARIANTS = {
     "base": [],
     "noreduce": [("if (a.wpr > 1) {  // the row's warps", "if (false) {  // the row's warps")],
-    "noprefetch": [("if constexpr (C * sizeof(R) <= 64) {", "if constexpr (false) {")],
+    "noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // rows in pairs, two register "
+                    "sets in turn (a copy",
+                    "if constexpr (false) {\n    // rows in pairs, two register sets in turn "
+                    "(a copy")],
     "noloads": [("const long long off = static_cast<long long>(r) * a.d;\n    rs = ",
                  "const long long off = static_cast<long long>(r0) * a.d;\n    rs = ")],
     "nodgamma": [("dg[k][e] = fmaf(dyv, round_to<T>(xh), dg[k][e]);", ""),
@@ -74,6 +93,29 @@ VARIANTS = {
                "  allow_dependents();\n  if (u >= a.units) return;\n  const T* x"),
               ("  allow_dependents();\n  float* pr", "  float* pr")],
 }
+
+
+# the forward's ablations: substitutions of the source's text (timing only)
+FWD_VARIANTS = {
+    "fwd_nostores": [("        A::store(y + off + j * VEC, o);",
+                      "        if (o[0] == 1234.5f) A::store(y + off + j * VEC, o);")],
+    "fwd_oneload": [("const long long off = static_cast<long long>(r) * a.d;\n#pragma unroll\n"
+                     "    for (int k = 0; k < C; ++k) {\n      const int j = t + k * L;\n"
+                     "      if (j < nacc) xv[k]",
+                     "const long long off = static_cast<long long>(r0) * a.d;\n#pragma unroll\n"
+                     "    for (int k = 0; k < C; ++k) {\n      const int j = t + k * L;\n"
+                     "      if (j < nacc) xv[k]")],
+    "fwd_nogamma": [("      gm[k] = j < nacc ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
+                     "  auto gam",
+                     "      gm[k] = R{};\n    }\n  }\n  auto gam"),
+                    ("o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);",
+                     "o[e] = round_to<T>(A::get(xv[k], e) * rs);")],
+    "fwd_noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // rows in pairs, two register "
+                        "sets in turn: the next",
+                        "if constexpr (false) {\n    // rows in pairs, two register sets in "
+                        "turn: the next")],
+}
+OLD_SOURCE = os.path.join(ROOT, "build", "variants", "rmsnorm_old.cu")
 
 
 def kernel_name(name: str) -> str:
@@ -153,16 +195,25 @@ def profile_cases(torch, cs, K5, report, label):
         del sets
 
 
-def build_variants(build, report) -> dict:
-    """Every variant's library, compiled at once; name -> path."""
+def variant_source(src: str, name: str, subs) -> str:
+    """``src`` with each (old, new) substitution made; each target must
+    occur exactly once."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {name}: substitution target found "
+                               f"{src.count(old)} times, not once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(build, report, variants=VARIANTS, extra=None, kind="bwd") -> dict:
+    """Every variant's library, compiled at once; name -> path.  ``extra``:
+    name -> the full text of another source to build beside them."""
     src = open(os.path.join(build.CSRC, "rmsnorm.cu")).read()
+    texts = {name: variant_source(src, name, subs) for name, subs in variants.items()}
+    texts.update(extra or {})
     procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: substitution target not found: {old!r}")
-            text = text.replace(old, new)
+    for name, text in texts.items():
         d = os.path.join(ROOT, "build", "variants", "rmsnorm_" + name)
         os.makedirs(d, exist_ok=True)
         open(os.path.join(d, "rmsnorm.cu"), "w").write(text)
@@ -182,11 +233,11 @@ def build_variants(build, report) -> dict:
             if m:
                 kern = m.group(1)
             m = re.search(r"Used (\d+) registers", ln)
-            if m and kern and "bwd" in kern:
+            if m and kern and kind in kern:
                 regs[kern[-60:]] = int(m.group(1))
         spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln
                          and not ln.strip().startswith("0 bytes spill")})
-        report({"variant": name, "bwd_registers": regs, "spills": spills or "none"})
+        report({"variant": name, f"{kind}_registers": regs, "spills": spills or "none"})
         libs[name] = lib
     return libs
 
@@ -212,12 +263,15 @@ def point_wrapper_at(K5, lib: str) -> None:
 
 
 def main() -> int:
+    argv = sys.argv[1:]
+    old_src = os.path.abspath(argv[argv.index("--old") + 1]) if "--old" in argv else OLD_SOURCE
+    if "--write-old" in argv:
+        return write_old(argv[argv.index("--write-old") + 1], old_src)
+    root = os.path.abspath(argv[argv.index("--root") + 1]) if "--root" in argv else ROOT
     import torch
     if not torch.cuda.is_available():
         print("rmsnorm_variants: no CUDA device", file=sys.stderr)
         return 2
-    argv = sys.argv[1:]
-    root = os.path.abspath(argv[argv.index("--root") + 1]) if "--root" in argv else ROOT
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(root, "src"))
     import chip_smoke as cs
@@ -236,6 +290,9 @@ def main() -> int:
             "checkout": label, "torch": torch.__version__})
     lib = build.build(["rmsnorm"])["rmsnorm"]
     report({"checkout": label, "ptxas": cs.ptxas_report(lib.with_suffix(".log").read_text())})
+    if "--fwd" in argv:
+        fwd_sweep(torch, cs, K5, build, report, old_src)
+        return 0
     profile_cases(torch, cs, K5, report, label)
     if "--profile" in argv or root != ROOT:
         return 0
@@ -275,7 +332,122 @@ def sweep(torch, cs, K5, build, report) -> None:
         report({"sweep": name, "dtype": dtype, "rule": {k: chosen[k] for k in (
             "wpr", "rpu", "strip")}, "best": best, "ms": times})
         del sets
-    shutil.rmtree(os.path.join(ROOT, "build", "variants"), ignore_errors=True)
+    for lib in libs.values():
+        shutil.rmtree(os.path.dirname(lib), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the forward
+
+
+def write_old(rev: str, path: str) -> int:
+    """The kernel's source at ``rev``, written to ``path`` for ``--fwd``."""
+    text = subprocess.run(["git", "show", f"{rev}:src/repro_torch/kernels/csrc/rmsnorm.cu"],
+                          cwd=ROOT, check=True, capture_output=True, text=True).stdout
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    open(path, "w").write(text)
+    print(f"wrote {path} ({len(text)} bytes) from {rev}")
+    return 0
+
+
+def legal_fwd_plans(K5, n: int, d: int, sms: int, elem_bytes: int):
+    """Every plan the forward sweep forces: each lanes a group, a power of
+    two, from the fewest the kernel has a build for at d up to the fewest
+    that give each lane at most one access; rows a group 1, 2, 4, 8 (up to
+    n); blocks of 64, 128 or 256 threads (one group where it is wider)."""
+    vw = 16 // elem_bytes
+    vec = vw if d % vw == 0 else 1
+    nacc = -(-d // vec)
+    lanes = 1
+    while True:
+        if any(c * lanes >= nacc for c in K5.FWD_CHUNKS[vec]):
+            for rpg in (1, 2, 4, 8):
+                if rpg > n and rpg > 1:
+                    continue
+                for gpb in sorted({max(1, t // lanes) for t in (64, 128, 256)}):
+                    yield K5.fwd_plan(n, d, sms, elem_bytes, True, lanes, rpg, gpb)
+        if lanes >= nacc or lanes >= K5.FWD_THREADS:
+            return
+        lanes *= 2
+
+
+def old_entry(torch, path: str):
+    """The older source's forward through its own C entry point
+    (``rmsnorm_fwd(dtype, x, gamma, y, rstd, n, d, eps, stream)``): a
+    function of (x, gamma) giving (y, rstd)."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, p]
+    lib.rmsnorm_fwd.restype = i
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    def fwd(x, gamma):
+        n, d = x.shape
+        y = torch.empty_like(x)
+        rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
+        rc = lib.rmsnorm_fwd(code[x.dtype], x.data_ptr(), gamma.data_ptr(), y.data_ptr(),
+                             rstd.data_ptr(), n, d, 1e-6,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"old rmsnorm forward failed: cudaError {rc}")
+        return y, rstd
+    return fwd
+
+
+def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
+    """The forward at phase 2c's cases: the older source and the new one in
+    turns beside ``F.rms_norm`` and a one-value fill (the launch floor), the
+    ablations, then every forced plan."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    extra = {"fwd_old": open(old_src).read()}
+    libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
+    old = old_entry(torch, libs["fwd_old"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor_t = torch.empty(1, device="cuda")
+    for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES):
+        x, gamma, _ = make_case(torch, n, d, dtype, 300 + i)
+        tol = cs.TOL[dtype]
+        copies = min(64, max(2, math.ceil(2 * 50e6 / (3 * n * d * x.element_size()))))
+        sets = [tuple(t.clone() for t in (x, gamma)) for _ in range(copies)]
+        point_wrapper_at(K5, libs["fwd_base"])
+        new = lambda x_, gm: K5.rmsnorm_fwd_cuda(x_, gm, save_rstd=True)  # noqa: E731
+        want = ref.rmsnorm_ref(x, gamma)
+        row = {"case": name, "shape": f"n{n} d{d}", "dtype": dtype,
+               "plan": {k: v for k, v in K5.fwd_plan(n, d, sms, x.element_size()).items()
+                        if k in K5.FWD_ARGS},
+               "new_err": cs.within(torch, new(x, gamma)[0], want, tol)[0],
+               "old_err": cs.within(torch, old(x, gamma)[0], want, tol)[0]}
+        for key, fn in (("old", old), ("new", new),
+                        ("library", lambda x_, gm: F.rms_norm(x_, (d,), gm, 1e-6)),
+                        ("floor", lambda x_, gm: floor_t.fill_(0.0)),
+                        ("new_again", new), ("old_again", old)):
+            row[key + "_ms"] = cs.device_ms(torch, fn, sets)
+        for v in FWD_VARIANTS:
+            point_wrapper_at(K5, libs[v])
+            row[v + "_ms"] = cs.device_ms(torch, new, sets)
+        point_wrapper_at(K5, libs["fwd_base"])
+        t_bytes = ((2 * n * d + d) * x.element_size() + 4 * n) / cs.HBM_BYTES_PER_S
+        row["bound_ms"] = 1e3 * max(t_bytes, 4 * n * d / cs.PEAK_OPS["float32"])
+        report(row)
+        rule = K5.fwd_plan
+        times, bad = {}, []
+        for plan in list(legal_fwd_plans(K5, n, d, sms, x.element_size())):
+            K5.fwd_plan = lambda *a, plan=plan, **k: plan  # noqa: E731
+            key = f"l{plan['lanes']}_c{plan['chunks']}_r{plan['rpg']}_t{plan['threads']}"
+            try:
+                if not cs.within(torch, new(x, gamma)[0], want, tol)[1]:
+                    bad.append(key)
+                times[key] = cs.device_ms(torch, new, sets)
+            except RuntimeError as e:          # a plan the card refuses: say which
+                report({"fwd_sweep": name, "refused": key, "error": str(e)})
+        K5.fwd_plan = rule
+        best = min(times, key=times.get)
+        report({"fwd_sweep": name, "dtype": dtype, "rule": row["plan"], "best": best,
+                "best_ms": times[best], "wrong": bad, "ms": times})
+        del sets
+    for lib in libs.values():
+        shutil.rmtree(os.path.dirname(lib), ignore_errors=True)
 
 
 if __name__ == "__main__":
