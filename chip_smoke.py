@@ -49,7 +49,11 @@ Phases, one report line each (the last line is the JSON verdict):
             Mamba-2 trainer's rows (2048 x 2048 and 2048 x 4096, fp32) and
             at odd widths (d 1000; d 1001, one-value accesses); two calls
             must agree bit for bit and issue the device kernels of the
-            wrapper's plan, all ``rmsnorm_*``.
+            wrapper's plan, all ``rmsnorm_*``.  Every K5 row gives its
+            forward's plan (``fwd_plan``) and the device kernels a call
+            issues (one, ``rmsnorm_fwd_kernel*``), and holds each row of
+            the full call bit for bit against calls of 1 row, of the
+            first 37 rows and of the rest (``row_independent``).
 3. parity   full-width target and draft cut to 2 layers, fp32: prefill + 8
             greedy steps on the card (kernel) against the same on the CPU
             (plain version), and speculative generate(s) == generate(0).

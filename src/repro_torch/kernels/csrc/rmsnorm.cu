@@ -24,8 +24,10 @@
 // a thread's share of a row is at most 64 bytes).  A row's sum of squares
 // is each thread's own over its accesses in order, a butterfly of shuffles
 // over the group's lanes inside a warp (under the group's lane mask), then,
-// for groups of several warps, the warps in order after one named barrier
-// of the group's warps.  So a row's bits depend on d, the dtype and the
+// for groups of several warps, the warps in order after one barrier of the
+// block (every thread walks the same row slots, so no named barriers: a
+// kernel whose barrier ids are registers reserves all 16, which held the
+// SM to 4 blocks).  So a row's bits depend on d, the dtype and the
 // alignment (which set lanes and the accesses), never on n: rows a group
 // and groups a block only change which group takes a row.
 // Backward, two device kernels a call, neither with atomics, so dx and
@@ -76,20 +78,6 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 
 // ---------------------------------------------------------------------------
 // what the forward and the backward share
-
-__device__ __forceinline__ void allow_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_for_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// a barrier of `threads` threads (a backward unit's or a forward group's
-// warps) under id `id` (1..8)
-__device__ __forceinline__ void unit_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // One access of VEC values of T: loaded as raw bits (R), widened on use.
 template <typename T, int VEC> struct Acc;
@@ -150,7 +138,10 @@ struct FwdArgs {
 
 // Group g = blockIdx.x * gpb + threadIdx.x / lanes owns rows [g * rpg,
 // min(n, (g + 1) * rpg)); its thread t owns accesses j = t + k * lanes (k <
-// C) of every row, columns [j * VEC, (j + 1) * VEC).
+// C) of every row, columns [j * VEC, (j + 1) * VEC).  Every thread of a
+// block walks rpg row slots, a slot past its group's rows (the last group's,
+// or a group past the last) loading and storing nothing, so the block's
+// barrier for groups of several warps is met by all its threads.
 template <typename T, int VEC, int C>
 __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   using A = Acc<T, VEC>;
@@ -158,14 +149,13 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   __shared__ float red[2][FWD_NT / 32];
   const int L = a.lanes;
   const int gi = threadIdx.x / L, t = threadIdx.x % L, lane = threadIdx.x % 32;
-  const int g = blockIdx.x * a.gpb + gi;
-  if (g >= a.groups) return;  // a whole group leaves: the others' masks exclude it
   // the group's lanes in its warp (all 32 for a group of a warp or more)
   const unsigned mask = L >= 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane & ~(L - 1));
   const T* x = static_cast<const T*>(a.x);
   T* y = static_cast<T*>(a.y);
   const int nacc = (a.d + VEC - 1) / VEC;  // accesses a row (VEC > 1: d % VEC == 0)
-  const int r0 = g * a.rpg, r1 = min(a.n, r0 + a.rpg);
+  const long long r0 = static_cast<long long>(blockIdx.x * a.gpb + gi) * a.rpg;
+  const long long r1 = min(static_cast<long long>(a.n), r0 + a.rpg);
   // gamma kept in registers, except for one-value accesses above 8 a
   // thread (read where used, from L1), which would spill
   constexpr bool keep_gamma = VEC > 1 || C <= 8;
@@ -175,7 +165,7 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
-      gm[k] = j < nacc ? A::load(gamma + j * VEC) : R{};
+      gm[k] = j < nacc && r0 < r1 ? A::load(gamma + j * VEC) : R{};
     }
   }
   auto gam = [&](int k, int j) -> R {
@@ -183,8 +173,9 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
     else return A::load(gamma + j * VEC);
   };
 
-  auto fetch = [&](int r, R(&xv)[C]) {
-    const long long off = static_cast<long long>(r) * a.d;
+  auto fetch = [&](long long r, R(&xv)[C]) {
+    if (r >= r1) return;
+    const long long off = r * a.d;
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
@@ -192,16 +183,21 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
     }
   };
 
-  auto row = [&](int r, const R(&xv)[C]) {
+  // row slot i of the group: row r0 + i where that is below r1
+  auto row = [&](int i, const R(&xv)[C]) {
+    const long long r = r0 + i;
+    const bool live = r < r1;
     float ss = 0.f;
+    if (live) {
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int j = t + k * L;
-      if (j < nacc) {
+      for (int k = 0; k < C; ++k) {
+        const int j = t + k * L;
+        if (j < nacc) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float v = A::get(xv[k], e);
-          ss = fmaf(v, v, ss);
+          for (int e = 0; e < VEC; ++e) {
+            const float v = A::get(xv[k], e);
+            ss = fmaf(v, v, ss);
+          }
         }
       }
     }
@@ -209,15 +205,15 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
     for (int o = 16; o > 0; o >>= 1)
       if (o < L) ss += __shfl_xor_sync(mask, ss, o);
     if (L > 32) {  // the group's warps add their sums in a fixed order
-      const int wpg = L / 32;
-      float* slot = red[r & 1] + gi * wpg;
+      float* slot = red[i & 1] + gi * (L / 32);
       if (lane == 0) slot[t / 32] = ss;
-      unit_barrier(1 + gi, L);
+      __syncthreads();
       ss = 0.f;
-      for (int i = 0; i < wpg; ++i) ss += slot[i];
+      for (int w = 0; w < L / 32; ++w) ss += slot[w];
     }
+    if (!live) return;
     const float rs = rsqrtf(ss / a.d + a.eps);
-    const long long off = static_cast<long long>(r) * a.d;
+    const long long off = r * a.d;
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
@@ -235,22 +231,22 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
 
   R xa[C];
   if constexpr (C * sizeof(R) <= 64) {
-    // rows in pairs, two register sets in turn: the next row's loads are
-    // in flight while this one is reduced and stored
+    // row slots in pairs, two register sets in turn: the next row's loads
+    // are in flight while this one is reduced and stored
     R xb[C];
     fetch(r0, xa);
-    for (int r = r0; r < r1; r += 2) {
-      if (r + 1 < r1) fetch(r + 1, xb);
-      row(r, xa);
-      if (r + 1 >= r1) break;
-      if (r + 2 < r1) fetch(r + 2, xa);
-      row(r + 1, xb);
+    for (int i = 0; i < a.rpg; i += 2) {
+      if (i + 1 < a.rpg) fetch(r0 + i + 1, xb);
+      row(i, xa);
+      if (i + 1 >= a.rpg) break;
+      if (i + 2 < a.rpg) fetch(r0 + i + 2, xa);
+      row(i + 1, xb);
     }
   } else {
     // a thread's share of a row above 64 bytes: one set, or it would spill
-    for (int r = r0; r < r1; ++r) {
-      fetch(r, xa);
-      row(r, xa);
+    for (int i = 0; i < a.rpg; ++i) {
+      fetch(r0 + i, xa);
+      row(i, xa);
     }
   }
 }
@@ -262,6 +258,19 @@ constexpr int BWD_NT = 256;       // threads of a rows block at most: units x wa
 constexpr int BWD_MAX_UNITS = 8;  // units a block at most (one warp each)
 constexpr int BWD_MAX_WPR = 8;    // warps a unit at most
 constexpr int COMBINE_NT = 256;   // threads of a combine block
+
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a unit's warps) under id `id` (1..8)
+__device__ __forceinline__ void unit_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 struct BwdArgs {
   const void* x;

@@ -36,6 +36,8 @@ CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (2, 8, 32)}
 FWD_CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (1, 2, 4, 8, 16, 32)}
 FWD_THREADS = 256      # threads of a forward block at most (groups x lanes)
 SM_THREADS = 2048      # threads an SM holds at once
+FWD_ACCESSES = 4       # accesses a lane makes of a row, at most, where 256 lanes allow
+FWD_MIN_LANES = 8      # lanes a group at least
 BLOCK_WARPS = 8        # warps of a rows block at most (units x warps a unit)
 COMBINE_THREADS = 256  # threads of a dgamma combine block
 
@@ -124,8 +126,8 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
         _check(lanes & (lanes - 1) == 0 and 1 <= lanes <= FWD_THREADS,
                f"lanes {lanes} (a power of two up to {FWD_THREADS})")
     else:
-        lanes = 1
-        while lanes < FWD_THREADS and lanes < nacc:
+        lanes = FWD_MIN_LANES
+        while lanes < FWD_THREADS and lanes * FWD_ACCESSES < nacc:
             lanes *= 2
     chunks = next((c for c in FWD_CHUNKS[vec] if c * lanes >= nacc), None)
     _check(chunks is not None, f"no forward kernel for d {d} at {lanes} lanes (vec {vec})")

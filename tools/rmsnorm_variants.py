@@ -16,7 +16,13 @@ the copy on the card has no git), called through its own C entry point;
 then ablations of the new forward that only time (``fwd_nostores``: no y
 stores; ``fwd_oneload``: every row of a group read from its first row's
 address; ``fwd_nogamma``: no gamma loads or product; ``fwd_noprefetch``: one
-register set, the next row loaded after this one's stores); then
+register set, the next row loaded after this one's stores;
+``fwd_gammalate``: gamma read where it is used, not kept in registers;
+``fwd_norstd``: no rstd stores; ``fwd_int32``: 32-bit row indices;
+``fwd_single``: the group's first row only, straight-line code: right
+only where rows a group is 1); and one
+candidate, ``fwd_regcap``: registers capped for 8 blocks of 256 threads an
+SM where a thread's share of a row is 16 bytes, 4 elsewhere); then
 ``fwd_plan`` forced to every legal lanes, rows a group and groups a block
 (``legal_fwd_plans``), each result held against the plain version: what
 the forward's rule is set from.
@@ -99,21 +105,31 @@ VARIANTS = {
 FWD_VARIANTS = {
     "fwd_nostores": [("        A::store(y + off + j * VEC, o);",
                       "        if (o[0] == 1234.5f) A::store(y + off + j * VEC, o);")],
-    "fwd_oneload": [("const long long off = static_cast<long long>(r) * a.d;\n#pragma unroll\n"
-                     "    for (int k = 0; k < C; ++k) {\n      const int j = t + k * L;\n"
-                     "      if (j < nacc) xv[k]",
-                     "const long long off = static_cast<long long>(r0) * a.d;\n#pragma unroll\n"
-                     "    for (int k = 0; k < C; ++k) {\n      const int j = t + k * L;\n"
-                     "      if (j < nacc) xv[k]")],
-    "fwd_nogamma": [("      gm[k] = j < nacc ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
+    "fwd_oneload": [("    if (r >= r1) return;\n    const long long off = r * a.d;",
+                     "    if (r >= r1) return;\n    const long long off = r0 * a.d;")],
+    "fwd_nogamma": [("      gm[k] = j < nacc && r0 < r1 ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
                      "  auto gam",
                      "      gm[k] = R{};\n    }\n  }\n  auto gam"),
                     ("o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);",
                      "o[e] = round_to<T>(A::get(xv[k], e) * rs);")],
-    "fwd_noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // rows in pairs, two register "
-                        "sets in turn: the next",
-                        "if constexpr (false) {\n    // rows in pairs, two register sets in "
-                        "turn: the next")],
+    "fwd_gammalate": [("  constexpr bool keep_gamma = VEC > 1 || C <= 8;\n  const T* gamma = "
+                       "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr",
+                       "  constexpr bool keep_gamma = false;\n  const T* gamma = "
+                       "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr")],
+    "fwd_norstd": [("    if (a.rstd != nullptr && t == 0) a.rstd[r] = rs;",
+                    "    if (a.rstd != nullptr && t == 0 && rs == 1234.5f) a.rstd[r] = rs;")],
+    "fwd_int32": [("  const long long r0 = static_cast<long long>(blockIdx.x * a.gpb + gi) * a.rpg;\n"
+                   "  const long long r1 = min(static_cast<long long>(a.n), r0 + a.rpg);",
+                   "  const int r0 = (blockIdx.x * a.gpb + gi) * a.rpg;\n"
+                   "  const int r1 = min(a.n, r0 + a.rpg);")],
+    "fwd_single": [("  R xa[C];\n  if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs",
+                    "  R xa[C];\n  fetch(r0, xa);\n  row(0, xa);\n  return;\n"
+                    "  if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs")],
+    "fwd_regcap": [("__global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(",
+                    "__global__ void __launch_bounds__(FWD_NT, C * VEC * sizeof(T) <= 16 ? 8 : 4) "
+                    "rmsnorm_fwd_kernel(")],
+    "fwd_noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs",
+                        "if constexpr (false) {\n    // row slots in pairs")],
 }
 OLD_SOURCE = os.path.join(ROOT, "build", "variants", "rmsnorm_old.cu")
 
@@ -394,6 +410,24 @@ def old_entry(torch, path: str):
     return fwd
 
 
+def sass_sizes(build, libs: dict) -> dict:
+    """Instructions of each forward kernel in each library
+    (``cuobjdump -sass``); the listings go to
+    ``chiprun_out/rmsnorm_fwd_sass.txt``."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sizes = {}
+    with open(os.path.join(ROOT, "chiprun_out", "rmsnorm_fwd_sass.txt"), "w") as f:
+        for name, lib in libs.items():
+            text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+            for part in text.split("Function : ")[1:]:
+                fn = part.split("\n", 1)[0].strip()
+                if "rmsnorm_fwd_kernel" not in fn:
+                    continue
+                sizes[f"{name}:{fn[-48:]}"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
+                f.write(f"==== {name}: {fn}\n{part}\n")
+    return sizes
+
+
 def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
     """The forward at phase 2c's cases: the older source and the new one in
     turns beside ``F.rms_norm`` and a one-value fill (the launch floor), the
@@ -403,6 +437,8 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
     extra = {"fwd_old": open(old_src).read()}
     libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
     old = old_entry(torch, libs["fwd_old"])
+    report({"fwd_code": sass_sizes(build, {k: libs[k] for k in ("fwd_base", "fwd_single",
+                                                                 "fwd_old")})})
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     floor_t = torch.empty(1, device="cuda")
     for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES):
