@@ -4912,14 +4912,14 @@ def main() -> int:
               for plan in [K5.bwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}), flush=True)
     # every forward instance fwd_plan can name is in the library (a query
     # for a missing one raises), and the blocks an SM at phase 2c's plans
-    k5_fwd_built = {f"{dt}_vec{vec}_c{c}": K5.fwd_occupancy(getattr(torch, dt), dict(
-        vec=vec, chunks=c, lanes=32, gpb=1))
+    k5_fwd_built = {f"{dt}_vec{vec}_c{c}_r{r}": K5.fwd_occupancy(getattr(torch, dt), dict(
+        vec=vec, chunks=c, rpg=r, lanes=32, gpb=1))
         for dt in ("float32", "bfloat16") for vec in (16 // getattr(torch, dt).itemsize, 1)
-        for c in K5.FWD_CHUNKS[vec]}
+        for c in K5.FWD_CHUNKS[vec] for r in (1, 2)}
     print("  k5 forward instances built (blocks an SM at 32 threads): "
           + json.dumps(k5_fwd_built), flush=True)
     print("  k5 forward occupancy (blocks an SM at the plans of phase 2c's cases): "
-          + json.dumps({name: dict(plan={k: plan[k] for k in ("vec", "chunks", "lanes", "gpb")},
+          + json.dumps({name: dict(plan={k: plan[k] for k in ("vec", "chunks", "rpg", "lanes", "gpb")},
                                    blocks_per_sm=K5.fwd_occupancy(getattr(torch, dt), plan))
                         for name, n, d, dt, _ in NORM_CASES
                         for plan in [K5.fwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}),

@@ -19,11 +19,14 @@
 // `rpg` rows.  Thread t of a group owns accesses j = t + k * lanes (k <
 // chunks) of every row, 16 bytes each (4 fp32 or 8 bf16 values; one value
 // where d or a base is not 16-byte aligned), and keeps its columns of gamma
-// in registers across the group's rows.  The next row is loaded into a
-// second register set before the current row is reduced and stored (where
-// a thread's share of a row is at most 64 bytes).  A row's sum of squares
+// in registers across the group's rows.  With several rows a group the
+// next row is loaded into a second register set before the current row is
+// reduced and stored (where a thread's share of a row is at most 64 bytes);
+// the wrapper's rule gives one row a group, the straight-line kernel with
+// one register set, which the sweep found faster at every shape (fewer
+// registers, more blocks an SM).  A row's sum of squares
 // is each thread's own over its accesses in order, a butterfly of shuffles
-// over the group's lanes inside a warp (under the group's lane mask), then,
+// over the group's lanes inside a warp (blocks of whole warps), then,
 // for groups of several warps, the warps in order after one barrier of the
 // block (every thread walks the same row slots, so no named barriers: a
 // kernel whose barrier ids are registers reserves all 16, which held the
@@ -141,16 +144,16 @@ struct FwdArgs {
 // C) of every row, columns [j * VEC, (j + 1) * VEC).  Every thread of a
 // block walks rpg row slots, a slot past its group's rows (the last group's,
 // or a group past the last) loading and storing nothing, so the block's
-// barrier for groups of several warps is met by all its threads.
-template <typename T, int VEC, int C>
+// barrier for groups of several warps is met by all its threads.  MULTI
+// false: one row a group (rpg 1), straight-line code with one register set;
+// true: any rpg, the row slots in pairs with the next row's loads ahead.
+template <typename T, int VEC, int C, bool MULTI>
 __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   using A = Acc<T, VEC>;
   using R = typename A::R;
   __shared__ float red[2][FWD_NT / 32];
-  const int L = a.lanes;
-  const int gi = threadIdx.x / L, t = threadIdx.x % L, lane = threadIdx.x % 32;
-  // the group's lanes in its warp (all 32 for a group of a warp or more)
-  const unsigned mask = L >= 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane & ~(L - 1));
+  const int L = a.lanes, shift = __ffs(L) - 1;  // L a power of two
+  const int gi = threadIdx.x >> shift, t = threadIdx.x & (L - 1), lane = threadIdx.x % 32;
   const T* x = static_cast<const T*>(a.x);
   T* y = static_cast<T*>(a.y);
   const int nacc = (a.d + VEC - 1) / VEC;  // accesses a row (VEC > 1: d % VEC == 0)
@@ -201,15 +204,20 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
         }
       }
     }
+    // every lane of the block's warps takes every step (the blocks hold
+    // whole warps), so the shuffles need no mask of their own; an offset
+    // below L stays inside the group
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-      if (o < L) ss += __shfl_xor_sync(mask, ss, o);
+      if (o < L) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (L > 32) {  // the group's warps add their sums in a fixed order
-      float* slot = red[i & 1] + gi * (L / 32);
-      if (lane == 0) slot[t / 32] = ss;
+      float* slot = red[i & 1] + (gi << (shift - 5));
+      if (lane == 0) slot[t >> 5] = ss;
       __syncthreads();
       ss = 0.f;
-      for (int w = 0; w < L / 32; ++w) ss += slot[w];
+#pragma unroll
+      for (int w = 0; w < FWD_NT / 32; ++w)
+        if (w < (L >> 5)) ss += slot[w];
     }
     if (!live) return;
     const float rs = rsqrtf(ss / a.d + a.eps);
@@ -230,7 +238,10 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   };
 
   R xa[C];
-  if constexpr (C * sizeof(R) <= 64) {
+  if constexpr (!MULTI) {
+    fetch(r0, xa);
+    row(0, xa);
+  } else if constexpr (C * sizeof(R) <= 64) {
     // row slots in pairs, two register sets in turn: the next row's loads
     // are in flight while this one is reduced and stored
     R xb[C];
@@ -464,35 +475,37 @@ __global__ void __launch_bounds__(COMBINE_NT) rmsnorm_bwd_dgamma(
 using FwdKernel = void (*)(const FwdArgs);
 
 // the forward kernel for `chunks` accesses a thread a row: 1, 2, 4 or
-// (fp32) 8 of 16 bytes, or 1-32 (powers of two) of one value; null for any
-// other count
-template <typename T>
+// (fp32) 8 of 16 bytes, or 1-32 (powers of two) of one value, for one row a
+// group or several; null for any other count
+template <typename T, bool M>
 FwdKernel fwd_kernel(bool vec, int chunks) {
   constexpr int VW = 16 / sizeof(T);
   if (vec) {
     switch (chunks) {
-      case 1: return rmsnorm_fwd_kernel<T, VW, 1>;
-      case 2: return rmsnorm_fwd_kernel<T, VW, 2>;
-      case 4: return rmsnorm_fwd_kernel<T, VW, 4>;
+      case 1: return rmsnorm_fwd_kernel<T, VW, 1, M>;
+      case 2: return rmsnorm_fwd_kernel<T, VW, 2, M>;
+      case 4: return rmsnorm_fwd_kernel<T, VW, 4, M>;
       case 8:
-        if constexpr (VW == 4) return rmsnorm_fwd_kernel<T, VW, 8>;
+        if constexpr (VW == 4) return rmsnorm_fwd_kernel<T, VW, 8, M>;
     }
     return nullptr;
   }
   switch (chunks) {
-    case 1: return rmsnorm_fwd_kernel<T, 1, 1>;
-    case 2: return rmsnorm_fwd_kernel<T, 1, 2>;
-    case 4: return rmsnorm_fwd_kernel<T, 1, 4>;
-    case 8: return rmsnorm_fwd_kernel<T, 1, 8>;
-    case 16: return rmsnorm_fwd_kernel<T, 1, 16>;
-    case 32: return rmsnorm_fwd_kernel<T, 1, 32>;
+    case 1: return rmsnorm_fwd_kernel<T, 1, 1, M>;
+    case 2: return rmsnorm_fwd_kernel<T, 1, 2, M>;
+    case 4: return rmsnorm_fwd_kernel<T, 1, 4, M>;
+    case 8: return rmsnorm_fwd_kernel<T, 1, 8, M>;
+    case 16: return rmsnorm_fwd_kernel<T, 1, 16, M>;
+    case 32: return rmsnorm_fwd_kernel<T, 1, 32, M>;
   }
   return nullptr;
 }
 
-FwdKernel fwd_kernel(int dtype, bool vec, int chunks) {
-  if (dtype == 0) return fwd_kernel<float>(vec, chunks);
-  if (dtype == 1) return fwd_kernel<__nv_bfloat16>(vec, chunks);
+FwdKernel fwd_kernel(int dtype, bool vec, int chunks, bool multi) {
+  if (dtype == 0) return multi ? fwd_kernel<float, true>(vec, chunks)
+                               : fwd_kernel<float, false>(vec, chunks);
+  if (dtype == 1) return multi ? fwd_kernel<__nv_bfloat16, true>(vec, chunks)
+                               : fwd_kernel<__nv_bfloat16, false>(vec, chunks);
   return nullptr;
 }
 
@@ -553,10 +566,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // The grid is the wrapper's plan (fwd_plan in kernels/rmsnorm.py): vec 1
 // for one-value accesses, else 16 / sizeof(T) (d a multiple of it, x,
 // gamma and y 16-byte aligned); lanes a group (a power of two up to 256),
-// chunks accesses a thread a row, gpb groups a block (lanes * gpb <= 256),
-// rpg rows a group, groups = ceil(n / rpg) groups in blocks = ceil(groups
-// / gpb) blocks.  One launch; anything else is refused before it.  Returns
-// a cudaError_t (0 = launched).
+// chunks accesses a thread a row, gpb groups a block (lanes * gpb a
+// multiple of 32 up to 256: whole warps),
+// rpg rows a group (the one-row kernel for rpg 1, the several-row one
+// above), groups = ceil(n / rpg) groups in blocks = ceil(groups / gpb)
+// blocks.  One launch; anything else is refused before it.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
                            void* rstd, int n, int d, float eps, int vec, int lanes,
                            int chunks, int gpb, int rpg, int groups, int blocks,
@@ -566,9 +581,9 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
   if (vec != 1 && !(vec == 16 / es && d % vec == 0 && aligned16(x) && aligned16(gamma)
                     && aligned16(y)))
     return cudaErrorInvalidValue;
-  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
+  const FwdKernel kern = rpg >= 1 ? fwd_kernel(dtype, vec != 1, chunks, rpg > 1) : nullptr;
   if (kern == nullptr || lanes < 1 || lanes > FWD_NT || (lanes & (lanes - 1)) != 0
-      || gpb < 1 || lanes * gpb > FWD_NT
+      || gpb < 1 || lanes * gpb > FWD_NT || lanes * gpb % 32 != 0
       || static_cast<long long>(chunks) * lanes * vec < d || rpg < 1
       || groups != (n + rpg - 1) / rpg || blocks != (groups + gpb - 1) / gpb)
     return cudaErrorInvalidValue;
@@ -579,10 +594,10 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
 }
 
 // Blocks per SM of the forward kernel at a plan's (dtype, vec, chunks,
-// lanes, gpb), as the CUDA runtime's occupancy calculator gives them.
-extern "C" int rmsnorm_fwd_occupancy(int dtype, int vec, int chunks, int lanes, int gpb,
-                                     int* blocks) {
-  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
+// rpg, lanes, gpb), as the CUDA runtime's occupancy calculator gives them.
+extern "C" int rmsnorm_fwd_occupancy(int dtype, int vec, int chunks, int rpg, int lanes,
+                                     int gpb, int* blocks) {
+  const FwdKernel kern = rpg >= 1 ? fwd_kernel(dtype, vec != 1, chunks, rpg > 1) : nullptr;
   if (kern == nullptr) return cudaErrorInvalidValue;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, lanes * gpb, 0);
 }

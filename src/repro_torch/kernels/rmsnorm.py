@@ -35,8 +35,8 @@ CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (2, 8, 32)}
 # give for d <= MAX_D names one of these
 FWD_CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (1, 2, 4, 8, 16, 32)}
 FWD_THREADS = 256      # threads of a forward block at most (groups x lanes)
-SM_THREADS = 2048      # threads an SM holds at once
-FWD_ACCESSES = 4       # accesses a lane makes of a row, at most, where 256 lanes allow
+FWD_BLOCK = 128        # threads of a forward block the rule aims at
+FWD_VALUES = 16        # values a lane takes of a row (16-byte accesses), where 256 lanes allow
 FWD_MIN_LANES = 8      # lanes a group at least
 BLOCK_WARPS = 8        # warps of a rows block at most (units x warps a unit)
 COMBINE_THREADS = 256  # threads of a dgamma combine block
@@ -56,7 +56,7 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float] + [i] * 7 + [p]
     lib.rmsnorm_bwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
-    lib.rmsnorm_fwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.rmsnorm_fwd_occupancy.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.rmsnorm_bwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_fwd_occupancy,
               lib.rmsnorm_bwd_occupancy):
@@ -105,20 +105,24 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
     """The forward's grid, from the shapes and the SM count alone.
 
     ``vec``: values an access, 16 bytes' worth when d and the bases allow
-    (else 1).  ``lanes``: threads that share a row (a group), the fewest
-    powers of two up to 256 that leave each thread one access of a row;
-    ``chunks`` the accesses a thread makes, rounded up to a count the kernel
-    is built for.  A row's summation order follows from these two alone,
-    and they follow from d, the dtype and the alignment: a row gives the
-    same bits in a call of any n.  ``rpg``: rows a group, so that the
-    groups fit on the card at once (``SM_THREADS // lanes`` an SM); each
-    group owns rows ``[g * rpg, (g + 1) * rpg)``, ``groups = ceil(n /
-    rpg)``.  ``gpb``: groups a block, ``FWD_THREADS // lanes``, fewer (a
-    power of two) where that would leave SMs without a block.  Nonzero
-    ``lanes``, ``rpg`` or ``gpb`` force that choice, and a forced entry the
-    kernel cannot take raises (``tools/rmsnorm_variants.py --fwd``'s sweep,
-    which set this rule: PERF.md §6).  ``instance``: the kernel's template
-    (vec, chunks), one of ``FWD_CHUNKS``; ``device_kernels``: 1."""
+    (else 1).  ``lanes``: threads that share a row (a group), a power of two
+    from 8 to 256: with 16-byte accesses the fewest that leave each lane
+    ``FWD_VALUES`` values of a row (4 fp32 or 2 bf16 accesses), with
+    one-value accesses 256; ``chunks`` the accesses a lane makes, rounded up
+    to a count the kernel is built for.  A row's summation order follows
+    from these two alone, and they follow from d, the dtype and the
+    alignment: a row gives the same bits in a call of any n.  ``rpg``: rows
+    a group, 1 (the one-row kernel: in the sweep, several rows a group with
+    the next row's loads ahead won at no shape, up to 65536 rows); group g
+    owns rows ``[g * rpg, (g + 1) * rpg)``, ``groups = ceil(n / rpg)``.
+    ``gpb``: groups a block, ``FWD_BLOCK // lanes`` (one where a group is
+    wider), fewer (a power of two) where that would leave SMs without a
+    block, but whole warps.  Nonzero ``lanes``, ``rpg`` or ``gpb`` force
+    that choice, and a forced entry the kernel cannot take raises
+    (``tools/rmsnorm_variants.py --fwd``'s sweep, which set this rule:
+    PERF.md §6).  ``instance``: the kernel's template (vec, chunks from
+    ``FWD_CHUNKS``, several rows a group: the kernel with the next row's
+    loads ahead, else the one-row kernel); ``device_kernels``: 1."""
     vw = 16 // elem_bytes
     vec = vw if aligned and d % vw == 0 else 1
     nacc = -(-d // vec)
@@ -126,21 +130,22 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
         _check(lanes & (lanes - 1) == 0 and 1 <= lanes <= FWD_THREADS,
                f"lanes {lanes} (a power of two up to {FWD_THREADS})")
     else:
-        lanes = FWD_MIN_LANES
-        while lanes < FWD_THREADS and lanes * FWD_ACCESSES < nacc:
+        lanes = FWD_MIN_LANES if vec > 1 else FWD_THREADS
+        while lanes < FWD_THREADS and lanes * FWD_VALUES < d:
             lanes *= 2
     chunks = next((c for c in FWD_CHUNKS[vec] if c * lanes >= nacc), None)
     _check(chunks is not None, f"no forward kernel for d {d} at {lanes} lanes (vec {vec})")
-    rpg = rpg or max(1, -(-n // (sms * (SM_THREADS // lanes))))
+    rpg = rpg or 1
     groups = -(-n // rpg)
     if gpb:
-        _check(1 <= gpb and lanes * gpb <= FWD_THREADS,
-               f"{gpb} groups of {lanes} lanes a block (at most {FWD_THREADS} threads)")
+        _check(1 <= gpb and lanes * gpb <= FWD_THREADS and lanes * gpb % 32 == 0,
+               f"{gpb} groups of {lanes} lanes a block (whole warps, at most "
+               f"{FWD_THREADS} threads)")
     else:
-        gpb = min(FWD_THREADS // lanes, _pow2_at_most(groups // sms))
+        gpb = max(-(-32 // lanes), min(max(1, FWD_BLOCK // lanes), _pow2_at_most(groups // sms)))
     return {"vec": vec, "lanes": lanes, "chunks": chunks, "gpb": gpb, "rpg": rpg,
             "groups": groups, "blocks": -(-groups // gpb), "threads": lanes * gpb,
-            "instance": (vec, chunks), "device_kernels": 1}
+            "instance": (vec, chunks, rpg > 1), "device_kernels": 1}
 
 
 def fwd_occupancy(dtype: torch.dtype, plan: dict) -> int:
@@ -150,7 +155,7 @@ def fwd_occupancy(dtype: torch.dtype, plan: dict) -> int:
     _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
     out = ctypes.c_int(0)
     rc = _lib()["fwd_occupancy"](_DTYPE_CODE[dtype], *(plan[k] for k in (
-        "vec", "chunks", "lanes", "gpb")), ctypes.byref(out))
+        "vec", "chunks", "rpg", "lanes", "gpb")), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"rmsnorm forward occupancy query failed: cudaError {rc}")
     return out.value

@@ -229,12 +229,12 @@ def test_plan_covers_every_row_once(n, d, elem_bytes, aligned):
     assert rows == list(range(n))
     assert all(g * p["rpg"] < n for g in range(p["groups"]))
     assert (p["blocks"] - 1) * p["gpb"] < p["groups"] <= p["blocks"] * p["gpb"]
-    assert p["threads"] == p["lanes"] * p["gpb"] <= K5.FWD_THREADS
+    assert p["threads"] == p["lanes"] * p["gpb"] <= K5.FWD_THREADS and p["threads"] % 32 == 0
     assert p["lanes"] & (p["lanes"] - 1) == 0 and 1 <= p["lanes"] <= K5.FWD_THREADS
     vw = 16 // elem_bytes
     assert p["vec"] == (vw if aligned and d % vw == 0 else 1)
     assert p["chunks"] in K5.FWD_CHUNKS[p["vec"]] and p["chunks"] * p["lanes"] * p["vec"] >= d
-    assert p["instance"] == (p["vec"], p["chunks"]) and p["device_kernels"] == 1
+    assert p["instance"] == (p["vec"], p["chunks"], p["rpg"] > 1) and p["device_kernels"] == 1
     one = K5.fwd_plan(1, d, SMS, elem_bytes, aligned)
     assert (one["vec"], one["lanes"], one["chunks"]) == (p["vec"], p["lanes"], p["chunks"])
 
@@ -267,15 +267,19 @@ def test_every_instance_the_plan_can_name_is_built():
 
 
 @pytest.mark.parametrize("n,d,elem_bytes,want", [
-    (8192, 128, 2, dict(vec=8, lanes=16, chunks=1, rpg=1, gpb=16, blocks=512)),
-    (2048, 128, 2, dict(vec=8, lanes=16, chunks=1, rpg=1, gpb=8, blocks=256)),
-    (16384, 128, 4, dict(vec=4, lanes=32, chunks=1, rpg=2, gpb=8, blocks=1024)),
+    (8192, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=16, blocks=512)),
+    (2048, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=8, blocks=256)),
+    (512, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=4, blocks=128)),
+    (16384, 128, 4, dict(vec=4, lanes=8, chunks=4, rpg=1, gpb=16, blocks=1024)),
     (1024, 4096, 2, dict(vec=8, lanes=256, chunks=2, rpg=1, gpb=1, blocks=1024)),
-    (1024, 2048, 4, dict(vec=4, lanes=256, chunks=2, rpg=1, gpb=1, blocks=1024)),
+    (1024, 2048, 4, dict(vec=4, lanes=128, chunks=4, rpg=1, gpb=1, blocks=1024)),
+    (1024, 2048, 2, dict(vec=8, lanes=128, chunks=2, rpg=1, gpb=1, blocks=1024)),
+    (1024, 768, 4, dict(vec=4, lanes=64, chunks=4, rpg=1, gpb=2, blocks=512)),
     (32, 4096, 2, dict(vec=8, lanes=256, chunks=2, rpg=1, gpb=1, blocks=32)),
-    (16, 768, 2, dict(vec=8, lanes=128, chunks=1, rpg=1, gpb=1, blocks=16)),
+    (16, 768, 2, dict(vec=8, lanes=64, chunks=2, rpg=1, gpb=1, blocks=16)),
+    (257, 1000, 4, dict(vec=4, lanes=64, chunks=4, rpg=1, gpb=1, blocks=257)),
     (257, 1001, 2, dict(vec=1, lanes=256, chunks=4, rpg=1, gpb=1, blocks=257)),
-    (2048, 4096, 4, dict(vec=4, lanes=256, chunks=4, rpg=2, gpb=1, blocks=1024)),
+    (2048, 4096, 4, dict(vec=4, lanes=256, chunks=4, rpg=1, gpb=1, blocks=2048)),
 ])
 def test_plan_at_phase_2c_cases(n, d, elem_bytes, want):
     p = K5.fwd_plan(n, d, SMS, elem_bytes)
@@ -291,6 +295,8 @@ def test_forced_entries_are_honoured_or_refused():
                       (dict(lanes=64, gpb=8), "at most 256 threads")]:
         with pytest.raises(ValueError, match=match):
             K5.fwd_plan(1000, 2048, SMS, 4, True, **kw)
+    with pytest.raises(ValueError, match="whole warps"):
+        K5.fwd_plan(1000, 128, SMS, 2, True, lanes=8, gpb=2)
 
 
 def test_forced_sweep_plans_are_legal():

@@ -14,18 +14,18 @@ new, old) against an older source of the kernel (``--old``, by default
 ``git show REV:src/repro_torch/kernels/csrc/rmsnorm.cu`` before a card run:
 the copy on the card has no git), called through its own C entry point;
 then ablations of the new forward that only time (``fwd_nostores``: no y
-stores; ``fwd_oneload``: every row of a group read from its first row's
-address; ``fwd_nogamma``: no gamma loads or product; ``fwd_noprefetch``: one
-register set, the next row loaded after this one's stores;
-``fwd_gammalate``: gamma read where it is used, not kept in registers;
-``fwd_norstd``: no rstd stores; ``fwd_int32``: 32-bit row indices;
-``fwd_single``: the group's first row only, straight-line code: right
-only where rows a group is 1); and one
-candidate, ``fwd_regcap``: registers capped for 8 blocks of 256 threads an
-SM where a thread's share of a row is 16 bytes, 4 elsewhere); then
+stores; ``fwd_oneload``: every group reads row 0 (hits in L2: what the
+loads from device memory cost); ``fwd_nogamma``: no gamma loads or
+product; ``fwd_gammalate``: gamma read where it is used, not kept in
+registers; ``fwd_noprefetch``: for several rows a group, one register set,
+the next row loaded after this one's stores); then
 ``fwd_plan`` forced to every legal lanes, rows a group and groups a block
 (``legal_fwd_plans``), each result held against the plain version: what
-the forward's rule is set from.
+the forward's rule is set from.  Two more shapes join phase 2c's there
+(``FWD_EXTRA``: qwen3-8b's q rows at a 2048-token prefill and at a B 16
+decode step).  Each library's forward kernels' instruction counts
+(``cuobjdump -sass``) are reported, the listings written to
+``chiprun_out/rmsnorm_fwd_sass.txt``.
 
 First, at phase 2c's K5 grads cases: the backward's time a call
 (``chip_smoke.device_ms``), the forward's, ``F.rms_norm``'s forward +
@@ -106,7 +106,7 @@ FWD_VARIANTS = {
     "fwd_nostores": [("        A::store(y + off + j * VEC, o);",
                       "        if (o[0] == 1234.5f) A::store(y + off + j * VEC, o);")],
     "fwd_oneload": [("    if (r >= r1) return;\n    const long long off = r * a.d;",
-                     "    if (r >= r1) return;\n    const long long off = r0 * a.d;")],
+                     "    if (r >= r1) return;\n    const long long off = 0 * r;")],
     "fwd_nogamma": [("      gm[k] = j < nacc && r0 < r1 ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
                      "  auto gam",
                      "      gm[k] = R{};\n    }\n  }\n  auto gam"),
@@ -116,21 +116,13 @@ FWD_VARIANTS = {
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr",
                        "  constexpr bool keep_gamma = false;\n  const T* gamma = "
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr")],
-    "fwd_norstd": [("    if (a.rstd != nullptr && t == 0) a.rstd[r] = rs;",
-                    "    if (a.rstd != nullptr && t == 0 && rs == 1234.5f) a.rstd[r] = rs;")],
-    "fwd_int32": [("  const long long r0 = static_cast<long long>(blockIdx.x * a.gpb + gi) * a.rpg;\n"
-                   "  const long long r1 = min(static_cast<long long>(a.n), r0 + a.rpg);",
-                   "  const int r0 = (blockIdx.x * a.gpb + gi) * a.rpg;\n"
-                   "  const int r1 = min(a.n, r0 + a.rpg);")],
-    "fwd_single": [("  R xa[C];\n  if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs",
-                    "  R xa[C];\n  fetch(r0, xa);\n  row(0, xa);\n  return;\n"
-                    "  if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs")],
-    "fwd_regcap": [("__global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(",
-                    "__global__ void __launch_bounds__(FWD_NT, C * VEC * sizeof(T) <= 16 ? 8 : 4) "
-                    "rmsnorm_fwd_kernel(")],
     "fwd_noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs",
                         "if constexpr (false) {\n    // row slots in pairs")],
 }
+# shapes the forward sweep adds to phase 2c's: qwen3-8b's q rows at a
+# 2048-token prefill and at a B 16 decode step (bf16)
+FWD_EXTRA = [("qwen3_8b_q_prefill_t2048", 65536, 128, "bfloat16", False),
+             ("qwen3_8b_q_decode_b16", 512, 128, "bfloat16", False)]
 OLD_SOURCE = os.path.join(ROOT, "build", "variants", "rmsnorm_old.cu")
 
 
@@ -437,11 +429,10 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
     extra = {"fwd_old": open(old_src).read()}
     libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
     old = old_entry(torch, libs["fwd_old"])
-    report({"fwd_code": sass_sizes(build, {k: libs[k] for k in ("fwd_base", "fwd_single",
-                                                                 "fwd_old")})})
+    report({"fwd_code": sass_sizes(build, {k: libs[k] for k in ("fwd_base", "fwd_old")})})
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     floor_t = torch.empty(1, device="cuda")
-    for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES):
+    for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES + FWD_EXTRA):
         x, gamma, _ = make_case(torch, n, d, dtype, 300 + i)
         tol = cs.TOL[dtype]
         copies = min(64, max(2, math.ceil(2 * 50e6 / (3 * n * d * x.element_size()))))
