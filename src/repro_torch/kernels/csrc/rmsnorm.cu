@@ -24,13 +24,16 @@
 // reduced and stored (where a thread's share of a row is at most 64 bytes);
 // the wrapper's rule gives one row a group, the straight-line kernel with
 // one register set, which the sweep found faster at every shape (fewer
-// registers, more blocks an SM).  A row's sum of squares
-// is each thread's own over its accesses in order, a butterfly of shuffles
-// over the group's lanes inside a warp (blocks of whole warps), then,
-// for groups of several warps, the warps in order after one barrier of the
-// block (every thread walks the same row slots, so no named barriers: a
-// kernel whose barrier ids are registers reserves all 16, which held the
-// SM to 4 blocks).  So a row's bits depend on d, the dtype and the
+// registers, more blocks an SM).  A row's sum of squares is taken in fp64
+// (each square exact, the sum all but exact, so the fp32 mean is nearly
+// always the correctly rounded one whatever the order; an fp32 sum in this
+// order moved chip_smoke's int8 codes and greedy tokens away from the
+// CPU's): each thread's own over its accesses in order, a butterfly of
+// shuffles over the group's lanes inside a warp (blocks of whole warps),
+// then, for groups of several warps, the warps in order after one barrier
+// of the block (every thread walks the same row slots, so no named
+// barriers: a kernel whose barrier ids are registers reserves all 16, which
+// held the SM to 4 blocks).  So a row's bits depend on d, the dtype and the
 // alignment (which set lanes and the accesses), never on n: rows a group
 // and groups a block only change which group takes a row.
 // Backward, two device kernels a call, neither with atomics, so dx and
@@ -151,7 +154,7 @@ template <typename T, int VEC, int C, bool MULTI>
 __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   using A = Acc<T, VEC>;
   using R = typename A::R;
-  __shared__ float red[2][FWD_NT / 32];
+  __shared__ double red[2][FWD_NT / 32];
   const int L = a.lanes, shift = __ffs(L) - 1;  // L a power of two
   const int gi = threadIdx.x >> shift, t = threadIdx.x & (L - 1), lane = threadIdx.x % 32;
   const T* x = static_cast<const T*>(a.x);
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   auto row = [&](int i, const R(&xv)[C]) {
     const long long r = r0 + i;
     const bool live = r < r1;
-    float ss = 0.f;
+    double ss = 0.0;
     if (live) {
 #pragma unroll
       for (int k = 0; k < C; ++k) {
@@ -199,7 +202,7 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
             const float v = A::get(xv[k], e);
-            ss = fmaf(v, v, ss);
+            ss = fma(static_cast<double>(v), static_cast<double>(v), ss);
           }
         }
       }
@@ -211,16 +214,17 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
     for (int o = 16; o > 0; o >>= 1)
       if (o < L) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (L > 32) {  // the group's warps add their sums in a fixed order
-      float* slot = red[i & 1] + (gi << (shift - 5));
+      double* slot = red[i & 1] + (gi << (shift - 5));
       if (lane == 0) slot[t >> 5] = ss;
       __syncthreads();
-      ss = 0.f;
+      ss = 0.0;
 #pragma unroll
       for (int w = 0; w < FWD_NT / 32; ++w)
         if (w < (L >> 5)) ss += slot[w];
     }
     if (!live) return;
-    const float rs = rsqrtf(ss / a.d + a.eps);
+    // the mean rounded once to fp32, then as the model: + eps, rsqrt, in fp32
+    const float rs = rsqrtf(static_cast<float>(ss / a.d) + a.eps);
     const long long off = r * a.d;
 #pragma unroll
     for (int k = 0; k < C; ++k) {

@@ -36,7 +36,7 @@ CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (2, 8, 32)}
 FWD_CHUNKS = {4: (1, 2, 4, 8), 8: (1, 2, 4), 1: (1, 2, 4, 8, 16, 32)}
 FWD_THREADS = 256      # threads of a forward block at most (groups x lanes)
 FWD_BLOCK = 128        # threads of a forward block the rule aims at
-FWD_VALUES = 16        # values a lane takes of a row (16-byte accesses), where 256 lanes allow
+BF16_ONE_ACCESS = 128  # bf16 rows of at most this many 16-byte accesses: one a lane
 FWD_MIN_LANES = 8      # lanes a group at least
 BLOCK_WARPS = 8        # warps of a rows block at most (units x warps a unit)
 COMBINE_THREADS = 256  # threads of a dgamma combine block
@@ -96,28 +96,25 @@ def _check_rows(x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> 
            "every tensor must lie on one CUDA device")
 
 
-def _pow2_at_most(v: int) -> int:
-    return 1 << (max(1, v).bit_length() - 1)
-
-
 def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
              lanes: int = 0, rpg: int = 0, gpb: int = 0) -> dict:
     """The forward's grid, from the shapes and the SM count alone.
 
     ``vec``: values an access, 16 bytes' worth when d and the bases allow
     (else 1).  ``lanes``: threads that share a row (a group), a power of two
-    from 8 to 256: with 16-byte accesses the fewest that leave each lane
-    ``FWD_VALUES`` values of a row (4 fp32 or 2 bf16 accesses), with
-    one-value accesses 256; ``chunks`` the accesses a lane makes, rounded up
-    to a count the kernel is built for.  A row's summation order follows
+    from 8 to 256: with 16-byte accesses the fewest that leave each lane 4
+    accesses of an fp32 row, 1 of a bf16 row of up to 128 accesses (d up to
+    1024) and 2 of a longer one, with one-value accesses 256; ``chunks`` the
+    accesses a lane makes, rounded up to a count the kernel is built for.  A row's summation order follows
     from these two alone, and they follow from d, the dtype and the
     alignment: a row gives the same bits in a call of any n.  ``rpg``: rows
     a group, 1 (the one-row kernel: in the sweep, several rows a group with
     the next row's loads ahead won at no shape, up to 65536 rows); group g
     owns rows ``[g * rpg, (g + 1) * rpg)``, ``groups = ceil(n / rpg)``.
     ``gpb``: groups a block, ``FWD_BLOCK // lanes`` (one where a group is
-    wider), fewer (a power of two) where that would leave SMs without a
-    block, but whole warps.  Nonzero ``lanes``, ``rpg`` or ``gpb`` force
+    wider); the rule reads no SM count (in the sweep, smaller blocks that
+    spread a small call over more SMs lost).  Nonzero ``lanes``, ``rpg`` or
+    ``gpb`` force
     that choice, and a forced entry the kernel cannot take raises
     (``tools/rmsnorm_variants.py --fwd``'s sweep, which set this rule:
     PERF.md §6).  ``instance``: the kernel's template (vec, chunks from
@@ -130,8 +127,11 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
         _check(lanes & (lanes - 1) == 0 and 1 <= lanes <= FWD_THREADS,
                f"lanes {lanes} (a power of two up to {FWD_THREADS})")
     else:
+        # 16-byte accesses a lane: fp32 4; bf16 1, 2 for rows of more than
+        # 128 accesses; one-value accesses: all 256 lanes
+        per = 4 if vec == 4 else 1 if vec == 1 or nacc <= BF16_ONE_ACCESS else 2
         lanes = FWD_MIN_LANES if vec > 1 else FWD_THREADS
-        while lanes < FWD_THREADS and lanes * FWD_VALUES < d:
+        while lanes < FWD_THREADS and lanes * per < nacc:
             lanes *= 2
     chunks = next((c for c in FWD_CHUNKS[vec] if c * lanes >= nacc), None)
     _check(chunks is not None, f"no forward kernel for d {d} at {lanes} lanes (vec {vec})")
@@ -142,7 +142,7 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
                f"{gpb} groups of {lanes} lanes a block (whole warps, at most "
                f"{FWD_THREADS} threads)")
     else:
-        gpb = max(-(-32 // lanes), min(max(1, FWD_BLOCK // lanes), _pow2_at_most(groups // sms)))
+        gpb = max(1, FWD_BLOCK // lanes)
     return {"vec": vec, "lanes": lanes, "chunks": chunks, "gpb": gpb, "rpg": rpg,
             "groups": groups, "blocks": -(-groups // gpb), "threads": lanes * gpb,
             "instance": (vec, chunks, rpg > 1), "device_kernels": 1}

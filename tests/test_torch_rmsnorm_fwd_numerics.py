@@ -6,14 +6,15 @@ inputs.
 
 The forward gives each group of ``lanes`` threads a contiguous range of
 ``rpg`` rows; thread t of a group owns accesses j = t + k * lanes (k <
-chunks) of every row, ``vec`` values each.  A row's sum of squares is each
-thread's own fp32 sum over its accesses in order, a butterfly of shuffles
-over the group's lanes inside a warp, then the group's warps in order;
-``rstd = rsqrt(sum / d + eps)``; ``y = (x * rstd).to(x.dtype) * gamma``.
-The emulation follows that order in fp32 (a multiply and an add where the
-kernel fuses them, and torch's ``rsqrt`` for the card's ``rsqrtf``, so it
-is not bit for bit the kernel's); ``chip_smoke.py`` holds the kernel itself
-on the card, and there also a row's bits against calls of other sizes.
+chunks) of every row, ``vec`` values each.  A row's sum of squares, in
+fp64, is each thread's own sum over its accesses in order, a butterfly of
+shuffles over the group's lanes inside a warp, then the group's warps in
+order; the mean is rounded once to fp32, then ``rstd = rsqrt(mean + eps)``
+and ``y = (x * rstd).to(x.dtype) * gamma`` in fp32.  The emulation follows
+that order (a square of an fp32 value is exact in fp64, so its multiply
+and add give the kernel's fused ones bit for bit; torch's ``rsqrt`` stands
+for the card's ``rsqrtf``); ``chip_smoke.py`` holds the kernel itself on
+the card, and there also a row's bits against calls of other sizes.
 
 Also here: the grid rule ``fwd_plan`` as a plain function of shapes (rows
 covered once, instances the source builds, forced entries), and the
@@ -90,6 +91,7 @@ def emulate_fwd(x: torch.Tensor, gamma: torch.Tensor, plan: dict):
     valid = cols < d
     cidx = cols.clamp(max=d - 1)
     x32, g32 = x.float(), gamma.float()
+    x64 = x32.double()
     y = torch.empty((n, d), dtype=dt)
     rstd = torch.empty(n)
     for i in range(rpg):
@@ -98,18 +100,19 @@ def emulate_fwd(x: torch.Tensor, gamma: torch.Tensor, plan: dict):
         if rr.numel() == 0:
             continue
         xv = x32[rr][:, cidx]                      # [r, chunks, lanes, vec]
-        ss = torch.zeros((rr.numel(), lanes))
+        x2 = x64[rr][:, cidx]
+        ss = torch.zeros((rr.numel(), lanes), dtype=torch.float64)
         for k in range(chunks):                    # each thread's own sum, in access order
             for e in range(vec):
-                v = xv[:, k, :, e]
+                v = x2[:, k, :, e]
                 ss = ss + torch.where(valid[k, :, e], v * v, 0.0)
         w = min(lanes, 32)
         ss = butterfly(ss.reshape(rr.numel(), lanes // w, w), w)[:, :, 0]
-        tot = ss[:, 0] if lanes <= 32 else torch.zeros(rr.numel())
+        tot = ss[:, 0] if lanes <= 32 else torch.zeros(rr.numel(), dtype=torch.float64)
         if lanes > 32:
             for wi in range(lanes // 32):          # the group's warps in order
                 tot = tot + ss[:, wi]
-        rs = torch.rsqrt(tot / d + EPS)
+        rs = torch.rsqrt((tot / d).float() + EPS)
         rstd[rr] = rs
         out = (xv * rs[:, None, None, None]).to(dt).float() * g32[cidx]
         yr = torch.empty((rr.numel(), d), dtype=dt)
@@ -197,6 +200,19 @@ def test_a_rows_bits_do_not_depend_on_n(d, dt):
                 for n in (1, 37, 512, 100000)}) == 1
 
 
+@pytest.mark.parametrize("d", WIDTHS)
+def test_the_fp64_sum_leaves_rstd_to_no_summation_order(d):
+    """With the squares summed in fp64, every lanes a group gives every
+    row the rstd of the exact mean rounded once to fp32: the order no
+    longer shows in the fp32 mean, where an fp32 sum's did."""
+    x, g = make_inputs(64, d, seed=5 * d)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    want = torch.rsqrt((tx.double().square().sum(-1) / d).float() + EPS)
+    for lanes in sorted({p["lanes"] for p in legal_fwd_plans(K5, 64, d, SMS, 4)}):
+        _, rstd = emulate_fwd(tx, tg, K5.fwd_plan(64, d, SMS, 4, True, lanes))
+        assert torch.equal(rstd, want), lanes
+
+
 def test_one_value_accesses_and_unaligned_bases():
     """d whose rows are not 16-byte multiples, or an unaligned base: one
     value an access, still within the tolerance of the plain version."""
@@ -267,17 +283,17 @@ def test_every_instance_the_plan_can_name_is_built():
 
 
 @pytest.mark.parametrize("n,d,elem_bytes,want", [
-    (8192, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=16, blocks=512)),
-    (2048, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=8, blocks=256)),
-    (512, 128, 2, dict(vec=8, lanes=8, chunks=2, rpg=1, gpb=4, blocks=128)),
+    (8192, 128, 2, dict(vec=8, lanes=16, chunks=1, rpg=1, gpb=8, blocks=1024)),
+    (2048, 128, 2, dict(vec=8, lanes=16, chunks=1, rpg=1, gpb=8, blocks=256)),
+    (512, 128, 2, dict(vec=8, lanes=16, chunks=1, rpg=1, gpb=8, blocks=64)),
     (16384, 128, 4, dict(vec=4, lanes=8, chunks=4, rpg=1, gpb=16, blocks=1024)),
     (1024, 4096, 2, dict(vec=8, lanes=256, chunks=2, rpg=1, gpb=1, blocks=1024)),
+    (32, 4096, 2, dict(vec=8, lanes=256, chunks=2, rpg=1, gpb=1, blocks=32)),
     (1024, 2048, 4, dict(vec=4, lanes=128, chunks=4, rpg=1, gpb=1, blocks=1024)),
     (1024, 2048, 2, dict(vec=8, lanes=128, chunks=2, rpg=1, gpb=1, blocks=1024)),
     (1024, 768, 4, dict(vec=4, lanes=64, chunks=4, rpg=1, gpb=2, blocks=512)),
-    (32, 4096, 2, dict(vec=8, lanes=256, chunks=2, rpg=1, gpb=1, blocks=32)),
-    (16, 768, 2, dict(vec=8, lanes=64, chunks=2, rpg=1, gpb=1, blocks=16)),
-    (257, 1000, 4, dict(vec=4, lanes=64, chunks=4, rpg=1, gpb=1, blocks=257)),
+    (16, 768, 2, dict(vec=8, lanes=128, chunks=1, rpg=1, gpb=1, blocks=16)),
+    (257, 1000, 4, dict(vec=4, lanes=64, chunks=4, rpg=1, gpb=2, blocks=129)),
     (257, 1001, 2, dict(vec=1, lanes=256, chunks=4, rpg=1, gpb=1, blocks=257)),
     (2048, 4096, 4, dict(vec=4, lanes=256, chunks=4, rpg=1, gpb=1, blocks=2048)),
 ])
