@@ -33,7 +33,7 @@
 // then, for groups of several warps, the warps in order after one barrier
 // of the block (every thread walks the same row slots, so no named
 // barriers: a kernel whose barrier ids are registers reserves all 16, which
-// held the SM to 4 blocks).  So a row's bits depend on d, the dtype and the
+// caps the blocks an SM holds).  So a row's bits depend on d, the dtype and the
 // alignment (which set lanes and the accesses), never on n: rows a group
 // and groups a block only change which group takes a row.
 // Backward, two device kernels a call, neither with atomics, so dx and
