@@ -1183,8 +1183,7 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
     err, ok = within(torch, y, ref.rmsnorm_ref(x, gamma), tol)
     row = dict(case=name, dtype=dtype, shape=f"n{n} d{d}", max_abs_err=err, tol=tol)
     nb = x.element_size()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    fplan = K5.fwd_plan(n, d, sms, nb)
+    fplan = K5.fwd_plan(n, d, nb)
     row["fwd_plan"] = {k: fplan[k] for k in K5.FWD_ARGS + ("threads",)}
     fwd = lambda x_, gm: K5.rmsnorm_fwd_cuda(x_, gm, save_rstd=True)  # noqa: E731
     names = device_kernels(torch, fwd, (x, gamma), expect=fplan["device_kernels"])
@@ -4912,17 +4911,17 @@ def main() -> int:
               for plan in [K5.bwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}), flush=True)
     # every forward instance fwd_plan can name is in the library (a query
     # for a missing one raises), and the blocks an SM at phase 2c's plans
-    k5_fwd_built = {f"{dt}_vec{vec}_c{c}_r{r}": K5.fwd_occupancy(getattr(torch, dt), dict(
-        vec=vec, chunks=c, rpg=r, lanes=32, gpb=1))
+    k5_fwd_built = {f"{dt}_vec{vec}_c{c}": K5.fwd_occupancy(getattr(torch, dt), dict(
+        vec=vec, chunks=c, lanes=32, gpb=1))
         for dt in ("float32", "bfloat16") for vec in (16 // getattr(torch, dt).itemsize, 1)
-        for c in K5.FWD_CHUNKS[vec] for r in (1, 2)}
+        for c in K5.FWD_CHUNKS[vec]}
     print("  k5 forward instances built (blocks an SM at 32 threads): "
           + json.dumps(k5_fwd_built), flush=True)
     print("  k5 forward occupancy (blocks an SM at the plans of phase 2c's cases): "
-          + json.dumps({name: dict(plan={k: plan[k] for k in ("vec", "chunks", "rpg", "lanes", "gpb")},
+          + json.dumps({name: dict(plan={k: plan[k] for k in K5.FWD_ARGS},
                                    blocks_per_sm=K5.fwd_occupancy(getattr(torch, dt), plan))
                         for name, n, d, dt, _ in NORM_CASES
-                        for plan in [K5.fwd_plan(n, d, sms, getattr(torch, dt).itemsize)]}),
+                        for plan in [K5.fwd_plan(n, d, getattr(torch, dt).itemsize)]}),
           flush=True)
     print("  k6 occupancy (mamba2-1.3b, plans at B 8 T 16, B 1 T 256, B 4 T 2048): "
           + json.dumps({f"{dt}_b{b}_t{t}": dict(plan=plan, **K6.occupancy(

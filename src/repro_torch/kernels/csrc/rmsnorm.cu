@@ -15,27 +15,24 @@
 // far below the ~20 fp32 operations per byte where arithmetic would bind.
 // Forward, one device kernel a call, `rmsnorm_fwd_kernel`: groups of
 // `lanes` threads (a power of two up to 256: a few lanes, a warp or several
-// warps; several groups a block), each owning a contiguous, fixed range of
-// `rpg` rows.  Thread t of a group owns accesses j = t + k * lanes (k <
-// chunks) of every row, 16 bytes each (4 fp32 or 8 bf16 values; one value
-// where d or a base is not 16-byte aligned), and keeps its columns of gamma
-// in registers across the group's rows.  With several rows a group the
-// next row is loaded into a second register set before the current row is
-// reduced and stored (where a thread's share of a row is at most 64 bytes);
-// the wrapper's rule gives one row a group, the straight-line kernel with
-// one register set, which the sweep found faster at every shape (fewer
-// registers, more blocks an SM).  A row's sum of squares is taken in fp64
+// warps; several groups a block), each owning one row.  Thread t of a group
+// owns accesses j = t + k * lanes (k < chunks) of the row, 16 bytes each (4
+// fp32 or 8 bf16 values; one value where d or a base is not 16-byte
+// aligned), gamma's among them, in straight-line code with one register
+// set.  (Several rows a group, the next row's loads in a second register
+// set ahead of this row's stores, cost registers and won at no shape in the
+// sweep, so it is not kept.)  A row's sum of squares is taken in fp64
 // (each square exact, the sum all but exact, so the fp32 mean is nearly
 // always the correctly rounded one whatever the order; an fp32 sum in this
 // order moved chip_smoke's int8 codes and greedy tokens away from the
 // CPU's): each thread's own over its accesses in order, a butterfly of
 // shuffles over the group's lanes inside a warp (blocks of whole warps),
 // then, for groups of several warps, the warps in order after one barrier
-// of the block (every thread walks the same row slots, so no named
-// barriers: a kernel whose barrier ids are registers reserves all 16, which
-// caps the blocks an SM holds).  So a row's bits depend on d, the dtype and the
-// alignment (which set lanes and the accesses), never on n: rows a group
-// and groups a block only change which group takes a row.
+// of the block (no named barriers: a kernel whose barrier ids are registers
+// reserves all 16, which caps the blocks an SM holds).  So a row's bits
+// depend on d, the dtype and the alignment (which set lanes and the
+// accesses), never on n: groups a block only change which block takes a
+// row.
 // Backward, two device kernels a call, neither with atomics, so dx and
 // dgamma do not change from run to run:
 // - `rmsnorm_bwd_rows`: units of `wpr` warps (several a block), each unit
@@ -139,29 +136,27 @@ struct FwdArgs {
   float* rstd;            // [n] fp32, or null
   int n, d;
   float eps;
-  int lanes, gpb, rpg, groups;  // lanes a group, groups a block, rows a group, groups
+  int lanes, gpb;         // lanes a group, groups a block
 };
 
-// Group g = blockIdx.x * gpb + threadIdx.x / lanes owns rows [g * rpg,
-// min(n, (g + 1) * rpg)); its thread t owns accesses j = t + k * lanes (k <
-// C) of every row, columns [j * VEC, (j + 1) * VEC).  Every thread of a
-// block walks rpg row slots, a slot past its group's rows (the last group's,
-// or a group past the last) loading and storing nothing, so the block's
-// barrier for groups of several warps is met by all its threads.  MULTI
-// false: one row a group (rpg 1), straight-line code with one register set;
-// true: any rpg, the row slots in pairs with the next row's loads ahead.
-template <typename T, int VEC, int C, bool MULTI>
+// Group g = blockIdx.x * gpb + threadIdx.x / lanes owns row g (none where g
+// >= n); its thread t owns accesses j = t + k * lanes (k < C) of the row,
+// columns [j * VEC, (j + 1) * VEC).  A group past the last row loads and
+// stores nothing but still meets the block's barrier for groups of several
+// warps.
+template <typename T, int VEC, int C>
 __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
   using A = Acc<T, VEC>;
   using R = typename A::R;
-  __shared__ double red[2][FWD_NT / 32];
+  __shared__ double red[FWD_NT / 32];
   const int L = a.lanes, shift = __ffs(L) - 1;  // L a power of two
   const int gi = threadIdx.x >> shift, t = threadIdx.x & (L - 1), lane = threadIdx.x % 32;
   const T* x = static_cast<const T*>(a.x);
   T* y = static_cast<T*>(a.y);
   const int nacc = (a.d + VEC - 1) / VEC;  // accesses a row (VEC > 1: d % VEC == 0)
-  const long long r0 = static_cast<long long>(blockIdx.x * a.gpb + gi) * a.rpg;
-  const long long r1 = min(static_cast<long long>(a.n), r0 + a.rpg);
+  const long long r = static_cast<long long>(blockIdx.x) * a.gpb + gi;
+  const bool live = r < a.n;
+  const long long off = r * a.d;
   // gamma kept in registers, except for one-value accesses above 8 a
   // thread (read where used, from L1), which would spill
   constexpr bool keep_gamma = VEC > 1 || C <= 8;
@@ -171,99 +166,67 @@ __global__ void __launch_bounds__(FWD_NT) rmsnorm_fwd_kernel(const FwdArgs a) {
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
-      gm[k] = j < nacc && r0 < r1 ? A::load(gamma + j * VEC) : R{};
+      gm[k] = j < nacc && live ? A::load(gamma + j * VEC) : R{};
     }
   }
   auto gam = [&](int k, int j) -> R {
     if constexpr (keep_gamma) return gm[k];
     else return A::load(gamma + j * VEC);
   };
-
-  auto fetch = [&](long long r, R(&xv)[C]) {
-    if (r >= r1) return;
-    const long long off = r * a.d;
+  R xv[C];
+  if (live) {
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
       if (j < nacc) xv[k] = A::load(x + off + j * VEC);
     }
-  };
+  }
 
-  // row slot i of the group: row r0 + i where that is below r1
-  auto row = [&](int i, const R(&xv)[C]) {
-    const long long r = r0 + i;
-    const bool live = r < r1;
-    double ss = 0.0;
-    if (live) {
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int j = t + k * L;
-        if (j < nacc) {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const float v = A::get(xv[k], e);
-            ss = fma(static_cast<double>(v), static_cast<double>(v), ss);
-          }
-        }
-      }
-    }
-    // every lane of the block's warps takes every step (the blocks hold
-    // whole warps), so the shuffles need no mask of their own; an offset
-    // below L stays inside the group
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      if (o < L) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if (L > 32) {  // the group's warps add their sums in a fixed order
-      double* slot = red[i & 1] + (gi << (shift - 5));
-      if (lane == 0) slot[t >> 5] = ss;
-      __syncthreads();
-      ss = 0.0;
-#pragma unroll
-      for (int w = 0; w < FWD_NT / 32; ++w)
-        if (w < (L >> 5)) ss += slot[w];
-    }
-    if (!live) return;
-    // the mean rounded once to fp32, then as the model: + eps, rsqrt, in fp32
-    const float rs = rsqrtf(static_cast<float>(ss / a.d) + a.eps);
-    const long long off = r * a.d;
+  double ss = 0.0;
+  if (live) {
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const int j = t + k * L;
       if (j < nacc) {
-        const R gk = gam(k, j);
-        float o[VEC];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);
-        A::store(y + off + j * VEC, o);
+        for (int e = 0; e < VEC; ++e) {
+          const float v = A::get(xv[k], e);
+          ss = fma(static_cast<double>(v), static_cast<double>(v), ss);
+        }
       }
     }
-    if (a.rstd != nullptr && t == 0) a.rstd[r] = rs;
-  };
-
-  R xa[C];
-  if constexpr (!MULTI) {
-    fetch(r0, xa);
-    row(0, xa);
-  } else if constexpr (C * sizeof(R) <= 64) {
-    // row slots in pairs, two register sets in turn: the next row's loads
-    // are in flight while this one is reduced and stored
-    R xb[C];
-    fetch(r0, xa);
-    for (int i = 0; i < a.rpg; i += 2) {
-      if (i + 1 < a.rpg) fetch(r0 + i + 1, xb);
-      row(i, xa);
-      if (i + 1 >= a.rpg) break;
-      if (i + 2 < a.rpg) fetch(r0 + i + 2, xa);
-      row(i + 1, xb);
-    }
-  } else {
-    // a thread's share of a row above 64 bytes: one set, or it would spill
-    for (int i = 0; i < a.rpg; ++i) {
-      fetch(r0 + i, xa);
-      row(i, xa);
+  }
+  // every lane of the block's warps takes every step (the blocks hold whole
+  // warps), so the shuffles need no mask of their own; an offset below L
+  // stays inside the group
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    if (o < L) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (L > 32) {  // the group's warps add their sums in a fixed order
+    double* slot = red + (gi << (shift - 5));
+    if (lane == 0) slot[t >> 5] = ss;
+    __syncthreads();
+    ss = 0.0;
+#pragma unroll
+    for (int w = 0; w < FWD_NT / 32; ++w)
+      if (w < (L >> 5)) ss += slot[w];
+  }
+  if (!live) return;
+  // the mean rounded once to fp32, then as the model: + eps, rsqrt, in fp32
+  const float rs = rsqrtf(static_cast<float>(ss / a.d) + a.eps);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = t + k * L;
+    if (j < nacc) {
+      const R gk = gam(k, j);
+      float o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);
+      A::store(y + off + j * VEC, o);
     }
   }
+  if (a.rstd != nullptr && t == 0) a.rstd[r] = rs;
 }
 
 // ---------------------------------------------------------------------------
@@ -479,37 +442,35 @@ __global__ void __launch_bounds__(COMBINE_NT) rmsnorm_bwd_dgamma(
 using FwdKernel = void (*)(const FwdArgs);
 
 // the forward kernel for `chunks` accesses a thread a row: 1, 2, 4 or
-// (fp32) 8 of 16 bytes, or 1-32 (powers of two) of one value, for one row a
-// group or several; null for any other count
-template <typename T, bool M>
+// (fp32) 8 of 16 bytes, or 1-32 (powers of two) of one value; null for any
+// other count
+template <typename T>
 FwdKernel fwd_kernel(bool vec, int chunks) {
   constexpr int VW = 16 / sizeof(T);
   if (vec) {
     switch (chunks) {
-      case 1: return rmsnorm_fwd_kernel<T, VW, 1, M>;
-      case 2: return rmsnorm_fwd_kernel<T, VW, 2, M>;
-      case 4: return rmsnorm_fwd_kernel<T, VW, 4, M>;
+      case 1: return rmsnorm_fwd_kernel<T, VW, 1>;
+      case 2: return rmsnorm_fwd_kernel<T, VW, 2>;
+      case 4: return rmsnorm_fwd_kernel<T, VW, 4>;
       case 8:
-        if constexpr (VW == 4) return rmsnorm_fwd_kernel<T, VW, 8, M>;
+        if constexpr (VW == 4) return rmsnorm_fwd_kernel<T, VW, 8>;
     }
     return nullptr;
   }
   switch (chunks) {
-    case 1: return rmsnorm_fwd_kernel<T, 1, 1, M>;
-    case 2: return rmsnorm_fwd_kernel<T, 1, 2, M>;
-    case 4: return rmsnorm_fwd_kernel<T, 1, 4, M>;
-    case 8: return rmsnorm_fwd_kernel<T, 1, 8, M>;
-    case 16: return rmsnorm_fwd_kernel<T, 1, 16, M>;
-    case 32: return rmsnorm_fwd_kernel<T, 1, 32, M>;
+    case 1: return rmsnorm_fwd_kernel<T, 1, 1>;
+    case 2: return rmsnorm_fwd_kernel<T, 1, 2>;
+    case 4: return rmsnorm_fwd_kernel<T, 1, 4>;
+    case 8: return rmsnorm_fwd_kernel<T, 1, 8>;
+    case 16: return rmsnorm_fwd_kernel<T, 1, 16>;
+    case 32: return rmsnorm_fwd_kernel<T, 1, 32>;
   }
   return nullptr;
 }
 
-FwdKernel fwd_kernel(int dtype, bool vec, int chunks, bool multi) {
-  if (dtype == 0) return multi ? fwd_kernel<float, true>(vec, chunks)
-                               : fwd_kernel<float, false>(vec, chunks);
-  if (dtype == 1) return multi ? fwd_kernel<__nv_bfloat16, true>(vec, chunks)
-                               : fwd_kernel<__nv_bfloat16, false>(vec, chunks);
+FwdKernel fwd_kernel(int dtype, bool vec, int chunks) {
+  if (dtype == 0) return fwd_kernel<float>(vec, chunks);
+  if (dtype == 1) return fwd_kernel<__nv_bfloat16>(vec, chunks);
   return nullptr;
 }
 
@@ -571,37 +532,32 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // for one-value accesses, else 16 / sizeof(T) (d a multiple of it, x,
 // gamma and y 16-byte aligned); lanes a group (a power of two up to 256),
 // chunks accesses a thread a row, gpb groups a block (lanes * gpb a
-// multiple of 32 up to 256: whole warps),
-// rpg rows a group (the one-row kernel for rpg 1, the several-row one
-// above), groups = ceil(n / rpg) groups in blocks = ceil(groups / gpb)
-// blocks.  One launch; anything else is refused before it.  Returns a
+// multiple of 32 up to 256: whole warps); one row a group, so ceil(n /
+// gpb) blocks.  One launch; anything else is refused before it.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* gamma, void* y,
                            void* rstd, int n, int d, float eps, int vec, int lanes,
-                           int chunks, int gpb, int rpg, int groups, int blocks,
-                           void* stream) {
+                           int chunks, int gpb, void* stream) {
   const int es = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
   if (es == 0 || n <= 0 || d <= 0 || d > MAX_D) return cudaErrorInvalidValue;
   if (vec != 1 && !(vec == 16 / es && d % vec == 0 && aligned16(x) && aligned16(gamma)
                     && aligned16(y)))
     return cudaErrorInvalidValue;
-  const FwdKernel kern = rpg >= 1 ? fwd_kernel(dtype, vec != 1, chunks, rpg > 1) : nullptr;
+  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
   if (kern == nullptr || lanes < 1 || lanes > FWD_NT || (lanes & (lanes - 1)) != 0
       || gpb < 1 || lanes * gpb > FWD_NT || lanes * gpb % 32 != 0
-      || static_cast<long long>(chunks) * lanes * vec < d || rpg < 1
-      || groups != (n + rpg - 1) / rpg || blocks != (groups + gpb - 1) / gpb)
+      || static_cast<long long>(chunks) * lanes * vec < d)
     return cudaErrorInvalidValue;
-  const FwdArgs a = {x, gamma, y, static_cast<float*>(rstd), n, d, eps, lanes, gpb, rpg,
-                     groups};
-  kern<<<blocks, lanes * gpb, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const FwdArgs a = {x, gamma, y, static_cast<float*>(rstd), n, d, eps, lanes, gpb};
+  kern<<<(n + gpb - 1) / gpb, lanes * gpb, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
 // Blocks per SM of the forward kernel at a plan's (dtype, vec, chunks,
-// rpg, lanes, gpb), as the CUDA runtime's occupancy calculator gives them.
-extern "C" int rmsnorm_fwd_occupancy(int dtype, int vec, int chunks, int rpg, int lanes,
-                                     int gpb, int* blocks) {
-  const FwdKernel kern = rpg >= 1 ? fwd_kernel(dtype, vec != 1, chunks, rpg > 1) : nullptr;
+// lanes, gpb), as the CUDA runtime's occupancy calculator gives them.
+extern "C" int rmsnorm_fwd_occupancy(int dtype, int vec, int chunks, int lanes, int gpb,
+                                     int* blocks) {
+  const FwdKernel kern = fwd_kernel(dtype, vec != 1, chunks);
   if (kern == nullptr) return cudaErrorInvalidValue;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, lanes * gpb, 0);
 }

@@ -13,11 +13,12 @@ writes the fp32 ``rstd [n]`` the backward reads only when asked to; the
 backward returns ``dx`` and ``dgamma``, the latter summed over the rows
 without atomics (the same result from run to run).  Two choices are made
 here, from the shapes alone: :func:`fwd_plan` and :func:`bwd_plan`, the
-forward's and the backward's grids.
+forward's and the backward's grids (the backward's also from the SM count).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,7 +44,7 @@ COMBINE_THREADS = 256  # threads of a dgamma combine block
 
 # the plans' entries rmsnorm_fwd (after eps) and rmsnorm_bwd (after n and
 # d) take, in their order
-FWD_ARGS = ("vec", "lanes", "chunks", "gpb", "rpg", "groups", "blocks")
+FWD_ARGS = ("vec", "lanes", "chunks", "gpb")
 BWD_ARGS = ("vec", "wpr", "chunks", "upb", "rpu", "units", "blocks", "ldp", "strip")
 
 FWD = LaunchCount()   # launches of the forward kernel
@@ -54,9 +55,9 @@ _fns = {}
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float] + [i] * 7 + [p]
+    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float] + [i] * 4 + [p]
     lib.rmsnorm_bwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
-    lib.rmsnorm_fwd_occupancy.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.rmsnorm_fwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.rmsnorm_bwd_occupancy.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     for f in (lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_fwd_occupancy,
               lib.rmsnorm_bwd_occupancy):
@@ -96,30 +97,12 @@ def _check_rows(x: torch.Tensor, gamma: torch.Tensor, *others: torch.Tensor) -> 
            "every tensor must lie on one CUDA device")
 
 
-def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
-             lanes: int = 0, rpg: int = 0, gpb: int = 0) -> dict:
-    """The forward's grid, from the shapes and the SM count alone.
-
-    ``vec``: values an access, 16 bytes' worth when d and the bases allow
-    (else 1).  ``lanes``: threads that share a row (a group), a power of two
-    from 8 to 256: with 16-byte accesses the fewest that leave each lane 4
-    accesses of an fp32 row, 1 of a bf16 row of up to 128 accesses (d up to
-    1024) and 2 of a longer one, with one-value accesses 256; ``chunks`` the
-    accesses a lane makes, rounded up to a count the kernel is built for.  A row's summation order follows
-    from these two alone, and they follow from d, the dtype and the
-    alignment: a row gives the same bits in a call of any n.  ``rpg``: rows
-    a group, 1 (the one-row kernel: in the sweep, several rows a group with
-    the next row's loads ahead won at no shape, up to 65536 rows); group g
-    owns rows ``[g * rpg, (g + 1) * rpg)``, ``groups = ceil(n / rpg)``.
-    ``gpb``: groups a block, ``FWD_BLOCK // lanes`` (one where a group is
-    wider); the rule reads no SM count (in the sweep, smaller blocks that
-    spread a small call over more SMs lost).  Nonzero ``lanes``, ``rpg`` or
-    ``gpb`` force
-    that choice, and a forced entry the kernel cannot take raises
-    (``tools/rmsnorm_variants.py --fwd``'s sweep, which set this rule:
-    PERF.md §6).  ``instance``: the kernel's template (vec, chunks from
-    ``FWD_CHUNKS``, several rows a group: the kernel with the next row's
-    loads ahead, else the one-row kernel); ``device_kernels``: 1."""
+@functools.lru_cache(maxsize=None)
+def fwd_grid(d: int, elem_bytes: int, aligned: bool = True, lanes: int = 0,
+             gpb: int = 0) -> tuple:
+    """``(vec, lanes, chunks, gpb)``: :func:`fwd_plan`'s entries that
+    ``rmsnorm_fwd`` takes (``FWD_ARGS``), which do not depend on n;
+    memoised, so the wrapper's host cost is one lookup a call."""
     vw = 16 // elem_bytes
     vec = vw if aligned and d % vw == 0 else 1
     nacc = -(-d // vec)
@@ -135,17 +118,40 @@ def fwd_plan(n: int, d: int, sms: int, elem_bytes: int, aligned: bool = True,
             lanes *= 2
     chunks = next((c for c in FWD_CHUNKS[vec] if c * lanes >= nacc), None)
     _check(chunks is not None, f"no forward kernel for d {d} at {lanes} lanes (vec {vec})")
-    rpg = rpg or 1
-    groups = -(-n // rpg)
     if gpb:
         _check(1 <= gpb and lanes * gpb <= FWD_THREADS and lanes * gpb % 32 == 0,
                f"{gpb} groups of {lanes} lanes a block (whole warps, at most "
                f"{FWD_THREADS} threads)")
     else:
         gpb = max(1, FWD_BLOCK // lanes)
-    return {"vec": vec, "lanes": lanes, "chunks": chunks, "gpb": gpb, "rpg": rpg,
-            "groups": groups, "blocks": -(-groups // gpb), "threads": lanes * gpb,
-            "instance": (vec, chunks, rpg > 1), "device_kernels": 1}
+    return vec, lanes, chunks, gpb
+
+
+def fwd_plan(n: int, d: int, elem_bytes: int, aligned: bool = True, lanes: int = 0,
+             gpb: int = 0) -> dict:
+    """The forward's grid, from the shapes alone.
+
+    ``vec``: values an access, 16 bytes' worth when d and the bases allow
+    (else 1).  ``lanes``: threads that share a row (a group), a power of two
+    from 8 to 256: with 16-byte accesses the fewest that leave each lane 4
+    accesses of an fp32 row, 1 of a bf16 row of up to 128 accesses (d up to
+    1024) and 2 of a longer one, with one-value accesses 256; ``chunks`` the
+    accesses a lane makes, rounded up to a count the kernel is built for.
+    A row's summation order follows from these two alone, and they follow
+    from d, the dtype and the alignment: a row gives the same bits in a call
+    of any n.  A group owns one row (in the sweep, several rows a group with
+    the next row's loads ahead won at no shape, up to 65536 rows).  ``gpb``:
+    groups a block, ``FWD_BLOCK // lanes`` (one where a group is wider); the
+    rule reads no SM count (in the sweep, smaller blocks that spread a small
+    call over more SMs lost); ``blocks = ceil(n / gpb)``.  Nonzero ``lanes``
+    or ``gpb`` force that choice, and a forced entry the kernel cannot take
+    raises (``tools/rmsnorm_variants.py --fwd``'s sweep, which set this
+    rule: PERF.md §6).  ``instance``: the kernel's template (vec, chunks
+    from ``FWD_CHUNKS``); ``device_kernels``: 1."""
+    vec, lanes, chunks, gpb = fwd_grid(d, elem_bytes, aligned, lanes, gpb)
+    return {"vec": vec, "lanes": lanes, "chunks": chunks, "gpb": gpb,
+            "blocks": -(-n // gpb), "threads": lanes * gpb, "instance": (vec, chunks),
+            "device_kernels": 1}
 
 
 def fwd_occupancy(dtype: torch.dtype, plan: dict) -> int:
@@ -155,7 +161,7 @@ def fwd_occupancy(dtype: torch.dtype, plan: dict) -> int:
     _check(dtype in _DTYPE_CODE, f"dtype {dtype}")
     out = ctypes.c_int(0)
     rc = _lib()["fwd_occupancy"](_DTYPE_CODE[dtype], *(plan[k] for k in (
-        "vec", "chunks", "rpg", "lanes", "gpb")), ctypes.byref(out))
+        "vec", "chunks", "lanes", "gpb")), ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"rmsnorm forward occupancy query failed: cudaError {rc}")
     return out.value
@@ -169,11 +175,10 @@ def rmsnorm_fwd_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
     n, d = x.shape
     y = torch.empty_like(x)
     rstd = torch.empty((n,), dtype=torch.float32, device=x.device) if save_rstd else None
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, y))
-    plan = fwd_plan(n, d, sm_count(x.device), x.element_size(), aligned)
+    aligned = x.data_ptr() % 16 == 0 and gamma.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
     rc = invoke(_fwd_fn, x.device, _DTYPE_CODE[x.dtype], x.data_ptr(), gamma.data_ptr(),
                 y.data_ptr(), rstd.data_ptr() if save_rstd else None, n, d, float(eps),
-                *(plan[k] for k in FWD_ARGS))
+                *fwd_grid(d, x.element_size(), aligned))
     if rc != 0:
         raise RuntimeError(f"rmsnorm forward launch failed: cudaError {rc}")
     FWD.launches += 1

@@ -17,11 +17,9 @@ then ablations of the new forward that only time (``fwd_nostores``: no y
 stores; ``fwd_oneload``: every group reads row 0 (hits in L2: what the
 loads from device memory cost); ``fwd_nogamma``: no gamma loads or
 product; ``fwd_gammalate``: gamma read where it is used, not kept in
-registers; ``fwd_noprefetch``: for several rows a group, one register set,
-the next row loaded after this one's stores); then
-``fwd_plan`` forced to every legal lanes, rows a group and groups a block
-(``legal_fwd_plans``), each result held against the plain version: what
-the forward's rule is set from.  Two more shapes join phase 2c's there
+registers); then ``fwd_plan`` forced to every legal lanes and groups a
+block (``legal_fwd_plans``), each result held against the plain version:
+what the forward's rule is set from.  Two more shapes join phase 2c's there
 (``FWD_EXTRA``: qwen3-8b's q rows at a 2048-token prefill and at a B 16
 decode step).  Each library's forward kernels' instruction counts
 (``cuobjdump -sass``) are reported, the listings written to
@@ -103,11 +101,11 @@ VARIANTS = {
 
 # the forward's ablations: substitutions of the source's text (timing only)
 FWD_VARIANTS = {
-    "fwd_nostores": [("        A::store(y + off + j * VEC, o);",
-                      "        if (o[0] == 1234.5f) A::store(y + off + j * VEC, o);")],
-    "fwd_oneload": [("    if (r >= r1) return;\n    const long long off = r * a.d;",
-                     "    if (r >= r1) return;\n    const long long off = 0 * r;")],
-    "fwd_nogamma": [("      gm[k] = j < nacc && r0 < r1 ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
+    "fwd_nostores": [("      A::store(y + off + j * VEC, o);",
+                      "      if (o[0] == 1234.5f) A::store(y + off + j * VEC, o);")],
+    "fwd_oneload": [("      if (j < nacc) xv[k] = A::load(x + off + j * VEC);",
+                     "      if (j < nacc) xv[k] = A::load(x + j * VEC);")],
+    "fwd_nogamma": [("      gm[k] = j < nacc && live ? A::load(gamma + j * VEC) : R{};\n    }\n  }\n"
                      "  auto gam",
                      "      gm[k] = R{};\n    }\n  }\n  auto gam"),
                     ("o[e] = round_to<T>(A::get(xv[k], e) * rs) * A::get(gk, e);",
@@ -116,8 +114,6 @@ FWD_VARIANTS = {
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr",
                        "  constexpr bool keep_gamma = false;\n  const T* gamma = "
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr")],
-    "fwd_noprefetch": [("if constexpr (C * sizeof(R) <= 64) {\n    // row slots in pairs",
-                        "if constexpr (false) {\n    // row slots in pairs")],
 }
 # shapes the forward sweep adds to phase 2c's: qwen3-8b's q rows at a
 # 2048-token prefill and at a B 16 decode step (bf16)
@@ -358,22 +354,19 @@ def write_old(rev: str, path: str) -> int:
     return 0
 
 
-def legal_fwd_plans(K5, n: int, d: int, sms: int, elem_bytes: int):
+def legal_fwd_plans(K5, n: int, d: int, elem_bytes: int):
     """Every plan the forward sweep forces: each lanes a group, a power of
     two, from the fewest the kernel has a build for at d up to the fewest
-    that give each lane at most one access; rows a group 1, 2, 4, 8 (up to
-    n); blocks of 64, 128 or 256 threads (one group where it is wider)."""
+    that give each lane at most one access; blocks of 64, 128 or 256
+    threads (one group where it is wider)."""
     vw = 16 // elem_bytes
     vec = vw if d % vw == 0 else 1
     nacc = -(-d // vec)
     lanes = 1
     while True:
         if any(c * lanes >= nacc for c in K5.FWD_CHUNKS[vec]):
-            for rpg in (1, 2, 4, 8):
-                if rpg > n and rpg > 1:
-                    continue
-                for gpb in sorted({max(1, t // lanes) for t in (64, 128, 256)}):
-                    yield K5.fwd_plan(n, d, sms, elem_bytes, True, lanes, rpg, gpb)
+            for gpb in sorted({max(1, t // lanes) for t in (64, 128, 256)}):
+                yield K5.fwd_plan(n, d, elem_bytes, True, lanes, gpb)
         if lanes >= nacc or lanes >= K5.FWD_THREADS:
             return
         lanes *= 2
@@ -430,7 +423,6 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
     libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
     old = old_entry(torch, libs["fwd_old"])
     report({"fwd_code": sass_sizes(build, {k: libs[k] for k in ("fwd_base", "fwd_old")})})
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     floor_t = torch.empty(1, device="cuda")
     for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES + FWD_EXTRA):
         x, gamma, _ = make_case(torch, n, d, dtype, 300 + i)
@@ -441,7 +433,7 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
         new = lambda x_, gm: K5.rmsnorm_fwd_cuda(x_, gm, save_rstd=True)  # noqa: E731
         want = ref.rmsnorm_ref(x, gamma)
         row = {"case": name, "shape": f"n{n} d{d}", "dtype": dtype,
-               "plan": {k: v for k, v in K5.fwd_plan(n, d, sms, x.element_size()).items()
+               "plan": {k: v for k, v in K5.fwd_plan(n, d, x.element_size()).items()
                         if k in K5.FWD_ARGS},
                "new_err": cs.within(torch, new(x, gamma)[0], want, tol)[0],
                "old_err": cs.within(torch, old(x, gamma)[0], want, tol)[0]}
@@ -457,18 +449,19 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
         t_bytes = ((2 * n * d + d) * x.element_size() + 4 * n) / cs.HBM_BYTES_PER_S
         row["bound_ms"] = 1e3 * max(t_bytes, 4 * n * d / cs.PEAK_OPS["float32"])
         report(row)
-        rule = K5.fwd_plan
+        rule = K5.fwd_grid
         times, bad = {}, []
-        for plan in list(legal_fwd_plans(K5, n, d, sms, x.element_size())):
-            K5.fwd_plan = lambda *a, plan=plan, **k: plan  # noqa: E731
-            key = f"l{plan['lanes']}_c{plan['chunks']}_r{plan['rpg']}_t{plan['threads']}"
+        for plan in list(legal_fwd_plans(K5, n, d, x.element_size())):
+            grid = tuple(plan[k] for k in K5.FWD_ARGS)
+            K5.fwd_grid = lambda *a, grid=grid, **k: grid  # noqa: E731
+            key = f"l{plan['lanes']}_c{plan['chunks']}_t{plan['threads']}"
             try:
                 if not cs.within(torch, new(x, gamma)[0], want, tol)[1]:
                     bad.append(key)
                 times[key] = cs.device_ms(torch, new, sets)
             except RuntimeError as e:          # a plan the card refuses: say which
                 report({"fwd_sweep": name, "refused": key, "error": str(e)})
-        K5.fwd_plan = rule
+        K5.fwd_grid = rule
         best = min(times, key=times.get)
         report({"fwd_sweep": name, "dtype": dtype, "rule": row["plan"], "best": best,
                 "best_ms": times[best], "wrong": bad, "ms": times})
