@@ -2,7 +2,7 @@
 """Two checkouts of the port on one GPU, in turns: the host's cost of K5's
 forward wrapper and the full-size Qwen3 / Yi serving steps it runs in.
 
-    python3 tools/k5_host_ab.py --other DIR [--pairs N] [--configs A,B]   # repository root, on a GPU
+    python3 tools/k5_host_ab.py --other DIR [--pairs N] [--configs A,B] [--norm-cases]   # on a GPU
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a gitignored directory).  The
@@ -20,7 +20,12 @@ builds that checkout's kernels.  A run measures:
   qwen3-moe-30b-a3b, full size in bf16 with random weights, sampled), the
   paged B 16 step at s 0 after 128-token prompts, as phase 9b profiles it:
   the wall time a step over three rounds of 8 unprofiled steps, then
-  ``chip_smoke.profile_step``'s device time, idle share and K5 time.
+  ``chip_smoke.profile_step``'s device time, idle share and K5 time
+  (``--configs ""``: none);
+- with ``--norm-cases``, phase 2c's K5 cases (this checkout's
+  ``chip_smoke.NORM_CASES``) through that checkout's
+  ``chip_smoke.run_norm_case``: its forward's device time a call against
+  ``F.rms_norm``'s, with its gates.
 
 One JSON line per run, the card's name and power limit first; everything
 also goes to ``chiprun_out/k5_host_ab.log``.
@@ -109,8 +114,9 @@ def step_walls(torch, np, R, SpecDecodeEngine, cs, arch) -> dict:
             **{k: r[k] for k in ("device_busy_ms", "k5_ms", "k5_launches", "device_kernels")}}
 
 
-def worker(checkout: str, configs) -> int:
-    """One run in ``checkout``: the wrapper's host time, then the steps."""
+def worker(checkout: str, configs, norm_cases) -> int:
+    """One run in ``checkout``: the wrapper's host time, the steps, then
+    ``norm_cases`` (name, n, d, dtype, grads) through its phase 2c."""
     sys.path.insert(0, os.path.join(checkout, "src"))
     sys.path.insert(0, checkout)
     import numpy as np
@@ -119,10 +125,11 @@ def worker(checkout: str, configs) -> int:
     import chip_smoke as cs
     from repro_torch.configs import registry as R
     from repro_torch.core.spec_decode import SpecDecodeEngine
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import rmsnorm as K5
 
-    build.build(["spec_verify_attn", "paged_verify_attn", "rmsnorm"])
+    build.build(["spec_verify_attn", "paged_verify_attn", "rmsnorm"] if configs
+                else ["rmsnorm"])
     out = {"python_loop_ms": python_loop_ms()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, n, d in HOST_SHAPES:
@@ -133,6 +140,11 @@ def worker(checkout: str, configs) -> int:
             torch, lambda: F.rms_norm(x, (d,), g, 1e-6))
     out["steps"] = {arch: step_walls(torch, np, R, SpecDecodeEngine, cs, arch)
                     for arch in configs}
+    out["norm_cases"] = {}
+    for i, (name, n, d, dtype, grads) in enumerate(norm_cases):
+        row = cs.run_norm_case(torch, K5, ref, f"rmsnorm_{name}", n, d, dtype, grads, 100 + i)
+        out["norm_cases"][name] = {k: row.get(k) for k in ("ms", "library_ms", "max_abs_err",
+                                                           "ok", "row_independent")}
     print(MARK + json.dumps(out), flush=True)
     return 0
 
@@ -142,7 +154,9 @@ def main() -> int:
     ap.add_argument("--other", help="another checkout of the repository")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--configs", default=",".join(CONFIGS))
+    ap.add_argument("--norm-cases", action="store_true")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--cases", help=argparse.SUPPRESS)
     args = ap.parse_args()
     configs = [c for c in args.configs.split(",") if c]
     import torch
@@ -150,7 +164,7 @@ def main() -> int:
         print("k5_host_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        return worker(args.worker, configs)
+        return worker(args.worker, configs, json.loads(args.cases or "[]"))
     if not args.other or not os.path.isfile(os.path.join(args.other, "chip_smoke.py")):
         print("k5_host_ab: --other must name a checkout of the repository", file=sys.stderr)
         return 2
@@ -160,13 +174,14 @@ def main() -> int:
     log = open(os.path.join(ROOT, "chiprun_out", "k5_host_ab.log"), "w")
     sys.stdout = cs.Tee(sys.stdout, log)
     print(cs.smi(), flush=True)
+    cases = json.dumps(cs.NORM_CASES if args.norm_cases else [])
     sides = {"other": os.path.abspath(args.other), "this": ROOT}
     order = [s for i in range(args.pairs)
              for s in (("other", "this") if i % 2 == 0 else ("this", "other"))]
     rc = 0
     for i, side in enumerate(order):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               sides[side], "--configs", ",".join(configs)],
+                               sides[side], "--configs", ",".join(configs), "--cases", cases],
                               cwd=sides[side], capture_output=True, text=True)
         lines = [ln[len(MARK):] for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
         if proc.returncode or not lines:
