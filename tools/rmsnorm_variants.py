@@ -17,7 +17,9 @@ then ablations of the new forward that only time (``fwd_nostores``: no y
 stores; ``fwd_oneload``: every group reads row 0 (hits in L2: what the
 loads from device memory cost); ``fwd_nogamma``: no gamma loads or
 product; ``fwd_gammalate``: gamma read where it is used, not kept in
-registers); then ``fwd_plan`` forced to every legal lanes and groups a
+registers; ``fwd_row32``: the row index in 32 bits; ``fwd_gammafirst``:
+gamma's registers pinned before the sum of squares, so its loads cannot
+sink below it); then ``fwd_plan`` forced to every legal lanes and groups a
 block (``legal_fwd_plans``), each result held against the plain version:
 what the forward's rule is set from.  Two more shapes join phase 2c's there
 (``FWD_EXTRA``: qwen3-8b's q rows at a 2048-token prefill and at a B 16
@@ -114,6 +116,13 @@ FWD_VARIANTS = {
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr",
                        "  constexpr bool keep_gamma = false;\n  const T* gamma = "
                        "static_cast<const T*>(a.gamma);\n  R gm[keep_gamma ? C : 1];\n  if constexpr")],
+    "fwd_row32": [("  const long long r = static_cast<long long>(blockIdx.x) * a.gpb + gi;",
+                   "  const long long r = static_cast<long long>(blockIdx.x * a.gpb + gi);")],
+    "fwd_gammafirst": [("\n  double ss = 0.0;\n  if (live) {",
+                        "\n  if constexpr (keep_gamma && VEC > 1) {\n#pragma unroll\n"
+                        "    for (int k = 0; k < C; ++k)\n      asm volatile(\"\" :: \"r\"(gm[k].x), "
+                        "\"r\"(gm[k].y), \"r\"(gm[k].z), \"r\"(gm[k].w));\n  }\n"
+                        "  double ss = 0.0;\n  if (live) {")],
 }
 # shapes the forward sweep adds to phase 2c's: qwen3-8b's q rows at a
 # 2048-token prefill and at a B 16 decode step (bf16)
@@ -422,7 +431,8 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
     extra = {"fwd_old": open(old_src).read()}
     libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
     old = old_entry(torch, libs["fwd_old"])
-    report({"fwd_code": sass_sizes(build, {k: libs[k] for k in ("fwd_base", "fwd_old")})})
+    report({"fwd_code": sass_sizes(build, {k: libs[k] for k in (
+        "fwd_base", "fwd_old", "fwd_row32", "fwd_gammafirst")})})
     floor_t = torch.empty(1, device="cuda")
     for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES + FWD_EXTRA):
         x, gamma, _ = make_case(torch, n, d, dtype, 300 + i)
