@@ -4,7 +4,7 @@ by one, variants of ``src/repro_torch/kernels/csrc/rmsnorm.cu`` and forced
 plans of either direction, timed in one process.
 
     python3 tools/rmsnorm_variants.py [--profile] [--root DIR]   # on a GPU
-    python3 tools/rmsnorm_variants.py --fwd [--old FILE]         # on a GPU
+    python3 tools/rmsnorm_variants.py --fwd [--old FILE] [--prev FILE]   # on a GPU
     python3 tools/rmsnorm_variants.py --write-old REV [--old FILE]
 
 ``--fwd``: the forward at every one of phase 2c's cases
@@ -13,7 +13,10 @@ new, old) against an older source of the kernel (``--old``, by default
 ``build/variants/rmsnorm_old.cu``, which ``--write-old REV`` writes from
 ``git show REV:src/repro_torch/kernels/csrc/rmsnorm.cu`` before a card run:
 the copy on the card has no git), called through its own C entry point;
-then ablations of the new forward that only time (``fwd_nostores``: no y
+with ``--prev FILE`` (written the same way: ``--write-old REV --old
+FILE``), also a source whose ``rmsnorm_fwd`` takes the plan with rows a
+group (``vec, lanes, chunks, gpb, rpg, groups, blocks``), called at this
+rule's plan with one row a group, in turns with the new one; then ablations of the new forward that only time (``fwd_nostores``: no y
 stores; ``fwd_oneload``: every group reads row 0 (hits in L2: what the
 loads from device memory cost); ``fwd_nogamma``: no gamma loads or
 product; ``fwd_gammalate``: gamma read where it is used, not kept in
@@ -304,7 +307,9 @@ def main() -> int:
     lib = build.build(["rmsnorm"])["rmsnorm"]
     report({"checkout": label, "ptxas": cs.ptxas_report(lib.with_suffix(".log").read_text())})
     if "--fwd" in argv:
-        fwd_sweep(torch, cs, K5, build, report, old_src)
+        prev_src = (os.path.abspath(argv[argv.index("--prev") + 1]) if "--prev" in argv
+                    else None)
+        fwd_sweep(torch, cs, K5, build, report, old_src, prev_src)
         return 0
     profile_cases(torch, cs, K5, report, label)
     if "--profile" in argv or root != ROOT:
@@ -404,6 +409,31 @@ def old_entry(torch, path: str):
     return fwd
 
 
+def prev_entry(torch, K5, path: str):
+    """A source's forward whose C entry point takes the plan with rows a
+    group (``rmsnorm_fwd(dtype, x, gamma, y, rstd, n, d, eps, vec, lanes,
+    chunks, gpb, rpg, groups, blocks, stream)``), called at ``fwd_grid``'s
+    plan with one row a group: a function of (x, gamma) giving (y, rstd)."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_fwd.argtypes = [i, p, p, p, p, i, i, ctypes.c_float] + [i] * 7 + [p]
+    lib.rmsnorm_fwd.restype = i
+    code = {torch.float32: 0, torch.bfloat16: 1}
+
+    def fwd(x, gamma):
+        n, d = x.shape
+        y = torch.empty_like(x)
+        rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
+        vec, lanes, chunks, gpb = K5.fwd_grid(d, x.element_size(), True)
+        rc = lib.rmsnorm_fwd(code[x.dtype], x.data_ptr(), gamma.data_ptr(), y.data_ptr(),
+                             rstd.data_ptr(), n, d, 1e-6, vec, lanes, chunks, gpb, 1, n,
+                             -(-n // gpb), torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"prev rmsnorm forward failed: cudaError {rc}")
+        return y, rstd
+    return fwd
+
+
 def sass_sizes(build, libs: dict) -> dict:
     """Instructions of each forward kernel in each library
     (``cuobjdump -sass``); the listings go to
@@ -422,17 +452,21 @@ def sass_sizes(build, libs: dict) -> dict:
     return sizes
 
 
-def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
+def fwd_sweep(torch, cs, K5, build, report, old_src: str, prev_src=None) -> None:
     """The forward at phase 2c's cases: the older source and the new one in
-    turns beside ``F.rms_norm`` and a one-value fill (the launch floor), the
-    ablations, then every forced plan."""
+    turns beside ``F.rms_norm`` and a one-value fill (the launch floor),
+    ``prev_src``'s forward in turns with the new one, the ablations, then
+    every forced plan."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     extra = {"fwd_old": open(old_src).read()}
+    if prev_src:
+        extra["fwd_prev"] = open(prev_src).read()
     libs = build_variants(build, report, {"fwd_base": [], **FWD_VARIANTS}, extra, kind="fwd")
     old = old_entry(torch, libs["fwd_old"])
+    prev = prev_entry(torch, K5, libs["fwd_prev"]) if prev_src else None
     report({"fwd_code": sass_sizes(build, {k: libs[k] for k in (
-        "fwd_base", "fwd_old", "fwd_row32", "fwd_gammafirst")})})
+        "fwd_base", "fwd_old", "fwd_prev", "fwd_row32", "fwd_gammafirst") if k in libs})})
     floor_t = torch.empty(1, device="cuda")
     for i, (name, n, d, dtype, _) in enumerate(cs.NORM_CASES + FWD_EXTRA):
         x, gamma, _ = make_case(torch, n, d, dtype, 300 + i)
@@ -452,6 +486,11 @@ def fwd_sweep(torch, cs, K5, build, report, old_src: str) -> None:
                         ("floor", lambda x_, gm: floor_t.fill_(0.0)),
                         ("new_again", new), ("old_again", old)):
             row[key + "_ms"] = cs.device_ms(torch, fn, sets)
+        if prev is not None:
+            row["prev_err"] = cs.within(torch, prev(x, gamma)[0], want, tol)[0]
+            for key, fn in (("prev", prev), ("new_turn", new), ("prev_again", prev),
+                            ("new_turn_again", new)):
+                row[key + "_ms"] = cs.device_ms(torch, fn, sets)
         for v in FWD_VARIANTS:
             point_wrapper_at(K5, libs[v])
             row[v + "_ms"] = cs.device_ms(torch, new, sets)
