@@ -25,7 +25,9 @@ builds that checkout's kernels.  A run measures:
 - with ``--norm-cases``, phase 2c's K5 cases (this checkout's
   ``chip_smoke.NORM_CASES``) through that checkout's
   ``chip_smoke.run_norm_case``: its forward's device time a call against
-  ``F.rms_norm``'s, with its gates.
+  ``F.rms_norm``'s, with its gates; then the forward timed again over
+  input sets rotated as ``run_norm_case`` rotates them and as
+  ``tools/rmsnorm_variants.py`` does.
 
 One JSON line per run, the card's name and power limit first; everything
 also goes to ``chiprun_out/k5_host_ab.log``.
@@ -35,12 +37,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MARK = "AB_RESULT "
+MARK = "AB_RESULT "   # tools/paged_serve_ab.run_turns reads the line it starts
 CONFIGS = ("qwen3-8b", "yi-34b", "qwen3-moe-30b-a3b")
 # qwen3-8b's K5 forward calls in a B 16 decode step at s 0: q_norm's rows
 # (16 tokens x 32 heads), k_norm's (16 x 8), a layer norm's (16 x 4096)
@@ -141,10 +142,23 @@ def worker(checkout: str, configs, norm_cases) -> int:
     out["steps"] = {arch: step_walls(torch, np, R, SpecDecodeEngine, cs, arch)
                     for arch in configs}
     out["norm_cases"] = {}
+    fwd = lambda x_, gm, *_: K5.rmsnorm_fwd_cuda(x_, gm, save_rstd=True)  # noqa: E731
     for i, (name, n, d, dtype, grads) in enumerate(norm_cases):
         row = cs.run_norm_case(torch, K5, ref, f"rmsnorm_{name}", n, d, dtype, grads, 100 + i)
         out["norm_cases"][name] = {k: row.get(k) for k in ("ms", "library_ms", "max_abs_err",
                                                            "ok", "row_independent")}
+        # the forward timed again after the case, over sets of (x, gamma, dy,
+        # rstd) as run_norm_case rotates them and over sets of (x, gamma)
+        # alone as tools/rmsnorm_variants.py does
+        dt = getattr(torch, dtype)
+        x = (3 * torch.randn((n, d), generator=gen, device="cuda")).to(dt)
+        g = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dt)
+        dy, rstd = torch.randn_like(x), torch.empty((n,), device="cuda")
+        copies = min(64, max(2, -(-2 * 50_000_000 // (3 * n * d * x.element_size()))))
+        for key, ts in (("ms_four_tensor_sets", (x, g, dy, rstd)), ("ms_two_tensor_sets", (x, g))):
+            sets = [tuple(t.clone() for t in ts) for _ in range(copies)]
+            out["norm_cases"][name][key] = cs.device_ms(torch, fwd, sets)
+            del sets
     print(MARK + json.dumps(out), flush=True)
     return 0
 
@@ -170,28 +184,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from tools.paged_serve_ab import run_turns
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     log = open(os.path.join(ROOT, "chiprun_out", "k5_host_ab.log"), "w")
     sys.stdout = cs.Tee(sys.stdout, log)
     print(cs.smi(), flush=True)
     cases = json.dumps(cs.NORM_CASES if args.norm_cases else [])
-    sides = {"other": os.path.abspath(args.other), "this": ROOT}
-    order = [s for i in range(args.pairs)
-             for s in (("other", "this") if i % 2 == 0 else ("this", "other"))]
-    rc = 0
-    for i, side in enumerate(order):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               sides[side], "--configs", ",".join(configs), "--cases", cases],
-                              cwd=sides[side], capture_output=True, text=True)
-        lines = [ln[len(MARK):] for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
-        if proc.returncode or not lines:
-            print(json.dumps({"run": i, "side": side, "failed": proc.returncode,
-                              "tail": (proc.stdout + proc.stderr)[-3000:]}), flush=True)
-            rc = 1
-            continue
-        print(json.dumps({"run": i, "side": side, "checkout": sides[side],
-                          **json.loads(lines[-1])}), flush=True)
-    return rc
+    return run_turns(os.path.abspath(__file__), args.other, args.pairs,
+                     ["--configs", ",".join(configs), "--cases", cases])
 
 
 if __name__ == "__main__":

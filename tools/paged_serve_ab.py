@@ -95,6 +95,30 @@ def worker(checkout: str) -> int:
     return 0
 
 
+def run_turns(script: str, other: str, pairs: int, worker_args=()) -> int:
+    """``script --worker CHECKOUT *worker_args`` for ``other`` and this
+    checkout in turns (other, this, this, other, ...: ``pairs`` pairs), each
+    in a process of its own started in that checkout; prints one JSON line
+    a run from the worker's last ``MARK`` line, or its failure.  Returns 1
+    if a run failed, else 0."""
+    sides = {"other": os.path.abspath(other), "this": ROOT}
+    order = [s for i in range(pairs)
+             for s in (("other", "this") if i % 2 == 0 else ("this", "other"))]
+    rc = 0
+    for i, side in enumerate(order):
+        proc = subprocess.run([sys.executable, script, "--worker", sides[side], *worker_args],
+                              cwd=sides[side], capture_output=True, text=True)
+        lines = [ln[len(MARK):] for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
+        if proc.returncode or not lines:
+            print(json.dumps({"run": i, "side": side, "failed": proc.returncode,
+                              "tail": (proc.stdout + proc.stderr)[-3000:]}), flush=True)
+            rc = 1
+            continue
+        print(json.dumps({"run": i, "side": side, "checkout": sides[side],
+                          **json.loads(lines[-1])}), flush=True)
+    return rc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="another checkout of the repository")
@@ -117,23 +141,7 @@ def main() -> int:
     log = open(os.path.join(ROOT, "chiprun_out", "paged_serve_ab.log"), "w")
     sys.stdout = cs.Tee(sys.stdout, log)
     print(cs.smi(), flush=True)
-    sides = {"other": os.path.abspath(args.other), "this": ROOT}
-    order = [s for i in range(args.pairs)
-             for s in (("other", "this") if i % 2 == 0 else ("this", "other"))]
-    rc = 0
-    for i, side in enumerate(order):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               sides[side]], cwd=sides[side], capture_output=True, text=True)
-        lines = [ln[len(MARK):] for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
-        if proc.returncode or not lines:
-            print(json.dumps({"run": i, "side": side, "failed": proc.returncode,
-                              "tail": (proc.stdout + proc.stderr)[-3000:]}), flush=True)
-            rc = 1
-            continue
-        print(json.dumps({"run": i, "side": side, "checkout": sides[side],
-                          **json.loads(lines[-1])}), flush=True)
-    return rc
-
+    return run_turns(os.path.abspath(__file__), args.other, args.pairs)
 
 if __name__ == "__main__":
     sys.exit(main())
