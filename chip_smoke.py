@@ -235,9 +235,27 @@ Phases, one report line each (the last line is the JSON verdict):
             the five costliest kernels, K3's and K5's shares) beside the
             weight bytes over 3.35 TB/s.  Phase 2c holds K5 at the
             ``qk_norm`` rows (d 128) too.
+10. mla     deepseek-v2-236b (MLA: the compressed ``ckv``/``krope``
+            cache attended in JAX's absorbed form by plain products; 160
+            experts top-6 and 2 shared experts) on contiguous rings, with
+            its dense draft.  10a: cut to 2 layers at full width, fp32, on
+            the same parameters on the CPU and the card: a B 2 ring
+            prefill's logits and ``ckv``/``krope`` rows and a ring s 3
+            verify's within 2e-3; K5 launched 4 times a layer (the
+            attention, MLP, q-lora and kv norms) and once for the final
+            norm in a prefill, K1 never by the target; speculative (s 3) =
+            greedy (s 0) on the card at the no-drop factor 160/6.  10b:
+            cut to 8 of its 60 layers (``MLA_SERVE_LAYERS``; 65.7 GB of
+            bf16 weights, widths, experts and vocabulary uncut), bf16: the
+            sampled grid and LUT, ``serve_continuous_live`` of 16 sampled
+            requests on 16 contiguous rings of 512 rows with K1 (the
+            draft only) and K5 at exactly ``predicted_launches``, the drop
+            share at 1.25, ring B 16 steps at s 0 and 3 under the profiler
+            with unprofiled walls in turns, and peak memory.  Phase 2c
+            holds K5 at MLA's widths (1536, 512, 5120) too.
 
-Every serving phase now runs K5 (every norm), and phases 4, 6b, 8 and 9
-gate its launches; phase 5 records its time per step.
+Every serving phase now runs K5 (every norm), and phases 4, 6b, 8, 9 and
+10 gate its launches; phase 5 records its time per step.
 
 Each phase's line gives its seconds (``s``).  Every ``torch.profiler``
 trace that a gate reads is taken again, three times at most, while it
@@ -1165,7 +1183,13 @@ NORM_CASES = [("internlm2_train", 1024, 2048, "float32", True),
               # tokens), and q rows at the trainer's B 8, T 128 (fwd + bwd)
               ("qwen3_8b_q_prefill_t256", 8192, 128, "bfloat16", False),
               ("qwen3_8b_k_prefill_t256", 2048, 128, "bfloat16", False),
-              ("qk_norm_train_b8_t128", 16384, 128, "float32", True)]
+              ("qk_norm_train_b8_t128", 16384, 128, "float32", True),
+              # MLA's widths (deepseek-v2-236b, phase 10b): the q-lora norm
+              # (1536) and kv_norm (512) at a 192-token prefill, and the
+              # attention/MLP norms (5120) at a B 16, s 3 verify
+              ("dsv2_q_lora_norm_t192", 192, 1536, "bfloat16", False),
+              ("dsv2_kv_norm_t192", 192, 512, "bfloat16", False),
+              ("dsv2_norm_step_b16_t4", 64, 5120, "bfloat16", False)]
 
 
 def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
@@ -4302,22 +4326,34 @@ def no_drop(cfg):
 
 def k5_per_layer(cfg):
     """K5 calls a decoder layer: the attention and MLP norms, and the q and k
-    norms under ``qk_norm``."""
+    norms under ``qk_norm``; under MLA, ``kv_norm`` and the q-lora norm when
+    ``q_lora_rank`` is set."""
+    if cfg.attn.kind == "mla":
+        return 4 if cfg.attn.q_lora_rank else 3
     return 4 if cfg.attn.qk_norm else 2
 
 
-def predicted_launches(tcfg, dcfg, prefills, s_steps):
-    """K1, K3 and K5 launches of a paged ``serve_continuous_live`` run that
+def k1_per_layer(cfg):
+    """K1 calls a decoder layer's ring attention: one for GQA, none for MLA
+    (its absorbed attention is plain products, as in JAX)."""
+    return 0 if cfg.attn.kind == "mla" else 1
+
+
+def predicted_launches(tcfg, dcfg, prefills, s_steps, paged=True):
+    """K1, K3 and K5 launches of a ``serve_continuous_live`` run that
     admits whole prompts: each admission (``prefill_into``) is a target and
-    a draft prefill on a ring (K1 a layer; K5 a layer's norms and the final
-    norm); each step at s runs s draft forwards (K1 a draft layer, 2 K5 a
-    draft layer and its final norm) and one paged verify of the target (K3
-    a layer, K5 a layer's norms and the final norm)."""
+    a draft prefill on a ring (K1 a layer, none for an MLA target; K5 a
+    layer's norms and the final norm); each step at s runs s draft forwards
+    (K1 a draft layer, 2 K5 a draft layer and its final norm) and one
+    verify of the target (K5 a layer's norms and the final norm), paged (K3
+    a layer) or on the ring (``paged=False``: K1 a layer, none for MLA)."""
     nt, nd = tcfg.n_layers, dcfg.n_layers
     kt, kd = k5_per_layer(tcfg) * nt + 1, 2 * nd + 1
-    drafts = sum(s_steps)
-    return dict(k1=prefills * (nt + nd) + drafts * nd, k3=len(s_steps) * nt,
-                k5=prefills * (kt + kd) + len(s_steps) * kt + drafts * kd)
+    k1t = k1_per_layer(tcfg) * nt
+    drafts, steps = sum(s_steps), len(s_steps)
+    return dict(k1=prefills * (k1t + nd) + drafts * nd + (0 if paged else steps * k1t),
+                k3=steps * nt if paged else 0,
+                k5=prefills * (kt + kd) + steps * kt + drafts * kd)
 
 
 def paged_tokens(eng, tp, dp, toks, lens, s, cache_len=64, block=16):
@@ -4333,10 +4369,13 @@ def paged_tokens(eng, tp, dp, toks, lens, s, cache_len=64, block=16):
     return state.out[:, :eng.max_new].cpu().numpy()
 
 
-def card_vs_cpu_logits(torch, np, m, tcfg, dcfg, tps, dps, toks, lens, feed):
+def card_vs_cpu_logits(torch, np, m, tcfg, dcfg, tps, dps, toks, lens, feed, paged=True):
     """Prefill logits, a ring s = 3 verify's and a paged s = 3 verify's
     (after ``prefill_into`` of each prompt), on the CPU and on the card from
-    the same parameters.  Returns {name: (cpu, card)}."""
+    the same parameters.  ``paged=False``: no paged verify, and the ring
+    cache's leaves after the prefill and after the verify too, as
+    ``prefill_<leaf>`` and ``ring_s3_<leaf>`` (``pos`` among them).
+    Returns {name: (cpu, card)}."""
     out = {}
     for dev in ("cpu", "cuda"):
         tp, dp = tps[dev], dps[dev]
@@ -4346,14 +4385,19 @@ def card_vs_cpu_logits(torch, np, m, tcfg, dcfg, tps, dps, toks, lens, feed):
         f = torch.from_numpy(feed).to(dev)
         cache = model.init_cache(t.shape[0], 64, torch.float32, dev)
         pre, cache, seq = model.prefill(tp, t, cache, ln)
+        rows = [] if paged else [(f"prefill_{k}", v.clone()) for k, v in cache.items()]
         ring, _ = model.decode_step(tp, f, cache, seq + 1)
-        eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=8, dtype=torch.float32, device=dev)
-        st = eng.init_slots(t.shape[0], 64, block_size=16)
-        for b in range(t.shape[0]):
-            st = eng.prefill_into(tp, dp, st, b, toks[b, :lens[b]], int(lens[b]), 64)
-        cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).to(dev)
-        paged, _ = model.decode_step(tp, f, st.tcache, st.seq_lens, cu)
-        for name, x in (("prefill", pre), ("ring_s3", ring), ("paged_s3", paged)):
+        res = [("prefill", pre), ("ring_s3", ring)]
+        if paged:
+            eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=8, dtype=torch.float32, device=dev)
+            st = eng.init_slots(t.shape[0], 64, block_size=16)
+            for b in range(t.shape[0]):
+                st = eng.prefill_into(tp, dp, st, b, toks[b, :lens[b]], int(lens[b]), 64)
+            cu = torch.from_numpy(m.host_cu_blocks(st.paged.device_tables())).to(dev)
+            res.append(("paged_s3", model.decode_step(tp, f, st.tcache, st.seq_lens, cu)[0]))
+        else:
+            res += rows + [(f"ring_s3_{k}", v) for k, v in cache.items()]
+        for name, x in res:
             out.setdefault(name, []).append(x.float().cpu())
     return out
 
@@ -4544,11 +4588,15 @@ def drop_share(torch, m, seen):
                 share_real=tot["dropped_real"] / max(tot["assignments_real"], 1))
 
 
-def qwen_serve(torch, np, R, m, arch):
-    """9b for one config: full size in bf16 with its dense draft."""
+def qwen_serve(torch, np, R, m, arch, n_layers=None, ring=False, label="qwen_serve"):
+    """9b for one config: full size in bf16 with its dense draft, on a paged
+    pool.  10b: ``n_layers`` cuts the target's depth (widths uncut) and
+    ``ring`` serves on contiguous rings of 512 rows instead of the pool."""
     import copy
     bf16 = torch.bfloat16
     tcfg, dcfg = R.get_config(arch), R.get_draft_config(arch)
+    if n_layers is not None:
+        tcfg = tcfg.with_(n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # sampled (random weights accept nothing greedily): the grid and the
@@ -4557,10 +4605,12 @@ def qwen_serve(torch, np, R, m, arch):
     gen = torch.Generator(device="cuda").manual_seed(11)
     tp = eng.target.init(gen, bf16, "cuda")
     dp = eng.draft.init(gen, bf16, "cuda")
-    eng.load_kernels(paged=True)
+    eng.load_kernels(paged=not ring)
     torch.cuda.synchronize()
     weight_bytes = sum(t.numel() * t.element_size() for t in m.leaves(tp))
-    line = dict(arch=arch, weights_gb=weight_bytes / 1e9, init_s=time.perf_counter() - t0,
+    line = dict(arch=arch, n_layers=tcfg.n_layers, weights_gb=weight_bytes / 1e9,
+                draft_weights_gb=sum(t.numel() * t.element_size() for t in m.leaves(dp)) / 1e9,
+                init_s=time.perf_counter() - t0,
                 weight_floor_ms=1e3 * weight_bytes / HBM_BYTES_PER_S)
     # ---- the per-token latency grid and its LUT ----
     rng = np.random.default_rng(1)
@@ -4577,13 +4627,18 @@ def qwen_serve(torch, np, R, m, arch):
                                    for b, d in lut.per_token.items()},
                 lut=dict(lut.table))
     torch.cuda.empty_cache()
-    # ---- the pool: as many blocks of 16 as memory allows, up to the worst case ----
-    a = tcfg.attn
-    per_block = tcfg.n_layers * 2 * 16 * a.n_kv_heads * a.head_dim * 2
-    free = torch.cuda.mem_get_info()[0]
-    blocks = int(min(16 * 512 // 16, (free - 6e9) // per_block))
-    line["blocks"] = blocks
-    check(blocks >= 144, f"{arch}: {blocks} blocks of 16 fit the card, fewer than 144")
+    # ---- the pool: as many blocks of 16 as memory allows, up to the worst
+    # case; or 16 contiguous rings of 512 rows ----
+    if ring:
+        pool = {}
+    else:
+        a = tcfg.attn
+        per_block = tcfg.n_layers * 2 * 16 * a.n_kv_heads * a.head_dim * 2
+        free = torch.cuda.mem_get_info()[0]
+        blocks = int(min(16 * 512 // 16, (free - 6e9) // per_block))
+        line["blocks"] = blocks
+        check(blocks >= 144, f"{arch}: {blocks} blocks of 16 fit the card, fewer than 144")
+        pool = dict(block_size=16, num_blocks=blocks)
     # ---- serve_continuous_live, sampled, 16 requests of phase 6b's trace ----
     rec = dict(prefills=0, s=[], accepted=0, proposed=0)
     pi, st = eng.prefill_into, eng.step
@@ -4610,8 +4665,8 @@ def qwen_serve(torch, np, R, m, arch):
     eng.prefill_into, eng.step = prefill_into, step
     ctrl = m.AdaptiveController(lut=m.SpeculationLUT(dict(lut.table)))
     reqs = continuous_requests(np, m.Request, tcfg.vocab_size, 16, (64, 192), 32, 0.05, 23)
-    be = m.ContinuousEngineBackend(eng, tp, dp, capacity=16, cache_len=512, block_size=16,
-                                   num_blocks=blocks, collect_outputs=True,
+    be = m.ContinuousEngineBackend(eng, tp, dp, capacity=16, cache_len=512, **pool,
+                                   collect_outputs=True,
                                    warm_s=sorted(set(lut.table.values())),
                                    s_cap=m.controller_s_cap(ctrl))
     seen, restore = (record_router_inputs(m, rows) if tcfg.moe is not None
@@ -4626,7 +4681,7 @@ def qwen_serve(torch, np, R, m, arch):
         restore()
     wall = time.perf_counter() - t0
     launches = launch_counts(m)
-    want = predicted_launches(tcfg, dcfg, rec["prefills"], rec["s"])
+    want = predicted_launches(tcfg, dcfg, rec["prefills"], rec["s"], paged=not ring)
     done = [r for r in res.requests if r.finish is not None and r.n_generated == r.max_new]
     outs = [np.asarray(be.outputs[r.rid]) for r in res.requests if r.rid in be.outputs]
     in_vocab = bool(outs) and all(o.size and 0 <= o.min() and o.max() < tcfg.vocab_size
@@ -4642,33 +4697,47 @@ def qwen_serve(torch, np, R, m, arch):
     eng.__dict__.pop("prefill_into")
     eng.__dict__.pop("step")
     torch.cuda.empty_cache()
-    # ---- step profiles at B 16, s 0 and 3, on a paged pool ----
+    # ---- step profiles at B 16, s 0 and 3, on the pool or the rings ----
     eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=64, dtype=bf16, device="cuda", sample=True)
-    state = eng.init_slots(16, 512, block_size=16, num_blocks=blocks)
+    state = eng.init_slots(16, 512, **pool)
     ptoks = np.random.default_rng(5).integers(0, tcfg.vocab_size, (16, 128)).astype(np.int32)
     for slot in range(16):
         state = eng.prefill_into(tp, dp, state, slot, ptoks[slot], 128, 512)
     prof = {}
+    where = "ring" if ring else "paged"
     for s in (0, 3):
         keep = []
-        r = profile_step(torch, eng, tp, dp, f"{arch}_paged_b16_s{s}", state, s, keep=keep,
+        r = profile_step(torch, eng, tp, dp, f"{arch}_{where}_b16_s{s}", state, s, keep=keep,
                          host=False)
         state = keep[0]
         busy = r["device_busy_ms"]
-        prof[f"paged_b16_s{s}"] = dict(
+        prof[f"{where}_b16_s{s}"] = dict(
             wall_ms=r["wall_ms"], device_busy_ms=busy, idle_share=r["idle_share"],
             device_kernels=r["device_kernels"], top5_device_ms=dict(
                 list(r["top_device_ms"].items())[:5]),
+            k1_share=r["k1_ms"] / busy if busy else None,
             k3_share=r["paged_kernel_ms"] / busy if busy else None,
             k5_share=r["k5_ms"] / busy if busy else None,
             k3_device_kernels=r["paged_device_kernels"], k5_launches=r["k5_launches"],
             profile_takes=r["profile_takes"], profile_lost=r["profile_lost"])
+    if ring:
+        # unprofiled walls in turns (s 0, 3, 3, 0): the host's speed drifts
+        # within a process by more than the two steps differ
+        for s in (0, 3, 3, 0):
+            prof[f"ring_b16_s{s}"].setdefault("wall_ms_turns", [])
+            state, _ = eng.step(tp, dp, state, s)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(4):
+                state, _ = eng.step(tp, dp, state, s)
+            torch.cuda.synchronize()
+            prof[f"ring_b16_s{s}"]["wall_ms_turns"].append(1e3 * (time.perf_counter() - t1) / 4)
     line["profiles"] = prof
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     line["card_memory_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
     del state, eng, tp, dp
     torch.cuda.empty_cache()
-    print("  " + json.dumps({"qwen_serve": line}, default=float), flush=True)
+    print("  " + json.dumps({label: line}, default=float), flush=True)
     sv = line["serve"]
     check(sv["finished"] == len(reqs), f"{arch}: {len(reqs) - sv['finished']} requests did "
                                        "not finish")
@@ -4682,6 +4751,76 @@ def qwen_serve(torch, np, R, m, arch):
 
 def phase_qwen_serve(torch, np, R, m):
     return {arch: qwen_serve(torch, np, R, m, arch) for arch in QWEN_YI}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: MLA (deepseek-v2-236b) on contiguous rings
+
+
+MLA_ARCH = "deepseek-v2-236b"
+# 10b serves deepseek-v2-236b cut to 8 of its 60 layers: 65.7 GB of bf16
+# weights (3.97 B parameters a layer, 1.05 B in embed/unembed); 60 layers
+# would be about 479 GB.  Widths, the 160 experts, top-6 and the vocabulary
+# are the config's.
+MLA_SERVE_LAYERS = 8
+
+
+def phase_mla_parity(torch, np, R, m, tree_to):
+    """10a: deepseek-v2-236b and its draft cut to 2 layers at full width,
+    fp32, on the same parameters on the CPU and the card (drawn on the card,
+    about 36 GB each side): a B 2 ring prefill and an s 3 verify (logits,
+    ``ckv``/``krope`` rows, positions), K5's launches in a prefill (and no
+    K1), and speculative = greedy on the card at the no-drop factor."""
+    f32 = torch.float32
+    tcfg = R.get_config(MLA_ARCH).with_(n_layers=2)
+    dcfg = R.get_draft_config(MLA_ARCH).with_(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tp = m.DecoderLM(tcfg).init(gen, f32, "cuda")
+    dp = m.DecoderLM(dcfg).init(gen, f32, "cuda")
+    tp_cpu, dp_cpu = tree_to(tp, "cpu"), tree_to(dp, "cpu")
+    rng = np.random.default_rng(17)
+    B = 2
+    toks = rng.integers(0, tcfg.vocab_size, (B, 16)).astype(np.int64)
+    lens = np.array([16, 11], np.int32)
+    feed = rng.integers(0, tcfg.vocab_size, (B, 4)).astype(np.int32)
+    tol = 2e-3   # phase 9a's card-against-CPU rule: fp32 sums in another order
+    out = card_vs_cpu_logits(torch, np, m, tcfg, dcfg, {"cpu": tp_cpu, "cuda": tp},
+                             {"cpu": dp_cpu, "cuda": dp}, toks, lens, feed, paged=False)
+    del tp_cpu, dp_cpu
+    errs = {k: float((g - c).abs().max()) for k, (c, g) in out.items()}
+    ok = all(bool(((g - c).abs() <= tol + tol * c.abs()).all()) for c, g in out.values())
+    pos_equal = all(errs[k] == 0 for k in errs if k.endswith("_pos"))
+    # K5's calls a layer and K1's (none: the target's attention is products),
+    # counted around one prefill on the card
+    m.K5.FWD.launches = m.K1.KERNEL.launches = 0
+    model = m.DecoderLM(tcfg)
+    model.prefill(tp, torch.from_numpy(toks).cuda(), model.init_cache(B, 64, f32, "cuda"),
+                  torch.from_numpy(lens).cuda())
+    torch.cuda.synchronize()
+    k5, k1 = m.K5.FWD.launches, m.K1.KERNEL.launches
+    # speculative (s 3) = greedy (s 0) on the ring, at the no-drop factor
+    eng = m.SpecDecodeEngine(no_drop(tcfg), dcfg, max_new=16, dtype=f32, device="cuda")
+    got = {s: eng.generate(tp, dp, toks.astype(np.int32), lens, s=s, cache_len=64)[0]
+           for s in (0, 3)}
+    spec = bool(np.array_equal(got[0], got[3]))
+    line = dict(arch=MLA_ARCH, n_layers=2, max_abs_err=errs, tol=tol,
+                k5_launches_prefill=k5, k5_expected=k5_per_layer(tcfg) * 2 + 1,
+                k1_launches_prefill=k1, no_drop_capacity_factor=no_drop(tcfg).moe.capacity_factor,
+                spec_equals_greedy=spec)
+    del eng, tp, dp
+    print("  " + json.dumps({"mla_parity": line}), flush=True)
+    check(ok and pos_equal, f"MLA card vs CPU differ: {errs} (tol {tol})")
+    check(k5 == line["k5_expected"] and k1 == 0,
+          f"MLA: a 2-layer prefill launched K5 {k5} times (not {line['k5_expected']}) "
+          f"and K1 {k1} times (not 0)")
+    check(spec, "MLA: speculative tokens differ from greedy")
+    return line
+
+
+def phase_mla_serve(torch, np, R, m):
+    """10b: ``qwen_serve`` at ``MLA_SERVE_LAYERS`` layers on contiguous rings."""
+    return qwen_serve(torch, np, R, m, MLA_ARCH, n_layers=MLA_SERVE_LAYERS, ring=True,
+                      label="mla_serve")
 
 
 def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba_launches):
@@ -5065,6 +5204,15 @@ def main() -> int:
     qserve = phase_qwen_serve(torch, np, R, m)
     done("qwen_serve")
     qlaunch = {a: q["serve"]["launches"] for a, q in qserve.items()}
+    torch.cuda.empty_cache()
+
+    # ---- 10. deepseek-v2-236b (MLA) on contiguous rings: card vs CPU, then 8 layers ----
+    phase_mla_parity(torch, np, R, m, tree_to)
+    done("mla_parity")
+    torch.cuda.empty_cache()
+    dserve = phase_mla_serve(torch, np, R, m)
+    done("mla_serve")
+    mla_launch = dserve["serve"]["launches"]
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
@@ -5146,12 +5294,20 @@ def main() -> int:
         if key:
             row["launches_qwen_yi"] = {a: q[key] for a, q in qlaunch.items()}
             row["launches_qwen_yi_from"] = "phase 9b, serve_continuous_live at full size"
+        # phase 10b's launches on deepseek-v2-236b's ring serving run (K1:
+        # the draft's alone), and K5's rows at MLA's widths
+        if key in ("k1", "k5"):
+            row["launches_mla"] = mla_launch[key]
+            row["launches_mla_from"] = (f"phase 10b, serve_continuous_live of {MLA_ARCH} at "
+                                        f"{MLA_SERVE_LAYERS} layers on contiguous rings")
         if row["name"] == "rmsnorm_fwd":
-            row["qk_norm"] = [{k: r[k] for k in ("case", "shape", "dtype", "max_abs_err", "ms",
-                                                 "plain_ms", "library_ms", "bound_ms",
-                                                 "bound_by", "fwd_plan", "row_independent")}
+            norm_keys = ("case", "shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                         "library_ms", "bound_ms", "bound_by", "fwd_plan", "row_independent")
+            row["qk_norm"] = [{k: r[k] for k in norm_keys}
                               for r in trows if r["case"].startswith(("rmsnorm_qwen3",
                                                                       "rmsnorm_qk_norm"))]
+            row["mla"] = [{k: r[k] for k in norm_keys}
+                          for r in trows if r["case"].startswith("rmsnorm_dsv2")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)

@@ -1,10 +1,10 @@
 """Configuration dataclasses for the families the port covers: dense GQA
-decoders (with Qwen3's per-head q/k norm), mixture-of-experts GQA decoders
-and Mamba-2 (SSD).
+decoders (with Qwen3's per-head q/k norm), mixture-of-experts decoders with
+GQA or MLA (DeepSeek-V2's multi-head latent attention) and Mamba-2 (SSD).
 
-The GQA, MoE and SSM parts of ``repro.configs.base``, cut to the fields
-the port's models, engine and launchers read (untied embeddings, no MLA,
-no modality prefix; the dtype is the caller's).  Configs are frozen
+The attention, MoE and SSM parts of ``repro.configs.base``, cut to the
+fields the port's models, engine and launchers read (untied embeddings, no
+modality prefix; the dtype is the caller's).  Configs are frozen
 dataclasses.
 """
 from __future__ import annotations
@@ -16,12 +16,22 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class AttnConfig:
+    kind: str = "gqa"              # "gqa" | "mla"
     n_heads: int = 8
     n_kv_heads: int = 8
     head_dim: int = 128
     qk_norm: bool = False          # Qwen3-style per-head RMSNorm on q,k
     rope_theta: float = 10_000.0
     window: Optional[int] = None   # sliding-window size; None = full causal
+    # --- MLA (DeepSeek-V2) ---
+    kv_lora_rank: int = 0          # compressed KV dim (c_kv)
+    q_lora_rank: int = 0           # 0 = full-rank q projection
+    rope_head_dim: int = 64        # decoupled RoPE key/query dim
+    v_head_dim: int = 0            # defaults to head_dim when 0
+
+    @property
+    def vdim(self) -> int:
+        return self.v_head_dim or self.head_dim
 
 
 @dataclass(frozen=True)

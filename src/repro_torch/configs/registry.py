@@ -1,7 +1,7 @@
 """``--arch <id>`` resolution for the port: the paper's OPT pair, yi-9b,
-yi-34b, qwen3-8b, qwen3-moe-30b-a3b, internlm2-1.8b (the training
-launcher's default) and mamba2-1.3b; and ``build_model``, the model class
-for a config's family."""
+yi-34b, qwen3-8b, qwen3-moe-30b-a3b, deepseek-v2-236b (MLA),
+internlm2-1.8b (the training launcher's default) and mamba2-1.3b; and
+``build_model``, the model class for a config's family."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,7 @@ _MODULES: Dict[str, str] = {
     "yi-34b": "repro_torch.configs.yi_34b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }

@@ -1,8 +1,18 @@
-"""GQA decoder on a contiguous ring KV cache or a paged KV pool: the GQA
-branch of ``repro.models.transformer.DecoderLM``, dense (the OPT pair, the
-yi family, internlm2, qwen3-8b) or mixture-of-experts (qwen3-moe-30b-a3b,
-``models/moe.py``), with Qwen3's per-head q/k RMSNorm where the config
-asks for it (``qk_norm``: after the projections, before RoPE).
+"""Decoder on a contiguous ring KV cache or a paged KV pool: the port of
+``repro.models.transformer.DecoderLM``, dense (the OPT pair, the yi family,
+internlm2, qwen3-8b) or mixture-of-experts (qwen3-moe-30b-a3b,
+deepseek-v2-236b; ``models/moe.py``), with Qwen3's per-head q/k RMSNorm
+where the config asks for it (``qk_norm``: after the projections, before
+RoPE).
+
+Attention is GQA, or DeepSeek-V2's MLA (``attn.kind == "mla"``): a
+rank-compressed cache of ``ckv`` rows (``kv_lora_rank`` wide, RMS-normed)
+and one decoupled RoPE key row ``krope`` a token, attended in JAX's
+absorbed form (``q_nope @ W_uk`` scored against ``ckv``, the output
+``p @ ckv`` expanded by ``W_uv``) with plain products, as JAX computes it
+outside any Pallas kernel.  MLA serves on the contiguous ring
+(``prefill``, ``decode_step``, ``prefill_chunk``); its paged pool, the
+training ``forward`` and ``prefill_flash`` raise ``NotImplementedError``.
 
 Entry points:
   ``forward``        full-sequence forward for training and scoring
@@ -10,7 +20,7 @@ Entry points:
                      differentiable)
   ``prefill``        full-prompt forward that also populates a ring cache
   ``prefill_flash``  the same contract, attention through K4 over the
-                     prompt's own K/V, then one cache write per layer
+                     prompt's own K/V, then one cache write per layer (GQA)
   ``decode_step``    incremental forward of T new tokens against the cache
                      (T = 1 for plain decode, T = s+1 for speculative verify)
   ``prefill_chunk``  one prefill chunk written at ``offset ..`` and attending
@@ -36,6 +46,7 @@ CUDA tensors, their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -67,7 +78,8 @@ def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _layer(cache: Dict, i: int) -> Dict:
     """Layer ``i``'s row leaves of a cache (``k``, ``v`` and, in an int8
-    cache, ``k_scale``, ``v_scale``): views, so writes land in the cache."""
+    cache, ``k_scale``, ``v_scale``; ``ckv``, ``krope`` in an MLA cache):
+    views, so writes land in the cache."""
     return {name: t[i] for name, t in cache.items() if name not in _SHARED}
 
 
@@ -80,6 +92,21 @@ def _stored(lc: Dict, k_new: torch.Tensor, v_new: torch.Tensor) -> Dict:
     codes, scales = _quant_rows(torch.stack([k_new, v_new]))
     scales = scales.to(lc["k_scale"].dtype)
     return {"k": codes[0], "v": codes[1], "k_scale": scales[0], "v_scale": scales[1]}
+
+
+def _write_rows(lc: Dict, new: Dict, bidx: torch.Tensor, rows: torch.Tensor,
+                valid: Optional[torch.Tensor]) -> None:
+    """Write each leaf of ``new`` (rows ``[B, T, ...]`` as the layer cache
+    ``lc`` stores them) at ``lc[name][bidx, rows]``, in place.  A column
+    outside ``valid`` [B,T] writes its row's old value back: the ring has
+    no row to drop a write into, as the JAX package's ``mode="drop"``
+    does, so that row is left as it was."""
+    B, T = rows.shape
+    for name, t in new.items():
+        if valid is not None:
+            keep = valid.view(B, T, *(1,) * (t.dim() - 2))
+            t = torch.where(keep, t, lc[name][bidx, rows])
+        lc[name][bidx, rows] = t
 
 
 def _unbind(tree: Dict) -> Dict:
@@ -105,12 +132,23 @@ class DecoderLM:
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in ("dense", "moe") or cfg.attn is None or (
-                (cfg.family == "moe") != (cfg.moe is not None)):
+                (cfg.family == "moe") != (cfg.moe is not None)) or (
+                cfg.attn.kind not in ("gqa", "mla")):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers dense and MoE GQA decoders only; MLA "
-                "and the other families are not ported yet (ROADMAP queue 1, item 12)")
+                f"{cfg.name}: the port covers dense and MoE decoders with GQA or MLA "
+                "only; the other families are not ported yet (ROADMAP queue 1, item 12)")
         self.cfg = cfg
         self.padded_vocab = pad_vocab(cfg.vocab_size)
+        self.mla = cfg.attn.kind == "mla"
+
+    def _no_mla(self, what: str) -> None:
+        """Raise for an MLA entry point that needs K4 at MLA's head dims."""
+        if self.mla:
+            raise NotImplementedError(
+                f"{what} of an MLA model runs flash attention at q/k head dim "
+                f"{self.cfg.attn.head_dim + self.cfg.attn.rope_head_dim} and v "
+                f"{self.cfg.attn.vdim}, which K4 does not take yet (ROADMAP queue 2, "
+                "head dims); MLA serves through prefill, decode_step and prefill_chunk")
 
     # ------------------------------------------------------------------
     # parameters
@@ -122,14 +160,30 @@ class DecoderLM:
         layer: Dict = {
             "attn_norm": ParamDef((d,), init="ones", stacked=True),
             "mlp_norm": ParamDef((d,), init="ones", stacked=True),
-            "wq": ParamDef((d, H, hd), stacked=True),
-            "wk": ParamDef((d, KVH, hd), stacked=True),
-            "wv": ParamDef((d, KVH, hd), stacked=True),
-            "wo": ParamDef((H, hd, d), stacked=True),
         }
-        if a.qk_norm:
-            layer["q_norm"] = ParamDef((hd,), init="ones", stacked=True)
-            layer["k_norm"] = ParamDef((hd,), init="ones", stacked=True)
+        if self.mla:
+            rd, lr, vd = a.rope_head_dim, a.kv_lora_rank, a.vdim
+            if a.q_lora_rank:
+                # MLA's q_norm is the q-lora norm, [q_lora_rank] (Qwen3's is per head)
+                layer["wq_a"] = ParamDef((d, a.q_lora_rank), stacked=True)
+                layer["q_norm"] = ParamDef((a.q_lora_rank,), init="ones", stacked=True)
+                layer["wq_b"] = ParamDef((a.q_lora_rank, H, hd + rd), stacked=True)
+            else:
+                layer["wq"] = ParamDef((d, H, hd + rd), stacked=True)
+            layer["w_dkv"] = ParamDef((d, lr), stacked=True)
+            layer["kv_norm"] = ParamDef((lr,), init="ones", stacked=True)
+            layer["w_krope"] = ParamDef((d, rd), stacked=True)
+            layer["w_uk"] = ParamDef((lr, H, hd), stacked=True)
+            layer["w_uv"] = ParamDef((lr, H, vd), stacked=True)
+            layer["wo"] = ParamDef((H, vd, d), stacked=True)
+        else:
+            layer["wq"] = ParamDef((d, H, hd), stacked=True)
+            layer["wk"] = ParamDef((d, KVH, hd), stacked=True)
+            layer["wv"] = ParamDef((d, KVH, hd), stacked=True)
+            layer["wo"] = ParamDef((H, hd, d), stacked=True)
+            if a.qk_norm:
+                layer["q_norm"] = ParamDef((hd,), init="ones", stacked=True)
+                layer["k_norm"] = ParamDef((hd,), init="ones", stacked=True)
         if c.moe is not None:
             layer["moe"] = moe.moe_defs(c)
         else:
@@ -157,9 +211,19 @@ class DecoderLM:
                    device: torch.device | str = "cuda") -> Dict:
         """Ring cache: k/v ``[nL, B, L, KVH, hd]`` in ``dtype``, or int8 with
         ``k_scale``/``v_scale`` ``[nL, B, L, KVH]`` in ``dtype`` under
-        ``cfg.kv_quant``; pos ``[B, L]``, -1 unwritten."""
+        ``cfg.kv_quant``; pos ``[B, L]``, -1 unwritten.  An MLA cache holds
+        ``ckv [nL, B, L, kv_lora_rank]`` and ``krope [nL, B, L,
+        rope_head_dim]`` in ``dtype`` instead of k/v, whatever
+        ``kv_quant`` says (it is already rank-compressed), as in JAX."""
         c, a = self.cfg, self.cfg.attn
         device = resolve_device(device)
+        if self.mla:
+            rows = (c.n_layers, batch, cache_len)
+            return {"ckv": torch.zeros((*rows, a.kv_lora_rank), dtype=dtype, device=device),
+                    "krope": torch.zeros((*rows, a.rope_head_dim), dtype=dtype,
+                                         device=device),
+                    "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                                      device=device)}
         return self._kv_leaves((c.n_layers, batch, cache_len, a.n_kv_heads), dtype, device,
                                pos=(batch, cache_len))
 
@@ -192,7 +256,13 @@ class DecoderLM:
         Block ``num_blocks`` is a trash block that no table ever names: the
         writes the JAX package drops (``mode="drop"`` at an out-of-range
         block) land there instead, since an in-place index write has no drop
-        mode.  Compare ``pos[:num_blocks]``."""
+        mode.  Compare ``pos[:num_blocks]``.
+
+        An MLA model has no paged pool, as in JAX: it raises."""
+        if self.mla:
+            raise NotImplementedError(
+                "paged KV does not support MLA's compressed cache (neither does the JAX "
+                "package's init_paged_cache); MLA serves on the contiguous ring")
         c, a = self.cfg, self.cfg.attn
         device = resolve_device(device)
         return self._kv_leaves((c.n_layers, num_blocks + 1, block_size, a.n_kv_heads),
@@ -227,25 +297,71 @@ class DecoderLM:
         holds the new rows' positions.
 
         ``valid`` [B,T] marks the columns to write: a column outside it
-        writes its row's old value back, codes and scales alike (the ring
-        has no row to drop a write into, as the JAX package's
-        ``mode="drop"`` does), so that row is left as it was.
-        ``rows_limit`` bounds the attended rows to the first ``rows_limit``
-        of the ring; the writes still land anywhere."""
+        writes its row's old value back, codes and scales alike
+        (``_write_rows``).  ``rows_limit`` bounds the attended rows to the
+        first ``rows_limit`` of the ring; the writes still land anywhere.
+        An MLA model attends through :meth:`_attn_mla`."""
+        if self.mla:
+            return self._attn_mla(lp, x, positions, lc, pos_arr, rows, rope, valid,
+                                  rows_limit)
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
         bidx = torch.arange(B, device=x.device)[:, None]
-        new = _stored(lc, k_new, v_new)
-        if valid is not None:
-            for name, t in new.items():
-                keep = valid.view(B, T, *(1,) * (t.dim() - 2))
-                new[name] = torch.where(keep, t, lc[name][bidx, rows])
-        for name, t in new.items():
-            lc[name][bidx, rows] = t
+        _write_rows(lc, _stored(lc, k_new, v_new), bidx, rows, valid)
         R = pos_arr.shape[1] if rows_limit is None else rows_limit
         out = spec_verify_attn(q, lc["k"][:, :R], lc["v"][:, :R], positions,
                                pos_arr[:, :R], window=a.window, **_scales(lc, slice(R)))
+        return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
+
+    def _mla_proj(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, rope):
+        """x: [B,T,d] -> (q_nope [B,T,H,hd], q_rope [B,T,H,rd] with RoPE,
+        ckv [B,T,kv_lora_rank] RMS-normed, krope [B,T,rd] with RoPE), as
+        JAX's ``_mla_proj``.  The q-lora norm and ``kv_norm`` are K5 calls
+        over ``[B*T, q_lora_rank]`` and ``[B*T, kv_lora_rank]`` rows."""
+        a, eps = self.cfg.attn, self.cfg.norm_eps
+        B, T, d = x.shape
+        if a.q_lora_rank:
+            qa = cm.rms_norm(x @ lp["wq_a"], lp["q_norm"], eps)
+            q = qa @ lp["wq_b"].reshape(a.q_lora_rank, -1)
+        else:
+            q = x @ lp["wq"].reshape(d, -1)
+        q = q.view(B, T, a.n_heads, a.head_dim + a.rope_head_dim)
+        q_nope = q[..., :a.head_dim]
+        q_rope = cm.apply_rope(q[..., a.head_dim:], positions, a.rope_theta, rope)
+        ckv = cm.rms_norm(x @ lp["w_dkv"], lp["kv_norm"], eps)
+        krope = cm.apply_rope((x @ lp["w_krope"])[:, :, None], positions, a.rope_theta,
+                              rope)[:, :, 0]
+        return q_nope, q_rope, ckv, krope
+
+    def _attn_mla(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, lc: Dict,
+                  pos_arr: torch.Tensor, rows: torch.Tensor, rope,
+                  valid: Optional[torch.Tensor], rows_limit: Optional[int]) -> torch.Tensor:
+        """MLA's ring attention (JAX's ``_attn_decode`` MLA branch, product
+        for product): write the new ``ckv``/``krope`` rows at ``rows`` of
+        ``lc`` (in place, ``valid`` as in :meth:`_attn_decode`), then the
+        absorbed attention over the first ``rows_limit`` rows:
+        ``q_nope @ W_uk`` scored against ``ckv`` plus ``q_rope`` against
+        ``krope``, the two summed in the cache's dtype, then scaled and
+        softmaxed in fp32 with masked scores at -1e30 (a row that sees no
+        key takes the mean of the ``ckv`` rows, as in JAX), ``p`` cast to
+        the cache's dtype times ``ckv``, expanded by ``W_uv`` and ``wo``."""
+        a = self.cfg.attn
+        B, T, _ = x.shape
+        q_nope, q_rope, ckv_new, krope_new = self._mla_proj(lp, x, positions, rope)
+        bidx = torch.arange(B, device=x.device)[:, None]
+        _write_rows(lc, {"ckv": ckv_new.to(lc["ckv"].dtype),
+                         "krope": krope_new.to(lc["krope"].dtype)}, bidx, rows, valid)
+        R = pos_arr.shape[1] if rows_limit is None else rows_limit
+        ckv, krope = lc["ckv"][:, :R], lc["krope"][:, :R]
+        q_abs = torch.einsum("bthk,lhk->bthl", q_nope, lp["w_uk"])
+        s1 = torch.einsum("bthl,bsl->bhts", q_abs, ckv)
+        s2 = torch.einsum("bthr,bsr->bhts", q_rope, krope)
+        scores = (s1 + s2).float() * (1.0 / math.sqrt(a.head_dim + a.rope_head_dim))
+        mask = cm.position_mask(positions, pos_arr[:, :R], a.window)
+        p = torch.softmax(scores.masked_fill(~mask[:, None], -1e30), dim=-1)
+        o_lora = torch.einsum("bhts,bsl->bthl", p.to(ckv.dtype), ckv)
+        out = torch.einsum("bthl,lhv->bthv", o_lora, lp["w_uv"])
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_paged(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -282,8 +398,8 @@ class DecoderLM:
     def _attn_full(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                    prefix_len: int, rope) -> torch.Tensor:
         """Full-sequence self attention of the training forward (the GQA
-        branch of the JAX ``_attn_full(train=True)``; the port's configs
-        hold no MLA).  ``positions`` [B,T] serve as query and key positions."""
+        branch of the JAX ``_attn_full(train=True)``; ``forward`` raises for
+        MLA).  ``positions`` [B,T] serve as query and key positions."""
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k, v = self._qkv(lp, x, positions, rope)
@@ -303,7 +419,9 @@ class DecoderLM:
         block of one layer (ring or paged).  A MoE model appends each
         layer's aux loss to ``aux`` when given (the serving paths drop it)."""
         c = self.cfg
-        rope = cm.rope_table(positions, c.attn.head_dim, c.attn.rope_theta)
+        # MLA's RoPE runs on its decoupled rope_head_dim columns only
+        rope = cm.rope_table(positions, c.attn.rope_head_dim if self.mla else c.attn.head_dim,
+                             c.attn.rope_theta)
         # one unbind per stacked weight: its backward stacks the layers'
         # gradients once, where indexing layer by layer would add a
         # full-size zero-padded gradient per layer
@@ -336,7 +454,9 @@ class DecoderLM:
         """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the MoE
         load-balance loss summed over the layers in fp32 (the JAX model's),
         a zero scalar for a dense model.  No per-layer recompute: every
-        layer's activations are kept for the backward."""
+        layer's activations are kept for the backward.  An MLA model raises:
+        its full-sequence attention is K4 at q/k 192, v 128 (queue 2)."""
+        self._no_mla("forward")
         if prefix_embeds is not None:
             raise NotImplementedError(
                 "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
@@ -387,7 +507,8 @@ class DecoderLM:
         and the quantised ones are written after it, as JAX's
         ``prefill_flash`` does, while :meth:`prefill` attends the quantised
         rows: the two differ by the quantisation there.  The contiguous ring
-        only, as in JAX."""
+        only, as in JAX.  An MLA model raises (K4 at its head dims)."""
+        self._no_mla("prefill_flash")
         if "bt" in cache:
             raise NotImplementedError(
                 "prefill_flash covers the contiguous ring only; the JAX package's "

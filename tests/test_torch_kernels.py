@@ -118,7 +118,7 @@ def test_cpu_call_runs_plain_version_only():
     case = _case(2, 3, 40, H=4, KVH=2, seed=1)
     k0, p0 = K1.KERNEL.launches, ops.PLAIN.launches
     _port(*case)
-    assert K1.KERNEL.launches == k0 == 0
+    assert K1.KERNEL.launches == k0
     assert ops.PLAIN.launches == p0 + 1
 
 
