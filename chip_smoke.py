@@ -270,7 +270,6 @@ since a remote run may return only the tail of standard output.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -4187,19 +4186,6 @@ def phase_mamba_parity(torch, np, m, tree_to):
 MAMBA_SERVE_LAYERS = 24
 
 
-@contextlib.contextmanager
-def cut_depth(R, n_layers):
-    """While the block runs, ``R.get_config`` gives each config cut to its
-    first ``n_layers`` layers (widths kept), for an entry point that builds
-    its own (``serve.main``)."""
-    get = R.get_config
-    R.get_config = lambda arch: get(arch).with_(n_layers=n_layers)
-    try:
-        yield
-    finally:
-        R.get_config = get
-
-
 def phase_mamba_serve(torch, m):
     """The paper's profile -> LUT -> adaptive loop on mamba2-1.3b at full
     width, cut to ``MAMBA_SERVE_LAYERS`` layers, with its dense_draft,
@@ -4212,11 +4198,10 @@ def phase_mamba_serve(torch, m):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    with cut_depth(m.R, MAMBA_SERVE_LAYERS):
-        res = m.serve.main(["--arch", "mamba2-1.3b", "--device", "cuda", "--dtype",
-                            "bfloat16", "--max-batch", "8", "--cache-len", "256",
-                            "--profile-bs", "1,2,4,8", "--s-max", "3", "--requests", "8",
-                            "--interval", "0.1", "--max-new", "32"])
+    res = m.serve.main(["--arch", "mamba2-1.3b", "--layers", str(MAMBA_SERVE_LAYERS),
+                        "--device", "cuda", "--dtype", "bfloat16", "--max-batch", "8",
+                        "--cache-len", "256", "--profile-bs", "1,2,4,8", "--s-max", "3",
+                        "--requests", "8", "--interval", "0.1", "--max-new", "32"])
     torch.cuda.synchronize()
     launches = dict(k1=m.K1.KERNEL.launches, k5=m.K5.FWD.launches, k6=m.K6.KERNEL.launches,
                     plain=m.ops.PLAIN.launches, plain_rmsnorm=m.ops.PLAIN_RMSNORM.launches,

@@ -33,6 +33,12 @@ and its ``commit`` picks each request's checkpoint at the accept index;
 the slot pool copies every cache leaf on its slot axis, and a paged pool
 is refused, as in the JAX engine.
 
+An MLA target (deepseek-v2-236b) takes it on contiguous rings: its ring
+holds the compressed ``ckv``/``krope`` rows, rolled back like k/v by a
+length update, and its paged pool is refused (``init_paged_cache``
+raises), as in the JAX engine; the prefix cache and the mixed launch need
+that pool.
+
 Paged KV: ``init_slots(block_size=...)`` replaces the per-slot target rings
 with one pool of fixed-size blocks (``DecoderLM.init_paged_cache``) plus a
 block table ``bt [capacity, max_blocks]`` in ``DecodeState.tcache``; the
@@ -163,8 +169,9 @@ class DeferredChunk:
 
 
 def ring_view(cache: Dict, slot: int) -> Dict:
-    """The B = 1 view of a contiguous cache's slot (k/v on axis 1, pos on
-    axis 0): writes through it land in the pool in place."""
+    """The B = 1 view of a contiguous cache's slot (the row leaves, k/v or
+    MLA's ckv/krope, on axis 1, pos on axis 0): writes through it land in
+    the pool in place."""
     return {name: (t.narrow(0, slot, 1) if name == "pos" else t.narrow(1, slot, 1))
             for name, t in cache.items()}
 
@@ -347,8 +354,8 @@ class SpecDecodeEngine:
 
     @staticmethod
     def _copy_slot(pool: Dict, one: Dict, slot: int) -> None:
-        """Copy every leaf of a B = 1 cache (ring k/v/pos, or SSM state and
-        conv buffers) into row ``slot`` of the pool's leaf, on its slot axis
+        """Copy every leaf of a B = 1 cache (ring k/v/pos, MLA's ckv/krope/pos,
+        or SSM state and conv buffers) into row ``slot`` of the pool's leaf, on its slot axis
         (``_slot_axis``); a pool of capacity 1 is the slot itself."""
         for name, full in pool.items():
             single = one[name]

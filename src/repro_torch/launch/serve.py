@@ -19,6 +19,13 @@ Yi targets, each with its dense draft:
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke \
       --device cpu --dtype float32 --requests 6 --max-new 8 --profile-bs 1,2 --s-max 2
 
+``--arch deepseek-v2-236b`` serves DeepSeek-V2's MLA target (the
+compressed ``ckv``/``krope`` cache; 160 experts, top-6, 2 shared) with its
+dense draft.  Its 60 layers hold about 479 GB in bf16, so on one 80 GB card
+``--layers`` cuts the target's depth (widths uncut):
+
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 8
+
 ``main`` returns what it printed as a dict: the profiled per-token latency
 grid, the LUT, the adaptive and ``s = 0`` summaries and throughputs, and the
 mean accepted run at ``--s-max``.
@@ -65,10 +72,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--profile-bs", default="1,2,4,8")
     ap.add_argument("--s-max", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the target to its first N layers (widths uncut)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
     tcfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
+    if args.layers is not None:
+        tcfg = tcfg.with_(n_layers=args.layers)
     dcfg = R.get_draft_config(args.arch)
     if args.smoke:
         dcfg = dataclasses.replace(
@@ -122,7 +133,8 @@ def main(argv=None) -> dict:
     speedup = res0.mean_latency / res.mean_latency
     print(f"speedup: {speedup:.2f}x")
     return {
-        "arch": tcfg.name, "draft": dcfg.name, "device": str(engine.device),
+        "arch": tcfg.name, "n_layers": tcfg.n_layers, "draft": dcfg.name,
+        "device": str(engine.device),
         "dtype": args.dtype, "profile_s": profile_s,
         "grid_s_per_token": {b: dict(d) for b, d in lut.per_token.items()},
         "lut": dict(lut.table), "lut_monotone": lut.is_monotone(),

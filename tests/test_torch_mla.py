@@ -490,8 +490,10 @@ def test_live_serving_on_rings_matches_jax(engines, chunked):
 
 
 def test_launcher_serves_deepseek_v2():
+    """``--arch deepseek-v2-236b`` through the registry, its depth cut by
+    ``--layers``."""
     out = slaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--dtype", "float32",
                         "--requests", "4", "--max-new", "6", "--profile-bs", "1,2",
-                        "--s-max", "2", "--interval", "0.01"])
-    assert out["arch"] == ARCH + "-smoke"
+                        "--s-max", "2", "--interval", "0.01", "--layers", "1"])
+    assert out["arch"] == ARCH + "-smoke" and out["n_layers"] == 1
     assert out["adaptive"]["n"] == 4 and out["no_spec"]["n"] == 4
