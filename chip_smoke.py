@@ -1000,14 +1000,16 @@ def within(torch, got, want, tol):
     return (float(err.max()) if err.numel() else 0.0), ok
 
 
-def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, lens=None, window=None,
+def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, dv=None, lens=None, window=None,
                     prefix_len=0, grads=True, seed=0):
     """Self-attention inputs as the training forward and ``prefill_flash``
-    give them: q [B,T,H,hd], k/v [B,T,KVH,hd], positions 0..T-1 per row, and
-    with ``lens`` the rows at or past a row's length set to -1 (a length of 0
-    makes every row of that batch entry fully masked)."""
+    give them: q [B,T,H,hd], k [B,T,KVH,hd], v [B,T,KVH,dv] (dv = hd unless
+    given: MLA's 192 and 128), positions 0..T-1 per row, and with ``lens``
+    the rows at or past a row's length set to -1 (a length of 0 makes every
+    row of that batch entry fully masked)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
+    dv = hd if dv is None else dv
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dt)
@@ -1016,10 +1018,11 @@ def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, lens=None, window=N
     if lens is not None:
         n = torch.tensor(lens, device="cuda", dtype=torch.int32)[:, None]
         pos = torch.where(pos < n, pos, -1).contiguous()
-    return dict(name=name, q=rnd(B, T, H, hd), k=rnd(B, T, KVH, hd), v=rnd(B, T, KVH, hd),
-                do=rnd(B, T, H, hd), pos=pos, window=window, prefix_len=prefix_len,
+    return dict(name=name, q=rnd(B, T, H, hd), k=rnd(B, T, KVH, hd), v=rnd(B, T, KVH, dv),
+                do=rnd(B, T, H, dv), pos=pos, window=window, prefix_len=prefix_len,
                 dtype=dtype, grads=grads,
-                shape=f"B{B} T{T} H{H}/{KVH}x{hd}" + (f" lens {lens}" if lens else "")
+                shape=f"B{B} T{T} H{H}/{KVH}x{hd}" + (f" v{dv}" if dv != hd else "")
+                      + (f" lens {lens}" if lens else "")
                       + (f" window {window}" if window else "")
                       + (f" prefix {prefix_len}" if prefix_len else ""))
 
@@ -1034,22 +1037,27 @@ def flash_bound(torch, c, backward):
     per pair, head and hd forward (QK^T, PV), 10 backward (QK^T and dO V^T
     recomputed, dV, dQ, dK), at the dtype's peak; fp32, forward and
     backward, counts its route, three tf32 products at the tf32 peak, with
-    the fp32 SIMT figure beside it as ``bound_simt_ms`` (``bwd_bound_simt_ms``)."""
-    q, k = c["q"], c["k"]
+    the fp32 SIMT figure beside it as ``bound_simt_ms`` (``bwd_bound_simt_ms``).
+    Where v's head dim dv differs from q's and k's dk (MLA), the products
+    over dk (QK^T; dQ, dK) and those over dv (PV; dO V^T, dV) are counted
+    at their own depths, and o, dO and out rows at dv."""
+    q, k, v = c["q"], c["k"], c["v"]
     B, T, H, hd = q.shape
-    KVH = k.shape[2]
+    KVH, dv = k.shape[2], v.shape[3]
     ok = visible(torch, dict(c, q_pos=c["pos"], k_pos=c["pos"]))      # [B, T, L]
     pairs = int(ok.sum())
     es = q.element_size()
-    q_need = int(ok.any(2).sum()) * H * hd * es
-    kv_need = 2 * int(ok.any(1).sum()) * KVH * hd * es
-    qb, kb, lse_b, pos_b = q.numel() * es, k.numel() * es, 4 * B * H * T, 8 * c["pos"].numel()
+    q_rows, k_rows = int(ok.any(2).sum()), int(ok.any(1).sum())
+    q_need, o_need = q_rows * H * hd * es, q_rows * H * dv * es
+    kv_need = k_rows * KVH * (hd + dv) * es
+    qb, kb, vb = q.numel() * es, k.numel() * es, v.numel() * es
+    ob, lse_b, pos_b = B * T * H * dv * es, 4 * B * H * T, 8 * c["pos"].numel()
     if backward:
-        nbytes = 3 * q_need + kv_need + lse_b + qb + 2 * kb + pos_b   # in; dq dk dv out
-        ops = 10 * pairs * H * hd
+        nbytes = q_need + 2 * o_need + kv_need + lse_b + qb + kb + vb + pos_b  # in; dq dk dv out
+        ops = 2 * pairs * H * (3 * hd + 2 * dv)
     else:
-        nbytes = q_need + kv_need + qb + lse_b + pos_b                 # in; out, lse out
-        ops = 4 * pairs * H * hd
+        nbytes = q_need + kv_need + ob + lse_b + pos_b                 # in; out, lse out
+        ops = 2 * pairs * H * (hd + dv)
     t_bytes = nbytes / HBM_BYTES_PER_S
 
     def least(t_ops, label):
@@ -1287,6 +1295,9 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
     return row
 
 
+# phase 10c's MLA trainer: ten steps at this batch and sequence length
+MLA_TRAIN_B, MLA_TRAIN_T = 4, 128
+
 # K4's phase 2c cases: (name, make_flash_case arguments)
 FLASH_CASES = [
     # internlm2-1.8b training and the card-vs-CPU step (fwd + bwd)
@@ -1319,6 +1330,22 @@ FLASH_CASES = [
     ("gqa_g10_bf16", dict(B=2, T=128, H=40, KVH=4, hd=128, dtype="bfloat16")),
     # the trainer's shape in bf16 (fwd + bwd): the bf16 backward gate
     ("internlm2_train_bf16", dict(B=8, T=128, H=16, KVH=8, hd=128, dtype="bfloat16")),
+    # MLA (deepseek-v2-236b): q/k head dim 192 (128 + 64 RoPE), v 128, H = KVH
+    # = 128, the default scale 1/sqrt(192); prefill_flash at phase 10b's B 16
+    # with ragged prompts and at phase 7's B 4, T 512 (bf16, fwd), the
+    # trainer of phase 10c (fwd + bwd, fp32 and a bf16 gate case), and two
+    # heads at B 1, T 256, which the split rule splits (4), so that the
+    # combine and its workspace run at dk != dv
+    ("dsv2_prefill_flash_b16_t128", dict(
+        B=16, T=128, H=128, KVH=128, hd=192, dv=128, dtype="bfloat16", grads=False,
+        lens=[128, 120, 97, 64, 128, 33, 111, 80, 128, 1, 59, 100, 128, 77, 42, 90])),
+    ("dsv2_prefill_flash_t512", dict(B=4, T=512, H=128, KVH=128, hd=192, dv=128,
+                                     dtype="bfloat16", lens=[512, 400, 301, 77], grads=False)),
+    ("dsv2_train", dict(B=MLA_TRAIN_B, T=MLA_TRAIN_T, H=128, KVH=128, hd=192, dv=128,
+                        dtype="float32")),
+    ("dsv2_train_bf16", dict(B=MLA_TRAIN_B, T=MLA_TRAIN_T, H=128, KVH=128, hd=192, dv=128,
+                             dtype="bfloat16")),
+    ("dsv2_split", dict(B=1, T=256, H=2, KVH=2, hd=192, dv=128, dtype="float32")),
 ]
 
 
@@ -4573,10 +4600,13 @@ def drop_share(torch, m, seen):
                 share_real=tot["dropped_real"] / max(tot["assignments_real"], 1))
 
 
-def qwen_serve(torch, np, R, m, arch, n_layers=None, ring=False, label="qwen_serve"):
+def qwen_serve(torch, np, R, m, arch, n_layers=None, ring=False, label="qwen_serve",
+               extra=None):
     """9b for one config: full size in bf16 with its dense draft, on a paged
     pool.  10b: ``n_layers`` cuts the target's depth (widths uncut) and
-    ``ring`` serves on contiguous rings of 512 rows instead of the pool."""
+    ``ring`` serves on contiguous rings of 512 rows instead of the pool;
+    ``extra(tcfg, tp)``, run on the target's weights before they are freed,
+    adds its dict to the line."""
     import copy
     bf16 = torch.bfloat16
     tcfg, dcfg = R.get_config(arch), R.get_draft_config(arch)
@@ -4718,6 +4748,11 @@ def qwen_serve(torch, np, R, m, arch, n_layers=None, ring=False, label="qwen_ser
             torch.cuda.synchronize()
             prof[f"ring_b16_s{s}"]["wall_ms_turns"].append(1e3 * (time.perf_counter() - t1) / 4)
     line["profiles"] = prof
+    if extra is not None:
+        del state
+        torch.cuda.empty_cache()
+        line.update(extra(tcfg, tp))
+        state = None
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     line["card_memory_gb"] = torch.cuda.get_device_properties(0).total_memory / 1e9
     del state, eng, tp, dp
@@ -4771,6 +4806,22 @@ def phase_mla_parity(torch, np, R, m, tree_to):
     tol = 2e-3   # phase 9a's card-against-CPU rule: fp32 sums in another order
     out = card_vs_cpu_logits(torch, np, m, tcfg, dcfg, {"cpu": tp_cpu, "cuda": tp},
                              {"cpu": dp_cpu, "cuda": dp}, toks, lens, feed, paged=False)
+    # prefill_flash (K4 at (192, 128) over the prompt's per-head keys and
+    # values) on both, with its K4 and K1 launches on the card
+    for dev, params in (("cpu", tp_cpu), ("cuda", tp)):
+        model = m.DecoderLM(tcfg)
+        m.K4.FWD.launches = m.K1.KERNEL.launches = 0
+        with torch.no_grad():
+            lg, cache, _ = model.prefill_flash(params, torch.from_numpy(toks).to(dev),
+                                               model.init_cache(B, 64, f32, dev),
+                                               torch.from_numpy(lens).to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k4_flash, k1_flash = m.K4.FWD.launches, m.K1.KERNEL.launches
+        for name, x in [("prefill_flash", lg)] + [(f"prefill_flash_{k}", v)
+                                                  for k, v in cache.items()]:
+            out.setdefault(name, []).append(x.float().cpu())
+        del lg, cache
     del tp_cpu, dp_cpu
     errs = {k: float((g - c).abs().max()) for k, (c, g) in out.items()}
     ok = all(bool(((g - c).abs() <= tol + tol * c.abs()).all()) for c, g in out.values())
@@ -4788,24 +4839,266 @@ def phase_mla_parity(torch, np, R, m, tree_to):
     got = {s: eng.generate(tp, dp, toks.astype(np.int32), lens, s=s, cache_len=64)[0]
            for s in (0, 3)}
     spec = bool(np.array_equal(got[0], got[3]))
+    del eng, dp
+    routes = mla_flash_routes(torch, m, tcfg, tp, toks, lens)
     line = dict(arch=MLA_ARCH, n_layers=2, max_abs_err=errs, tol=tol,
                 k5_launches_prefill=k5, k5_expected=k5_per_layer(tcfg) * 2 + 1,
                 k1_launches_prefill=k1, no_drop_capacity_factor=no_drop(tcfg).moe.capacity_factor,
-                spec_equals_greedy=spec)
-    del eng, tp, dp
+                spec_equals_greedy=spec, k4_launches_prefill_flash=k4_flash,
+                k1_launches_prefill_flash=k1_flash, **routes)
+    del tp
     print("  " + json.dumps({"mla_parity": line}), flush=True)
     check(ok and pos_equal, f"MLA card vs CPU differ: {errs} (tol {tol})")
     check(k5 == line["k5_expected"] and k1 == 0,
           f"MLA: a 2-layer prefill launched K5 {k5} times (not {line['k5_expected']}) "
           f"and K1 {k1} times (not 0)")
     check(spec, "MLA: speculative tokens differ from greedy")
+    check(k4_flash == tcfg.n_layers and k1_flash == 0,
+          f"MLA: a 2-layer prefill_flash launched K4 {k4_flash} times (not "
+          f"{tcfg.n_layers}) and K1 {k1_flash} times (not 0)")
+    check(routes["bf16_flash_rel_rms_err"] <= 1.5 * routes["bf16_prefill_rel_rms_err"],
+          f"MLA: bf16 prefill_flash is further from fp32 prefill than bf16 prefill: {routes}")
     return line
 
 
+def mla_flash_routes(torch, m, tcfg, tp, toks, lens):
+    """10a's route comparisons on the card, at the no-drop factor (under a
+    capacity that drops, the two routes' padded rows take expert capacity
+    differently): ``prefill_flash`` against ``prefill`` in fp32 (their
+    distance, reported, not gated: absorbed attention over ``ckv`` against
+    per-head keys and values, products in another order), then both in
+    bf16 on the same weights cast, each against fp32 ``prefill`` (relative
+    RMS of the last logits; phase 7's rule gates bf16 ``prefill_flash`` at
+    1.5x bf16 ``prefill``'s distance)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    model = m.DecoderLM(no_drop(tcfg))
+    t, ln = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+    V = tcfg.vocab_size
+
+    def last(params, route, dtype):
+        with torch.no_grad():
+            lg = getattr(model, route)(params, t, model.init_cache(len(lens), 64, dtype, "cuda"),
+                                       ln)[0]
+        return lg[:, :V].float()
+    ref32, flash32 = last(tp, "prefill", f32), last(tp, "prefill_flash", f32)
+    tp_bf = tree_map(lambda x: x.to(bf16), tp)
+    pre_bf, flash_bf = last(tp_bf, "prefill", bf16), last(tp_bf, "prefill_flash", bf16)
+    del tp_bf
+    torch.cuda.empty_cache()
+    check(all(bool(torch.isfinite(x).all()) for x in (ref32, flash32, pre_bf, flash_bf)),
+          "MLA: prefill or prefill_flash logits are not finite")
+    return dict(fp32_flash_vs_prefill_max_abs=float((flash32 - ref32).abs().max()),
+                fp32_flash_vs_prefill_rel_rms=rel_rms(flash32, ref32),
+                bf16_flash_rel_rms_err=rel_rms(flash_bf, ref32),
+                bf16_prefill_rel_rms_err=rel_rms(pre_bf, ref32))
+
+
 def phase_mla_serve(torch, np, R, m):
-    """10b: ``qwen_serve`` at ``MLA_SERVE_LAYERS`` layers on contiguous rings."""
-    return qwen_serve(torch, np, R, m, MLA_ARCH, n_layers=MLA_SERVE_LAYERS, ring=True,
-                      label="mla_serve")
+    """10b: ``qwen_serve`` at ``MLA_SERVE_LAYERS`` layers on contiguous
+    rings, then ``prefill_flash`` against ``prefill`` on its weights
+    (:func:`mla_prefill_routes`)."""
+    line = qwen_serve(torch, np, R, m, MLA_ARCH, n_layers=MLA_SERVE_LAYERS, ring=True,
+                      label="mla_serve", extra=lambda tcfg, tp: {
+                          "prefill_flash": mla_prefill_routes(torch, np, m, tcfg, tp)})
+    pf = line["prefill_flash"]
+    check(pf["layer0_rows_equal"] and pf["pos_equal"],
+          f"MLA: prefill_flash wrote other layer-0 rows or positions than prefill: {pf}")
+    check(pf["k4_launches_per_call"] == MLA_SERVE_LAYERS and pf["k1_launches_per_call"] == 0,
+          f"MLA: prefill_flash launched K4 {pf['k4_launches_per_call']} times a call, not "
+          f"{MLA_SERVE_LAYERS}, and K1 {pf['k1_launches_per_call']}")
+    return line
+
+
+def mla_prefill_routes(torch, np, m, tcfg, tp, B=16, T=128, L=256, calls=2):
+    """``prefill_flash`` (K4 over per-head keys and values) against
+    ``prefill`` (absorbed attention over ``ckv``) in bf16 on the same B 16,
+    128-token prompts: layer 0's ``ckv``/``krope`` rows bit for bit (the
+    same projections of the same input), positions equal, the last logits'
+    relative RMS distance (reported), K4's and K1's launches a call; each
+    route's device time under ``torch.profiler`` and its wall time in
+    turns (flash, prefill, prefill, flash: the host's speed drifts)."""
+    from torch.profiler import ProfilerActivity
+    bf16 = torch.bfloat16
+    model = m.DecoderLM(tcfg)
+    toks = torch.from_numpy(np.random.default_rng(41).integers(0, tcfg.vocab_size, (B, T))
+                            ).cuda()
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    def run(route):
+        with torch.no_grad():
+            return getattr(model, route)(tp, toks, model.init_cache(B, L, bf16, "cuda"), lens)
+    m.K4.FWD.launches = m.K1.KERNEL.launches = 0
+    lf, cf, _ = run("prefill_flash")
+    torch.cuda.synchronize()
+    k4, k1 = m.K4.FWD.launches, m.K1.KERNEL.launches
+    lp, cp, _ = run("prefill")
+    written = cp["pos"] >= 0
+    V = tcfg.vocab_size
+    row = dict(shape=f"B{B} T{T} ring {L}, bf16, {tcfg.n_layers} layers",
+               layer0_rows_equal=all(bool(torch.equal(cf[k][0][written], cp[k][0][written]))
+                                     for k in ("ckv", "krope")),
+               pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
+               logits_rel_rms=rel_rms(lf[:, :V], lp[:, :V].float()),
+               logits_finite=bool(torch.isfinite(lf[:, :V]).all()),
+               k4_launches_per_call=k4, k1_launches_per_call=k1)
+    del lf, cf, lp, cp
+    walls = {"prefill_flash": [], "prefill": []}
+    for route in ("prefill_flash", "prefill", "prefill", "prefill_flash"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run(route)
+        torch.cuda.synchronize()
+        walls[route].append(1e3 * (time.perf_counter() - t0) / calls)
+    kinds = serving_kinds() + train_kinds(m)[:1]
+    for route in ("prefill_flash", "prefill"):
+        prof, takes, lost = whole_profile(torch, lambda: [run(route) for _ in range(calls)],
+                                          [ProfilerActivity.CUDA], kinds)
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in dev) / 1e3 / calls
+        k4_ms = sum(e.device_time_total for e in dev
+                    if kernel_name(e.name) == "fwd_kernel") / 1e3 / calls
+        row[route] = dict(wall_ms_turns=walls[route], device_busy_ms=busy, k4_ms=k4_ms,
+                          k4_share=k4_ms / busy if busy else None,
+                          device_kernels=len(dev) / calls, profile_takes=takes,
+                          profile_lost=lost)
+    check(row["logits_finite"], "MLA: bf16 prefill_flash logits are not finite")
+    return row
+
+
+# 10c trains deepseek-v2-236b at its full widths cut to 2 layers and 8
+# routed experts (of 160; top-6 and the 2 shared experts kept): about 1.82 B
+# parameters, 29 GB with their fp32 gradients and AdamW moments.  One layer
+# at 160 experts is 3.97 B parameters, 63.6 GB of training state.
+MLA_TRAIN_LAYERS, MLA_TRAIN_EXPERTS = 2, 8
+
+
+def mla_train_config(R):
+    """deepseek-v2-236b with 10c's cuts, each named in ``reduced``."""
+    cfg = R.get_config(MLA_ARCH)
+    cfg = cfg.with_(n_layers=MLA_TRAIN_LAYERS, moe=dataclasses.replace(
+        cfg.moe, n_experts=MLA_TRAIN_EXPERTS))
+    reduced = [f"n_layers 60 -> {MLA_TRAIN_LAYERS}",
+               f"routed experts 160 -> {MLA_TRAIN_EXPERTS} (top-6, 2 shared kept)"]
+    return cfg, reduced
+
+
+def phase_mla_train(torch, np, R, m, tree_to):
+    """10c: the MLA trainer.  (a) One fp32 step card against CPU at the
+    no-drop factor (B 2, T 64; phase 7's rule): the loss and every
+    gradient within ``GRAD_TOL`` of each one's largest entry, K4's forward
+    and backward once a layer on the card.  (b) Ten steps of
+    ``training.make_train_step`` (the launcher's step) on the card at the
+    config's capacity factor, B ``MLA_TRAIN_B``, T ``MLA_TRAIN_T`` on the
+    markov stream, every launch count zeroed before and read after: ms a
+    step, peak memory, the device's busy share over two more profiled
+    steps; the loss must fall."""
+    from torch.profiler import ProfilerActivity
+    f32 = torch.float32
+    cfg, reduced = mla_train_config(R)
+    # ---- (a) one step, card against CPU ----
+    nd = no_drop(cfg)
+    model = m.DecoderLM(nd)
+    p_gpu = model.init(torch.Generator(device="cuda").manual_seed(43), f32, "cuda")
+    p_cpu = tree_to(p_gpu, "cpu")
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=64, seed=5)
+    toks = torch.from_numpy(m.batch_at(dc, 0)["tokens"])
+    loss_fn = m.make_loss_fn(model, nd)
+    m.K4.FWD.launches = m.K4.BWD.launches = 0
+    met_g, gr_g = m.value_and_grad(loss_fn, p_gpu, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    k4_step = dict(k4_fwd=m.K4.FWD.launches, k4_bwd=m.K4.BWD.launches)
+    t0 = time.perf_counter()
+    met_c, gr_c = m.value_and_grad(loss_fn, p_cpu, {"tokens": toks})
+    cpu_step_s = time.perf_counter() - t0
+    loss_g, loss_c = float(met_g["loss"].cpu()), float(met_c["loss"])
+
+    def items(tree, prefix=""):
+        for k, v in tree.items():
+            yield from items(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    cpu = dict(items(gr_c))
+    rel = {k: float((g.cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+           for k, g in items(gr_g)}
+    worst_name = max(rel, key=rel.get)
+    parity = dict(batch="B2 T64", capacity_factor=nd.moe.capacity_factor, loss_card=loss_g,
+                  loss_cpu=loss_c, loss_rel_err=abs(loss_g - loss_c) / abs(loss_c),
+                  worst_grad_rel_err=rel[worst_name], worst_grad=worst_name,
+                  mla_grad_rel_err={k: v for k, v in rel.items()
+                                    if k.split("/")[-1] in ("w_uk", "w_uv", "w_krope", "q_norm",
+                                                            "kv_norm")},
+                  launches=k4_step, cpu_step_s=cpu_step_s)
+    del p_cpu, gr_c, gr_g, met_c, met_g
+    # ---- (b) ten steps on the card ----
+    model = m.DecoderLM(cfg)
+    n_params = sum(t.numel() for t in m.leaves(p_gpu))
+    state = m.init_adamw(p_gpu)
+    step = m.make_train_step(model, cfg, m.AdamWConfig(warmup_steps=2, total_steps=10))
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=MLA_TRAIN_B, seq_len=MLA_TRAIN_T, seed=0)
+    batches = [{"tokens": torch.from_numpy(m.batch_at(dc, i)["tokens"]).cuda()}
+               for i in range(12)]
+    params = p_gpu
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (m.K4.FWD, m.K4.BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN_FLASH,
+                m.ops.PLAIN_RMSNORM, m.ops.PLAIN)
+    for c in counters:
+        c.launches = 0
+    losses, step_ms = [], []
+    for b in batches[:10]:
+        t1 = time.perf_counter()
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"].cpu()))
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    launches = dict(k4_fwd=m.K4.FWD.launches, k4_bwd=m.K4.BWD.launches,
+                    k5_fwd=m.K5.FWD.launches, k5_bwd=m.K5.BWD.launches,
+                    plain=sum(c.launches for c in counters[4:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def body():
+        nonlocal params, state
+        for b in batches[10:]:
+            params, state, _ = step(params, state, b)
+    t1 = time.perf_counter()
+    prof, takes, lost = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                      train_kinds(m))
+    wall_ms = 1e3 * (time.perf_counter() - t1) / 2 / takes
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3 / 2
+    busy = sum(by.values())
+    del params, state, batches, p_gpu
+    torch.cuda.empty_cache()
+    want = dict(k4_fwd=10 * cfg.n_layers, k4_bwd=10 * cfg.n_layers)
+    line = dict(arch=MLA_ARCH, reduced=reduced, n_params=n_params, parity=parity,
+                train=dict(batch=f"B{MLA_TRAIN_B} T{MLA_TRAIN_T}", steps=10,
+                           capacity_factor=cfg.moe.capacity_factor, losses=losses,
+                           step_ms=step_ms, ms_per_step=sum(step_ms[1:]) / len(step_ms[1:]),
+                           peak_memory_gb=peak, launches=launches, predicted=want,
+                           profile=dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
+                                        busy_share=busy / wall_ms,
+                                        k4_ms=sum(t for k, t in by.items() if "flash_bwd" in k
+                                                  or kernel_name(k) == "fwd_kernel"),
+                                        top_device_ms={k[:60]: t for k, t in sorted(
+                                            by.items(), key=lambda kv: kv[1], reverse=True)[:6]},
+                                        profile_takes=takes, profile_lost=lost)))
+    print("  " + json.dumps({"mla_train": line}), flush=True)
+    check(parity["loss_rel_err"] <= GRAD_TOL, f"MLA: card vs CPU loss differs: {parity}")
+    check(parity["worst_grad_rel_err"] <= GRAD_TOL,
+          f"MLA: card vs CPU gradient {worst_name} differs by {rel[worst_name]} of its max")
+    check(k4_step == dict(k4_fwd=cfg.n_layers, k4_bwd=cfg.n_layers),
+          f"MLA: a card step launched K4 {k4_step}, not once a layer each way")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"MLA: the trainer's loss did not fall: {losses}")
+    check(all(launches[k] == want[k] for k in want),
+          f"MLA: the trainer's K4 launches {launches} differ from the prediction {want}")
+    check(launches["k5_fwd"] > 0 and launches["k5_bwd"] > 0 and launches["plain"] == 0,
+          f"MLA: the trainer did not run K5 both ways, or ran a plain version: {launches}")
+    check(peak < torch.cuda.get_device_properties(0).total_memory / 1e9,
+          "MLA: the trainer does not fit the card")
+    return line
 
 
 def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba_launches):
@@ -4875,6 +5168,57 @@ def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba
     return out
 
 
+def mla_kernel_rows(trows, mtrain, dserve):
+    """The ``kernels`` line's K4 rows at MLA's head dims (q/k 192, v 128):
+    the forward and backward at phase 10c's trainer shape (fp32) with its
+    ten steps' launches, and the bf16 forward at phase 10b's
+    ``prefill_flash`` shape with the launches of one of its calls; the
+    backward row adds its split count, device kernels a call, the bf16
+    backward and the split case."""
+    r = next(r for r in trows if r["case"] == "flash_dsv2_train")
+    bf = next(r for r in trows if r["case"] == "flash_dsv2_train_bf16")
+    sp = next(r for r in trows if r["case"] == "flash_dsv2_split")
+    pre = next(r for r in trows if r["case"] == "flash_dsv2_prefill_flash_b16_t128")
+    launches = mtrain["train"]["launches"]
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "replaces": "src/repro/kernels/flash_attn.py:71",
+              "replaces_note": "the TPU kernel has one head dim; MLA's full-sequence "
+                               "attention is flash_attention_tri / flash_attention_train "
+                               "(src/repro/models/common.py:258, :341) with v's own",
+              "library": "SDPA"}
+    train_from = f"phase 10c, the {MLA_ARCH} trainer cut to {MLA_TRAIN_LAYERS} layers (10 steps)"
+    fwd = {"name": "flash_attn_fwd_mla", **common, "launches": launches["k4_fwd"],
+           "launches_from": train_from, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": "bytes" if r["bound_by"] == "bytes" else "operations",
+           "bound_route": "3xTF32", "bound_simt_ms": r["bound_simt_ms"],
+           "library_ms": r["library_ms"], "library_kernels": r["library_kernels"],
+           "shape": f"{r['shape']}, fp32"}
+    fwd_bf = {"name": "flash_attn_fwd_mla_bf16", **common,
+              "launches": dserve["prefill_flash"]["k4_launches_per_call"],
+              "launches_from": f"phase 10b, one prefill_flash call of {MLA_ARCH} at "
+                               f"{MLA_SERVE_LAYERS} layers (one per layer)",
+              "max_abs_err": pre["max_abs_err"], "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+              "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+              "library_ms": pre["library_ms"], "library_kernels": pre["library_kernels"],
+              "shape": f"{pre['shape']}, bf16"}
+    bwd = {"name": "flash_attn_bwd_mla", **common, "launches": launches["k4_bwd"],
+           "launches_from": train_from, "max_abs_err": r["grad_max_abs_err"],
+           "ms": r["bwd_ms"], "plain_ms": r["bwd_plain_ms"], "bound_ms": r["bwd_bound_ms"],
+           "bound_by": r["bwd_bound_by"], "bound_route": "3xTF32",
+           "bound_simt_ms": r["bwd_bound_simt_ms"], "library_ms": r["bwd_library_ms"],
+           "library": "SDPA forward + backward (autograd)", "n_splits": r["bwd_n_splits"],
+           "device_kernels_per_call": r["bwd_device_kernels"],
+           "fwd_plus_bwd_ms": r["fwd_plus_bwd_ms"], "shape": f"{r['shape']}, fp32",
+           "bf16": {k: bf[k] for k in ("shape", "bwd_ms", "bwd_library_ms", "bwd_bound_ms",
+                                       "grad_rel_rms", "sdpa_grad_rel_rms", "bwd_n_splits",
+                                       "fwd_plus_bwd_ms")},
+           "split": {k: sp[k] for k in ("shape", "bwd_ms", "bwd_plain_ms", "bwd_library_ms",
+                                        "bwd_bound_ms", "grad_max_abs_err", "bwd_n_splits",
+                                        "bwd_device_kernels")}}
+    return [fwd, fwd_bf, bwd]
+
+
 def ssd_kernel_row(srows, launches, launches_live, launches_train):
     """The ``kernels`` line's K6 row at the continuous path's largest
     prefill (B 1, T 256, bf16), with the launches of phase 8's serve loop
@@ -4915,23 +5259,13 @@ def ssd_bwd_kernel_row(brows, mtrain):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
-        return 2
-    src = os.path.join(ROOT, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: the port's sources are not beside this script ({src})",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, src)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    report = open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"), "w")
-    sys.stdout = Tee(sys.__stdout__, report)
+def assemble():
+    """What the phases drive, under one name: the port's modules, kernels
+    and entry points (the caller puts ``src`` on the path).  A script that
+    runs some phases alone builds the kernels it needs with ``m.build`` and
+    passes this namespace to them."""
     import types
 
-    import numpy as np
     from repro_torch.configs import registry as R
     from repro_torch.core import adaptive, analytical
     from repro_torch.core import spec_decode
@@ -4954,8 +5288,7 @@ def main() -> int:
     from repro_torch.training import train_step
     from repro_torch.training.optimizer import leaves
 
-    # what phases 6 and 7 drive, under one name
-    m = types.SimpleNamespace(
+    return types.SimpleNamespace(
         SpecDecodeEngine=SpecDecodeEngine, spec_decode=spec_decode, Request=Request, K1=K1,
         K23=K23, K4=K4, K5=K5, K6=K6, serve=serve, Telemetry=Telemetry,
         synthetic_prompts=synthetic_prompts, profile_engine=adaptive.profile_engine,
@@ -4979,7 +5312,29 @@ def main() -> int:
         AdamWConfig=training.AdamWConfig, init_adamw=training.init_adamw,
         adamw_update=training.adamw_update, make_train_step=training.make_train_step,
         make_loss_fn=training.make_loss_fn, make_distill_step=training.make_distill_step,
-        value_and_grad=train_step.value_and_grad, moe=moe, leaves=leaves)
+        value_and_grad=train_step.value_and_grad, moe=moe, leaves=leaves,
+        build=build, ref=ref)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: the port's sources are not beside this script ({src})",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    report = open(os.path.join(ROOT, "chiprun_out", "chip_smoke.log"), "w")
+    sys.stdout = Tee(sys.__stdout__, report)
+    import numpy as np
+    m = assemble()
+    R, DecoderLM, SpecDecodeEngine = m.R, m.DecoderLM, m.SpecDecodeEngine
+    K1, K23, K4, K5, K6 = m.K1, m.K23, m.K4, m.K5, m.K6
+    build, ops, paged, ref, serve = m.build, m.ops, m.paged, m.ref, m.serve
 
     def tree_to(tree, device):
         return tree_map(lambda t: t.to(device), tree)
@@ -5019,12 +5374,13 @@ def main() -> int:
             getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, rt, 512)
         for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)
         for rt in K1.ROW_TILES}), flush=True)
+    k4_pairs = {(dk, dv): f"hd{dk}" if dk == dv else f"dk{dk}_dv{dv}" for dk, dv in K4.HEAD_DIMS}
     print("  k4 forward occupancy: " + json.dumps({
-        f"{dt}_hd{hd}": K4.fwd_occupancy(getattr(torch, dt), hd)
-        for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
+        f"{dt}_{name}": K4.fwd_occupancy(getattr(torch, dt), dk, dv)
+        for dt in ("float32", "bfloat16") for (dk, dv), name in k4_pairs.items()}), flush=True)
     print("  k4 backward occupancy (dq, dkv): " + json.dumps({
-        f"{dt}_hd{hd}": K4.bwd_occupancy(getattr(torch, dt), hd)
-        for dt in ("float32", "bfloat16") for hd in (64, 128)}), flush=True)
+        f"{dt}_{name}": K4.bwd_occupancy(getattr(torch, dt), dk, dv)
+        for dt in ("float32", "bfloat16") for (dk, dv), name in k4_pairs.items()}), flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print("  k5 backward occupancy (rows blocks an SM at the plans of phase 2c's grads cases): "
           + json.dumps({f"{dt}_n{n}_d{d}": dict(plan=plan, blocks_per_sm=K5.occupancy(
@@ -5191,13 +5547,17 @@ def main() -> int:
     qlaunch = {a: q["serve"]["launches"] for a, q in qserve.items()}
     torch.cuda.empty_cache()
 
-    # ---- 10. deepseek-v2-236b (MLA) on contiguous rings: card vs CPU, then 8 layers ----
+    # ---- 10. deepseek-v2-236b (MLA): card vs CPU and prefill_flash, 8 layers served on
+    # contiguous rings, then the trainer at 2 layers ----
     phase_mla_parity(torch, np, R, m, tree_to)
     done("mla_parity")
     torch.cuda.empty_cache()
     dserve = phase_mla_serve(torch, np, R, m)
     done("mla_serve")
     mla_launch = dserve["serve"]["launches"]
+    torch.cuda.empty_cache()
+    mtrain_mla = phase_mla_train(torch, np, R, m, tree_to)
+    done("mla_train")
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
@@ -5268,6 +5628,7 @@ def main() -> int:
         **paged_common}] + train_kernel_rows(trows, trained["launches"], k5_serve,
                                              live["launches"]["k5"], distill, pflash,
                                              mtrain["launches"])
+    kernels += mla_kernel_rows(trows, mtrain_mla, dserve)
     kernels += [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
                                mtrain["launches"]["k6_fwd"]),
                 ssd_bwd_kernel_row(brows, mtrain)]

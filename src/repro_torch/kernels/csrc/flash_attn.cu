@@ -10,6 +10,10 @@
 // visible to a query at position qp iff
 //   0 <= kpos[j] <= qp  and  kpos[j] > qp - window    (window optional)
 //   or 0 <= kpos[j] < prefix_len.
+// q and k share one head dim (dk), v may have another (dv): the output and
+// dO have dv, dQ and dK have dk.  The instantiated (dk, dv) pairs are (64,
+// 64), (128, 128) and (192, 128), the last DeepSeek-V2's MLA attention
+// (128 + 64 RoPE dims of q and k, 128 of v); any other pair is an error.
 // Softmax is in fp32; a fully masked query row outputs zeros and a
 // logsumexp of -inf.  The backward is FlashAttention-2's: with the forward's
 // logsumexp it recomputes P = exp(S - lse) tile by tile, D = rowsum(dO * O),
@@ -59,15 +63,16 @@ struct Params {
   const void* v;
   const int* q_pos;
   const int* k_pos;
-  void* out;          // forward output [B, T, H, hd], contiguous
+  void* out;          // forward output [B, T, H, dv], contiguous
   float* lse;         // [B, H, T] fp32, or null (forward without a backward)
   const void* o;      // backward: the forward's output, contiguous
   const void* dout;   // backward: dL/d out, contiguous
   float* dsum;        // backward: D = rowsum(dO * O), [B, H, T] fp32 scratch
-  void* dq;           // [B, T, H, hd], contiguous
-  void* dk;           // [B, L, KVH, hd], contiguous
-  void* dv;
-  float* ws;          // backward, n_splits > 1: fp32 dK then dV partials [n_splits][B, L, KVH, hd]
+  void* dq;           // [B, T, H, dk], contiguous
+  void* dk;           // [B, L, KVH, dk], contiguous
+  void* dv;           // [B, L, KVH, dv], contiguous
+  float* ws;          // backward, n_splits > 1: fp32 dK partials [n_splits][B, L, KVH, dk],
+                      // then dV partials [n_splits][B, L, KVH, dv]
   int n_splits;       // backward: blocks sharing one (b, kv-head, k-tile)'s query rows
   int B, T, H, KVH, L;
   long long q_sb, q_st;    // q strides over (b, t); heads and hd contiguous
@@ -79,15 +84,17 @@ struct Params {
 };
 
 // folded row fr = g*T + t of kv-head kvh: element offset of (b, t, head) in q
-__device__ __forceinline__ long long q_off(const Params& p, int b, int kvh, int fr, int HD) {
+// (rows of D = dk elements)
+__device__ __forceinline__ long long q_off(const Params& p, int b, int kvh, int fr, int D) {
   const int G = p.H / p.KVH, g = fr / p.T, t = fr % p.T;
-  return b * p.q_sb + t * p.q_st + static_cast<long long>(kvh * G + g) * HD;
+  return b * p.q_sb + t * p.q_st + static_cast<long long>(kvh * G + g) * D;
 }
 
-// the same row in a contiguous [B, T, H, hd] tensor (out, o, dout, dq)
-__device__ __forceinline__ long long o_off(const Params& p, int b, int kvh, int fr, int HD) {
+// the same row in a contiguous [B, T, H, D] tensor (out, o, dout: D = dv;
+// dq: D = dk)
+__device__ __forceinline__ long long o_off(const Params& p, int b, int kvh, int fr, int D) {
   const int G = p.H / p.KVH, g = fr / p.T, t = fr % p.T;
-  return ((static_cast<long long>(b) * p.T + t) * p.H + kvh * G + g) * HD;
+  return ((static_cast<long long>(b) * p.T + t) * p.H + kvh * G + g) * D;
 }
 
 // the row's index in a [B, H, T] fp32 array (lse, dsum)
@@ -95,6 +102,29 @@ __device__ __forceinline__ long long row_idx(const Params& p, int b, int kvh, in
   const int G = p.H / p.KVH, g = fr / p.T, t = fr % p.T;
   return (static_cast<long long>(b) * p.H + kvh * G + g) * p.T + t;
 }
+
+// The 16-byte copies of a tile of ROWS rows of D elements, spread over NT
+// threads: copy i (of N) of thread tid is chunk tid + i*NT of the tile in
+// row-major order, the chunk at element col(tid, i) of row row(tid, i), so
+// neighbouring threads copy neighbouring chunks of a row.  Where the
+// chunks of a row (CPR) divide NT, a thread keeps one column and steps NT /
+// CPR rows a copy.
+template <typename T, int ROWS, int D, int NT>
+struct TileCopy {
+  static constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;  // chunks a row
+  static constexpr int N = ROWS * CPR / NT;                          // copies a thread
+  static_assert(D * sizeof(T) % 16 == 0 && ROWS * CPR % NT == 0, "copy layout");
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));       // elements a chunk
+  __device__ static __forceinline__ int row(int tid, int i) {
+    if constexpr (NT % CPR == 0) return tid / CPR + i * (NT / CPR);
+    return (tid + i * NT) / CPR;
+  }
+  // the chunk's first element within its row
+  __device__ static __forceinline__ int col(int tid, int i) {
+    if constexpr (NT % CPR == 0) return (tid % CPR) * EPC;
+    return (tid + i * NT) % CPR * EPC;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // forward: one block of FWD_WARPS warps per (q-tile of FBQ folded rows,
@@ -121,7 +151,8 @@ constexpr int FWD_NT = 32 * FWD_WARPS;  // forward threads per block
 constexpr int FBQ = 16 * FWD_WARPS;     // folded query rows per forward block
 
 // key rows per tile, row padding (elements) of the Q/K and V tiles, and
-// blocks an SM (registers and shared memory allow at hd 128).  The
+// blocks an SM (registers and shared memory allow at hd 128; at (192, 128)
+// shared memory allows one fp32 block an SM and three bf16 ones).  The
 // padding makes the fragment loads free of bank conflicts: fp32 Q/K rows
 // at 8 mod 32 words (float2 per lane), fp32 V rows at 4 mod 16 words (rows
 // 2t and 2t+1 per lane), bf16 rows at 4 mod 32 words (ldmatrix).  bf16
@@ -136,27 +167,28 @@ template <> struct Fwd<__nv_bfloat16> {
   static constexpr int BK = 32, PADK = 8, PADV = 8, MIN_BLOCKS = 4;
 };
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 constexpr size_t fwd_smem() {
-  // Qs [FBQ][HD+PADK], Ks [2][BK][HD+PADK], Vs [2][BK][HD+PADV], KP [2][BK]
-  return sizeof(T) * ((FBQ + 2 * Fwd<T>::BK) * (HD + Fwd<T>::PADK) +
-                      2 * Fwd<T>::BK * (HD + Fwd<T>::PADV)) +
+  // Qs [FBQ][DK+PADK], Ks [2][BK][DK+PADK], Vs [2][BK][DV+PADV], KP [2][BK]
+  return sizeof(T) * ((FBQ + 2 * Fwd<T>::BK) * (DK + Fwd<T>::PADK) +
+                      2 * Fwd<T>::BK * (DV + Fwd<T>::PADV)) +
          sizeof(int) * 2 * Fwd<T>::BK;
 }
 
 // key tiles tested per round trip of next_tile (attn_tile.cuh)
 constexpr int SCAN = 8;
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const Params p) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int BK = Fwd<T>::BK;
-  constexpr int RK = HD + Fwd<T>::PADK;  // Q and K row stride (elements)
-  constexpr int RV = HD + Fwd<T>::PADV;  // V row stride
-  constexpr int EPC = 16 / sizeof(T);    // elements per 16-byte copy
-  constexpr int CPR = HD / EPC;          // copies per row
+  constexpr int RK = DK + Fwd<T>::PADK;  // Q and K row stride (elements)
+  constexpr int RV = DV + Fwd<T>::PADV;  // V row stride
   constexpr int NS = BK / 8;             // n8 tiles of a score row
-  constexpr int NO = HD / 8;             // n8 tiles of an output row
+  constexpr int NO = DV / 8;             // n8 tiles of an output row
+  using QCopy = TileCopy<T, FBQ, DK, FWD_NT>;
+  using KCopy = TileCopy<T, BK, DK, FWD_NT>;
+  using VCopy = TileCopy<T, BK, DV, FWD_NT>;
 
   extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
   T* Qs = reinterpret_cast<T*>(fwd_smem_raw);
@@ -176,18 +208,12 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
 
-  // each thread copies 16-byte chunk c of rows jr, jr + RPC, ...
-  constexpr int RPC = FWD_NT / CPR;  // rows per pass of the block
-  static_assert(FWD_NT % CPR == 0 && BK % RPC == 0 && FBQ % RPC == 0, "copy layout");
-  const int c = tid % CPR, jr = tid / CPR;
-
   // Q, once, zeros past nr
 #pragma unroll
-  for (int i = 0; i < FBQ / RPC; ++i) {
-    const int r = jr + i * RPC;
+  for (int i = 0; i < QCopy::N; ++i) {
+    const int r = QCopy::row(tid, i), e = QCopy::col(tid, i);
     const bool ok = r < nr;
-    cp_async16(Qs + r * RK + c * EPC, qg + (ok ? q_off(p, b, kvh, r0 + r, HD) : 0) + c * EPC,
-               ok);
+    cp_async16(Qs + r * RK + e, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + e, ok);
   }
   cp_async_commit();
 
@@ -218,22 +244,22 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
 
   // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
   // past L are zeros (V must be finite where P is 0) at position -1
-  const T* kc = kg + b * p.k_sb + kvh * HD + c * EPC;
-  const T* vc = vg + b * p.v_sb + kvh * HD + c * EPC;
-  const long long k_step = RPC * p.k_sl, v_step = RPC * p.v_sl;
+  const T* kc = kg + b * p.k_sb + kvh * DK;
+  const T* vc = vg + b * p.v_sb + kvh * DV;
   auto load_tile = [&](int jt, int st) {
-    const int j0 = jt * BK + jr;
-    const T* kr = kc + j0 * p.k_sl;
-    const T* vr = vc + j0 * p.v_sl;
-    T* ks = Ks + st * BK * RK + jr * RK + c * EPC;
-    T* vs = Vs + st * BK * RV + jr * RV + c * EPC;
+    T* ks = Ks + st * BK * RK;
+    T* vs = Vs + st * BK * RV;
 #pragma unroll
-    for (int i = 0; i < BK / RPC; ++i) {
-      const bool ok = j0 + i * RPC < p.L;
-      cp_async16(ks + i * RPC * RK, ok ? kr : kg, ok);
-      cp_async16(vs + i * RPC * RV, ok ? vr : vg, ok);
-      kr += k_step;
-      vr += v_step;
+    for (int i = 0; i < KCopy::N; ++i) {
+      const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = jt * BK + j;
+      const bool ok = jj < p.L;
+      cp_async16(ks + j * RK + e, ok ? kc + jj * p.k_sl + e : kg, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < VCopy::N; ++i) {
+      const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = jt * BK + j;
+      const bool ok = jj < p.L;
+      cp_async16(vs + j * RV + e, ok ? vc + jj * p.v_sl + e : vg, ok);
     }
     if (tid < BK) {
       const int jj = jt * BK + tid;
@@ -274,7 +300,7 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     if constexpr (kBf16) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         uint32_t qa[4];
         ldsm_x4(qa, qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * RK + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
@@ -288,7 +314,7 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
       }
     } else {
 #pragma unroll 2
-      for (int kk = 0; kk < HD / 8; ++kk) {
+      for (int kk = 0; kk < DK / 8; ++kk) {
         const int d = kk * 8 + 2 * tig;
         const float2 q0 = *reinterpret_cast<const float2*>(qw + g * RK + d);
         const float2 q1 = *reinterpret_cast<const float2*>(qw + (g + 8) * RK + d);
@@ -409,7 +435,7 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
     const int r = warp * 16 + g + 8 * h;
     if (r >= nr) continue;
     const float den = fmaxf(lh, 1e-30f);
-    T* orow = og + o_off(p, b, kvh, r0 + r, HD) + 2 * tig;
+    T* orow = og + o_off(p, b, kvh, r0 + r, DV) + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NO; ++n) store2(orow + n * 8, o[n][2 * h] / den, o[n][2 * h + 1] / den);
     if (p.lse != nullptr && tig == 0)
@@ -456,18 +482,23 @@ constexpr int QSCAN = 8;                 // dK/dV: query tiles tested per round 
 // Row padding (elements) of every staged tile: bf16 rows at 4 mod 32 words
 // (ldmatrix), fp32 rows at 8 mod 32 words (float2 fragment reads; the row
 // pairs 2t, 2t+1 of the dS K / P^T dO operands take a 2-way conflict).
+// Q and K rows hold dk elements, V and dO rows dv.
 constexpr int BWD_PAD = 8;
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 constexpr size_t dq_smem() {
-  // Qs, dOs [BWD_ROWS][HD+PAD], Ks, Vs [2][BWD_BK][HD+PAD], KP [2][BWD_BK]
-  return sizeof(T) * (2 * BWD_ROWS + 4 * BWD_BK) * (HD + BWD_PAD) + sizeof(int) * 2 * BWD_BK;
+  // Qs [BWD_ROWS][DK+PAD], dOs [BWD_ROWS][DV+PAD], Ks [2][BWD_BK][DK+PAD],
+  // Vs [2][BWD_BK][DV+PAD], KP [2][BWD_BK]
+  return sizeof(T) * (BWD_ROWS + 2 * BWD_BK) * (DK + DV + 2 * BWD_PAD) +
+         sizeof(int) * 2 * BWD_BK;
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 constexpr size_t dkv_smem() {
-  // Ks, Vs [BWD_ROWS][HD+PAD], Qs, dOs [2][BWD_BQ][HD+PAD], QP, LSE, D [2][BWD_BQ]
-  return sizeof(T) * (2 * BWD_ROWS + 4 * BWD_BQ) * (HD + BWD_PAD) + sizeof(float) * 6 * BWD_BQ;
+  // Ks [BWD_ROWS][DK+PAD], Vs [BWD_ROWS][DV+PAD], Qs [2][BWD_BQ][DK+PAD],
+  // dOs [2][BWD_BQ][DV+PAD], QP, LSE, D [2][BWD_BQ]
+  return sizeof(T) * (BWD_ROWS + 2 * BWD_BQ) * (DK + DV + 2 * BWD_PAD) +
+         sizeof(float) * 6 * BWD_BQ;
 }
 
 // The backward's fp32 operand split for its three tf32 products: big = x
@@ -524,13 +555,53 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* a, const __nv_bfloat
   return acc;
 }
 
+// One k step of acc = A B^T for a warp's 16 rows against N rows of B: A
+// [16][R] and B [N][R] in shared memory; bf16 steps are 16 deep, fp32 ones
+// 8 (the k slot t <-> index 2t, slot t+4 <-> 2t+1: float2 per lane).
+template <typename T, int N, int R>
+__device__ __forceinline__ void product_step(float (&acc)[N / 8][4], const T* a, const T* b,
+                                             int kk, int lane) {
+  const int g = lane / 4, tig = lane % 4;
+  if constexpr (sizeof(T) == 2) {
+    uint32_t fa[4];
+    ldsm_x4(fa, a + ((lane & 7) + ((lane >> 3) & 1) * 8) * R + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      uint32_t fb[4];
+      ldsm_x4(fb, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * R + kk * 16 +
+                      ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
+      mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  } else {
+    const int d = kk * 8 + 2 * tig;
+    const float2 x0 = *reinterpret_cast<const float2*>(a + g * R + d);
+    const float2 x1 = *reinterpret_cast<const float2*>(a + (g + 8) * R + d);
+    uint32_t ab[4], as[4];
+    bwd_split(x0.x, ab[0], as[0]);
+    bwd_split(x1.x, ab[1], as[1]);
+    bwd_split(x0.y, ab[2], as[2]);
+    bwd_split(x1.y, ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const float2 u = *reinterpret_cast<const float2*>(b + (n * 8 + g) * R + d);
+      bwd_mma3(acc[n], ab, as, u.x, u.y);
+    }
+  }
+}
+
 // S = A B^T and dP = A2 B2^T for a warp's 16 rows against N rows of B (N / 8
-// n8 tiles): A, A2 [16][R] and B, B2 [N][R] in shared memory, k over hd.
-// Element e of tile n is row g + 8*(e/2), column 8n + 2*tig + e%2.
-template <typename T, int HD, int N, int R>
+// n8 tiles): A [16][R1] and B [N][R1] in shared memory, k over D1 (dk);
+// A2 [16][R2] and B2 [N][R2], k over D2 (dv).  Element e of tile n is row
+// g + 8*(e/2), column 8n + 2*tig + e%2.  The two products run interleaved
+// over their common depth, then the deeper one alone; each accumulator
+// takes its k steps in order.
+template <typename T, int D1, int D2, int N, int R1, int R2>
 __device__ __forceinline__ void two_products(float (&s)[N / 8][4], float (&dp)[N / 8][4],
                                              const T* a, const T* a2, const T* b, const T* b2,
                                              int lane) {
+  constexpr int KS = sizeof(T) == 2 ? 16 : 8;  // depth of a k step
+  constexpr int D0 = D1 < D2 ? D1 : D2;
   const int g = lane / 4, tig = lane % 4;
 #pragma unroll
   for (int n = 0; n < N / 8; ++n)
@@ -538,18 +609,18 @@ __device__ __forceinline__ void two_products(float (&s)[N / 8][4], float (&dp)[N
     for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
   if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < D0 / 16; ++kk) {
       uint32_t fa[4], fa2[4];
-      const int ao = ((lane & 7) + ((lane >> 3) & 1) * 8) * R + kk * 16 + (lane >> 4) * 8;
-      ldsm_x4(fa, a + ao);
-      ldsm_x4(fa2, a2 + ao);
+      const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(fa, a + ar * R1 + ac);
+      ldsm_x4(fa2, a2 + ar * R2 + ac);
 #pragma unroll
       for (int np = 0; np < N / 16; ++np) {
         uint32_t fb[4], fb2[4];
-        const int bo =
-            (np * 16 + (lane & 7) + (lane >> 4) * 8) * R + kk * 16 + ((lane >> 3) & 1) * 8;
-        ldsm_x4(fb, b + bo);
-        ldsm_x4(fb2, b2 + bo);
+        const int br = np * 16 + (lane & 7) + (lane >> 4) * 8;
+        const int bc = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(fb, b + br * R1 + bc);
+        ldsm_x4(fb2, b2 + br * R2 + bc);
         mma_bf16(s[2 * np], fa, fb[0], fb[1]);
         mma_bf16(s[2 * np + 1], fa, fb[2], fb[3]);
         mma_bf16(dp[2 * np], fa2, fb2[0], fb2[1]);
@@ -558,13 +629,13 @@ __device__ __forceinline__ void two_products(float (&s)[N / 8][4], float (&dp)[N
     }
   } else {
 #pragma unroll 2
-    for (int kk = 0; kk < HD / 8; ++kk) {
+    for (int kk = 0; kk < D0 / 8; ++kk) {
       // k slot t <-> hd index 2t, slot t+4 <-> 2t+1 (float2 per lane)
       const int d = kk * 8 + 2 * tig;
-      const float2 x0 = *reinterpret_cast<const float2*>(a + g * R + d);
-      const float2 x1 = *reinterpret_cast<const float2*>(a + (g + 8) * R + d);
-      const float2 y0 = *reinterpret_cast<const float2*>(a2 + g * R + d);
-      const float2 y1 = *reinterpret_cast<const float2*>(a2 + (g + 8) * R + d);
+      const float2 x0 = *reinterpret_cast<const float2*>(a + g * R1 + d);
+      const float2 x1 = *reinterpret_cast<const float2*>(a + (g + 8) * R1 + d);
+      const float2 y0 = *reinterpret_cast<const float2*>(a2 + g * R2 + d);
+      const float2 y1 = *reinterpret_cast<const float2*>(a2 + (g + 8) * R2 + d);
       uint32_t ab[4], as[4], cb[4], cs[4];
       bwd_split(x0.x, ab[0], as[0]);
       bwd_split(x1.x, ab[1], as[1]);
@@ -576,13 +647,18 @@ __device__ __forceinline__ void two_products(float (&s)[N / 8][4], float (&dp)[N
       bwd_split(y1.y, cb[3], cs[3]);
 #pragma unroll
       for (int n = 0; n < N / 8; ++n) {
-        const float2 u = *reinterpret_cast<const float2*>(b + (n * 8 + g) * R + d);
-        const float2 w = *reinterpret_cast<const float2*>(b2 + (n * 8 + g) * R + d);
+        const float2 u = *reinterpret_cast<const float2*>(b + (n * 8 + g) * R1 + d);
+        const float2 w = *reinterpret_cast<const float2*>(b2 + (n * 8 + g) * R2 + d);
         bwd_mma3(s[n], ab, as, u.x, u.y);
         bwd_mma3(dp[n], cb, cs, w.x, w.y);
       }
     }
   }
+  // the deeper product's remaining steps (none where D1 == D2)
+#pragma unroll 2
+  for (int kk = D0 / KS; kk < D1 / KS; ++kk) product_step<T, N, R1>(s, a, b, kk, lane);
+#pragma unroll 2
+  for (int kk = D0 / KS; kk < D2 / KS; ++kk) product_step<T, N, R2>(dp, a2, b2, kk, lane);
 }
 
 // acc[16 rows][HD] += X Y with X the warp's 16 x K fragments in the
@@ -626,22 +702,24 @@ __device__ __forceinline__ void acc_product(float (&acc)[HD / 8][4], const float
   }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   constexpr int BK = BWD_BK;
-  constexpr int R = HD + BWD_PAD;
+  constexpr int RQ = DK + BWD_PAD;     // Q and K row stride (elements)
+  constexpr int RO = DV + BWD_PAD;     // dO and V row stride
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
-  constexpr int CPR = HD / EPC;        // copies per row
-  constexpr int NS = BK / 8, NO = HD / 8;
-  constexpr int RPC = BWD_NT / CPR;    // rows per pass of the block
-  static_assert(BWD_NT % CPR == 0 && BK % RPC == 0 && BWD_ROWS % RPC == 0, "copy layout");
+  constexpr int NS = BK / 8, NO = DK / 8;
+  using QCopy = TileCopy<T, BWD_ROWS, DK, BWD_NT>;
+  using OCopy = TileCopy<T, BWD_ROWS, DV, BWD_NT>;
+  using KCopy = TileCopy<T, BK, DK, BWD_NT>;
+  using VCopy = TileCopy<T, BK, DV, BWD_NT>;
 
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   T* Qs = reinterpret_cast<T*>(bwd_smem_raw);
-  T* dOs = Qs + BWD_ROWS * R;
-  T* Ks = dOs + BWD_ROWS * R;
-  T* Vs = Ks + 2 * BK * R;
-  int* KP = reinterpret_cast<int*>(Vs + 2 * BK * R);
+  T* dOs = Qs + BWD_ROWS * RQ;
+  T* Ks = dOs + BWD_ROWS * RO;
+  T* Vs = Ks + 2 * BK * RQ;
+  int* KP = reinterpret_cast<int*>(Vs + 2 * BK * RO);
 
   allow_dependents();
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -655,17 +733,19 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
   const T* dog = static_cast<const T*>(p.dout);
-  const int c = tid % CPR, jr = tid / CPR;
 
   // Q and dO, once, zeros past nr
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS / RPC; ++i) {
-    const int r = jr + i * RPC;
+  for (int i = 0; i < QCopy::N; ++i) {
+    const int r = QCopy::row(tid, i), e = QCopy::col(tid, i);
     const bool ok = r < nr;
-    cp_async16(Qs + r * R + c * EPC, qg + (ok ? q_off(p, b, kvh, r0 + r, HD) : 0) + c * EPC,
-               ok);
-    cp_async16(dOs + r * R + c * EPC, dog + (ok ? o_off(p, b, kvh, r0 + r, HD) : 0) + c * EPC,
-               ok);
+    cp_async16(Qs + r * RQ + e, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + e, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < OCopy::N; ++i) {
+    const int r = OCopy::row(tid, i), e = OCopy::col(tid, i);
+    const bool ok = r < nr;
+    cp_async16(dOs + r * RO + e, dog + (ok ? o_off(p, b, kvh, r0 + r, DV) : 0) + e, ok);
   }
   cp_async_commit();
 
@@ -700,17 +780,22 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
 
   // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
   // past L are zeros at position -1
-  const T* kc = kg + b * p.k_sb + kvh * HD + c * EPC;
-  const T* vc = vg + b * p.v_sb + kvh * HD + c * EPC;
+  const T* kc = kg + b * p.k_sb + kvh * DK;
+  const T* vc = vg + b * p.v_sb + kvh * DV;
   auto load_tile = [&](int jt, int st) {
-    T* ks = Ks + st * BK * R + c * EPC;
-    T* vs = Vs + st * BK * R + c * EPC;
+    T* ks = Ks + st * BK * RQ;
+    T* vs = Vs + st * BK * RO;
 #pragma unroll
-    for (int i = 0; i < BK / RPC; ++i) {
-      const int j = jr + i * RPC, jj = jt * BK + j;
+    for (int i = 0; i < KCopy::N; ++i) {
+      const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = jt * BK + j;
       const bool ok = jj < p.L;
-      cp_async16(ks + j * R, ok ? kc + jj * p.k_sl : kg, ok);
-      cp_async16(vs + j * R, ok ? vc + jj * p.v_sl : vg, ok);
+      cp_async16(ks + j * RQ + e, ok ? kc + jj * p.k_sl + e : kg, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < VCopy::N; ++i) {
+      const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = jt * BK + j;
+      const bool ok = jj < p.L;
+      cp_async16(vs + j * RO + e, ok ? vc + jj * p.v_sl + e : vg, ok);
     }
     if (tid < BK) {
       const int jj = jt * BK + tid;
@@ -739,9 +824,10 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
     const int r = warp * 16 + g + 8 * h;
     float acc = 0.f;
     if (r < nr) {
-      const T* orow = og + o_off(p, b, kvh, r0 + r, HD);
+      const T* orow = og + o_off(p, b, kvh, r0 + r, DV);
 #pragma unroll
-      for (int cc = tig; cc < CPR; cc += 4) acc += dot16(dOs + r * R + cc * EPC, orow + cc * EPC);
+      for (int cc = tig; cc < OCopy::CPR; cc += 4)
+        acc += dot16(dOs + r * RO + cc * EPC, orow + cc * EPC);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -752,8 +838,8 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   float dq[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  const T* qw = Qs + warp * 16 * R;
-  const T* ow = dOs + warp * 16 * R;
+  const T* qw = Qs + warp * 16 * RQ;
+  const T* ow = dOs + warp * 16 * RO;
   const float c2 = p.scale * LOG2E;
 
   for (int st = 0; jt < ntiles; st ^= 1) {
@@ -763,13 +849,13 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
     __syncthreads();  // tile jt landed; every warp is done with stage st^1
     if (jn < ntiles) load_tile(jn, st ^ 1);
     cp_async_commit();
-    const T* ks = Ks + st * BK * R;
-    const T* vs = Vs + st * BK * R;
+    const T* ks = Ks + st * BK * RQ;
+    const T* vs = Vs + st * BK * RO;
     const int* kp = KP + st * BK;
 
     // S = Q K^T, dP = dO V^T; then P and dS (in s) on the fragments
     float s[NS][4], dp[NS][4];
-    two_products<T, HD, BK, R>(s, dp, qw, ow, ks, vs, lane);
+    two_products<T, DK, DV, BK, RQ, RO>(s, dp, qw, ow, ks, vs, lane);
 #pragma unroll
     for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -780,7 +866,7 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
         s[n][e] = pv * (dp[n][e] - dsum[h]);
       }
     // dQ += dS K
-    acc_product<T, HD, BK, R>(dq, s, ks, lane);
+    acc_product<T, DK, BK, RQ>(dq, s, ks, lane);
     jt = jn;
     full = full_n;
   }
@@ -791,7 +877,7 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + g + 8 * h;
     if (r >= nr) continue;
-    T* row = dqg + o_off(p, b, kvh, r0 + r, HD) + 2 * tig;
+    T* row = dqg + o_off(p, b, kvh, r0 + r, DK) + 2 * tig;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       store2(row + n * 8, dq[n][2 * h] * p.scale, dq[n][2 * h + 1] * p.scale);
@@ -869,23 +955,24 @@ __device__ __forceinline__ int next_qtile(const Params& p, int b, int it, int nt
   return ntq;
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   constexpr int BQ = BWD_BQ;
-  constexpr int R = HD + BWD_PAD;
-  constexpr int EPC = 16 / sizeof(T);
-  constexpr int CPR = HD / EPC;
-  constexpr int NQ = BQ / 8, NO = HD / 8;
-  constexpr int RPC = BWD_NT / CPR;
-  static_assert(BWD_NT % CPR == 0 && BQ % RPC == 0 && BWD_ROWS % RPC == 0 && BQ % 16 == 0,
-                "copy layout");
+  constexpr int RQ = DK + BWD_PAD;     // K and Q row stride (elements)
+  constexpr int RO = DV + BWD_PAD;     // V and dO row stride
+  constexpr int NQ = BQ / 8, NK = DK / 8, NV = DV / 8;
+  static_assert(BQ % 16 == 0, "query tile");
+  using KCopy = TileCopy<T, BWD_ROWS, DK, BWD_NT>;
+  using VCopy = TileCopy<T, BWD_ROWS, DV, BWD_NT>;
+  using QCopy = TileCopy<T, BQ, DK, BWD_NT>;
+  using OCopy = TileCopy<T, BQ, DV, BWD_NT>;
 
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   T* Ks = reinterpret_cast<T*>(bwd_smem_raw);
-  T* Vs = Ks + BWD_ROWS * R;
-  T* Qs = Vs + BWD_ROWS * R;
-  T* dOs = Qs + 2 * BQ * R;
-  int* QP = reinterpret_cast<int*>(dOs + 2 * BQ * R);
+  T* Vs = Ks + BWD_ROWS * RQ;
+  T* Qs = Vs + BWD_ROWS * RO;
+  T* dOs = Qs + 2 * BQ * RQ;
+  int* QP = reinterpret_cast<int*>(dOs + 2 * BQ * RO);
   float* LSE = reinterpret_cast<float*>(QP + 2 * BQ);
   float* Dd = LSE + 2 * BQ;
 
@@ -901,17 +988,19 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
   const T* dog = static_cast<const T*>(p.dout);
-  const int c = tid % CPR, jr = tid / CPR;
 
   // K and V rows of the block, once, zeros past L
 #pragma unroll
-  for (int i = 0; i < BWD_ROWS / RPC; ++i) {
-    const int j = jr + i * RPC, jj = j0 + j;
+  for (int i = 0; i < KCopy::N; ++i) {
+    const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = j0 + j;
     const bool ok = jj < p.L;
-    cp_async16(Ks + j * R + c * EPC, ok ? kg + b * p.k_sb + jj * p.k_sl + kvh * HD + c * EPC : kg,
-               ok);
-    cp_async16(Vs + j * R + c * EPC, ok ? vg + b * p.v_sb + jj * p.v_sl + kvh * HD + c * EPC : vg,
-               ok);
+    cp_async16(Ks + j * RQ + e, ok ? kg + b * p.k_sb + jj * p.k_sl + kvh * DK + e : kg, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < VCopy::N; ++i) {
+    const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = j0 + j;
+    const bool ok = jj < p.L;
+    cp_async16(Vs + j * RO + e, ok ? vg + b * p.v_sb + jj * p.v_sl + kvh * DV + e : vg, ok);
   }
   cp_async_commit();
 
@@ -975,14 +1064,19 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   // -inf (P = 0)
   const long long rbase = (static_cast<long long>(b) * p.H + kvh * G) * p.T;  // [B,H,T] row 0
   auto load_qtile = [&](int t, int st) {
-    T* qs = Qs + st * BQ * R + c * EPC;
-    T* os = dOs + st * BQ * R + c * EPC;
+    T* qs = Qs + st * BQ * RQ;
+    T* os = dOs + st * BQ * RO;
 #pragma unroll
-    for (int i = 0; i < BQ / RPC; ++i) {
-      const int r = jr + i * RPC, fr = t * BQ + r;
+    for (int i = 0; i < QCopy::N; ++i) {
+      const int r = QCopy::row(tid, i), e = QCopy::col(tid, i), fr = t * BQ + r;
       const bool ok = fr < GT;
-      cp_async16(qs + r * R, ok ? qg + q_off(p, b, kvh, fr, HD) + c * EPC : qg, ok);
-      cp_async16(os + r * R, ok ? dog + o_off(p, b, kvh, fr, HD) + c * EPC : dog, ok);
+      cp_async16(qs + r * RQ + e, ok ? qg + q_off(p, b, kvh, fr, DK) + e : qg, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < OCopy::N; ++i) {
+      const int r = OCopy::row(tid, i), e = OCopy::col(tid, i), fr = t * BQ + r;
+      const bool ok = fr < GT;
+      cp_async16(os + r * RO + e, ok ? dog + o_off(p, b, kvh, fr, DV) + e : dog, ok);
     }
     if (tid < BQ) {
       const int fr = t * BQ + tid, o = st * BQ + tid;
@@ -1001,13 +1095,17 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   if (it < ntq) load_qtile(it, 0);
   cp_async_commit();
 
-  float dk[NO][4], dv[NO][4];
+  float dk[NK][4], dv[NV][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const T* kw = Ks + warp * 16 * R;
-  const T* vw = Vs + warp * 16 * R;
+    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
+  const T* kw = Ks + warp * 16 * RQ;
+  const T* vw = Vs + warp * 16 * RO;
   const float c2 = p.scale * LOG2E;
 
   for (int st = 0; it < ntq; st ^= 1) {
@@ -1017,15 +1115,15 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
     __syncthreads();  // tile it landed; every warp is done with stage st^1
     if (in < ntq) load_qtile(in, st ^ 1);
     cp_async_commit();
-    const T* qs = Qs + st * BQ * R;
-    const T* os = dOs + st * BQ * R;
+    const T* qs = Qs + st * BQ * RQ;
+    const T* os = dOs + st * BQ * RO;
     const int* qps = QP + st * BQ;
     const float* lses = LSE + st * BQ;
     const float* ds = Dd + st * BQ;
 
     // S^T = K Q^T, dP^T = V dO^T; then P^T (in sT) and dS^T (in dpT)
     float sT[NQ][4], dpT[NQ][4];
-    two_products<T, HD, BQ, R>(sT, dpT, kw, vw, qs, os, lane);
+    two_products<T, DK, DV, BQ, RQ, RO>(sT, dpT, kw, vw, qs, os, lane);
 #pragma unroll
     for (int n = 0; n < NQ; ++n) {
       const int q = n * 8 + 2 * tig;
@@ -1044,36 +1142,36 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
       }
     }
     // dV += P^T dO, dK += dS^T Q
-    acc_product<T, HD, BQ, R>(dv, sT, os, lane);
-    acc_product<T, HD, BQ, R>(dk, dpT, qs, lane);
+    acc_product<T, DV, BQ, RO>(dv, sT, os, lane);
+    acc_product<T, DK, BQ, RQ>(dk, dpT, qs, lane);
     it = in;
     full = full_n;
   }
   cp_async_wait<0>();
 
   // dK (scaled) and dV, or this split's fp32 partials
-  const long long nel = static_cast<long long>(p.B) * p.L * p.KVH * HD;
+  const long long rows = static_cast<long long>(p.B) * p.L * p.KVH;  // [B, L, KVH] rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int jj = j0 + warp * 16 + g + 8 * h;
     if (jj >= p.L) continue;
-    const long long off = ((static_cast<long long>(b) * p.L + jj) * p.KVH + kvh) * HD + 2 * tig;
+    const long long row = (static_cast<long long>(b) * p.L + jj) * p.KVH + kvh;
+    const long long odk = row * DK + 2 * tig, odv = row * DV + 2 * tig;
     if (p.n_splits == 1) {
-      T* dkr = static_cast<T*>(p.dk) + off;
-      T* dvr = static_cast<T*>(p.dv) + off;
+      T* dkr = static_cast<T*>(p.dk) + odk;
+      T* dvr = static_cast<T*>(p.dv) + odv;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
+      for (int n = 0; n < NK; ++n)
         store2(dkr + n * 8, dk[n][2 * h] * p.scale, dk[n][2 * h + 1] * p.scale);
-        store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
-      }
-    } else {
-      float* dkr = p.ws + split * nel + off;
-      float* dvr = p.ws + (p.n_splits + split) * nel + off;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        store2(dkr + n * 8, dk[n][2 * h], dk[n][2 * h + 1]);
-        store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
-      }
+      for (int n = 0; n < NV; ++n) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
+    } else {
+      float* dkr = p.ws + split * rows * DK + odk;
+      float* dvr = p.ws + p.n_splits * rows * DK + split * rows * DV + odv;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) store2(dkr + n * 8, dk[n][2 * h], dk[n][2 * h + 1]);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
     }
   }
 }
@@ -1090,23 +1188,34 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
+// the sum of the n_splits partials w[s * n4 + i], in split order
+__device__ __forceinline__ float4 sum_splits(const float4* w, int n_splits, long long n4,
+                                             long long i) {
+  float4 a = w[i];
+  for (int s = 1; s < n_splits; ++s) {
+    const float4 x = w[s * n4 + i];
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+  }
+  return a;
+}
+
 // dK = scale * sum of the dK partials, dV = sum of the dV partials, each
-// summed in split order; 4 elements a thread
+// summed in split order; 4 elements of each a thread (n4k = B*L*KVH*dk / 4
+// of dK, n4v of dV)
 template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_combine(const Params p, long long n4) {
+__global__ void __launch_bounds__(256) flash_bwd_combine(const Params p, long long n4k,
+                                                         long long n4v) {
   wait_for_prior_grid();  // the dK/dV kernel's partials
   const float4* wk = reinterpret_cast<const float4*>(p.ws);
-  const float4* wv = wk + p.n_splits * n4;
+  const float4* wv = wk + p.n_splits * n4k;
+  const long long n4 = n4k > n4v ? n4k : n4v;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += gridDim.x * 256LL) {
-    float4 a = wk[i], v = wv[i];
-    for (int s = 1; s < p.n_splits; ++s) {
-      const float4 x = wk[s * n4 + i], y = wv[s * n4 + i];
-      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-      v.x += y.x; v.y += y.y; v.z += y.z; v.w += y.w;
+    if (i < n4k) {
+      float4 a = sum_splits(wk, p.n_splits, n4k, i);
+      a.x *= p.scale; a.y *= p.scale; a.z *= p.scale; a.w *= p.scale;
+      store4(static_cast<T*>(p.dk) + 4 * i, a);
     }
-    a.x *= p.scale; a.y *= p.scale; a.z *= p.scale; a.w *= p.scale;
-    store4(static_cast<T*>(p.dk) + 4 * i, a);
-    store4(static_cast<T*>(p.dv) + 4 * i, v);
+    if (i < n4v) store4(static_cast<T*>(p.dv) + 4 * i, sum_splits(wv, p.n_splits, n4v, i));
   }
 }
 
@@ -1134,54 +1243,54 @@ cudaError_t allow_smem(K kern, size_t bytes, bool* configured, int carveout = -1
 }
 
 // the forward takes the largest carveout, room for Fwd<T>::MIN_BLOCKS blocks an SM
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t fwd_attributes() {
   static bool configured[kMaxDevices] = {};
-  return allow_smem(fwd_kernel<T, HD>, fwd_smem<T, HD>(), configured,
+  return allow_smem(fwd_kernel<T, DK, DV>, fwd_smem<T, DK, DV>(), configured,
                     (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t fwd_occupancy(int* blocks, int* smem_bytes) {
-  cudaError_t e = fwd_attributes<T, HD>();
+  cudaError_t e = fwd_attributes<T, DK, DV>();
   if (e != cudaSuccess) return e;
-  *smem_bytes = (int)fwd_smem<T, HD>();
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd_kernel<T, HD>, FWD_NT,
-                                                       fwd_smem<T, HD>());
+  *smem_bytes = (int)fwd_smem<T, DK, DV>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwd_kernel<T, DK, DV>, FWD_NT,
+                                                       fwd_smem<T, DK, DV>());
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch_fwd(const Params& p, cudaStream_t s) {
-  cudaError_t e = fwd_attributes<T, HD>();
+  cudaError_t e = fwd_attributes<T, DK, DV>();
   if (e != cudaSuccess) return e;
   const dim3 grid((p.T * (p.H / p.KVH) + FBQ - 1) / FBQ, p.KVH, p.B);
-  fwd_kernel<T, HD><<<grid, FWD_NT, fwd_smem<T, HD>(), s>>>(p);
+  fwd_kernel<T, DK, DV><<<grid, FWD_NT, fwd_smem<T, DK, DV>(), s>>>(p);
   return cudaGetLastError();
 }
 
 // the backward kernels take the largest carveout too
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t bwd_attributes() {
   static bool conf_q[kMaxDevices] = {}, conf_kv[kMaxDevices] = {};
-  cudaError_t e = allow_smem(flash_bwd_dq<T, HD>, dq_smem<T, HD>(), conf_q,
+  cudaError_t e = allow_smem(flash_bwd_dq<T, DK, DV>, dq_smem<T, DK, DV>(), conf_q,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  return allow_smem(flash_bwd_dkv<T, HD>, dkv_smem<T, HD>(), conf_kv,
+  return allow_smem(flash_bwd_dkv<T, DK, DV>, dkv_smem<T, DK, DV>(), conf_kv,
                     (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t bwd_occupancy(int which, int* blocks, int* smem_bytes) {
-  cudaError_t e = bwd_attributes<T, HD>();
+  cudaError_t e = bwd_attributes<T, DK, DV>();
   if (e != cudaSuccess) return e;
   if (which == 0) {
-    *smem_bytes = (int)dq_smem<T, HD>();
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq<T, HD>, BWD_NT,
-                                                         dq_smem<T, HD>());
+    *smem_bytes = (int)dq_smem<T, DK, DV>();
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq<T, DK, DV>,
+                                                         BWD_NT, dq_smem<T, DK, DV>());
   }
-  *smem_bytes = (int)dkv_smem<T, HD>();
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dkv<T, HD>, BWD_NT,
-                                                       dkv_smem<T, HD>());
+  *smem_bytes = (int)dkv_smem<T, DK, DV>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dkv<T, DK, DV>, BWD_NT,
+                                                       dkv_smem<T, DK, DV>());
 }
 
 // kern<<<grid, block, smem, s>>>(args...) as a programmatic dependent launch
@@ -1201,27 +1310,36 @@ cudaError_t launch_dependent(void (*kern)(Args...), dim3 grid, dim3 block, size_
   return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch_bwd(const Params& p, cudaStream_t s) {
-  cudaError_t e = bwd_attributes<T, HD>();
+  cudaError_t e = bwd_attributes<T, DK, DV>();
   if (e != cudaSuccess) return e;
   const dim3 gq((p.T * (p.H / p.KVH) + BWD_ROWS - 1) / BWD_ROWS, p.KVH, p.B);
-  flash_bwd_dq<T, HD><<<gq, BWD_NT, dq_smem<T, HD>(), s>>>(p);  // writes dsum for flash_bwd_dkv
+  // writes dsum for flash_bwd_dkv
+  flash_bwd_dq<T, DK, DV><<<gq, BWD_NT, dq_smem<T, DK, DV>(), s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 gkv((p.L + BWD_ROWS - 1) / BWD_ROWS * p.n_splits, p.KVH, p.B);
-  e = launch_dependent(flash_bwd_dkv<T, HD>, gkv, dim3(BWD_NT), dkv_smem<T, HD>(), s, p);
+  e = launch_dependent(flash_bwd_dkv<T, DK, DV>, gkv, dim3(BWD_NT), dkv_smem<T, DK, DV>(), s,
+                       p);
   if (e != cudaSuccess || p.n_splits == 1) return e;
-  const long long n4 = static_cast<long long>(p.B) * p.L * p.KVH * HD / 4;
-  const long long blocks = (n4 + 255) / 256;
+  const long long rows = static_cast<long long>(p.B) * p.L * p.KVH;
+  const long long n4k = rows * DK / 4, n4v = rows * DV / 4;
+  const long long blocks = ((n4k > n4v ? n4k : n4v) + 255) / 256;
   return launch_dependent(flash_bwd_combine<T>, dim3((unsigned)(blocks < 8192 ? blocks : 8192)),
-                          dim3(256), 0, s, p, n4);
+                          dim3(256), 0, s, p, n4k, n4v);
 }
 
+// The instantiated (dk, dv) pairs: F(DK, DV) for each
+#define FLASH_PAIRS(F) F(64, 64) F(128, 128) F(192, 128)
+
 template <typename T>
-cudaError_t dispatch(const Params& p, int hd, bool backward, cudaStream_t s) {
-  if (hd == 64) return backward ? launch_bwd<T, 64>(p, s) : launch_fwd<T, 64>(p, s);
-  if (hd == 128) return backward ? launch_bwd<T, 128>(p, s) : launch_fwd<T, 128>(p, s);
+cudaError_t dispatch(const Params& p, int dk, int dv, bool backward, cudaStream_t s) {
+#define FLASH_LAUNCH(DK, DV)                   \
+  if (dk == DK && dv == DV)                     \
+    return backward ? launch_bwd<T, DK, DV>(p, s) : launch_fwd<T, DK, DV>(p, s);
+  FLASH_PAIRS(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -1249,12 +1367,14 @@ bool bad_shape(int B, int T, int H, int KVH, int L) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  out [B, T, H, hd] contiguous;
-// lse [B, H, T] fp32, or null.  Returns a cudaError_t (0 = launched).
+// dtype codes: 0 = float32, 1 = bfloat16.  q/k rows of dk elements, v rows
+// of dv; out [B, T, H, dv] contiguous; lse [B, H, T] fp32, or null.
+// Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for a (dk, dv)
+// pair that has no instantiation).
 extern "C" int flash_attn_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* q_pos,
-    const void* k_pos, void* out, void* lse, int B, int T, int H, int KVH, int L, int hd,
-    long long q_sb, long long q_st, long long k_sb, long long k_sl, long long v_sb,
+    const void* k_pos, void* out, void* lse, int B, int T, int H, int KVH, int L, int dk,
+    int dv, long long q_sb, long long q_st, long long k_sb, long long k_sl, long long v_sb,
     long long v_sl, long long qp_sb, long long kp_sb, float scale, int has_window,
     int window, int prefix_len, void* stream) {
   if (bad_shape(B, T, H, KVH, L)) return cudaErrorInvalidValue;
@@ -1263,47 +1383,54 @@ extern "C" int flash_attn_fwd(
   p.out = out;
   p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, hd, false, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, hd, false, s);
+  if (dtype == 0) return dispatch<float>(p, dk, dv, false, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(p, dk, dv, false, s);
   return cudaErrorInvalidValue;
 }
 
 // The forward's blocks per SM and dynamic shared memory per block at
-// (dtype, hd), into *blocks and *smem_bytes: the runtime's occupancy
+// (dtype, dk, dv), into *blocks and *smem_bytes: the runtime's occupancy
 // calculator, which also counts register granularity and the carveout.
-extern "C" int flash_attn_fwd_occupancy(int dtype, int hd, int* blocks, int* smem_bytes) {
-  if (dtype == 0 && hd == 64) return fwd_occupancy<float, 64>(blocks, smem_bytes);
-  if (dtype == 0 && hd == 128) return fwd_occupancy<float, 128>(blocks, smem_bytes);
-  if (dtype == 1 && hd == 64) return fwd_occupancy<__nv_bfloat16, 64>(blocks, smem_bytes);
-  if (dtype == 1 && hd == 128) return fwd_occupancy<__nv_bfloat16, 128>(blocks, smem_bytes);
+extern "C" int flash_attn_fwd_occupancy(int dtype, int dk, int dv, int* blocks,
+                                        int* smem_bytes) {
+#define FLASH_FWD_OCC(DK, DV)                                   \
+  if (dtype == 0 && dk == DK && dv == DV)                       \
+    return fwd_occupancy<float, DK, DV>(blocks, smem_bytes);    \
+  if (dtype == 1 && dk == DK && dv == DV)                       \
+    return fwd_occupancy<__nv_bfloat16, DK, DV>(blocks, smem_bytes);
+  FLASH_PAIRS(FLASH_FWD_OCC)
+#undef FLASH_FWD_OCC
   return cudaErrorInvalidValue;
 }
 
 // The backward kernels' blocks per SM and dynamic shared memory per block
-// at (dtype, hd): which = 0 the dQ kernel, 1 the dK/dV kernel.
-extern "C" int flash_attn_bwd_occupancy(int dtype, int hd, int which, int* blocks,
+// at (dtype, dk, dv): which = 0 the dQ kernel, 1 the dK/dV kernel.
+extern "C" int flash_attn_bwd_occupancy(int dtype, int dk, int dv, int which, int* blocks,
                                         int* smem_bytes) {
   if (which != 0 && which != 1) return cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 64) return bwd_occupancy<float, 64>(which, blocks, smem_bytes);
-  if (dtype == 0 && hd == 128) return bwd_occupancy<float, 128>(which, blocks, smem_bytes);
-  if (dtype == 1 && hd == 64) return bwd_occupancy<__nv_bfloat16, 64>(which, blocks, smem_bytes);
-  if (dtype == 1 && hd == 128)
-    return bwd_occupancy<__nv_bfloat16, 128>(which, blocks, smem_bytes);
+#define FLASH_BWD_OCC(DK, DV)                                          \
+  if (dtype == 0 && dk == DK && dv == DV)                              \
+    return bwd_occupancy<float, DK, DV>(which, blocks, smem_bytes);    \
+  if (dtype == 1 && dk == DK && dv == DV)                              \
+    return bwd_occupancy<__nv_bfloat16, DK, DV>(which, blocks, smem_bytes);
+  FLASH_PAIRS(FLASH_BWD_OCC)
+#undef FLASH_BWD_OCC
   return cudaErrorInvalidValue;
 }
 
-// o, dout, dq [B, T, H, hd] and dk, dv [B, L, KVH, hd] contiguous in q's
-// dtype; lse from the forward; dsum [B, H, T] fp32 scratch; with n_splits >
-// 1, ws holds 2 * n_splits * B * L * KVH * hd fp32 partials (else null).
+// o, dout [B, T, H, dv], dq [B, T, H, dk], dk [B, L, KVH, dk] and dv [B, L,
+// KVH, dv] contiguous in q's dtype; lse from the forward; dsum [B, H, T]
+// fp32 scratch; with n_splits > 1, ws holds n_splits * B * L * KVH * (dk +
+// dv) fp32 partials (else null).
 // Two launches on one stream (dQ, then dK/dV), and the combine when
 // n_splits > 1.
 extern "C" int flash_attn_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, const void* k_pos, void* dsum,
     void* dq, void* dk, void* dv, void* ws, int n_splits, int B, int T, int H, int KVH, int L,
-    int hd, long long q_sb, long long q_st, long long k_sb, long long k_sl, long long v_sb,
-    long long v_sl, long long qp_sb, long long kp_sb, float scale, int has_window,
-    int window, int prefix_len, void* stream) {
+    int dk_dim, int dv_dim, long long q_sb, long long q_st, long long k_sb, long long k_sl,
+    long long v_sb, long long v_sl, long long qp_sb, long long kp_sb, float scale,
+    int has_window, int window, int prefix_len, void* stream) {
   if (bad_shape(B, T, H, KVH, L) || n_splits < 1 || (n_splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   Params p = make_params(q, k, v, q_pos, k_pos, B, T, H, KVH, L, q_sb, q_st, k_sb, k_sl,
@@ -1315,7 +1442,7 @@ extern "C" int flash_attn_bwd(
   p.ws = static_cast<float*>(ws);
   p.n_splits = n_splits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, hd, true, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, hd, true, s);
+  if (dtype == 0) return dispatch<float>(p, dk_dim, dv_dim, true, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(p, dk_dim, dv_dim, true, s);
   return cudaErrorInvalidValue;
 }

@@ -135,9 +135,11 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: Optional[float] = None) -> torch.Tensor:
     """GQA flash attention (``repro.kernels.ops.flash_attn``, and the
     model's ``flash_attention_train`` / ``flash_attention_tri``).  q
-    [B,T,H,hd]; k/v [B,L,KVH,hd]; q_pos/k_pos [B,T]/[B,L] int32 (-1 = never
-    attended).  Returns [B,T,H,hd].  Differentiable in q, k and v; the
-    logsumexp the backward needs is kept only when a gradient is wanted."""
+    [B,T,H,dk]; k [B,L,KVH,dk]; v [B,L,KVH,dv] (dv = dk, or MLA's dk 192
+    with dv 128); q_pos/k_pos [B,T]/[B,L] int32 (-1 = never attended).
+    Returns [B,T,H,dv]; ``scale`` defaults to ``1/sqrt(dk)``.
+    Differentiable in q, k and v; the logsumexp the backward needs is kept
+    only when a gradient is wanted."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttn.apply(q, k, v, q_pos, k_pos, window, prefix_len, scale)

@@ -11,8 +11,11 @@ and one decoupled RoPE key row ``krope`` a token, attended in JAX's
 absorbed form (``q_nope @ W_uk`` scored against ``ckv``, the output
 ``p @ ckv`` expanded by ``W_uv``) with plain products, as JAX computes it
 outside any Pallas kernel.  MLA serves on the contiguous ring
-(``prefill``, ``decode_step``, ``prefill_chunk``); its paged pool, the
-training ``forward`` and ``prefill_flash`` raise ``NotImplementedError``.
+(``prefill``, ``decode_step``, ``prefill_chunk``); its full-sequence paths
+(the training ``forward`` and ``prefill_flash``) expand ``ckv`` into
+per-head keys and values, as JAX's do, and attend through K4 at q/k head
+dim ``head_dim + rope_head_dim`` (192) and v head dim ``vdim`` (128).  Its
+paged pool raises ``NotImplementedError``, as JAX has none.
 
 Entry points:
   ``forward``        full-sequence forward for training and scoring
@@ -20,7 +23,7 @@ Entry points:
                      differentiable)
   ``prefill``        full-prompt forward that also populates a ring cache
   ``prefill_flash``  the same contract, attention through K4 over the
-                     prompt's own K/V, then one cache write per layer (GQA)
+                     prompt's own K/V, then one cache write per layer
   ``decode_step``    incremental forward of T new tokens against the cache
                      (T = 1 for plain decode, T = s+1 for speculative verify)
   ``prefill_chunk``  one prefill chunk written at ``offset ..`` and attending
@@ -140,15 +143,6 @@ class DecoderLM:
         self.cfg = cfg
         self.padded_vocab = pad_vocab(cfg.vocab_size)
         self.mla = cfg.attn.kind == "mla"
-
-    def _no_mla(self, what: str) -> None:
-        """Raise for an MLA entry point that needs K4 at MLA's head dims."""
-        if self.mla:
-            raise NotImplementedError(
-                f"{what} of an MLA model runs flash attention at q/k head dim "
-                f"{self.cfg.attn.head_dim + self.cfg.attn.rope_head_dim} and v "
-                f"{self.cfg.attn.vdim}, which K4 does not take yet (ROADMAP queue 2, "
-                "head dims); MLA serves through prefill, decode_step and prefill_chunk")
 
     # ------------------------------------------------------------------
     # parameters
@@ -334,6 +328,27 @@ class DecoderLM:
                               rope)[:, :, 0]
         return q_nope, q_rope, ckv, krope
 
+    def _mla_qkv(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, rope):
+        """MLA's full-sequence q, k, v for K4, as JAX's ``_attn_full`` and
+        ``prefill_flash`` MLA branches build them: ``k_nope = ckv @ W_uk``
+        and ``v = ckv @ W_uv`` per head, q ``[B,T,H,hd+rd]`` = (q_nope,
+        q_rope), k ``[B,T,H,hd+rd]`` = (k_nope, krope broadcast over the
+        heads), both materialised (K4 reads contiguous rows), v ``[B,T,H,
+        vd]``.  Returns (q, k, v, ckv, krope), the last two as the cache
+        stores them before the cast."""
+        a = self.cfg.attn
+        q_nope, q_rope, ckv, krope = self._mla_proj(lp, x, positions, rope)
+        k_nope = torch.einsum("btl,lhk->bthk", ckv, lp["w_uk"])
+        vv = torch.einsum("btl,lhv->bthv", ckv, lp["w_uv"]).contiguous()
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, krope[:, :, None].expand(*k_nope.shape[:3], a.rope_head_dim)],
+                      dim=-1)
+        return q, k, vv, ckv, krope
+
+    def _mla_scale(self) -> float:
+        """MLA's softmax scale, ``1/sqrt(head_dim + rope_head_dim)``."""
+        return 1.0 / math.sqrt(self.cfg.attn.head_dim + self.cfg.attn.rope_head_dim)
+
     def _attn_mla(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, lc: Dict,
                   pos_arr: torch.Tensor, rows: torch.Tensor, rope,
                   valid: Optional[torch.Tensor], rows_limit: Optional[int]) -> torch.Tensor:
@@ -357,7 +372,7 @@ class DecoderLM:
         q_abs = torch.einsum("bthk,lhk->bthl", q_nope, lp["w_uk"])
         s1 = torch.einsum("bthl,bsl->bhts", q_abs, ckv)
         s2 = torch.einsum("bthr,bsr->bhts", q_rope, krope)
-        scores = (s1 + s2).float() * (1.0 / math.sqrt(a.head_dim + a.rope_head_dim))
+        scores = (s1 + s2).float() * self._mla_scale()
         mask = cm.position_mask(positions, pos_arr[:, :R], a.window)
         p = torch.softmax(scores.masked_fill(~mask[:, None], -1e30), dim=-1)
         o_lora = torch.einsum("bhts,bsl->bthl", p.to(ckv.dtype), ckv)
@@ -397,14 +412,20 @@ class DecoderLM:
 
     def _attn_full(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                    prefix_len: int, rope) -> torch.Tensor:
-        """Full-sequence self attention of the training forward (the GQA
-        branch of the JAX ``_attn_full(train=True)``; ``forward`` raises for
-        MLA).  ``positions`` [B,T] serve as query and key positions."""
+        """Full-sequence self attention of the training forward (the JAX
+        ``_attn_full(train=True)``, GQA or MLA: :meth:`_mla_qkv` at K4's
+        (192, 128) head dims).  ``positions`` [B,T] serve as query and key
+        positions."""
         a = self.cfg.attn
         B, T, _ = x.shape
-        q, k, v = self._qkv(lp, x, positions, rope)
-        out = flash_attn(q, k, v, positions, positions, window=a.window,
-                         prefix_len=prefix_len)
+        if self.mla:
+            q, k, v, _, _ = self._mla_qkv(lp, x, positions, rope)
+            out = flash_attn(q, k, v, positions, positions, window=a.window,
+                             prefix_len=prefix_len, scale=self._mla_scale())
+        else:
+            q, k, v = self._qkv(lp, x, positions, rope)
+            out = flash_attn(q, k, v, positions, positions, window=a.window,
+                             prefix_len=prefix_len)
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _mlp(self, lp: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -454,9 +475,7 @@ class DecoderLM:
         """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the MoE
         load-balance loss summed over the layers in fp32 (the JAX model's),
         a zero scalar for a dense model.  No per-layer recompute: every
-        layer's activations are kept for the backward.  An MLA model raises:
-        its full-sequence attention is K4 at q/k 192, v 128 (queue 2)."""
-        self._no_mla("forward")
+        layer's activations are kept for the backward."""
         if prefix_embeds is not None:
             raise NotImplementedError(
                 "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
@@ -507,8 +526,17 @@ class DecoderLM:
         and the quantised ones are written after it, as JAX's
         ``prefill_flash`` does, while :meth:`prefill` attends the quantised
         rows: the two differ by the quantisation there.  The contiguous ring
-        only, as in JAX.  An MLA model raises (K4 at its head dims)."""
-        self._no_mla("prefill_flash")
+        only, as in JAX.
+
+        An MLA model attends the prompt's per-head keys and values
+        (:meth:`_mla_qkv`, K4 at (192, 128)), then writes its ``ckv`` and
+        ``krope`` rows, cast to the cache's dtype, as JAX's MLA branch does;
+        an MLA cache has no int8 form.  :meth:`prefill` attends in the
+        absorbed form over ``ckv`` instead, so the two differ by the
+        rounding of other products.  A padded column (position -1) attends
+        nothing here and takes K4's zeros, where :meth:`prefill` lets it
+        attend the prompt before it: a MoE layer that drops assignments can
+        then route the two routes' real rows differently."""
         if "bt" in cache:
             raise NotImplementedError(
                 "prefill_flash covers the contiguous ring only; the JAX package's "
@@ -527,10 +555,17 @@ class DecoderLM:
         cache["pos"][bidx, rows] = qk_pos
 
         def attn(lp, hn, i, rope):
-            q, k, v = self._qkv(lp, hn, positions, rope)
-            out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window)
             lc = _layer(cache, i)
-            for name, t in _stored(lc, k, v).items():
+            if self.mla:
+                q, k, v, ckv, krope = self._mla_qkv(lp, hn, positions, rope)
+                out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window,
+                                 scale=self._mla_scale())
+                new = {"ckv": ckv.to(lc["ckv"].dtype), "krope": krope.to(lc["krope"].dtype)}
+            else:
+                q, k, v = self._qkv(lp, hn, positions, rope)
+                out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window)
+                new = _stored(lc, k, v)
+            for name, t in new.items():
                 lc[name][bidx, rows] = t
             return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, c.d_model)
 

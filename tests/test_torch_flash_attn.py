@@ -204,12 +204,23 @@ def test_cpu_calls_run_the_plain_versions_only():
 
 @pytest.mark.parametrize("bad,match", [
     ("cpu_tensor", "CUDA device"), ("head_dim", "head dim"), ("dtype", "dtype"),
-    ("pos_dtype", "int32"), ("window_zero", "window"), ("noncontig_heads", "contiguous")])
+    ("pos_dtype", "int32"), ("window_zero", "window"), ("noncontig_heads", "contiguous"),
+    # (dk, dv) pairs without an instantiation, and v rows that are not its own
+    ("pair_192_64", "head dims"), ("pair_128_192", "head dims"), ("pair_192_192", "head dims"),
+    ("pair_64_128", "head dims"), ("v_noncontig_192_128", "contiguous")])
 def test_flash_wrapper_rejects_what_it_cannot_take(bad, match):
     """K4's wrapper checks before any launch; what it cannot take raises."""
     q, k, v, _, pos, _ = _case("causal_g2", hd=64)
     tq, tk, tv, tp = _t(q, k, v, pos)
     kw = {}
+    if bad.startswith(("pair_", "v_noncontig")):
+        dk, dv = (int(x) for x in bad.split("_")[-2:])
+        rng = np.random.default_rng(1)
+        tq, tk = (torch.from_numpy(rng.standard_normal((*t.shape[:3], dk)).astype(np.float32))
+                  for t in (tq, tk))
+        tv = torch.from_numpy(rng.standard_normal((*tv.shape[:3], dv)).astype(np.float32))
+        if bad.startswith("v_noncontig"):
+            tv = torch.cat([tv, tv], dim=-1)[..., :dv]
     if bad == "head_dim":
         tq, tk, tv = (t[..., :48].contiguous() for t in (tq, tk, tv))
     elif bad == "dtype":
@@ -264,6 +275,58 @@ def test_default_scale_is_inverse_sqrt_head_dim():
                                       (torch.bfloat16, 256)])
 def test_forward_occupancy_query_rejects_what_has_no_instantiation(dtype, hd):
     """The forward's occupancy query checks (dtype, hd) before it loads the
-    library; only fp32/bf16 at hd 64 and 128 have a forward."""
+    library; only fp32/bf16 at (64, 64), (128, 128) and (192, 128) have a
+    forward."""
     with pytest.raises(ValueError, match="no forward"):
         K4.fwd_occupancy(dtype, hd)
+
+
+@pytest.mark.parametrize("dtype,dk,dv", [(torch.float32, 192, 64), (torch.bfloat16, 128, 192),
+                                         (torch.float32, 192, 192), (torch.float64, 192, 128),
+                                         (torch.bfloat16, 64, 128)])
+def test_occupancy_queries_reject_pairs_without_an_instantiation(dtype, dk, dv):
+    """Both occupancy queries take the (dk, dv) pair and check it before
+    they load the library."""
+    with pytest.raises(ValueError, match="no forward"):
+        K4.fwd_occupancy(dtype, dk, dv)
+    with pytest.raises(ValueError, match="no backward"):
+        K4.bwd_occupancy(dtype, dk, dv)
+
+
+def test_head_dim_pairs_are_the_instantiated_ones():
+    """The wrapper's pairs are the source's: ``FLASH_PAIRS`` in
+    ``csrc/flash_attn.cu`` lists each once, and the list is the wrapper's."""
+    src = (build.CSRC / "flash_attn.cu").read_text()
+    line = next(ln for ln in src.splitlines() if ln.startswith("#define FLASH_PAIRS(F)"))
+    pairs = tuple(tuple(int(x) for x in m.split(","))
+                  for m in line.split("F(")[1:] for m in [m.split(")")[0]])
+    assert pairs == K4.HEAD_DIMS == ((64, 64), (128, 128), (192, 128))
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (192, 128)])
+def test_forward_wrapper_hands_the_kernel_both_head_dims(monkeypatch, dk, dv):
+    """Through a stand-in for the card: the forward passes (dk, dv) and
+    the default scale 1/sqrt(dk), and returns ``out [B,T,H,dv]`` and ``lse
+    [B,H,T]``; a call counts one launch."""
+    calls = []
+
+    def fake_invoke(entry, dev, *args):
+        calls.append(args)
+        return 0
+    monkeypatch.setattr(K4, "on_one_cuda_device", lambda tensors, dev: True)
+    monkeypatch.setattr(K4, "invoke", fake_invoke)
+    monkeypatch.setattr(K4.FWD, "launches", K4.FWD.launches)
+    rng = np.random.default_rng(2)
+    B, T, H, KVH = 2, 9, 4, 2
+    q, k = (torch.from_numpy(rng.standard_normal((B, T, n, dk)).astype(np.float32))
+            for n in (H, KVH))
+    v = torch.from_numpy(rng.standard_normal((B, T, KVH, dv)).astype(np.float32))
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T).contiguous()
+    before = K4.FWD.launches
+    out, lse = K4.flash_attn_fwd_cuda(q, k, v, pos, pos, save_lse=True)
+    assert tuple(out.shape) == (B, T, H, dv) and tuple(lse.shape) == (B, H, T)
+    assert K4.FWD.launches == before + 1
+    # (dtype, q, k, v, q_pos, k_pos, out, lse, B, T, H, KVH, L, dk, dv, strides x8, scale, ...)
+    (a,) = calls
+    assert a[8:15] == (B, T, H, KVH, T, dk, dv)
+    assert a[23] == pytest.approx(1.0 / math.sqrt(dk))

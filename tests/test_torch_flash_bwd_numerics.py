@@ -13,9 +13,12 @@ as the kernels do, walks the tiles in the kernels' order
 (dQ: 32-key tiles; dK/dV: blocks of 64 keys over 32-row tiles of folded
 query rows ``g*T + t``), skips the query tiles the kernel skips, gives each
 split its share of the ordered list of visible query tiles and sums the
-splits' fp32 partials in split order, as ``flash_bwd_combine`` does.  It
-does not model the tensor cores' accumulation order; ``chip_smoke.py``
-holds the kernels themselves on the card.
+splits' fp32 partials in split order, as ``flash_bwd_combine`` does.
+Where v's head dim (dv) differs from q's and k's (dk, MLA's (192, 128)),
+S = Q K^T, dQ = dS K and dK = dS^T Q run over dk, and dP = dO V^T,
+D = rowsum(dO O) and dV = P^T dO over dv.  The emulation does not model
+the tensor cores' accumulation order; ``chip_smoke.py`` holds the kernels
+themselves on the card.
 
 Also here: a lane-by-lane model of ``mma.sync`` m16n8k8 showing that the
 fp32 kernels' permuted k index (the accumulator fragment reused as the A
@@ -50,7 +53,8 @@ BF16_RMS_TOL = 1e-2      # bf16, relative RMS against fp32 gradients
 KEY_TILE = 32            # the dQ kernel's key tile
 SMS = 132                # an H100's SMs, for the split rule
 
-# name -> (B, T, KVH, G, hd, window, prefix_len, lens)
+# name -> (B, T, KVH, G, hd, window, prefix_len, lens); hd is one head dim,
+# or MLA's (dk, dv) pair
 CASES = {
     "g1_causal_hd64": (2, 40, 2, 1, 64, None, 0, None),
     "g2_causal_hd128": (2, 40, 2, 2, 128, None, 0, None),
@@ -60,16 +64,26 @@ CASES = {
     "g2_window_prefix_hd128": (2, 45, 1, 2, 128, 7, 3, None),
     "g2_padded_masked_hd64": (3, 40, 2, 2, 64, None, 0, [40, 0, 23]),
     "g8_causal_t70_hd128": (2, 70, 1, 8, 128, None, 0, None),    # two key blocks
+    "g1_causal_dk192_dv128": (2, 40, 2, 1, (192, 128), None, 0, None),
+    "g1_padded_masked_dk192_dv128": (3, 40, 2, 1, (192, 128), None, 0, [40, 0, 23]),
+    "g2_window_prefix_dk192_dv128": (2, 45, 1, 2, (192, 128), 7, 3, None),
+    "g1_causal_t70_dk192_dv128": (1, 70, 2, 1, (192, 128), None, 0, None),   # splits
 }
+
+
+def dims(hd):
+    """(dk, dv) of a case's head dims."""
+    return hd if isinstance(hd, tuple) else (hd, hd)
 
 
 def make_case(name, bf16=False, seed=0):
     B, T, KVH, G, hd, window, prefix_len, lens = CASES[name]
-    rng = np.random.default_rng(seed + hd + 7 * G)
+    dk, dv = dims(hd)
+    rng = np.random.default_rng(seed + dk + 7 * G)
     H = KVH * G
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-                   for shape in ((B, T, H, hd), (B, T, KVH, hd), (B, T, KVH, hd),
-                                 (B, T, H, hd)))
+                   for shape in ((B, T, H, dk), (B, T, KVH, dk), (B, T, KVH, dv),
+                                 (B, T, H, dv)))
     if bf16:
         q, k, v, do = (x.bfloat16().float() for x in (q, k, v, do))
     pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
@@ -147,14 +161,15 @@ def emulated_backward(q, k, v, o, do, lse, q_pos, k_pos, window, prefix_len, rou
     """K4's backward as its kernels compute it, up to summation order inside
     a product.  Returns (dq, dk, dv) in fp32 (bf16-rounded for "bf16")."""
     B, T, H, hd = q.shape
-    L, KVH = k.shape[1], k.shape[2]
+    L, KVH, vd = k.shape[1], k.shape[2], v.shape[3]
     G, GT = H // KVH, (H // KVH) * T
     scale = 1.0 / math.sqrt(hd)
     bf16 = route == "bf16"
     rnd = (lambda x: x.bfloat16().float()) if bf16 else (lambda x: x)   # noqa: E731
 
-    def fold(x):                                          # [B,T,H,hd] -> [B,KVH,GT,hd]
-        return x.reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4).reshape(B, KVH, GT, hd)
+    def fold(x):                                          # [B,T,H,d] -> [B,KVH,GT,d]
+        d = x.shape[3]
+        return x.reshape(B, T, KVH, G, d).permute(0, 2, 3, 1, 4).reshape(B, KVH, GT, d)
     qf, of, dof = fold(q), fold(o), fold(do)
     kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)    # [B,KVH,L,hd]
     lsef = lse.reshape(B, KVH, GT)
@@ -178,7 +193,7 @@ def emulated_backward(q, k, v, o, do, lse, q_pos, k_pos, window, prefix_len, rou
     # dK/dV: blocks of BWD_ROWS keys; each split sums its visible query
     # tiles in order into fp32 partials; the combine adds them in split order
     dk = torch.zeros(B, KVH, L, hd)
-    dv = torch.zeros(B, KVH, L, hd)
+    dv = torch.zeros(B, KVH, L, vd)
     tq = K4.BWD_Q_TILE
     for b in range(B):
         for j0 in range(0, L, K4.BWD_ROWS):
@@ -190,7 +205,7 @@ def emulated_backward(q, k, v, o, do, lse, q_pos, k_pos, window, prefix_len, rou
             parts = []
             for c in range(splits):
                 pk = torch.zeros(KVH, j1 - j0, hd)
-                pv = torch.zeros(KVH, j1 - j0, hd)
+                pv = torch.zeros(KVH, j1 - j0, vd)
                 for t in split_share(vis, splits, c):
                     r = slice(t * tq, min(GT, t * tq + tq))
                     qt, ot = qf[b, :, r], dof[b, :, r]           # [KVH, nr, hd]
@@ -269,14 +284,16 @@ def test_bf16_with_p_and_ds_rounded_stays_within_the_bf16_rms_tolerance(name):
         assert rms <= BF16_RMS_TOL
 
 
-@pytest.mark.parametrize("name", ["g2_causal_hd128", "g8_window_hd64"])
+@pytest.mark.parametrize("name", ["g2_causal_hd128", "g8_window_hd64",
+                                  "g1_causal_dk192_dv128"])
 def test_one_tf32_product_misses_the_fp32_grad_tolerance(name):
     got, (q, k, v, do, pos, kw, o, lse) = run(name, "tf32", 1)
     explicit = ref.flash_attn_bwd_ref(q, k, v, o, do, lse, pos, pos, **kw)
     assert max(excess(g, e, GRAD_TOL) for g, e in zip(got, explicit)) > 2.0
 
 
-@pytest.mark.parametrize("name", ["g8_causal_t70_hd128", "g7_causal_t37_hd128"])
+@pytest.mark.parametrize("name", ["g8_causal_t70_hd128", "g7_causal_t37_hd128",
+                                  "g1_causal_t70_dk192_dv128"])
 def test_splits_change_only_the_rounding(name):
     """Splitting the dK/dV work moves sums between fp32 partials and
     nothing else: every split count agrees with the unsplit kernel to
@@ -452,6 +469,9 @@ def test_bwd_n_splits_at_phase_2c_shapes(shape, want):
 def test_bwd_workspace_and_device_kernels():
     assert K4.bwd_workspace_floats(2, 4, 128, 128, 1) == 0
     assert K4.bwd_workspace_floats(2, 4, 128, 128, 3) == 2 * 3 * 2 * 128 * 4 * 128
+    # MLA: the dK partials over dk 192, then the dV partials over dv 128
+    assert K4.bwd_workspace_floats(1, 2, 256, 192, 4, 128) == 4 * 256 * 2 * (192 + 128)
+    assert K4.bwd_workspace_floats(1, 2, 256, 192, 1, 128) == 0
     assert K4.bwd_device_kernels(1) == 2 and K4.bwd_device_kernels(4) == 3
 
 
@@ -480,7 +500,8 @@ def _bwd_inputs(name):
     return [_aligned(x) for x in (q, k, v, o, do)] + [lse, pos], kw
 
 
-@pytest.mark.parametrize("name", ["g8_causal_t70_hd128", "g2_padded_masked_hd64"])
+@pytest.mark.parametrize("name", ["g8_causal_t70_hd128", "g2_padded_masked_hd64",
+                                  "g1_causal_t70_dk192_dv128"])
 def test_wrapper_hands_the_kernel_a_geometry_of_shapes_only(monkeypatch, name):
     """The split count and the workspace come from the shapes: positions
     that hide every key, or none, give the same launch; a call counts once
@@ -494,23 +515,28 @@ def test_wrapper_hands_the_kernel_a_geometry_of_shapes_only(monkeypatch, name):
         assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
     assert K4.BWD.launches == before + 3
     B, T, H, hd = q.shape
-    KVH = k.shape[2]
+    KVH, vd = k.shape[2], v.shape[3]
     splits = K4.bwd_n_splits(B, KVH, (H // KVH) * T, T, SMS)
     # (dtype, q, k, v, o, do, lse, q_pos, k_pos, dsum, dq, dk, dv, ws, n_splits,
-    #  B, T, H, KVH, L, hd, ...)
-    geometry = {(a[13] is not None,) + tuple(a[14:21]) for a in calls}
-    assert geometry == {(splits > 1, splits, B, T, H, KVH, T, hd)}
+    #  B, T, H, KVH, L, dk, dv, ..., scale, ...)
+    geometry = {(a[13] is not None,) + tuple(a[14:22]) for a in calls}
+    assert geometry == {(splits > 1, splits, B, T, H, KVH, T, hd, vd)}
     assert {a[0] for a in calls} == {0}
+    assert all(a[30] == pytest.approx(1.0 / math.sqrt(hd)) for a in calls)   # 1/sqrt(dk)
 
 
-@pytest.mark.parametrize("which", ["q", "k", "o", "do"])
-def test_wrapper_rejects_unaligned_copies(monkeypatch, which):
+@pytest.mark.parametrize("which", ["q", "k", "o", "do",
+                                   pytest.param("v", id="v-dk192_dv128"),
+                                   pytest.param("do", id="do-dk192_dv128")])
+def test_wrapper_rejects_unaligned_copies(monkeypatch, which, request):
     """16-byte copies need 16-byte bases: the backward raises before any
-    launch, with no other route."""
+    launch, with no other route (also at MLA's (192, 128), where v, o and
+    do have other rows than q and k)."""
     calls = []
     _stand_in_for_the_card(monkeypatch, calls)
-    (q, k, v, o, do, lse, pos), kw = _bwd_inputs("g2_causal_hd128")
-    t = dict(q=q, k=k, o=o, do=do)[which]
+    name = "g1_causal_dk192_dv128" if "dk192" in request.node.name else "g2_causal_hd128"
+    (q, k, v, o, do, lse, pos), kw = _bwd_inputs(name)
+    t = dict(q=q, k=k, v=v, o=o, do=do)[which]
     flat = torch.zeros(t.numel() + 1)
     off = flat[1:].view(t.shape)                      # 4 bytes past a 16-byte boundary
     off.copy_(t)

@@ -15,8 +15,10 @@ the exact products in fp32.  It does not model the tensor cores'
 accumulation order or how they round partial sums; ``chip_smoke.py``
 checks those on the card.
 
-The cases: B 2, T 64, 16 query heads over 8 kv-heads, hd 64 and 128;
-causal, a window of 16, and right padding with a fully masked batch entry.
+The cases: B 2, T 64, 16 query heads over 8 kv-heads, hd 64 and 128, and
+MLA's q/k head dim 192 with v head dim 128 (the kernel's (192, 128)
+instantiation: scores over 192 columns, the output over 128); causal, a
+window of 16, and right padding with a fully masked batch entry.
 Inputs are made with numpy from a seed.  The test that a single tf32
 product misses the fp32 tolerance is the recorded reason for the split.
 """
@@ -60,16 +62,18 @@ def emulated_forward(q, k, v, q_pos, k_pos, window, route):
     """K4's forward as the kernel computes it, up to summation order: per
     (b, kv-head) the G heads' rows against key tiles, online softmax with
     the finite-max guard, ``out = acc / max(l, 1e-30)``, ``lse = m + log l``
-    (-inf where no key was seen).  Returns (out [B,T,H,hd], lse [B,H,T])."""
+    (-inf where no key was seen).  q/k have dk columns, v dv: the scores
+    run over dk at scale 1/sqrt(dk), the output over dv.  Returns (out
+    [B,T,H,dv], lse [B,H,T])."""
     B, T, H, hd = q.shape
-    L, KVH = k.shape[1], k.shape[2]
+    L, KVH, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KVH
     scale = 1.0 / math.sqrt(hd)
     qf = q.reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4)            # [B,KVH,G,T,hd]
     ok = ref._visible(q_pos, k_pos, window, 0)[:, None, None]           # [B,1,1,T,L]
     m = torch.full((B, KVH, G, T), -math.inf)
     l = torch.zeros((B, KVH, G, T))
-    acc = torch.zeros((B, KVH, G, T, hd))
+    acc = torch.zeros((B, KVH, G, T, dv))
     for j0 in range(0, L, TILE_KEYS):
         kt = k[:, j0:j0 + TILE_KEYS].permute(0, 2, 1, 3)                 # [B,KVH,tile,hd]
         vt = v[:, j0:j0 + TILE_KEYS].permute(0, 2, 1, 3)
@@ -86,16 +90,19 @@ def emulated_forward(q, k, v, q_pos, k_pos, window, route):
         m = m_new
     out = acc / l.clamp(min=1e-30)[..., None]
     lse = torch.where(l > 0, m + torch.log(l), -math.inf)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, dv)
     if route == "bf16":
         out = out.bfloat16().float()
     return out, lse.reshape(B, H, T)
 
 
 def make_inputs(hd, mask, bf16=False, B=2, T=64, H=16, KVH=8, seed=0):
-    rng = np.random.default_rng(seed + hd)
+    """q, k, v, positions and window of a case; ``hd`` is one head dim, or
+    a (dk, dv) pair."""
+    dk, dv = hd if isinstance(hd, tuple) else (hd, hd)
+    rng = np.random.default_rng(seed + dk)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-               for shape in ((B, T, H, hd), (B, T, KVH, hd), (B, T, KVH, hd)))
+               for shape in ((B, T, H, dk), (B, T, KVH, dk), (B, T, KVH, dv)))
     if bf16:
         q, k, v = (x.bfloat16().float() for x in (q, k, v))
     pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
@@ -114,7 +121,8 @@ def excess(got, want, tol):
     return float(err.max())
 
 
-CASES = [(hd, mask) for hd in (64, 128) for mask in MASKS]
+CASES = [(hd, mask) for hd in (64, 128) for mask in MASKS] + [
+    pytest.param((192, 128), mask, id=f"192x128-{mask}") for mask in MASKS]
 
 
 @pytest.mark.parametrize("hd,mask", CASES)

@@ -17,8 +17,9 @@ experts top-2 with 1 shared expert), with the JAX weights carried over by
   ``generate``, ``sample=True`` on JAX's own draws, and
   ``serve_continuous_live`` on contiguous rings, whole and chunked, against
   JAX's run;
-* the guards: a paged pool, ``forward`` and ``prefill_flash`` raise
-  ``NotImplementedError``; ``kv_quant`` leaves the MLA cache as JAX's does;
+* the guards: a paged pool raises ``NotImplementedError``, while
+  ``forward`` and ``prefill_flash`` run; ``kv_quant`` leaves the MLA cache
+  as JAX's does;
   K5's calls a layer; the launcher.
 
 fp32 throughout.  Tolerance ``TOL`` (2e-5 absolute and relative) for
@@ -338,20 +339,23 @@ def test_k5_calls_a_layer(variant, per_layer):
 
 
 def test_guards_raise():
-    """MLA serves on the ring only: the paged pool raises as JAX's does, and
-    ``forward``/``prefill_flash`` (K4 at q/k 48, v 32 here; 192 and 128 at
-    full width) raise naming queue 2; an unknown attention kind names item
-    12."""
+    """MLA serves on the ring only: the paged pool raises as JAX's does,
+    while ``forward`` and ``prefill_flash`` (K4 at q/k 48, v 32 here; 192
+    and 128 at full width) run (``test_torch_mla_full.py`` holds them
+    against JAX); an unknown attention kind names item 12."""
     jm, _, tm, tp = pair()
     with pytest.raises(NotImplementedError, match="paged"):
         jm.init_paged_cache(8, 8)
     with pytest.raises(NotImplementedError, match="paged"):
         tm.init_paged_cache(8, 8, device="cpu")
     toks = torch.zeros((1, 6), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tm.forward(tp, toks)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tm.prefill_flash(tp, toks, tm.init_cache(1, 8, device="cpu"))
+    V = tm.cfg.vocab_size
+    logits, aux = tm.forward(tp, toks)
+    assert logits.shape[:2] == (1, 6) and bool(torch.isfinite(logits[..., :V]).all())
+    assert bool(torch.isfinite(aux))
+    last, cache, lens = tm.prefill_flash(tp, toks, tm.init_cache(1, 8, device="cpu"))
+    assert bool(torch.isfinite(last[:, :V]).all()) and lens.tolist() == [6]
+    assert cache["pos"][0].tolist() == [0, 1, 2, 3, 4, 5, -1, -1]
     with pytest.raises(NotImplementedError, match="item 12"):
         DecoderLM(_cfg(TR).with_(attn=dataclasses.replace(_cfg(TR).attn, kind="linear")))
 

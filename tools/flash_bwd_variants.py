@@ -54,28 +54,28 @@ SOURCE = os.path.join(CSRC, "flash_attn.cu")
 ROUND = '''__device__ __forceinline__ void bwd_split(float x, uint32_t& big, uint32_t& small) {
   split_tf32(x, big, small);
 }'''
-DKV_LAUNCH = ("  e = launch_dependent(flash_bwd_dkv<T, HD>, gkv, dim3(BWD_NT), "
-              "dkv_smem<T, HD>(), s, p);")
+DKV_LAUNCH = ("  e = launch_dependent(flash_bwd_dkv<T, DK, DV>, gkv, dim3(BWD_NT), "
+              "dkv_smem<T, DK, DV>(), s,\n                       p);")
 VARIANTS = {
     "base": [],
     "nocompute": [
-        ("    two_products<T, HD, BK, R>(s, dp, qw, ow, ks, vs, lane);",
+        ("    two_products<T, DK, DV, BK, RQ, RO>(s, dp, qw, ow, ks, vs, lane);",
          "    if (true) { jt = jn; full = full_n; continue; }\n"
-         "    two_products<T, HD, BK, R>(s, dp, qw, ow, ks, vs, lane);"),
-        ("    two_products<T, HD, BQ, R>(sT, dpT, kw, vw, qs, os, lane);",
+         "    two_products<T, DK, DV, BK, RQ, RO>(s, dp, qw, ow, ks, vs, lane);"),
+        ("    two_products<T, DK, DV, BQ, RQ, RO>(sT, dpT, kw, vw, qs, os, lane);",
          "    if (true) { it = in; full = full_n; continue; }\n"
-         "    two_products<T, HD, BQ, R>(sT, dpT, kw, vw, qs, os, lane);")],
+         "    two_products<T, DK, DV, BQ, RQ, RO>(sT, dpT, kw, vw, qs, os, lane);")],
     "nocopy": [("    if (jn < ntiles) load_tile(jn, st ^ 1);\n    cp_async_commit();\n"
-                "    const T* ks = Ks + st * BK * R;",
-                "    cp_async_commit();\n    const T* ks = Ks + st * BK * R;"),
+                "    const T* ks = Ks + st * BK * RQ;",
+                "    cp_async_commit();\n    const T* ks = Ks + st * BK * RQ;"),
                ("    if (in < ntq) load_qtile(in, st ^ 1);", "")],
     "dq_only": [("  const dim3 gkv(", "  return e;\n  const dim3 gkv(")],
-    "dkv_only": [("  flash_bwd_dq<T, HD><<<gq, BWD_NT, dq_smem<T, HD>(), s>>>(p);", "")],
+    "dkv_only": [("  flash_bwd_dq<T, DK, DV><<<gq, BWD_NT, dq_smem<T, DK, DV>(), s>>>(p);", "")],
     "qscan32": [("constexpr int QSCAN = 8;", "constexpr int QSCAN = 32;")],
     "nopdl": [("programmaticStreamSerializationAllowed = 1;",
                "programmaticStreamSerializationAllowed = 0;")],
     "pdl_combine": [(DKV_LAUNCH,
-                     "  flash_bwd_dkv<T, HD><<<gkv, BWD_NT, dkv_smem<T, HD>(), s>>>(p);\n"
+                     "  flash_bwd_dkv<T, DK, DV><<<gkv, BWD_NT, dkv_smem<T, DK, DV>(), s>>>(p);\n"
                      "  e = cudaGetLastError();")],
     "late_trigger": [("  allow_dependents();\n  const int tid", "  const int tid", 2),
                      ("  T* dqg = static_cast<T*>(p.dq);",
@@ -150,7 +150,7 @@ def build_variants(build, report) -> dict:
 def point_wrapper_at(K4, lib: str) -> None:
     fn = ctypes.CDLL(lib).flash_attn_bwd
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [i] + [p] * 13 + [i] + [i] * 6 + [ll] * 8 + [ctypes.c_float, i, i, i, p]
+    fn.argtypes = [i] + [p] * 13 + [i] + [i] * 7 + [ll] * 8 + [ctypes.c_float, i, i, i, p]
     fn.restype = ctypes.c_int
     K4._fns["bwd"] = fn
 
