@@ -4942,6 +4942,16 @@ def mla_prefill_routes(torch, np, m, tcfg, tp, B=16, T=128, L=256, calls=2):
                logits_finite=bool(torch.isfinite(lf[:, :V]).all()),
                k4_launches_per_call=k4, k1_launches_per_call=k1)
     del lf, cf, lp, cp
+    # the same distance on 4 of the prompts, at the config's factor and at
+    # the no-drop factor: under a capacity that drops, a rounding that moves
+    # a router's choice also moves which assignments drop
+    for key, cfg in (("logits_rel_rms_b4", tcfg), ("logits_rel_rms_b4_no_drop", no_drop(tcfg))):
+        sub = m.DecoderLM(cfg)
+        with torch.no_grad():
+            lf, lp = (getattr(sub, route)(tp, toks[:4], sub.init_cache(4, L, bf16, "cuda"),
+                                          lens[:4])[0] for route in ("prefill_flash", "prefill"))
+        row[key] = rel_rms(lf[:, :V], lp[:, :V].float())
+        del lf, lp
     walls = {"prefill_flash": [], "prefill": []}
     for route in ("prefill_flash", "prefill", "prefill", "prefill_flash"):
         torch.cuda.synchronize()
@@ -5079,6 +5089,8 @@ def phase_mla_train(torch, np, R, m, tree_to):
                            peak_memory_gb=peak, launches=launches, predicted=want,
                            profile=dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
                                         busy_share=busy / wall_ms,
+                                        busy_share_of_unprofiled_step=busy / (
+                                            sum(step_ms[1:]) / len(step_ms[1:])),
                                         k4_ms=sum(t for k, t in by.items() if "flash_bwd" in k
                                                   or kernel_name(k) == "fwd_kernel"),
                                         top_device_ms={k[:60]: t for k, t in sorted(

@@ -103,27 +103,24 @@ __device__ __forceinline__ long long row_idx(const Params& p, int b, int kvh, in
   return (static_cast<long long>(b) * p.H + kvh * G + g) * p.T + t;
 }
 
-// The 16-byte copies of a tile of ROWS rows of D elements, spread over NT
-// threads: copy i (of N) of thread tid is chunk tid + i*NT of the tile in
-// row-major order, the chunk at element col(tid, i) of row row(tid, i), so
-// neighbouring threads copy neighbouring chunks of a row.  Where the
-// chunks of a row (CPR) divide NT, a thread keeps one column and steps NT /
-// CPR rows a copy.
-template <typename T, int ROWS, int D, int NT>
-struct TileCopy {
-  static constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;  // chunks a row
-  static constexpr int N = ROWS * CPR / NT;                          // copies a thread
-  static_assert(D * sizeof(T) % 16 == 0 && ROWS * CPR % NT == 0, "copy layout");
-  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));       // elements a chunk
-  __device__ static __forceinline__ int row(int tid, int i) {
-    if constexpr (NT % CPR == 0) return tid / CPR + i * (NT / CPR);
-    return (tid + i * NT) / CPR;
-  }
-  // the chunk's first element within its row
-  __device__ static __forceinline__ int col(int tid, int i) {
-    if constexpr (NT % CPR == 0) return (tid % CPR) * EPC;
-    return (tid + i * NT) % CPR * EPC;
-  }
+// The 16-byte copies of the tiles a kernel stages, by NT threads: rows of
+// dv elements (V, dO) and rows of dk >= dv elements (Q, K).  The first dv
+// elements of a Q or K row are copied as the dv-wide rows are, chunk c of
+// rows jr, jr + RPC, ... by thread tid (c = tid % CPR, jr = tid / CPR),
+// each K chunk beside its V chunk (each Q chunk beside its dO chunk); the
+// last dk - dv (MLA's RoPE columns; none where dk == dv) after them, chunk
+// xc of rows xjr, xjr + XRPC, ... (xc = tid % XC, xjr = tid / XC).
+template <typename T, int DK, int DV, int NT>
+struct Copies {
+  static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  static constexpr int CPR = DV / EPC;                           // copies of dv elements
+  static constexpr int RPC = NT / CPR;                           // rows a pass
+  static constexpr int XCPR = (DK - DV) / EPC;                   // copies of the rest
+  static constexpr int XC = XCPR > 0 ? XCPR : 1;
+  static constexpr int XRPC = XCPR > 0 ? NT / XCPR : 1;          // rows a pass of the rest
+  static_assert(DK >= DV && DV % EPC == 0 && (DK - DV) % EPC == 0 && NT % CPR == 0 &&
+                    NT % XC == 0,
+                "copy layout");
 };
 
 // ---------------------------------------------------------------------------
@@ -186,9 +183,10 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
   constexpr int RV = DV + Fwd<T>::PADV;  // V row stride
   constexpr int NS = BK / 8;             // n8 tiles of a score row
   constexpr int NO = DV / 8;             // n8 tiles of an output row
-  using QCopy = TileCopy<T, FBQ, DK, FWD_NT>;
-  using KCopy = TileCopy<T, BK, DK, FWD_NT>;
-  using VCopy = TileCopy<T, BK, DV, FWD_NT>;
+  using C = Copies<T, DK, DV, FWD_NT>;
+  constexpr int EPC = C::EPC, RPC = C::RPC, XRPC = C::XRPC;
+  static_assert(BK % RPC == 0 && FBQ % RPC == 0 && BK % XRPC == 0 && FBQ % XRPC == 0,
+                "copy layout");
 
   extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
   T* Qs = reinterpret_cast<T*>(fwd_smem_raw);
@@ -208,12 +206,24 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
 
-  // Q, once, zeros past nr
+  const int c = tid % C::CPR, jr = tid / C::CPR, xc = tid % C::XC, xjr = tid / C::XC;
+
+  // Q, once, zeros past nr: its first dv columns, then the rest
 #pragma unroll
-  for (int i = 0; i < QCopy::N; ++i) {
-    const int r = QCopy::row(tid, i), e = QCopy::col(tid, i);
+  for (int i = 0; i < FBQ / RPC; ++i) {
+    const int r = jr + i * RPC;
     const bool ok = r < nr;
-    cp_async16(Qs + r * RK + e, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + e, ok);
+    cp_async16(Qs + r * RK + c * EPC, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + c * EPC,
+               ok);
+  }
+  if constexpr (C::XCPR > 0) {
+#pragma unroll
+    for (int i = 0; i < FBQ / XRPC; ++i) {
+      const int r = xjr + i * XRPC;
+      const bool ok = r < nr;
+      cp_async16(Qs + r * RK + DV + xc * EPC,
+                 qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + DV + xc * EPC, ok);
+    }
   }
   cp_async_commit();
 
@@ -244,22 +254,33 @@ __global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const P
 
   // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
   // past L are zeros (V must be finite where P is 0) at position -1
-  const T* kc = kg + b * p.k_sb + kvh * DK;
-  const T* vc = vg + b * p.v_sb + kvh * DV;
+  const T* kc = kg + b * p.k_sb + kvh * DK + c * EPC;
+  const T* vc = vg + b * p.v_sb + kvh * DV + c * EPC;
+  const long long k_step = RPC * p.k_sl, v_step = RPC * p.v_sl;
   auto load_tile = [&](int jt, int st) {
-    T* ks = Ks + st * BK * RK;
-    T* vs = Vs + st * BK * RV;
+    const int j0 = jt * BK + jr;
+    const T* kr = kc + j0 * p.k_sl;
+    const T* vr = vc + j0 * p.v_sl;
+    T* ks = Ks + st * BK * RK + jr * RK + c * EPC;
+    T* vs = Vs + st * BK * RV + jr * RV + c * EPC;
 #pragma unroll
-    for (int i = 0; i < KCopy::N; ++i) {
-      const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = jt * BK + j;
-      const bool ok = jj < p.L;
-      cp_async16(ks + j * RK + e, ok ? kc + jj * p.k_sl + e : kg, ok);
+    for (int i = 0; i < BK / RPC; ++i) {
+      const bool ok = j0 + i * RPC < p.L;
+      cp_async16(ks + i * RPC * RK, ok ? kr : kg, ok);
+      cp_async16(vs + i * RPC * RV, ok ? vr : vg, ok);
+      kr += k_step;
+      vr += v_step;
     }
+    if constexpr (C::XCPR > 0) {  // K's last dk - dv columns
+      const int x0 = jt * BK + xjr;
+      const T* kx = kg + b * p.k_sb + kvh * DK + DV + xc * EPC + x0 * p.k_sl;
+      T* kxs = Ks + st * BK * RK + xjr * RK + DV + xc * EPC;
 #pragma unroll
-    for (int i = 0; i < VCopy::N; ++i) {
-      const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = jt * BK + j;
-      const bool ok = jj < p.L;
-      cp_async16(vs + j * RV + e, ok ? vc + jj * p.v_sl + e : vg, ok);
+      for (int i = 0; i < BK / XRPC; ++i) {
+        const bool ok = x0 + i * XRPC < p.L;
+        cp_async16(kxs + i * XRPC * RK, ok ? kx : kg, ok);
+        kx += XRPC * p.k_sl;
+      }
     }
     if (tid < BK) {
       const int jj = jt * BK + tid;
@@ -707,12 +728,11 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   constexpr int BK = BWD_BK;
   constexpr int RQ = DK + BWD_PAD;     // Q and K row stride (elements)
   constexpr int RO = DV + BWD_PAD;     // dO and V row stride
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int NS = BK / 8, NO = DK / 8;
-  using QCopy = TileCopy<T, BWD_ROWS, DK, BWD_NT>;
-  using OCopy = TileCopy<T, BWD_ROWS, DV, BWD_NT>;
-  using KCopy = TileCopy<T, BK, DK, BWD_NT>;
-  using VCopy = TileCopy<T, BK, DV, BWD_NT>;
+  using C = Copies<T, DK, DV, BWD_NT>;
+  constexpr int EPC = C::EPC, CPR = C::CPR, RPC = C::RPC, XRPC = C::XRPC;
+  static_assert(BK % RPC == 0 && BWD_ROWS % RPC == 0 && BK % XRPC == 0 &&
+                    BWD_ROWS % XRPC == 0, "copy layout");
 
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   T* Qs = reinterpret_cast<T*>(bwd_smem_raw);
@@ -733,19 +753,26 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
   const T* dog = static_cast<const T*>(p.dout);
+  const int c = tid % CPR, jr = tid / CPR, xc = tid % C::XC, xjr = tid / C::XC;
 
-  // Q and dO, once, zeros past nr
+  // Q and dO, once, zeros past nr; then Q's last dk - dv columns
 #pragma unroll
-  for (int i = 0; i < QCopy::N; ++i) {
-    const int r = QCopy::row(tid, i), e = QCopy::col(tid, i);
+  for (int i = 0; i < BWD_ROWS / RPC; ++i) {
+    const int r = jr + i * RPC;
     const bool ok = r < nr;
-    cp_async16(Qs + r * RQ + e, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + e, ok);
+    cp_async16(Qs + r * RQ + c * EPC, qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + c * EPC,
+               ok);
+    cp_async16(dOs + r * RO + c * EPC,
+               dog + (ok ? o_off(p, b, kvh, r0 + r, DV) : 0) + c * EPC, ok);
   }
+  if constexpr (C::XCPR > 0) {
 #pragma unroll
-  for (int i = 0; i < OCopy::N; ++i) {
-    const int r = OCopy::row(tid, i), e = OCopy::col(tid, i);
-    const bool ok = r < nr;
-    cp_async16(dOs + r * RO + e, dog + (ok ? o_off(p, b, kvh, r0 + r, DV) : 0) + e, ok);
+    for (int i = 0; i < BWD_ROWS / XRPC; ++i) {
+      const int r = xjr + i * XRPC;
+      const bool ok = r < nr;
+      cp_async16(Qs + r * RQ + DV + xc * EPC,
+                 qg + (ok ? q_off(p, b, kvh, r0 + r, DK) : 0) + DV + xc * EPC, ok);
+    }
   }
   cp_async_commit();
 
@@ -780,22 +807,27 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
 
   // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
   // past L are zeros at position -1
-  const T* kc = kg + b * p.k_sb + kvh * DK;
-  const T* vc = vg + b * p.v_sb + kvh * DV;
+  const T* kc = kg + b * p.k_sb + kvh * DK + c * EPC;
+  const T* vc = vg + b * p.v_sb + kvh * DV + c * EPC;
   auto load_tile = [&](int jt, int st) {
-    T* ks = Ks + st * BK * RQ;
-    T* vs = Vs + st * BK * RO;
+    T* ks = Ks + st * BK * RQ + c * EPC;
+    T* vs = Vs + st * BK * RO + c * EPC;
 #pragma unroll
-    for (int i = 0; i < KCopy::N; ++i) {
-      const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = jt * BK + j;
+    for (int i = 0; i < BK / RPC; ++i) {
+      const int j = jr + i * RPC, jj = jt * BK + j;
       const bool ok = jj < p.L;
-      cp_async16(ks + j * RQ + e, ok ? kc + jj * p.k_sl + e : kg, ok);
+      cp_async16(ks + j * RQ, ok ? kc + jj * p.k_sl : kg, ok);
+      cp_async16(vs + j * RO, ok ? vc + jj * p.v_sl : vg, ok);
     }
+    if constexpr (C::XCPR > 0) {  // K's last dk - dv columns
+      T* kxs = Ks + st * BK * RQ + DV + xc * EPC;
+      const T* kx = kg + b * p.k_sb + kvh * DK + DV + xc * EPC;
 #pragma unroll
-    for (int i = 0; i < VCopy::N; ++i) {
-      const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = jt * BK + j;
-      const bool ok = jj < p.L;
-      cp_async16(vs + j * RO + e, ok ? vc + jj * p.v_sl + e : vg, ok);
+      for (int i = 0; i < BK / XRPC; ++i) {
+        const int j = xjr + i * XRPC, jj = jt * BK + j;
+        const bool ok = jj < p.L;
+        cp_async16(kxs + j * RQ, ok ? kx + jj * p.k_sl : kg, ok);
+      }
     }
     if (tid < BK) {
       const int jj = jt * BK + tid;
@@ -826,7 +858,7 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dq(const Params p) {
     if (r < nr) {
       const T* orow = og + o_off(p, b, kvh, r0 + r, DV);
 #pragma unroll
-      for (int cc = tig; cc < OCopy::CPR; cc += 4)
+      for (int cc = tig; cc < CPR; cc += 4)
         acc += dot16(dOs + r * RO + cc * EPC, orow + cc * EPC);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -960,12 +992,11 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   constexpr int BQ = BWD_BQ;
   constexpr int RQ = DK + BWD_PAD;     // K and Q row stride (elements)
   constexpr int RO = DV + BWD_PAD;     // V and dO row stride
-  constexpr int NQ = BQ / 8, NK = DK / 8, NV = DV / 8;
-  static_assert(BQ % 16 == 0, "query tile");
-  using KCopy = TileCopy<T, BWD_ROWS, DK, BWD_NT>;
-  using VCopy = TileCopy<T, BWD_ROWS, DV, BWD_NT>;
-  using QCopy = TileCopy<T, BQ, DK, BWD_NT>;
-  using OCopy = TileCopy<T, BQ, DV, BWD_NT>;
+  constexpr int NQ = BQ / 8, NK = DK / 8, NV = DV / 8, NO = NK > NV ? NK : NV;
+  using C = Copies<T, DK, DV, BWD_NT>;
+  constexpr int EPC = C::EPC, RPC = C::RPC, XRPC = C::XRPC;
+  static_assert(BQ % RPC == 0 && BWD_ROWS % RPC == 0 && BQ % XRPC == 0 &&
+                    BWD_ROWS % XRPC == 0 && BQ % 16 == 0, "copy layout");
 
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   T* Ks = reinterpret_cast<T*>(bwd_smem_raw);
@@ -988,19 +1019,27 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
   const T* dog = static_cast<const T*>(p.dout);
+  const int c = tid % C::CPR, jr = tid / C::CPR, xc = tid % C::XC, xjr = tid / C::XC;
 
-  // K and V rows of the block, once, zeros past L
+  // K and V rows of the block, once, zeros past L; then K's last dk - dv
+  // columns
 #pragma unroll
-  for (int i = 0; i < KCopy::N; ++i) {
-    const int j = KCopy::row(tid, i), e = KCopy::col(tid, i), jj = j0 + j;
+  for (int i = 0; i < BWD_ROWS / RPC; ++i) {
+    const int j = jr + i * RPC, jj = j0 + j;
     const bool ok = jj < p.L;
-    cp_async16(Ks + j * RQ + e, ok ? kg + b * p.k_sb + jj * p.k_sl + kvh * DK + e : kg, ok);
+    cp_async16(Ks + j * RQ + c * EPC, ok ? kg + b * p.k_sb + jj * p.k_sl + kvh * DK + c * EPC : kg,
+               ok);
+    cp_async16(Vs + j * RO + c * EPC, ok ? vg + b * p.v_sb + jj * p.v_sl + kvh * DV + c * EPC : vg,
+               ok);
   }
+  if constexpr (C::XCPR > 0) {
 #pragma unroll
-  for (int i = 0; i < VCopy::N; ++i) {
-    const int j = VCopy::row(tid, i), e = VCopy::col(tid, i), jj = j0 + j;
-    const bool ok = jj < p.L;
-    cp_async16(Vs + j * RO + e, ok ? vg + b * p.v_sb + jj * p.v_sl + kvh * DV + e : vg, ok);
+    for (int i = 0; i < BWD_ROWS / XRPC; ++i) {
+      const int j = xjr + i * XRPC, jj = j0 + j;
+      const bool ok = jj < p.L;
+      cp_async16(Ks + j * RQ + DV + xc * EPC,
+                 ok ? kg + b * p.k_sb + jj * p.k_sl + kvh * DK + DV + xc * EPC : kg, ok);
+    }
   }
   cp_async_commit();
 
@@ -1064,19 +1103,23 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   // -inf (P = 0)
   const long long rbase = (static_cast<long long>(b) * p.H + kvh * G) * p.T;  // [B,H,T] row 0
   auto load_qtile = [&](int t, int st) {
-    T* qs = Qs + st * BQ * RQ;
-    T* os = dOs + st * BQ * RO;
+    T* qs = Qs + st * BQ * RQ + c * EPC;
+    T* os = dOs + st * BQ * RO + c * EPC;
 #pragma unroll
-    for (int i = 0; i < QCopy::N; ++i) {
-      const int r = QCopy::row(tid, i), e = QCopy::col(tid, i), fr = t * BQ + r;
+    for (int i = 0; i < BQ / RPC; ++i) {
+      const int r = jr + i * RPC, fr = t * BQ + r;
       const bool ok = fr < GT;
-      cp_async16(qs + r * RQ + e, ok ? qg + q_off(p, b, kvh, fr, DK) + e : qg, ok);
+      cp_async16(qs + r * RQ, ok ? qg + q_off(p, b, kvh, fr, DK) + c * EPC : qg, ok);
+      cp_async16(os + r * RO, ok ? dog + o_off(p, b, kvh, fr, DV) + c * EPC : dog, ok);
     }
+    if constexpr (C::XCPR > 0) {  // Q's last dk - dv columns
+      T* qxs = Qs + st * BQ * RQ + DV + xc * EPC;
 #pragma unroll
-    for (int i = 0; i < OCopy::N; ++i) {
-      const int r = OCopy::row(tid, i), e = OCopy::col(tid, i), fr = t * BQ + r;
-      const bool ok = fr < GT;
-      cp_async16(os + r * RO + e, ok ? dog + o_off(p, b, kvh, fr, DV) + e : dog, ok);
+      for (int i = 0; i < BQ / XRPC; ++i) {
+        const int r = xjr + i * XRPC, fr = t * BQ + r;
+        const bool ok = fr < GT;
+        cp_async16(qxs + r * RQ, ok ? qg + q_off(p, b, kvh, fr, DK) + DV + xc * EPC : qg, ok);
+      }
     }
     if (tid < BQ) {
       const int fr = t * BQ + tid, o = st * BQ + tid;
@@ -1097,13 +1140,12 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
 
   float dk[NK][4], dv[NV][4];
 #pragma unroll
-  for (int n = 0; n < NK; ++n)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < NV; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if (n < NK) dk[n][e] = 0.f;
+      if (n < NV) dv[n][e] = 0.f;
+    }
   const T* kw = Ks + warp * 16 * RQ;
   const T* vw = Vs + warp * 16 * RO;
   const float c2 = p.scale * LOG2E;
@@ -1149,29 +1191,33 @@ __global__ void __launch_bounds__(BWD_NT, 2) flash_bwd_dkv(const Params p) {
   }
   cp_async_wait<0>();
 
-  // dK (scaled) and dV, or this split's fp32 partials
-  const long long rows = static_cast<long long>(p.B) * p.L * p.KVH;  // [B, L, KVH] rows
+  // dK (scaled) and dV, or this split's fp32 partials: nel dK and nelv dV
+  // elements (the dK partials of every split come first)
+  const long long nel = static_cast<long long>(p.B) * p.L * p.KVH * DK;
+  const long long nelv = DK == DV ? nel : nel / DK * DV;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int jj = j0 + warp * 16 + g + 8 * h;
     if (jj >= p.L) continue;
     const long long row = (static_cast<long long>(b) * p.L + jj) * p.KVH + kvh;
-    const long long odk = row * DK + 2 * tig, odv = row * DV + 2 * tig;
+    const long long off = row * DK + 2 * tig, offv = DK == DV ? off : row * DV + 2 * tig;
     if (p.n_splits == 1) {
-      T* dkr = static_cast<T*>(p.dk) + odk;
-      T* dvr = static_cast<T*>(p.dv) + odv;
+      T* dkr = static_cast<T*>(p.dk) + off;
+      T* dvr = static_cast<T*>(p.dv) + offv;
 #pragma unroll
-      for (int n = 0; n < NK; ++n)
-        store2(dkr + n * 8, dk[n][2 * h] * p.scale, dk[n][2 * h + 1] * p.scale);
-#pragma unroll
-      for (int n = 0; n < NV; ++n) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
+      for (int n = 0; n < NO; ++n) {
+        if (n < NK) store2(dkr + n * 8, dk[n][2 * h] * p.scale, dk[n][2 * h + 1] * p.scale);
+        if (n < NV) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
+      }
     } else {
-      float* dkr = p.ws + split * rows * DK + odk;
-      float* dvr = p.ws + p.n_splits * rows * DK + split * rows * DV + odv;
+      float* dkr = p.ws + split * nel + off;
+      float* dvr = p.ws + (DK == DV ? (p.n_splits + split) * nel
+                                    : p.n_splits * nel + split * nelv) + offv;
 #pragma unroll
-      for (int n = 0; n < NK; ++n) store2(dkr + n * 8, dk[n][2 * h], dk[n][2 * h + 1]);
-#pragma unroll
-      for (int n = 0; n < NV; ++n) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
+      for (int n = 0; n < NO; ++n) {
+        if (n < NK) store2(dkr + n * 8, dk[n][2 * h], dk[n][2 * h + 1]);
+        if (n < NV) store2(dvr + n * 8, dv[n][2 * h], dv[n][2 * h + 1]);
+      }
     }
   }
 }
@@ -1188,34 +1234,26 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// the sum of the n_splits partials w[s * n4 + i], in split order
-__device__ __forceinline__ float4 sum_splits(const float4* w, int n_splits, long long n4,
-                                             long long i) {
-  float4 a = w[i];
-  for (int s = 1; s < n_splits; ++s) {
-    const float4 x = w[s * n4 + i];
-    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
-  }
-  return a;
-}
-
 // dK = scale * sum of the dK partials, dV = sum of the dV partials, each
-// summed in split order; 4 elements of each a thread (n4k = B*L*KVH*dk / 4
-// of dK, n4v of dV)
-template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_combine(const Params p, long long n4k,
-                                                         long long n4v) {
+// summed in split order; 4 elements of dK a thread (n4 = B*L*KVH*dk / 4)
+// and, while dV has any left (dv <= dk), the same 4 of dV
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(256) flash_bwd_combine(const Params p, long long n4) {
   wait_for_prior_grid();  // the dK/dV kernel's partials
+  const long long n4v = DK == DV ? n4 : n4 * DV / DK;  // B*L*KVH*dv / 4
   const float4* wk = reinterpret_cast<const float4*>(p.ws);
-  const float4* wv = wk + p.n_splits * n4k;
-  const long long n4 = n4k > n4v ? n4k : n4v;
+  const float4* wv = wk + p.n_splits * n4;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += gridDim.x * 256LL) {
-    if (i < n4k) {
-      float4 a = sum_splits(wk, p.n_splits, n4k, i);
-      a.x *= p.scale; a.y *= p.scale; a.z *= p.scale; a.w *= p.scale;
-      store4(static_cast<T*>(p.dk) + 4 * i, a);
+    const bool hv = DK == DV || i < n4v;
+    float4 a = wk[i], v = hv ? wv[i] : a;
+    for (int s = 1; s < p.n_splits; ++s) {
+      const float4 x = wk[s * n4 + i], y = hv ? wv[s * n4v + i] : x;
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      v.x += y.x; v.y += y.y; v.z += y.z; v.w += y.w;
     }
-    if (i < n4v) store4(static_cast<T*>(p.dv) + 4 * i, sum_splits(wv, p.n_splits, n4v, i));
+    a.x *= p.scale; a.y *= p.scale; a.z *= p.scale; a.w *= p.scale;
+    store4(static_cast<T*>(p.dk) + 4 * i, a);
+    if (hv) store4(static_cast<T*>(p.dv) + 4 * i, v);
   }
 }
 
@@ -1323,11 +1361,10 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t s) {
   e = launch_dependent(flash_bwd_dkv<T, DK, DV>, gkv, dim3(BWD_NT), dkv_smem<T, DK, DV>(), s,
                        p);
   if (e != cudaSuccess || p.n_splits == 1) return e;
-  const long long rows = static_cast<long long>(p.B) * p.L * p.KVH;
-  const long long n4k = rows * DK / 4, n4v = rows * DV / 4;
-  const long long blocks = ((n4k > n4v ? n4k : n4v) + 255) / 256;
-  return launch_dependent(flash_bwd_combine<T>, dim3((unsigned)(blocks < 8192 ? blocks : 8192)),
-                          dim3(256), 0, s, p, n4k, n4v);
+  const long long n4 = static_cast<long long>(p.B) * p.L * p.KVH * DK / 4;
+  const long long blocks = (n4 + 255) / 256;
+  return launch_dependent(flash_bwd_combine<T, DK, DV>,
+                          dim3((unsigned)(blocks < 8192 ? blocks : 8192)), dim3(256), 0, s, p, n4);
 }
 
 // The instantiated (dk, dv) pairs: F(DK, DV) for each
