@@ -4943,15 +4943,22 @@ def mla_prefill_routes(torch, np, m, tcfg, tp, B=16, T=128, L=256, calls=2):
                k4_launches_per_call=k4, k1_launches_per_call=k1)
     del lf, cf, lp, cp
     # the same distance on 4 of the prompts, at the config's factor and at
-    # the no-drop factor: under a capacity that drops, a rounding that moves
-    # a router's choice also moves which assignments drop
+    # the no-drop factor (under a capacity that drops, a rounding that moves
+    # a router's choice also moves which assignments drop); and, as the
+    # stack's own noise floor, ``prefill``'s logits for those 4 prompts run
+    # beside 4 more (no drop: the rows differ only by the products' rounding)
+    sub = None
     for key, cfg in (("logits_rel_rms_b4", tcfg), ("logits_rel_rms_b4_no_drop", no_drop(tcfg))):
         sub = m.DecoderLM(cfg)
         with torch.no_grad():
             lf, lp = (getattr(sub, route)(tp, toks[:4], sub.init_cache(4, L, bf16, "cuda"),
                                           lens[:4])[0] for route in ("prefill_flash", "prefill"))
         row[key] = rel_rms(lf[:, :V], lp[:, :V].float())
-        del lf, lp
+    n8 = min(8, B)
+    with torch.no_grad():
+        l8 = sub.prefill(tp, toks[:n8], sub.init_cache(n8, L, bf16, "cuda"), lens[:n8])[0]
+    row["prefill_b4_vs_b8_no_drop"] = rel_rms(lp[:, :V], l8[:4, :V].float())
+    del lf, lp, l8
     walls = {"prefill_flash": [], "prefill": []}
     for route in ("prefill_flash", "prefill", "prefill", "prefill_flash"):
         torch.cuda.synchronize()
