@@ -53,7 +53,15 @@ Phases, one report line each (the last line is the JSON verdict):
             forward's plan (``fwd_plan``) and the device kernels a call
             issues (one, ``rmsnorm_fwd_kernel*``), and holds each row of
             the full call bit for bit against calls of 1 row, of the
-            first 37 rows and of the rest (``row_independent``).
+            first 37 rows and of the rest (``row_independent``).  Since
+            phase 11, K4 also at seamless-m4t-large-v2's encoder (16 heads
+            of 64, bidirectional: every query at position T, so no tile is
+            skipped and every unpadded one is full): phase 11b's B 16
+            prefill over 1024 frames of ragged length (bf16, forward) and
+            phase 11c's trainer (B 4, 32 frames, fp32, with grads); and
+            K5 at its d 1024: the encoder's [16384, 1024] and a B 16 step's
+            [64, 1024] in bf16, the trainer's [512, 1024] in fp32 with the
+            backward.
 3. parity   full-width target and draft cut to 2 layers, fp32: prefill + 8
             greedy steps on the card (kernel) against the same on the CPU
             (plain version), and speculative generate(s) == generate(0).
@@ -253,6 +261,25 @@ Phases, one report line each (the last line is the JSON verdict):
             share at 1.25, ring B 16 steps at s 0 and 3 under the profiler
             with unprofiled walls in turns, and peak memory.  Phase 2c
             holds K5 at MLA's widths (1536, 512, 5120) too.
+11. seamless  seamless-m4t-large-v2, the encoder-decoder (24 encoder + 24
+            decoder layers, d 1024, 16 heads of 64; ``src_embeds`` stand in
+            for the speech frontend), with its dense 4-layer draft.  11a:
+            cut to 2 + 2 layers at full width, fp32, card against CPU within
+            2e-3 (``encode``, ``forward``, ``prefill`` logits and every cache
+            leaf, an s 3 ``decode_step``; one request with fewer source
+            frames), decode after prefill against ``forward``, K4 2 + 2 a
+            ``forward`` and a ``prefill`` and none a decode step, s 3 = s 0.
+            11b: full size in bf16, 16 requests of 16-token prompts over 1024
+            source frames through ``generate`` with ``target_extras``,
+            sampled, at s 0 and 3: tokens/s, K1, K4 and K5 launches exactly
+            as ``encdec_launches`` counts them (K4 48 a prefill, none a
+            step); a B 16 prefill's device ms and K4's share; B 16 step
+            profiles; the weight floor.  11c: one 2 + 2-layer fp32 train
+            step card against CPU (loss 1e-6 relative, gradients 1e-4 of
+            their max), then ten ``make_train_step`` steps at full size in
+            fp32 (B 4, T 128, 32 source frames): ms a step, peak memory,
+            the busy share, the loss falling, K4 48 / 48 and K5 122 / 122 a
+            step.
 
 Every serving phase now runs K5 (every norm), and phases 4, 6b, 8, 9 and
 10 gate its launches; phase 5 records its time per step.
@@ -1001,12 +1028,15 @@ def within(torch, got, want, tol):
 
 
 def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, dv=None, lens=None, window=None,
-                    prefix_len=0, grads=True, seed=0):
+                    prefix_len=0, grads=True, seed=0, bidirectional=False):
     """Self-attention inputs as the training forward and ``prefill_flash``
     give them: q [B,T,H,hd], k [B,T,KVH,hd], v [B,T,KVH,dv] (dv = hd unless
     given: MLA's 192 and 128), positions 0..T-1 per row, and with ``lens``
     the rows at or past a row's length set to -1 (a length of 0 makes every
-    row of that batch entry fully masked)."""
+    row of that batch entry fully masked).  ``bidirectional``: the
+    encoder's call (seamless's ``encode``), every query at position T
+    (``q_pos``) over the key positions, so no tile is skipped and a padded
+    query row still attends."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     dv = hd if dv is None else dv
@@ -1018,10 +1048,12 @@ def make_flash_case(torch, name, *, B, T, H, KVH, hd, dtype, dv=None, lens=None,
     if lens is not None:
         n = torch.tensor(lens, device="cuda", dtype=torch.int32)[:, None]
         pos = torch.where(pos < n, pos, -1).contiguous()
+    q_pos = torch.full((B, T), T, device="cuda", dtype=torch.int32) if bidirectional else pos
     return dict(name=name, q=rnd(B, T, H, hd), k=rnd(B, T, KVH, hd), v=rnd(B, T, KVH, dv),
-                do=rnd(B, T, H, dv), pos=pos, window=window, prefix_len=prefix_len,
-                dtype=dtype, grads=grads,
+                do=rnd(B, T, H, dv), pos=pos, q_pos=q_pos, window=window,
+                prefix_len=prefix_len, dtype=dtype, grads=grads,
                 shape=f"B{B} T{T} H{H}/{KVH}x{hd}" + (f" v{dv}" if dv != hd else "")
+                      + (" bidirectional (q_pos T)" if bidirectional else "")
                       + (f" lens {lens}" if lens else "")
                       + (f" window {window}" if window else "")
                       + (f" prefix {prefix_len}" if prefix_len else ""))
@@ -1044,14 +1076,15 @@ def flash_bound(torch, c, backward):
     q, k, v = c["q"], c["k"], c["v"]
     B, T, H, hd = q.shape
     KVH, dv = k.shape[2], v.shape[3]
-    ok = visible(torch, dict(c, q_pos=c["pos"], k_pos=c["pos"]))      # [B, T, L]
+    ok = visible(torch, dict(c, k_pos=c["pos"]))                      # [B, T, L]
     pairs = int(ok.sum())
     es = q.element_size()
     q_rows, k_rows = int(ok.any(2).sum()), int(ok.any(1).sum())
     q_need, o_need = q_rows * H * hd * es, q_rows * H * dv * es
     kv_need = k_rows * KVH * (hd + dv) * es
     qb, kb, vb = q.numel() * es, k.numel() * es, v.numel() * es
-    ob, lse_b, pos_b = B * T * H * dv * es, 4 * B * H * T, 8 * c["pos"].numel()
+    ob, lse_b, pos_b = B * T * H * dv * es, 4 * B * H * T, 4 * (c["q_pos"].numel()
+                                                                + c["pos"].numel())
     if backward:
         nbytes = q_need + 2 * o_need + kv_need + lse_b + qb + kb + vb + pos_b  # in; dq dk dv out
         ops = 2 * pairs * H * (3 * hd + 2 * dv)
@@ -1077,52 +1110,53 @@ def flash_bound(torch, c, backward):
 def run_flash_case(torch, K4, ref, c):
     import torch.nn.functional as F
     kw = dict(window=c["window"], prefix_len=c["prefix_len"])
-    q, k, v, do, pos = c["q"], c["k"], c["v"], c["do"], c["pos"]
+    q, k, v, do, pos, qp = c["q"], c["k"], c["v"], c["do"], c["pos"], c["q_pos"]
     G = q.shape[2] // k.shape[2]
     tol = TOL[c["dtype"]]
-    out, lse = K4.flash_attn_fwd_cuda(q, k, v, pos, pos, save_lse=True, **kw)
+    out, lse = K4.flash_attn_fwd_cuda(q, k, v, qp, pos, save_lse=True, **kw)
     torch.cuda.synchronize()
     f32 = [x.float() for x in (q, k, v, do)]
-    want, want_lse = ref.flash_attn_fwd_lse_ref(f32[0], f32[1], f32[2], pos, pos, **kw)
+    want, want_lse = ref.flash_attn_fwd_lse_ref(f32[0], f32[1], f32[2], qp, pos, **kw)
     err, ok = within(torch, out, want, tol)
     lse_err, lse_ok = within(torch, lse, want_lse, tol)
-    zero = pos < 0 if not c["prefix_len"] else torch.zeros_like(pos, dtype=torch.bool)
+    zero = ~visible(torch, dict(c, k_pos=pos)).any(2)             # rows that see no key
     ok &= lse_ok and bool((out[zero] == 0).all())                 # masked rows give zeros
     row = dict(case=c["name"], dtype=c["dtype"], shape=c["shape"], max_abs_err=err,
                lse_max_abs_err=lse_err, tol=tol)
     case_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, do, out))
     copies = min(64, max(2, math.ceil(2 * 50e6 / case_bytes)))
-    sets = [tuple(x.clone() for x in (q, k, v, pos, out, do, lse)) for _ in range(copies)]
-    mask = lambda p: visible(torch, dict(c, q_pos=p, k_pos=p))[:, None]  # noqa: E731
-    row["ms"] = device_ms(torch, lambda q, k, v, p, *_: K4.flash_attn_fwd_cuda(
-        q, k, v, p, p, save_lse=True, **kw), sets)
-    row["plain_ms"] = device_ms(torch, lambda q, k, v, p, *_: ref.flash_attn_fwd_lse_ref(
-        q, k, v, p, p, **kw), sets)
+    # each set: q, k, v, key positions, out, dO, lse, query positions
+    sets = [tuple(x.clone() for x in (q, k, v, pos, out, do, lse, qp)) for _ in range(copies)]
+    mask = lambda p, qp: visible(torch, dict(c, q_pos=qp, k_pos=p))[:, None]  # noqa: E731
+    row["ms"] = device_ms(torch, lambda q, k, v, p, *r: K4.flash_attn_fwd_cuda(
+        q, k, v, r[-1], p, save_lse=True, **kw), sets)
+    row["plain_ms"] = device_ms(torch, lambda q, k, v, p, *r: ref.flash_attn_fwd_lse_ref(
+        q, k, v, r[-1], p, **kw), sets)
     lib_sets = [(s[0].transpose(1, 2), s[1].transpose(1, 2), s[2].transpose(1, 2),
-                 mask(s[3])) for s in sets]
+                 mask(s[3], s[7])) for s in sets]
     sdpa = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=m, enable_gqa=G > 1)
     row["library_ms"] = device_ms(torch, sdpa, lib_sets)
     row["library_kernels"] = [n[:90] for n in device_kernels(torch, sdpa, lib_sets[0])]
     row.update(flash_bound(torch, c, False))
     if c["grads"]:
-        def bwd(q, k, v, p, o, d, l):
-            return K4.flash_attn_bwd_cuda(q, k, v, o, d, l, p, p, **kw)
+        def bwd(q, k, v, p, o, d, l, qp):
+            return K4.flash_attn_bwd_cuda(q, k, v, o, d, l, qp, p, **kw)
 
         def sdpa_fwd_bwd(q, k, v, m, d):
             leaf = [x.detach().requires_grad_(True) for x in (q, k, v)]
             o = F.scaled_dot_product_attention(*leaf, attn_mask=m, enable_gqa=G > 1)
             return torch.autograd.grad(o, leaf, d)
-        args = (q, k, v, pos, out, do, lse)
+        args = (q, k, v, pos, out, do, lse, qp)
         grads = bwd(*args)
         again = bwd(*args)
         torch.cuda.synchronize()
         row["bwd_bitwise_repeatable"] = all(torch.equal(a, b) for a, b in zip(grads, again))
         ok &= row["bwd_bitwise_repeatable"]
         leaf = [x.clone().requires_grad_(True) for x in f32[:3]]
-        auto = torch.autograd.grad(ref.gqa_masked_ref(*leaf, pos, pos, **kw), leaf, f32[3])
+        auto = torch.autograd.grad(ref.gqa_masked_ref(*leaf, qp, pos, **kw), leaf, f32[3])
         if c["dtype"] == "float32":
-            explicit = ref.flash_attn_bwd_ref(*f32[:3], want, f32[3], want_lse, pos, pos, **kw)
+            explicit = ref.flash_attn_bwd_ref(*f32[:3], want, f32[3], want_lse, qp, pos, **kw)
             errs = []
             for got, e, a in zip(grads, explicit, auto):
                 e1, ok1 = within(torch, got, e, GRAD_TOL)
@@ -1133,7 +1167,7 @@ def run_flash_case(torch, K4, ref, c):
             row["grad_tol"] = GRAD_TOL
         else:
             lib = [g.transpose(1, 2) for g in sdpa_fwd_bwd(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask(pos),
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask(pos, qp),
                 do.transpose(1, 2))]
             names3 = ("dq", "dk", "dv")
             row["grad_rel_rms"] = {n: rel_rms(g, a) for n, g, a in zip(names3, grads, auto)}
@@ -1154,8 +1188,8 @@ def run_flash_case(torch, K4, ref, c):
         ok &= (len(names) == K4.bwd_device_kernels(splits)
                and all("flash_bwd" in n for n in names))
         row["bwd_ms"] = device_ms(torch, bwd, sets)
-        row["bwd_plain_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l: ref.flash_attn_bwd_ref(
-            q, k, v, o, d, l, p, p, **kw), sets)
+        row["bwd_plain_ms"] = device_ms(torch, lambda q, k, v, p, o, d, l, qp: (
+            ref.flash_attn_bwd_ref(q, k, v, o, d, l, qp, p, **kw)), sets)
         # 10 calls: autograd's host time per call must stay inside device_ms's sleep
         row["bwd_library_ms"] = device_ms(torch, sdpa_fwd_bwd, [
             (*ls, s[5].transpose(1, 2)) for ls, s in zip(lib_sets, sets)], iters=10)
@@ -1196,7 +1230,13 @@ NORM_CASES = [("internlm2_train", 1024, 2048, "float32", True),
               # attention/MLP norms (5120) at a B 16, s 3 verify
               ("dsv2_q_lora_norm_t192", 192, 1536, "bfloat16", False),
               ("dsv2_kv_norm_t192", 192, 512, "bfloat16", False),
-              ("dsv2_norm_step_b16_t4", 64, 5120, "bfloat16", False)]
+              ("dsv2_norm_step_b16_t4", 64, 5120, "bfloat16", False),
+              # seamless-m4t-large-v2's d 1024 (phase 11): the encoder's norms
+              # at the B 16 prefill over 1024 frames, the decoder's at a B 16,
+              # s 3 step, and the trainer's decoder rows (B 4, T 128; fwd + bwd)
+              ("seamless_encode_b16_s1024", 16384, 1024, "bfloat16", False),
+              ("seamless_step_b16_t4", 64, 1024, "bfloat16", False),
+              ("seamless_train", 512, 1024, "float32", True)]
 
 
 def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
@@ -1297,6 +1337,16 @@ def run_norm_case(torch, K5, ref, name, n, d, dtype, grads, seed):
 
 # phase 10c's MLA trainer: ten steps at this batch and sequence length
 MLA_TRAIN_B, MLA_TRAIN_T = 4, 128
+# phase 11 (seamless-m4t-large-v2): the source frames of a decode request
+# (JAX's AUDIO_DECODE_SRC), 16 ragged source lengths for 11b's requests, the
+# target prompt (JAX's audio prefill: 16 tokens), and the trainer's batch,
+# tokens and source frames (T // 4, JAX's AUDIO_TRAIN_SRC_FRACTION)
+SEAMLESS_SRC = 1024
+SEAMLESS_SRC_LENS = [1024, 1000, 977, 1024, 850, 1024, 903, 768, 1024, 999, 640, 1024, 911,
+                     1024, 800, 1017]
+SEAMLESS_PROMPT = 16
+SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_T = 4, 128
+SEAMLESS_TRAIN_SRC = SEAMLESS_TRAIN_T // 4
 
 # K4's phase 2c cases: (name, make_flash_case arguments)
 FLASH_CASES = [
@@ -1346,6 +1396,15 @@ FLASH_CASES = [
     ("dsv2_train_bf16", dict(B=MLA_TRAIN_B, T=MLA_TRAIN_T, H=128, KVH=128, hd=192, dv=128,
                              dtype="bfloat16")),
     ("dsv2_split", dict(B=1, T=256, H=2, KVH=2, hd=192, dv=128, dtype="float32")),
+    # seamless-m4t-large-v2's encoder (16 heads of 64 over 16 kv-heads):
+    # bidirectional, every query at position T, so every tile is visited and
+    # every unpadded one is full; phase 11b's prefill (B 16, 1024 frames of
+    # ragged length, bf16, fwd) and phase 11c's trainer (fp32, fwd + bwd)
+    ("seamless_encode_b16_s1024", dict(
+        B=16, T=SEAMLESS_SRC, H=16, KVH=16, hd=64, dtype="bfloat16", grads=False,
+        bidirectional=True, lens=SEAMLESS_SRC_LENS)),
+    ("seamless_train_enc", dict(B=SEAMLESS_TRAIN_B, T=SEAMLESS_TRAIN_SRC, H=16, KVH=16, hd=64,
+                                dtype="float32", bidirectional=True)),
 ]
 
 
@@ -3441,14 +3500,15 @@ def tip_probs(torch, np, model, params, prompt, vocab):
 
 
 def launch_counts(m):
-    return dict(k1=m.K1.KERNEL.launches, k3=m.K23.RAGGED.launches, k5=m.K5.FWD.launches,
+    return dict(k1=m.K1.KERNEL.launches, k3=m.K23.RAGGED.launches, k4=m.K4.FWD.launches,
+                k4_bwd=m.K4.BWD.launches, k5=m.K5.FWD.launches, k5_bwd=m.K5.BWD.launches,
                 plain=(m.ops.PLAIN.launches + m.paged.PLAIN.launches
-                       + m.ops.PLAIN_RMSNORM.launches))
+                       + m.ops.PLAIN_FLASH.launches + m.ops.PLAIN_RMSNORM.launches))
 
 
 def zero_counts(m):
-    for c in (m.K1.KERNEL, m.K23.RAGGED, m.K5.FWD, m.ops.PLAIN, m.paged.PLAIN,
-              m.ops.PLAIN_RMSNORM):
+    for c in (m.K1.KERNEL, m.K23.RAGGED, m.K4.FWD, m.K4.BWD, m.K5.FWD, m.K5.BWD, m.ops.PLAIN,
+              m.paged.PLAIN, m.ops.PLAIN_FLASH, m.ops.PLAIN_RMSNORM):
         c.launches = 0
 
 
@@ -3552,7 +3612,7 @@ def phase_sampling(torch, np, R, m, tree_to, n_rows=8192, batch=1024):
     line["profiles"] = {}
     ring_toks = np.random.default_rng(5).integers(0, vocab, (8, 16)).astype(np.int32)
     ptoks = np.random.default_rng(6).integers(0, vocab, (16, 128)).astype(np.int32)
-    launches_prof = {mode: dict.fromkeys(("k1", "k3", "k5", "plain"), 0)
+    launches_prof = {mode: dict.fromkeys(launch_counts(m), 0)
                      for mode in ("greedy", "sampled")}
     zero_counts(m)
     for cfg, s in (("ring_b8_s3", 3), ("paged_b16_s0", 0), ("paged_b16_s3", 3)):
@@ -5120,6 +5180,426 @@ def phase_mla_train(torch, np, R, m, tree_to):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the encoder-decoder (seamless-m4t-large-v2)
+
+
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_TOL = 2e-3   # phase 9a's card-against-CPU rule: fp32 sums in another order
+
+
+def encdec_launches(tcfg, dcfg, prefills, s_steps):
+    """K1, K4 and K5 launches of ``generate`` on an encoder-decoder target:
+    each prefill runs K4 once a layer of each stack (the encoder's
+    bidirectional self-attention, the decoder's over the prompt), K5 twice
+    an encoder layer, three times a decoder layer and once for each final
+    norm, and the draft's prefill (K1 a layer; K5 twice a layer and its
+    final norm); each step at s runs s draft calls and one target decode
+    (K5 three a layer and the final norm; its attention is plain products:
+    no K1, no K4)."""
+    ne, nt, nd = tcfg.enc_layers, tcfg.n_layers, dcfg.n_layers
+    kd = 2 * nd + 1
+    drafts, steps = sum(s_steps), len(s_steps)
+    return dict(k1=(prefills + drafts) * nd, k4=prefills * (ne + nt),
+                k5=(prefills * (2 * ne + 1 + 3 * nt + 1 + kd) + steps * (3 * nt + 1)
+                    + drafts * kd))
+
+
+def phase_seamless_parity(torch, np, R, m, tree_to):
+    """11a: seamless-m4t-large-v2 cut to 2 encoder + 2 decoder layers at its
+    full widths, fp32 (``dtype="float32"``: the frames are not cast), drawn
+    on the card from one seed and copied to the CPU.  Card against CPU
+    within ``SEAMLESS_TOL``: ``encode``, ``forward``'s logits, ``prefill``'s
+    logits and every cache leaf, an s 3 ``decode_step``'s logits and cache,
+    on a batch of two whose second request has fewer source frames (41 of
+    64) and a shorter prompt; positions exact.  On the card: decode after an
+    unpadded prefill against ``forward``'s rows at the same positions, K4
+    2 + 2 a ``forward`` and a ``prefill`` and none a decode step, and
+    speculative (s 3) = greedy (s 0) tokens with a 2-layer draft."""
+    f32 = torch.float32
+    tcfg = R.get_config(SEAMLESS_ARCH).with_(enc_layers=2, n_layers=2, dtype="float32")
+    dcfg = R.get_draft_config(SEAMLESS_ARCH).with_(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    model = m.EncDecLM(tcfg)
+    tp = model.init(gen, f32, "cuda")
+    dp = m.DecoderLM(dcfg).init(gen, f32, "cuda")
+    tps = {"cuda": tp, "cpu": tree_to(tp, "cpu")}
+    rng = np.random.default_rng(19)
+    B, S, T = 2, 64, 16
+    toks = rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int64)
+    plens, srcl = np.array([T, 11], np.int32), np.array([S, 41], np.int32)
+    x = rng.standard_normal((B, S, tcfg.d_model)).astype(np.float32)
+    feed = rng.integers(0, tcfg.vocab_size, (B, 4)).astype(np.int64)
+    out, k4 = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = tps[dev]
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        with torch.no_grad():
+            enc, spos = model.encode(p, t(x), t(srcl))
+            m.K4.FWD.launches = 0
+            fwd, _ = model.forward(p, t(toks), t(x), t(srcl))
+            k4["forward"] = m.K4.FWD.launches
+            m.K4.FWD.launches = 0
+            pre, cache, n = model.prefill(p, t(toks), model.init_cache(B, 64, f32, dev, S),
+                                          t(plens), t(x), t(srcl))
+            k4["prefill"] = m.K4.FWD.launches
+            rows = [(f"prefill_{k}", v.clone()) for k, v in cache.items()]
+            m.K4.FWD.launches = 0
+            dec, cache = model.decode_step(p, t(feed), cache, n + 1)
+            k4["decode_step"] = m.K4.FWD.launches
+        for name, v in [("encode", enc), ("src_pos", spos), ("forward", fwd), ("prefill", pre),
+                        ("decode_s3", dec)] + rows + [(f"decode_s3_{k}", v)
+                                                       for k, v in cache.items()]:
+            out.setdefault(name, []).append(v.float().cpu() if v.is_floating_point()
+                                             else v.cpu())
+        del enc, fwd, pre, cache, dec, rows
+    torch.cuda.synchronize()
+    del tps["cpu"]
+    errs = {k: float((g.float() - c.float()).abs().max()) for k, (c, g) in out.items()}
+    exact = [k for k in out if k.endswith("pos")]
+    ok = all(bool(((g - c).abs() <= SEAMLESS_TOL + SEAMLESS_TOL * c.abs()).all())
+             for k, (c, g) in out.items() if k not in exact)
+    pos_equal = all(errs[k] == 0 for k in exact)
+    del out
+    # decode after an unpadded prefill against forward's rows (the card)
+    P = 10
+    t = torch.from_numpy(toks).cuda()
+    xs = torch.from_numpy(x).cuda()
+    sl = torch.from_numpy(srcl).cuda()
+    with torch.no_grad():
+        full, _ = model.forward(tp, t, xs, sl)
+        lg, cache, n = model.prefill(tp, t[:, :P], model.init_cache(B, 64, f32, "cuda", S),
+                                     src_embeds=xs, src_lens=sl)
+        steps, _ = model.decode_step(tp, t[:, P:], cache, n + 1)
+    got = torch.cat([lg[:, None], steps], dim=1)
+    want = full[:, P - 1:]
+    decode_vs_forward = float((got - want).abs().max())
+    decode_ok = bool(((got - want).abs() <= SEAMLESS_TOL + SEAMLESS_TOL * want.abs()).all())
+    del full, lg, cache, steps, got, want
+    # speculative (s 3) = greedy (s 0) on the card
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cuda")
+    extras = {"src_embeds": x, "src_lens": srcl}
+    gen_toks = {s: eng.generate(tp, dp, toks.astype(np.int32), plens, s=s, cache_len=64,
+                                target_extras=extras)[0] for s in (0, 3)}
+    spec = bool(np.array_equal(gen_toks[0], gen_toks[3]))
+    del eng, tp, dp
+    torch.cuda.empty_cache()
+    line = dict(arch=SEAMLESS_ARCH, enc_layers=2, n_layers=2, batch=f"B{B} S{S} T{T}",
+                src_lens=srcl.tolist(), prompt_lens=plens.tolist(), max_abs_err=errs,
+                tol=SEAMLESS_TOL, decode_vs_forward_max_abs=decode_vs_forward,
+                k4_launches=k4, spec_equals_greedy=spec)
+    print("  " + json.dumps({"seamless_parity": line}), flush=True)
+    check(ok and pos_equal, f"seamless: card vs CPU differ: {errs} (tol {SEAMLESS_TOL})")
+    check(decode_ok, f"seamless: decode after prefill differs from forward by "
+                     f"{decode_vs_forward}")
+    check(k4 == {"forward": 4, "prefill": 4, "decode_step": 0},
+          f"seamless: K4 launches {k4}, not 2 + 2 a forward and a prefill and 0 a decode step")
+    check(spec, "seamless: speculative tokens differ from greedy")
+    return line
+
+
+def phase_seamless_serve(torch, np, R, m):
+    """11b: seamless-m4t-large-v2 at full size (24 + 24 layers, 2.04 B
+    parameters, 4.07 GB) in bf16 with its 4-layer dense draft: 16 requests
+    of ``SEAMLESS_PROMPT``-token target prompts, each with a source of
+    ``SEAMLESS_SRC`` frames drawn from a seed and its length from
+    ``SEAMLESS_SRC_LENS``, through ``SpecDecodeEngine.generate`` with
+    ``target_extras``, sampled (random weights accept next to nothing
+    greedily), at s 0 and at s 3: tokens/s, steps, acceptance, K1, K4 and K5
+    launches equal to ``encdec_launches``, no plain version.  Then one B 16
+    prefill (encoder, cross K/V, decoder and the draft's) under
+    ``torch.profiler``: device ms, K4's and K5's shares, walls; B 16 steps
+    at s 0 and 3 after it (``profile_step``); the weight floor of a step:
+    target, draft and cross K/V bytes over 3.35 TB/s."""
+    from torch.profiler import ProfilerActivity
+    bf16 = torch.bfloat16
+    tcfg, dcfg = R.get_config(SEAMLESS_ARCH), R.get_draft_config(SEAMLESS_ARCH)
+    a = tcfg.attn
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda", sample=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tp = eng.target.init(gen, bf16, "cuda")
+    dp = eng.draft.init(gen, bf16, "cuda")
+    eng.load_kernels()
+    torch.cuda.synchronize()
+    B = len(SEAMLESS_SRC_LENS)
+    nbytes = {name: sum(t.numel() * t.element_size() for t in m.leaves(p))
+              for name, p in (("target", tp), ("draft", dp))}
+    nbytes["cross_kv"] = 2 * tcfg.n_layers * B * SEAMLESS_SRC * a.n_kv_heads * a.head_dim * 2
+    line = dict(arch=SEAMLESS_ARCH, n_params=sum(t.numel() for t in m.leaves(tp)),
+                weights_gb=nbytes["target"] / 1e9, draft_weights_gb=nbytes["draft"] / 1e9,
+                cross_kv_gb=nbytes["cross_kv"] / 1e9, init_s=time.perf_counter() - t0,
+                weight_floor_ms=1e3 * sum(nbytes.values()) / HBM_BYTES_PER_S,
+                batch=f"B{B}, prompts {SEAMLESS_PROMPT}, source {SEAMLESS_SRC} frames "
+                      f"(lengths {min(SEAMLESS_SRC_LENS)}-{max(SEAMLESS_SRC_LENS)}), bf16")
+    rng = np.random.default_rng(31)
+    toks = rng.integers(0, tcfg.vocab_size, (B, SEAMLESS_PROMPT)).astype(np.int32)
+    lens = np.full((B,), SEAMLESS_PROMPT, np.int32)
+    src = torch.randn((B, SEAMLESS_SRC, tcfg.d_model), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(37)).to(bf16)
+    extras = {"src_embeds": src, "src_lens": np.array(SEAMLESS_SRC_LENS, np.int32)}
+    cache_len = 64
+    state = eng.prefill(tp, dp, toks, lens, cache_len, extras)      # warm
+    eng.step(tp, dp, state, 3)
+    del state
+    torch.cuda.synchronize()
+    runs = {}
+    for s in (0, 3):
+        zero_counts(m)
+        t1 = time.perf_counter()
+        out, stats, n_steps = eng.generate(tp, dp, toks, lens, s=s, cache_len=cache_len,
+                                           target_extras=extras, collect_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = launch_counts(m)
+        per_request = sum(st.committed for st in stats)
+        committed = int(per_request.sum())
+        live = [st.committed > 0 for st in stats]
+        runs[f"s{s}"] = dict(
+            wall_s=wall, steps=n_steps, tokens=committed, tokens_per_s=committed / wall,
+            acceptance=(sum(int(st.accepted[lv].sum()) for st, lv in zip(stats, live))
+                        / max(1, s * sum(int(lv.sum()) for lv in live))) if s else None,
+            launches=counts, predicted=encdec_launches(tcfg, dcfg, 1, [s] * n_steps),
+            tokens_in_vocab=bool(0 <= out.min() and out.max() < tcfg.vocab_size),
+            every_request_done=bool((per_request >= eng.max_new).all()))
+    line["generate"] = runs
+    # ---- one B 16 prefill under the profiler, and its walls ----
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = eng.prefill(tp, dp, toks, lens, cache_len, extras)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+        del state
+    kinds = serving_kinds() + train_kinds(m)[:1]
+    prof, takes, lost = whole_profile(
+        torch, lambda: eng.prefill(tp, dp, toks, lens, cache_len, extras),
+        [ProfilerActivity.CUDA], kinds)
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(by.values())
+    k4_ms = sum(t for k, t in by.items() if kernel_name(k) == "fwd_kernel")
+    k5_ms = sum(t for k, t in by.items() if "rmsnorm" in k)
+    line["prefill"] = dict(wall_ms=walls, device_busy_ms=busy, k4_ms=k4_ms,
+                           k4_share=k4_ms / busy if busy else None, k5_ms=k5_ms,
+                           device_kernels=sum(1 for e in prof.events() if e.device_type
+                                              == torch.autograd.DeviceType.CUDA),
+                           top_device_ms={k[:60]: t for k, t in sorted(
+                               by.items(), key=lambda kv: kv[1], reverse=True)[:6]},
+                           profile_takes=takes, profile_lost=lost)
+    # ---- B 16 steps at s 0 and 3 after a prefill ----
+    state = eng.prefill(tp, dp, toks, lens, cache_len, extras)
+    prof_rows = {}
+    for s in (0, 3):
+        keep = []
+        r = profile_step(torch, eng, tp, dp, f"{SEAMLESS_ARCH}_ring_b16_s{s}", state, s,
+                         keep=keep, host=False)
+        state = keep[0]
+        b = r["device_busy_ms"]
+        prof_rows[f"ring_b16_s{s}"] = dict(
+            wall_ms=r["wall_ms"], device_busy_ms=b, idle_share=r["idle_share"],
+            device_kernels=r["device_kernels"],
+            top5_device_ms=dict(list(r["top_device_ms"].items())[:5]),
+            k1_share=r["k1_ms"] / b if b else None, k5_share=r["k5_ms"] / b if b else None,
+            k5_launches=r["k5_launches"], profile_takes=r["profile_takes"],
+            profile_lost=r["profile_lost"])
+    line["profiles"] = prof_rows
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    eng_max_new = eng.max_new
+    del state, eng, tp, dp, src
+    torch.cuda.empty_cache()
+    print("  " + json.dumps({"seamless_serve": line}, default=float), flush=True)
+    for name, r in runs.items():
+        check(all(r["launches"][k] == r["predicted"][k] for k in ("k1", "k4", "k5")),
+              f"seamless {name}: launches {r['launches']} differ from {r['predicted']}")
+        check(r["launches"]["plain"] == 0 and r["launches"]["k4_bwd"] == 0,
+              f"seamless {name}: a plain version or K4's backward ran: {r['launches']}")
+        check(r["tokens_in_vocab"] and r["every_request_done"],
+              f"seamless {name}: tokens outside the vocabulary, or a request short of "
+              f"{eng_max_new} tokens")
+    return line
+
+
+def phase_seamless_train(torch, np, R, m, tree_to):
+    """11c: the seamless-m4t-large-v2 trainer in fp32.  (a) One step of the
+    config cut to 2 + 2 layers (full widths; its frames cast to the
+    config's bf16, as JAX's encode casts them, then trained in fp32) card
+    against CPU, B 2, T 64, 16 source frames: the loss within 1e-6
+    relative, every gradient within ``GRAD_TOL`` of its largest entry, K4's
+    forward and backward once a layer of each stack on the card.  (b) The
+    full 24 + 24 layers (2.04 B parameters, 32.6 GB of fp32 training
+    state): ten ``make_train_step`` steps at B ``SEAMLESS_TRAIN_B``, T
+    ``SEAMLESS_TRAIN_T`` on the markov stream with one set of
+    ``SEAMLESS_TRAIN_SRC`` source frames drawn from a seed: ms a step, peak
+    memory, the busy share
+    over two more profiled steps; the loss must fall; K4 48 / 48 and K5 122
+    / 122 a step."""
+    from torch.profiler import ProfilerActivity
+    f32 = torch.float32
+    cfg = R.get_config(SEAMLESS_ARCH)
+    extra = ("src_embeds",)
+    # ---- (a) 2 + 2 layers, card against CPU ----
+    small = cfg.with_(enc_layers=2, n_layers=2)
+    model = m.EncDecLM(small)
+    p_gpu = model.init(torch.Generator(device="cuda").manual_seed(53), f32, "cuda")
+    p_cpu = tree_to(p_gpu, "cpu")
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=64, seed=7)
+    batch = {"tokens": torch.from_numpy(m.batch_at(dc, 0)["tokens"]),
+             "src_embeds": torch.randn((2, 16, cfg.d_model),
+                                       generator=torch.Generator().manual_seed(59))}
+    loss_fn = m.make_loss_fn(model, small, extra_keys=extra)
+    zero_counts(m)
+    met_g, gr_g = m.value_and_grad(loss_fn, p_gpu, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    k4_step = dict(k4_fwd=m.K4.FWD.launches, k4_bwd=m.K4.BWD.launches)
+    t0 = time.perf_counter()
+    met_c, gr_c = m.value_and_grad(loss_fn, p_cpu, batch)
+    cpu_step_s = time.perf_counter() - t0
+    loss_g, loss_c = float(met_g["loss"].cpu()), float(met_c["loss"])
+
+    def items(tree, prefix=""):
+        for k, v in tree.items():
+            yield from items(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+    cpu = dict(items(gr_c))
+    rel = {k: float((g.cpu() - cpu[k]).abs().max() / cpu[k].abs().max())
+           for k, g in items(gr_g)}
+    worst_name = max(rel, key=rel.get)
+    parity = dict(batch="B2 T64 S16", loss_card=loss_g, loss_cpu=loss_c,
+                  loss_rel_err=abs(loss_g - loss_c) / abs(loss_c),
+                  worst_grad_rel_err=rel[worst_name], worst_grad=worst_name,
+                  cross_grad_rel_err={k: v for k, v in rel.items() if "/cross_" in k},
+                  launches=k4_step, cpu_step_s=cpu_step_s)
+    del p_cpu, p_gpu, gr_c, gr_g, met_c, met_g, cpu
+    torch.cuda.empty_cache()
+    # ---- (b) ten steps at full size ----
+    model = m.EncDecLM(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(61), f32, "cuda")
+    n_params = sum(t.numel() for t in m.leaves(params))
+    state = m.init_adamw(params)
+    step = m.make_train_step(model, cfg, m.AdamWConfig(warmup_steps=2, total_steps=10),
+                             extra_keys=extra)
+    dc = m.DataConfig(vocab_size=cfg.vocab_size, batch=SEAMLESS_TRAIN_B,
+                      seq_len=SEAMLESS_TRAIN_T, seed=0)
+    # one set of frames for every step, as the launcher's fixed zeros: with
+    # frames drawn afresh each step the random encoder's output moves every
+    # step, and ten steps at lr 3e-4 leave the loss flat, in JAX's reference
+    # as here (tests/test_torch_encdec.py holds ten steps of both packages
+    # against each other at 24 encoder layers, fresh frames and one set);
+    # zero frames overflow the encoder's gradient at this depth (every
+    # RMSNorm of a zero row scales it by 1/sqrt(eps)), in JAX as here
+    src = torch.randn((SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_SRC, cfg.d_model), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(67))
+    batches = [{"tokens": torch.from_numpy(m.batch_at(dc, i)["tokens"]).cuda(),
+                "src_embeds": src} for i in range(12)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(m)
+    losses, step_ms = [], []
+    for b in batches[:10]:
+        t1 = time.perf_counter()
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"].cpu()))
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    launches = launch_counts(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def body():
+        nonlocal params, state
+        for b in batches[10:]:
+            params, state, _ = step(params, state, b)
+    t1 = time.perf_counter()
+    prof, takes, lost = whole_profile(torch, body, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                      train_kinds(m))
+    wall_ms = 1e3 * (time.perf_counter() - t1) / 2 / takes
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3 / 2
+    busy = sum(by.values())
+    del params, state, batches
+    torch.cuda.empty_cache()
+    per = cfg.enc_layers + cfg.n_layers
+    k5 = 2 * cfg.enc_layers + 1 + 3 * cfg.n_layers + 1
+    want = dict(k4=10 * per, k4_bwd=10 * per, k5=10 * k5, k5_bwd=10 * k5)
+    mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    line = dict(arch=SEAMLESS_ARCH, n_params=n_params, parity=parity,
+                train=dict(batch=f"B{SEAMLESS_TRAIN_B} T{SEAMLESS_TRAIN_T} "
+                                 f"S{SEAMLESS_TRAIN_SRC}", steps=10, losses=losses,
+                           step_ms=step_ms, ms_per_step=mean_ms, peak_memory_gb=peak,
+                           launches=launches, predicted=want,
+                           profile=dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
+                                        busy_share=busy / wall_ms,
+                                        busy_share_of_unprofiled_step=busy / mean_ms,
+                                        k4_ms=sum(t for k, t in by.items() if "flash_bwd" in k
+                                                  or kernel_name(k) == "fwd_kernel"),
+                                        top_device_ms={k[:60]: t for k, t in sorted(
+                                            by.items(), key=lambda kv: kv[1], reverse=True)[:6]},
+                                        profile_takes=takes, profile_lost=lost)))
+    print("  " + json.dumps({"seamless_train": line}), flush=True)
+    check(parity["loss_rel_err"] <= 1e-6, f"seamless: card vs CPU loss differs: {parity}")
+    check(parity["worst_grad_rel_err"] <= GRAD_TOL,
+          f"seamless: card vs CPU gradient {worst_name} differs by {rel[worst_name]} of its max")
+    check(k4_step == dict(k4_fwd=4, k4_bwd=4),
+          f"seamless: a 2 + 2-layer card step launched K4 {k4_step}, not 4 / 4")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"seamless: the trainer's loss did not fall: {losses}")
+    check(all(launches[k] == want[k] for k in want) and launches["plain"] == 0,
+          f"seamless: the trainer's launches {launches} differ from the prediction {want}")
+    check(peak < torch.cuda.get_device_properties(0).total_memory / 1e9,
+          "seamless: the trainer does not fit the card")
+    return line
+
+
+def seamless_kernel_rows(trows, sserve, strain):
+    """The ``kernels`` line's K4 rows at seamless's encoder (16 heads of 64,
+    bidirectional): the bf16 forward at phase 11b's prefill (B 16, 1024
+    ragged frames) with its generate runs' launches, and the fp32 forward
+    and backward at phase 11c's trainer (B 4, 32 frames) with its ten
+    steps' launches (each count also holds the decoder's, one a layer)."""
+    enc = next(r for r in trows if r["case"] == "flash_seamless_encode_b16_s1024")
+    tr = next(r for r in trows if r["case"] == "flash_seamless_train_enc")
+    gen = sserve["generate"]
+    train = strain["train"]["launches"]
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+              "replaces": "src/repro/kernels/flash_attn.py:71",
+              "replaces_note": "JAX's encode runs flash_attention_train with q_pos = S "
+                               "(src/repro/models/encdec.py:145)", "library": "SDPA"}
+    serve_from = (f"phase 11b, {SEAMLESS_ARCH}'s generate at s 0 and s 3: 48 a prefill, 24 "
+                  "at this shape (the encoder), 24 the decoder's causal prompt")
+    train_from = (f"phase 11c, the {SEAMLESS_ARCH} trainer (10 steps): 48 a step each way, "
+                  "24 at this shape (the encoder), 24 the decoder's causal T 128")
+    return [
+        {"name": "flash_attn_fwd_seamless_bf16", **common,
+         "launches": sum(r["launches"]["k4"] for r in gen.values()), "launches_from": serve_from,
+         "max_abs_err": enc["max_abs_err"], "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+         "library_ms": enc["library_ms"], "library_kernels": enc["library_kernels"],
+         "shape": f"{enc['shape']}, bf16"},
+        {"name": "flash_attn_fwd_seamless", **common, "launches": train["k4"],
+         "launches_from": train_from, "max_abs_err": tr["max_abs_err"], "ms": tr["ms"],
+         "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
+         "bound_by": "bytes" if tr["bound_by"] == "bytes" else "operations",
+         "bound_route": "3xTF32", "bound_simt_ms": tr["bound_simt_ms"],
+         "library_ms": tr["library_ms"], "library_kernels": tr["library_kernels"],
+         "shape": f"{tr['shape']}, fp32"},
+        {"name": "flash_attn_bwd_seamless", **common, "launches": train["k4_bwd"],
+         "launches_from": train_from, "max_abs_err": tr["grad_max_abs_err"],
+         "ms": tr["bwd_ms"], "plain_ms": tr["bwd_plain_ms"], "bound_ms": tr["bwd_bound_ms"],
+         "bound_by": tr["bwd_bound_by"], "bound_route": "3xTF32",
+         "bound_simt_ms": tr["bwd_bound_simt_ms"], "library_ms": tr["bwd_library_ms"],
+         "library": "SDPA forward + backward (autograd)", "n_splits": tr["bwd_n_splits"],
+         "device_kernels_per_call": tr["bwd_device_kernels"],
+         "fwd_plus_bwd_ms": tr["fwd_plus_bwd_ms"], "shape": f"{tr['shape']}, fp32"}]
+
+
 def train_kernel_rows(trows, launches, k5_serve, k5_live, distill, pflash, mamba_launches):
     """The ``kernels`` line's K4 and K5 rows, forward and backward, at the
     trainer's shapes (internlm2-1.8b, fp32), with the trainer's launches
@@ -5298,6 +5778,7 @@ def assemble():
     from repro_torch.kernels import ssd_chunk as K6
     from repro_torch.launch import serve, train
     from repro_torch.models import moe
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import metrics, scheduler
     from repro_torch.serving.prefix_cache import PrefixCache
@@ -5326,7 +5807,7 @@ def assemble():
         controller_s_cap=scheduler.controller_s_cap,
         ttft_summary=metrics.ttft_summary, itl_summary=metrics.itl_summary,
         goodput=metrics.goodput, mean_occupancy=metrics.mean_occupancy,
-        R=R, DecoderLM=DecoderLM, train=train, measure_acceptance=adaptive.measure_acceptance,
+        R=R, DecoderLM=DecoderLM, EncDecLM=EncDecLM, train=train, measure_acceptance=adaptive.measure_acceptance,
         DataConfig=training.DataConfig, batch_at=training.batch_at,
         AdamWConfig=training.AdamWConfig, init_adamw=training.init_adamw,
         adamw_update=training.adamw_update, make_train_step=training.make_train_step,
@@ -5577,6 +6058,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mtrain_mla = phase_mla_train(torch, np, R, m, tree_to)
     done("mla_train")
+    torch.cuda.empty_cache()
+
+    # ---- 11. seamless-m4t-large-v2 (encoder-decoder): card vs CPU at 2 + 2 layers, then
+    # served and trained at full size ----
+    phase_seamless_parity(torch, np, R, m, tree_to)
+    done("seamless_parity")
+    torch.cuda.empty_cache()
+    sserve = phase_seamless_serve(torch, np, R, m)
+    done("seamless_serve")
+    torch.cuda.empty_cache()
+    strain = phase_seamless_train(torch, np, R, m, tree_to)
+    done("seamless_train")
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
@@ -5648,6 +6141,7 @@ def main() -> int:
                                              live["launches"]["k5"], distill, pflash,
                                              mtrain["launches"])
     kernels += mla_kernel_rows(trows, mtrain_mla, dserve)
+    kernels += seamless_kernel_rows(trows, sserve, strain)
     kernels += [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
                                mtrain["launches"]["k6_fwd"]),
                 ssd_bwd_kernel_row(brows, mtrain)]
@@ -5665,7 +6159,25 @@ def main() -> int:
             row["launches_mla"] = mla_launch[key]
             row["launches_mla_from"] = (f"phase 10b, serve_continuous_live of {MLA_ARCH} at "
                                         f"{MLA_SERVE_LAYERS} layers on contiguous rings")
+        # phase 11's launches on seamless-m4t-large-v2: generate at s 0 and 3
+        # (K1: the draft's alone; K4's forward: 48 a prefill), the trainer
+        seam = {"spec_verify_attn": ("k1", "serve"), "flash_attn_fwd_bf16": ("k4", "serve"),
+                "rmsnorm_fwd": ("k5", "serve"), "flash_attn_fwd": ("k4", "train"),
+                "flash_attn_bwd": ("k4_bwd", "train"),
+                "rmsnorm_bwd": ("k5_bwd", "train")}.get(row["name"])
+        if seam:
+            k, where = seam
+            if where == "serve":
+                row["launches_seamless"] = sum(r["launches"][k]
+                                               for r in sserve["generate"].values())
+                row["launches_seamless_from"] = (f"phase 11b, {SEAMLESS_ARCH}'s generate "
+                                                 "at s 0 and s 3, full size, bf16")
+            else:
+                row["launches_seamless"] = strain["train"]["launches"][k]
+                row["launches_seamless_from"] = (f"phase 11c, the {SEAMLESS_ARCH} trainer "
+                                                 "at full size (10 steps)")
         if row["name"] == "rmsnorm_fwd":
+            row["launches_seamless_train"] = strain["train"]["launches"]["k5"]
             norm_keys = ("case", "shape", "dtype", "max_abs_err", "ms", "plain_ms",
                          "library_ms", "bound_ms", "bound_by", "fwd_plan", "row_independent")
             row["qk_norm"] = [{k: r[k] for k in norm_keys}
@@ -5673,6 +6185,8 @@ def main() -> int:
                                                                       "rmsnorm_qk_norm"))]
             row["mla"] = [{k: r[k] for k in norm_keys}
                           for r in trows if r["case"].startswith("rmsnorm_dsv2")]
+            row["seamless"] = [{k: r[k] for k in norm_keys}
+                               for r in trows if r["case"].startswith("rmsnorm_seamless")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f}s", flush=True)
     print(smi(), flush=True)

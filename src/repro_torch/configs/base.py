@@ -1,11 +1,13 @@
 """Configuration dataclasses for the families the port covers: dense GQA
 decoders (with Qwen3's per-head q/k norm), mixture-of-experts decoders with
-GQA or MLA (DeepSeek-V2's multi-head latent attention) and Mamba-2 (SSD).
+GQA or MLA (DeepSeek-V2's multi-head latent attention), Mamba-2 (SSD) and
+the encoder-decoder (SeamlessM4T).
 
-The attention, MoE and SSM parts of ``repro.configs.base``, cut to the
-fields the port's models, engine and launchers read (untied embeddings, no
-modality prefix; the dtype is the caller's).  Configs are frozen
-dataclasses.
+The attention, MoE, SSM and encoder-decoder parts of ``repro.configs.base``,
+cut to the fields the port's models, engine and launchers read (untied
+embeddings, no modality prefix).  The weights' and caches' dtype is the
+caller's; ``dtype`` is read only where JAX reads it, the cast of an
+encoder's ``src_embeds``.  Configs are frozen dataclasses.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense", "moe" or "ssm" (the families ported)
+    family: str                    # "dense", "moe", "ssm" or "audio" (the families ported)
     n_layers: int
     d_model: int
     d_ff: int
@@ -70,12 +72,22 @@ class ModelConfig:
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # enc-dec only
+    enc_layers: int = 0
+    cross_attn: bool = False
     norm_eps: float = 1e-6
+    dtype: str = "bfloat16"        # an encoder casts src_embeds to it (JAX's encode)
     # int8 KV cache with per-(row, kv-head) scales (GQA caches only; MLA's
     # cache is already rank-compressed).  §Perf lever: halves the decode
     # cache sweep, the dominant memory term at 32k context.
     kv_quant: bool = False
     source: str = ""               # citation of the published widths
+
+    @property
+    def is_encdec(self) -> bool:
+        """An encoder-decoder: built as ``EncDecLM``, its target takes
+        ``src_embeds`` (JAX's ``encdec`` and ``audio`` families)."""
+        return self.family in ("encdec", "audio")
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,8 @@
 """``--arch <id>`` resolution for the port: the paper's OPT pair, yi-9b,
 yi-34b, qwen3-8b, qwen3-moe-30b-a3b, deepseek-v2-236b (MLA),
-internlm2-1.8b (the training launcher's default) and mamba2-1.3b; and
-``build_model``, the model class for a config's family."""
+internlm2-1.8b (the training launcher's default), mamba2-1.3b and
+seamless-m4t-large-v2 (encoder-decoder); and ``build_model``, the model
+class for a config's family."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +19,7 @@ _MODULES: Dict[str, str] = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 
@@ -41,14 +43,18 @@ def get_draft_config(arch_id: str) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
-    """The model for a config's family: ``DecoderLM`` (dense, moe) or
-    ``Mamba2LM`` (ssm), as ``repro.configs.registry.build_model``."""
+    """The model for a config's family: ``DecoderLM`` (dense, moe),
+    ``Mamba2LM`` (ssm) or ``EncDecLM`` (encdec, audio), as
+    ``repro.configs.registry.build_model``."""
     if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg)
     if cfg.family == "ssm":
         from repro_torch.models.mamba2 import Mamba2LM
         return Mamba2LM(cfg)
+    if cfg.is_encdec:
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg)
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet "
         "(ROADMAP queue 1, item 12)")

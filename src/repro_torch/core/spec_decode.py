@@ -39,6 +39,14 @@ length update, and its paged pool is refused (``init_paged_cache``
 raises), as in the JAX engine; the prefix cache and the mixed launch need
 that pool.
 
+An encoder-decoder target (seamless-m4t-large-v2, ``family="audio"``)
+takes it on contiguous rings too: ``prefill``, ``generate`` and
+``prefill_into`` take ``target_extras={"src_embeds": [B, S, d]}`` (and
+optionally ``"src_lens"``), which go to the target's prefill alone; its
+cache adds the cross K/V ``xk``/``xv`` (slot axis 1) and ``xpos`` (slot
+axis 0), sized by S (``init_slots(..., src_len=S)`` for a slot pool), and
+the step never touches them.
+
 Paged KV: ``init_slots(block_size=...)`` replaces the per-slot target rings
 with one pool of fixed-size blocks (``DecoderLM.init_paged_cache``) plus a
 block table ``bt [capacity, max_blocks]`` in ``DecodeState.tcache``; the
@@ -205,32 +213,54 @@ class SpecDecodeEngine:
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def _init_caches(self, B: int, cache_len: int):
+    def _encdec(self) -> bool:
+        return self.tcfg.is_encdec
+
+    def _init_caches(self, B: int, cache_len: int, src_len: Optional[int] = None):
         # an SSM target's recurrent cache takes the same arguments and
-        # ignores cache_len: its state does not grow
-        tcache = self.target.init_cache(B, cache_len, self.dtype, self.device)
+        # ignores cache_len: its state does not grow; an encoder-decoder's
+        # cross K/V holds src_len rows (cache_len when not given, as JAX's)
+        if self._encdec():
+            tcache = self.target.init_cache(B, cache_len, self.dtype, self.device,
+                                            src_len=src_len or cache_len)
+        else:
+            tcache = self.target.init_cache(B, cache_len, self.dtype, self.device)
         dcache = (self.draft.init_cache(B, cache_len, self.dtype, self.device)
                   if self.draft is not None else None)
         return tcache, dcache
 
+    def _extras(self, target_extras: Optional[Dict]) -> Dict[str, torch.Tensor]:
+        """The target's keyword operands (numpy or tensors) on the engine's
+        device; an encoder-decoder target must have ``src_embeds``."""
+        tkw = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                   ).to(self.device) for k, v in (target_extras or {}).items()}
+        if self._encdec() and "src_embeds" not in tkw:
+            raise ValueError(f"{self.tcfg.name}: an encoder-decoder target needs "
+                             "target_extras={'src_embeds': [B, S, d_model]}")
+        return tkw
+
     def prefill(self, tparams, dparams, tokens, prompt_lens,
-                cache_len: int) -> DecodeState:
+                cache_len: int, target_extras: Optional[Dict] = None) -> DecodeState:
         """Right-padded prompts [B, P] (numpy or tensor) -> a fresh state.
         The target is prefilled with ``prompt_lens - 1`` tokens and the
         draft with ``prompt_lens - 2``; the last two prompt tokens seed the
         first step.  Both models return the committed lengths as they are
-        (an SSM its ``prompt_lens``)."""
+        (an SSM its ``prompt_lens``).  ``target_extras`` (an
+        encoder-decoder's ``src_embeds``, ``src_lens``) go to the target's
+        prefill alone; its cross K/V is sized by ``src_embeds``."""
         lens_host = np.asarray(prompt_lens)
         if int(lens_host.min()) < 3:
             raise ValueError("prompts need >= 3 tokens")
+        tkw = self._extras(target_extras)
         tokens = self._tensor(tokens, torch.long)
         lens = self._tensor(lens_host)
         B, P = tokens.shape
         with (record_function(f"repro/prefill[B={B},P={P}]") if self.annotate
               else _NULLCTX):
-            tcache, dcache = self._init_caches(B, cache_len)
+            src_len = tkw["src_embeds"].shape[1] if self._encdec() else None
+            tcache, dcache = self._init_caches(B, cache_len, src_len)
             _, tcache, total = self.target.prefill(tparams, tokens, tcache,
-                                                   prompt_lens=lens - 1)
+                                                   prompt_lens=lens - 1, **tkw)
             if self.draft is not None:
                 _, dcache, _ = self.draft.prefill(dparams, tokens, dcache,
                                                   prompt_lens=lens - 2)
@@ -252,21 +282,26 @@ class SpecDecodeEngine:
         """Build and load the CUDA kernels this engine's steps launch (a
         no-op on the CPU), so that a timed region never includes a build:
         K1 (the draft, or a dense target), K5 (every norm), K2/K3 for a
-        paged pool, K6 for an SSM target's prefill."""
+        paged pool, K6 for an SSM target's prefill, K4 for an
+        encoder-decoder target's prefill."""
         if self.device.type == "cuda":
             names = (["spec_verify_attn", "rmsnorm"]
                      + (["paged_verify_attn"] if paged else [])
-                     + (["ssd_chunk"] if self.tcfg.family == "ssm" else []))
+                     + (["ssd_chunk"] if self.tcfg.family == "ssm" else [])
+                     + (["flash_attn"] if self._encdec() else []))
             build.build(names)                  # one nvcc per source, in parallel
             for name in names:
                 build.load(name)
 
-    def init_slots(self, capacity: int, cache_len: int, *,
+    def init_slots(self, capacity: int, cache_len: int, src_len: Optional[int] = None, *,
                    block_size: Optional[int] = None,
                    num_blocks: Optional[int] = None,
                    mesh: Any = None) -> DecodeState:
         """Blank fixed-capacity slot pool: every row is an empty slot
         (``done``), ready to be claimed via :meth:`prefill_into`.
+        ``src_len`` sizes an encoder-decoder target's cross K/V (every
+        request's ``src_embeds`` must have that many frames; ``cache_len``
+        when not given, as JAX's).
 
         With ``block_size`` set, the target KV lives in a paged block pool:
         ``cache_len`` becomes the per-slot logical cap (rounded up to whole
@@ -279,7 +314,7 @@ class SpecDecodeEngine:
                 "sharded slot pools are not ported yet (ROADMAP queue 1, item 14)")
         dev = self.device
         if block_size is None:
-            tcache, dcache = self._init_caches(capacity, cache_len)
+            tcache, dcache = self._init_caches(capacity, cache_len, src_len)
             paged = None
         else:
             from repro_torch.serving.slots import PagedKVTables
@@ -310,13 +345,15 @@ class SpecDecodeEngine:
 
     def prefill_into(self, tparams, dparams, state: DecodeState, slot: int,
                      tokens, prompt_len: int, cache_len: int,
+                     target_extras: Optional[Dict] = None,
                      warm: bool = False) -> DecodeState:
         """Inject one new request into row ``slot`` of a live slot pool: a
         B = 1 prefill of the (padded) prompt, then a copy of every cache leaf
         into the slot's row of the pool, in place.  A paged pool allocates
         ``ceil(prompt_len / block_size)`` blocks and copies the prefill rows
         of every per-row leaf (k, v, an int8 pool's scales, pos) block by
-        block through the slot's new table row."""
+        block through the slot's new table row.  ``target_extras`` as in
+        :meth:`prefill`, for this one request (``src_embeds [1, S, d]``)."""
         if warm:
             self.load_kernels(state.paged is not None)
             return state
@@ -325,7 +362,7 @@ class SpecDecodeEngine:
         if pk is not None:
             cache_len = pk.logical_len
         one = self.prefill(tparams, dparams, tokens,
-                           np.array([prompt_len], np.int32), cache_len)
+                           np.array([prompt_len], np.int32), cache_len, target_extras)
         if pk is not None:
             pk.prefill(slot, prompt_len)
             self._drain_evicted(state)
@@ -355,7 +392,8 @@ class SpecDecodeEngine:
     @staticmethod
     def _copy_slot(pool: Dict, one: Dict, slot: int) -> None:
         """Copy every leaf of a B = 1 cache (ring k/v/pos, MLA's ckv/krope/pos,
-        or SSM state and conv buffers) into row ``slot`` of the pool's leaf, on its slot axis
+        an encoder-decoder's cross xk/xv/xpos, or SSM state and conv
+        buffers) into row ``slot`` of the pool's leaf, on its slot axis
         (``_slot_axis``); a pool of capacity 1 is the slot itself."""
         for name, full in pool.items():
             single = one[name]
@@ -805,12 +843,15 @@ class SpecDecodeEngine:
 
     def generate(self, tparams, dparams, tokens, prompt_lens, *, s: int,
                  cache_len: int, max_new: Optional[int] = None,
+                 target_extras: Optional[Dict] = None,
                  collect_stats: bool = False, key: Optional[int] = None):
         """Generate ``max_new`` tokens for every request with fixed s.
         Returns (tokens [B, max_new] numpy, list[StepStats], n_steps).
-        ``sample=True`` threads one generator seeded with ``key`` (0 by
-        default, as the JAX engine's ``PRNGKey(0)``) through every step."""
-        state = self.prefill(tparams, dparams, tokens, prompt_lens, cache_len)
+        ``target_extras`` as in :meth:`prefill`.  ``sample=True`` threads
+        one generator seeded with ``key`` (0 by default, as the JAX engine's
+        ``PRNGKey(0)``) through every step."""
+        state = self.prefill(tparams, dparams, tokens, prompt_lens, cache_len,
+                             target_extras)
         stats = []
         n_steps = 0
         limit = max_new or self.max_new

@@ -26,6 +26,10 @@ dense draft.  Its 60 layers hold about 479 GB in bf16, so on one 80 GB card
 
   python -m repro_torch.launch.serve --arch deepseek-v2-236b --layers 8
 
+A family whose requests need modality extras (the encoder-decoder's
+``src_embeds``) raises ``NotImplementedError``: JAX's launcher cannot serve
+it either.
+
 ``main`` returns what it printed as a dict: the profiled per-token latency
 grid, the LUT, the adaptive and ``s = 0`` summaries and throughputs, and the
 mean accepted run at ``--s-max``.
@@ -78,6 +82,13 @@ def main(argv=None) -> dict:
     t_start = time.perf_counter()
 
     tcfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
+    if tcfg.is_encdec or tcfg.family == "vlm":
+        # the profile, the acceptance sample and the serving loop prefill
+        # without per-request extras, as JAX's launcher does
+        raise NotImplementedError(
+            f"{tcfg.name}: the serving launcher cannot serve the {tcfg.family!r} family "
+            "(per-request modality extras); drive SpecDecodeEngine.generate with "
+            "target_extras={'src_embeds': ...} instead")
     if args.layers is not None:
         tcfg = tcfg.with_(n_layers=args.layers)
     dcfg = R.get_draft_config(args.arch)

@@ -5,12 +5,21 @@ Runs on the card by default, in float32 (as the JAX launcher trains), at
 the configuration's full width and depth with seeded random weights;
 ``--smoke`` takes the reduced same-family config and ``--device cpu`` the
 CPU (the kernels' plain versions).  Dense and MoE decoders (the loss
-adds the router's load-balance aux loss, as JAX's) and Mamba-2 train:
+adds the router's load-balance aux loss, as JAX's), Mamba-2 and the
+encoder-decoder train; the encoder-decoder's batches carry zero
+``src_embeds`` [batch, 8, d] (the stubbed frontend), as JAX's launcher's.
+So the encoder-decoder trains here with ``--smoke`` only: at full depth
+(seamless-m4t-large-v2, 24 encoder layers) every RMSNorm of a zero row
+scales the gradient by 1/sqrt(eps), the gradient norm is NaN from step 0
+and the loss cannot fall, in JAX's launcher as here; a full-size run
+needs seeded frames, as ``chip_smoke.py``'s phase 11c gives them.  For
+example:
 
   python -m repro_torch.launch.train --arch internlm2-1.8b --steps 20
   python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 --seq 512 --steps 20
   python -m repro_torch.launch.train --smoke --device cpu --steps 12
   python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 12
+  python -m repro_torch.launch.train --arch seamless-m4t-large-v2 --smoke --device cpu --steps 12
 
 It asserts that the loss falls, as the JAX launcher does.  ``main``
 returns what it printed as a dict: the per-step losses, the parameter
@@ -50,8 +59,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"{cfg.family} training (encoder-decoder, VLM) is not "
+    if cfg.family not in ("dense", "moe", "ssm") and not cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.family} training (VLM) is not "
                                   "ported yet (ROADMAP queue 1, item 12)")
     device = resolve_device(args.device)
     dtype = _DTYPES[args.dtype]
@@ -66,12 +75,15 @@ def main(argv=None) -> dict:
 
     dc = DataConfig(vocab_size=cfg.vocab_size, batch=args.batch, seq_len=args.seq,
                     seed=args.seed)
-    step_fn = make_train_step(model, cfg, opt_cfg)
+    extra = ("src_embeds",) if cfg.is_encdec else ()
+    step_fn = make_train_step(model, cfg, opt_cfg, extra_keys=extra)
     t0 = time.perf_counter()
     t_first = None
     losses = []
     for i in range(args.steps):
         batch = {"tokens": torch.from_numpy(batch_at(dc, i)["tokens"]).to(device)}
+        if extra:
+            batch["src_embeds"] = torch.zeros((args.batch, 8, cfg.d_model), device=device)
         params, opt_state, m = step_fn(params, opt_state, batch)
         losses.append(float(m["loss"].cpu()))      # the step boundary's host read
         if i == 0:

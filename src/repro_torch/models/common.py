@@ -1,7 +1,7 @@
 """Shared model layers (copies of ``repro.models.common``): the seeded
-parameter init, norms, RoPE, position masks and embeddings.  The JAX
-module's ``flash_attention_tri`` and ``flash_attention_train`` have one
-counterpart, ``kernels.ops.flash_attn``.
+parameter init, norms, RoPE, position masks, the reference GQA attention
+and embeddings.  The JAX module's ``flash_attention_tri`` and
+``flash_attention_train`` have one counterpart, ``kernels.ops.flash_attn``.
 
 Parameters are nested dicts of tensors with the JAX package's keys; layer
 parameters are stacked along a leading ``n_layers`` axis.
@@ -114,6 +114,24 @@ def position_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int
     if prefix_len:
         ok |= (k >= 0) & (k < prefix_len)
     return ok
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Reference grouped-query attention (``repro.models.common.gqa_attention``;
+    plain products, outside any kernel on either package).  q [B,Tq,H,hd];
+    k/v [B,Tk,KVH,hd] (v may have its own head dim); mask [B,Tq,Tk] bool.
+    Scores in fp32, masked to -1e30 and softmaxed, so a row that sees no key
+    takes the mean of v's rows (not zeros); ``p`` is cast to v's dtype
+    before the product.  Returns [B,Tq,H,vd]."""
+    B, Tq, H, hd = q.shape
+    KVH, vd = k.shape[2], v.shape[-1]
+    qg = q.reshape(B, Tq, KVH, H // KVH, hd)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k).float() * scale
+    p = torch.softmax(scores.masked_fill(~mask[:, None, None], -1e30), dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", p.to(v.dtype), v)
+    return out.reshape(B, Tq, H, vd)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -386,6 +386,12 @@ class ContinuousEngineBackend(_PrefixCacheIndex):
                  mesh=None,
                  prefix_cache: bool = False,
                  mixed_launch: bool = False):
+        if engine.tcfg.is_encdec or engine.tcfg.family == "vlm":
+            # per-request modality extras (src_embeds / prefix_embeds) are not
+            # plumbed through admission, as in the JAX package
+            raise NotImplementedError(
+                f"continuous batching does not support family "
+                f"'{engine.tcfg.family}' yet (per-request modality extras)")
         if mesh is not None:
             raise _not_ported("a mesh-sharded slot pool", 14)
         self.engine = engine
