@@ -619,6 +619,10 @@ def run_kernel_case(torch, K1, ref, c):
                 kernel_names=[n.split("<")[0].split("::")[-1] for n in names])
 
 
+# paligemma-3b's attention: 8 query heads over one kv-head of 256
+PALI_HEADS = dict(H=8, KVH=1, hd=256)
+
+
 def k1_specs():
     """Phase 2's K1 cases: (name, ``make_case`` keywords)."""
     T_H, T_KVH, T_HD = 32, 32, 128            # opt-6.7b attention
@@ -706,6 +710,22 @@ def k1_specs():
                                     masked_row=True)),
         ("split_prefix_l1024", dict(B=2, T=4, H=D_H, KVH=D_KVH, hd=D_HD, L=1024, n_ctx=1000,
                                     prefix_len=16)),
+    ]
+    # paligemma-3b (phase 12): 8 query heads over 1 kv-head of 256 behind a
+    # bidirectional prefix of 256 positions (8 key tiles that the early row
+    # tiles of a prefill see past their own positions).  prefill_into's B 1
+    # prefill of a 128-token prompt (the target fed 127) into a 512-row
+    # ring, the B 16, s 3 verify over 16 rings, the same over int8 rings,
+    # and one request decoding near the end of a 2048-row ring (split)
+    specs += [
+        ("pali_prefill_b1_t384_prefix256", dict(B=1, T=384, L=512, n_ctx=1, kv_len=383,
+                                                prefix_len=256, **PALI_HEADS)),
+        ("pali_verify_b16_t4_prefix256", dict(B=16, T=4, L=512, n_ctx=420, prefix_len=256,
+                                              **PALI_HEADS)),
+        ("pali_verify_b16_t4_int8_prefix256", dict(B=16, T=4, L=512, n_ctx=420,
+                                                   prefix_len=256, quant=True, **PALI_HEADS)),
+        ("split_pali_decode_b1_l2048_prefix256", dict(B=1, T=1, L=2048, n_ctx=1900,
+                                                      prefix_len=256, **PALI_HEADS)),
     ]
     return specs
 
@@ -983,6 +1003,12 @@ def phase_paged_kernels(torch, np, K23, paged, ref):
         ("gqa_g4_chunk_t64", dict(B=1, T=64, H=32, KVH=8, hd=128, bs=16, MAXB=32, ctx=[257])),
     ]
     specs += MIXED_CASES
+    # paligemma-3b's paged verify (phase 12b): B 16, s 3, blocks of 16, each
+    # slot's rows after the 256-row bidirectional prefix and a 16-128-token
+    # prompt, with a hole
+    specs += [("pali_b16_t4_bs16_prefix256", dict(
+        B=16, T=4, bs=16, MAXB=32, ctx=[272 + 8 * b for b in range(16)], holes=((3, 17),),
+        prefix_len=256, **PALI_HEADS))]
     rows = []
     for i, (name, kw) in enumerate(specs):
         kw = dict(kw)
@@ -1345,6 +1371,11 @@ SEAMLESS_SRC = 1024
 SEAMLESS_SRC_LENS = [1024, 1000, 977, 1024, 850, 1024, 903, 768, 1024, 999, 640, 1024, 911,
                      1024, 800, 1017]
 SEAMLESS_PROMPT = 16
+# phase 12 (paligemma-3b): the bidirectional prefix of patch embeddings, and
+# 16 prompt lengths of 16-128 tokens for 12b's requests
+PALI_ARCH = "paligemma-3b"
+PALI_PREFIX = 256
+PALI_PROMPTS = [128, 16, 77, 101, 40, 128, 63, 19, 96, 55, 120, 31, 88, 16, 70, 112]
 SEAMLESS_TRAIN_B, SEAMLESS_TRAIN_T = 4, 128
 SEAMLESS_TRAIN_SRC = SEAMLESS_TRAIN_T // 4
 
@@ -1405,6 +1436,16 @@ FLASH_CASES = [
         bidirectional=True, lens=SEAMLESS_SRC_LENS)),
     ("seamless_train_enc", dict(B=SEAMLESS_TRAIN_B, T=SEAMLESS_TRAIN_SRC, H=16, KVH=16, hd=64,
                                 dtype="float32", bidirectional=True)),
+    # paligemma-3b (8 heads over 1 kv-head of 256, forward only): phase
+    # 12b's prefill_flash (B 16, the 256-row bidirectional prefix and
+    # prompts of 16-128 tokens, right-padded to 384, bf16) and phase 12a's
+    # fp32 forward shape (B 2, T 384)
+    ("pali_prefill_flash_b16_t384", dict(
+        B=16, T=PALI_PREFIX + 128, H=8, KVH=1, hd=256, dtype="bfloat16", grads=False,
+        prefix_len=PALI_PREFIX, lens=[PALI_PREFIX + n for n in PALI_PROMPTS])),
+    ("pali_fwd_b2_t384", dict(B=2, T=PALI_PREFIX + 128, H=8, KVH=1, hd=256, dtype="float32",
+                              grads=False, prefix_len=PALI_PREFIX,
+                              lens=[PALI_PREFIX + 128, PALI_PREFIX + 45])),
 ]
 
 
@@ -5558,6 +5599,435 @@ def phase_seamless_train(torch, np, R, m, tree_to):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the VLM (paligemma-3b)
+
+
+PALI_TOL = 2e-3   # phase 9a's card-against-CPU rule: fp32 sums in another order
+
+
+def pali_pool(eng, tp, dp, toks, lens, pe, s, cache_len, block=None, rng=None, step=True):
+    """Each request admitted by ``prefill_into`` with its own
+    ``prefix_embeds`` into a slot pool of ``len(lens)`` slots, on rings or
+    (``block``) on a paged pool, then steps at ``s`` until every slot is
+    done (``step=False``: none).  Returns (the state, its tokens [B,
+    max_new], the steps)."""
+    B = len(lens)
+    state = eng.init_slots(B, cache_len, **({} if block is None else {"block_size": block}))
+    for b in range(B):
+        state = eng.prefill_into(tp, dp, state, b, toks[b, :lens[b]], int(lens[b]), cache_len,
+                                 {"prefix_embeds": pe[b:b + 1]})
+    n = 0
+    while step and not bool(state.done.all().cpu()):
+        state, _ = eng.step(tp, dp, state, s, rng=rng)
+        n += 1
+    return state, state.out[:, :eng.max_new].cpu().numpy(), n
+
+
+def pali_inputs(np, torch, cfg, B, T, seed, device):
+    """Tokens [B, T], and ``prefix_embeds [B, 256, d]`` drawn from a seed
+    (the stubbed vision tower's patch embeddings, 0.05 a value)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int64)
+    pe = 0.05 * torch.randn((B, cfg.prefix_len, cfg.d_model), device=device,
+                            generator=torch.Generator(device=device).manual_seed(seed))
+    return toks, pe
+
+
+def phase_pali_parity(torch, np, R, m, tree_to):
+    """12a: paligemma-3b cut to 2 layers at its full widths (8 heads over 1
+    kv-head of 256, the 256-row bidirectional prefix, vocabulary 257216),
+    fp32, drawn on the card from one seed and copied to the CPU.  Card
+    against CPU within ``PALI_TOL``: ``forward``'s logits over prefix and
+    prompt (K4), ``prefill``'s logits and every cache leaf (K1),
+    ``prefill_flash``'s (K4), and an s 3 ``decode_step`` after ``prefill``
+    (K1), on two requests with prompts of 16 and 11 tokens; positions and
+    lengths exact.  On the card: decode after an unpadded prefill against
+    ``forward``'s rows; the kernels' launches a call (K4 2 a ``forward`` and
+    a ``prefill_flash``, K1 2 a ``prefill`` and a decode step, none of the
+    other); with a 2-layer draft, greedy tokens of ``generate`` at s 0 and 3
+    and of slot pools on rings and on a paged pool of 16-row blocks at s 0
+    and 3, all equal, the paged slots' host rows counting the prefix."""
+    f32 = torch.float32
+    tcfg = R.get_config(PALI_ARCH).with_(n_layers=2)
+    dcfg = R.get_draft_config(PALI_ARCH).with_(n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    model = m.DecoderLM(tcfg)
+    tp = model.init(gen, f32, "cuda")
+    dp = m.DecoderLM(dcfg).init(gen, f32, "cuda")
+    tps = {"cuda": tp, "cpu": tree_to(tp, "cpu")}
+    B, T, L = 2, 16, 512
+    toks, pe = pali_inputs(np, torch, tcfg, B, T, 23, "cuda")
+    pes = {"cuda": pe, "cpu": pe.cpu()}
+    plens = np.array([T, 11], np.int32)
+    feed = np.random.default_rng(29).integers(0, tcfg.vocab_size, (B, 4)).astype(np.int64)
+    out, k = {}, {}
+    for dev in ("cpu", "cuda"):
+        p, x = tps[dev], pes[dev]
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        def count(name):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                k[name] = launch_counts(m)
+            zero_counts(m)
+        with torch.no_grad():
+            zero_counts(m)
+            fwd, _ = model.forward(p, t(toks), x)
+            count("forward")
+            pre, cache, n = model.prefill(p, t(toks), model.init_cache(B, L, f32, dev), t(plens),
+                                          x)
+            count("prefill")
+            rows = [(f"prefill_{kk}", v.clone()) for kk, v in cache.items()] + [
+                ("prefill_seq_lens", n)]
+            dec, cache = model.decode_step(p, t(feed), cache, n + 1)
+            count("decode_step")
+            fl, fcache, fn = model.prefill_flash(p, t(toks), model.init_cache(B, L, f32, dev),
+                                                 t(plens), x)
+            count("prefill_flash")
+        res = [("forward", fwd), ("prefill", pre), ("decode_s3", dec), ("prefill_flash", fl),
+               ("prefill_flash_seq_lens", fn)] + rows + [
+            (f"decode_s3_{kk}", v) for kk, v in cache.items()] + [
+            (f"prefill_flash_{kk}", v) for kk, v in fcache.items()]
+        for name, v in res:
+            out.setdefault(name, []).append(v.float().cpu() if v.is_floating_point() else v.cpu())
+        del fwd, pre, cache, dec, fl, fcache, rows, res
+    torch.cuda.synchronize()
+    del tps["cpu"], pes["cpu"]
+    errs = {kk: float((g.float() - c.float()).abs().max()) for kk, (c, g) in out.items()}
+    exact = [kk for kk in out if kk.endswith(("pos", "seq_lens"))]
+    ok = all(bool(((g - c).abs() <= PALI_TOL + PALI_TOL * c.abs()).all())
+             for kk, (c, g) in out.items() if kk not in exact)
+    exact_ok = all(errs[kk] == 0 for kk in exact)
+    lens_ok = bool((out["prefill_seq_lens"][1] == torch.from_numpy(plens) + tcfg.prefix_len).all())
+    del out
+    # decode after an unpadded prefill against forward's rows (the card)
+    P = 10
+    tt = torch.from_numpy(toks).cuda()
+    with torch.no_grad():
+        full, _ = model.forward(tp, tt, pe)
+        lg, cache, n = model.prefill(tp, tt[:, :P], model.init_cache(B, L, f32, "cuda"),
+                                     prefix_embeds=pe)
+        steps, _ = model.decode_step(tp, tt[:, P:], cache, n + 1)
+    got = torch.cat([lg[:, None], steps], dim=1)
+    want = full[:, tcfg.prefix_len + P - 1:]
+    decode_vs_forward = float((got - want).abs().max())
+    decode_ok = bool(((got - want).abs() <= PALI_TOL + PALI_TOL * want.abs()).all())
+    del full, lg, cache, steps, got, want
+    # greedy tokens: generate at s 0 and 3, slot pools on rings and paged
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cuda")
+    tok32 = toks.astype(np.int32)
+    got_toks = {f"generate_s{s}": eng.generate(tp, dp, tok32, plens, s=s, cache_len=L,
+                                               target_extras={"prefix_embeds": pe})[0]
+                for s in (0, 3)}
+    host_rows_ok = True
+    for route, block in (("ring", None), ("paged", 16)):
+        for s in (0, 3):
+            st, got_toks[f"{route}_pool_s{s}"], _ = pali_pool(eng, tp, dp, tok32, plens, pe, s, L,
+                                                              block)
+            if block is not None:
+                host_rows_ok &= all(st.paged.tokens(b) == int(st.seq_lens[b])
+                                    for b in range(B))
+            del st
+    ref_toks = got_toks["generate_s0"]
+    tokens_equal = {kk: bool(np.array_equal(v, ref_toks)) for kk, v in got_toks.items()}
+    del eng, tp, dp, tps, pe, pes
+    torch.cuda.empty_cache()
+    want_k = {"forward": (0, 2), "prefill": (2, 0), "decode_step": (2, 0),
+              "prefill_flash": (0, 2)}
+    k_ok = all((k[c]["k1"], k[c]["k4"]) == w and k[c]["plain"] == 0 for c, w in want_k.items())
+    line = dict(arch=PALI_ARCH, n_layers=2, batch=f"B{B} P{tcfg.prefix_len} T{T}",
+                prompt_lens=plens.tolist(), max_abs_err=errs, tol=PALI_TOL,
+                decode_vs_forward_max_abs=decode_vs_forward,
+                launches={c: {kk: v[kk] for kk in ("k1", "k4", "plain")} for c, v in k.items()},
+                tokens_equal_generate_s0=tokens_equal, paged_host_rows_count_the_prefix=host_rows_ok)
+    print("  " + json.dumps({"pali_parity": line}), flush=True)
+    check(ok and exact_ok and lens_ok,
+          f"paligemma: card vs CPU differ: {errs} (tol {PALI_TOL})")
+    check(decode_ok, f"paligemma: decode after prefill differs from forward by "
+                     f"{decode_vs_forward}")
+    check(k_ok, f"paligemma: launches a call {line['launches']}, not {want_k} (K1, K4)")
+    check(all(tokens_equal.values()) and host_rows_ok,
+          f"paligemma: greedy tokens differ between routes: {tokens_equal}, or the paged "
+          f"host rows miss the prefix ({host_rows_ok})")
+    return line
+
+
+def pali_prefill_routes(torch, np, m, tcfg, tp, toks, lens, pe, ref_logits, L=512):
+    """``prefill_flash`` (K4) against ``prefill`` (K1) at B 16 in bf16: each
+    one's last-token logits against fp32 ``prefill``'s (``ref_logits``) in
+    relative RMS, K1 and K4 a call, device ms under the profiler, and walls
+    in turns (prefill, flash, flash, prefill)."""
+    from torch.profiler import ProfilerActivity
+    model = m.DecoderLM(tcfg)
+    t, ln = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+    routes = {"prefill": model.prefill, "prefill_flash": model.prefill_flash}
+    res = {}
+    for name, fn in routes.items():
+        with torch.no_grad():
+            zero_counts(m)
+            lg = fn(tp, t, model.init_cache(len(lens), L, torch.bfloat16, "cuda"), ln, pe)[0]
+            torch.cuda.synchronize()
+            c = launch_counts(m)
+            prof, takes, lost = whole_profile(
+                torch, lambda fn=fn: fn(tp, t, model.init_cache(len(lens), L, torch.bfloat16,
+                                                                "cuda"), ln, pe),
+                [ProfilerActivity.CUDA], serving_kinds() + train_kinds(m)[:1])
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[kernel_name(e.name)] = by.get(kernel_name(e.name), 0.0) + \
+                    e.device_time_total / 1e3
+        busy = sum(by.values())
+        attn = by.get("fwd_kernel", 0.0) + by.get("verify_kernel", 0.0) + \
+            by.get("verify_kernel_combine", 0.0)
+        res[name] = dict(rel_rms_vs_fp32_prefill=rel_rms(lg, ref_logits),
+                         k1=c["k1"], k4=c["k4"], plain=c["plain"], device_busy_ms=busy,
+                         attention_ms=attn, attention_share=attn / busy if busy else None,
+                         profile_takes=takes, profile_lost=lost, wall_ms=[])
+        del lg
+    for name in ("prefill", "prefill_flash", "prefill_flash", "prefill"):
+        with torch.no_grad():
+            cache = model.init_cache(len(lens), L, torch.bfloat16, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name](tp, t, cache, ln, pe)
+            torch.cuda.synchronize()
+        res[name]["wall_ms"].append(1e3 * (time.perf_counter() - t0))
+        del cache
+    return res
+
+
+def phase_pali_serve(torch, np, R, m):
+    """12b: paligemma-3b at full size (18 layers, 3.04 B parameters) with its
+    4-layer dense draft, 16 requests of ``PALI_PROMPTS`` tokens, each behind
+    its own 256 seeded patch embeddings.  (a) fp32 (12.1 GB): greedy s 3
+    tokens of a slot pool on rings and on a paged pool of 16-row blocks,
+    equal, and fp32 ``prefill``'s logits at B 16, the reference of (d).  (b)
+    The weights cast to bf16 (6.07 GB), sampled (random weights accept next
+    to nothing greedily): ``generate`` at s 0 and 3 on rings, then the
+    paged pool served at s 3 (``prefill_into`` + ``step``); tokens/s, steps,
+    acceptance, and K1, K3, K4 and K5 launches equal to
+    ``predicted_launches`` (K4 none).  (c) One B 16 prefill under the
+    profiler (device ms, K1's share, walls) and B 16 paged steps at s 0 and
+    3 (``profile_step``: busy, wall, idle share, K1/K3/K5 shares); the
+    weight floor of a step: the target's layers and unembedding over 3.35
+    TB/s.  (d) ``pali_prefill_routes``: ``prefill_flash`` gated at 1.5x
+    ``prefill``'s relative RMS from fp32, K4 18 a call."""
+    from torch.profiler import ProfilerActivity
+    bf16, f32 = torch.bfloat16, torch.float32
+    tcfg, dcfg = R.get_config(PALI_ARCH), R.get_draft_config(PALI_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    model = m.DecoderLM(tcfg)
+    tp = model.init(gen, f32, "cuda")
+    dp = m.DecoderLM(dcfg).init(gen, f32, "cuda")
+    B, L = len(PALI_PROMPTS), 512
+    lens = np.array(PALI_PROMPTS, np.int32)
+    toks, pe = pali_inputs(np, torch, tcfg, B, max(PALI_PROMPTS), 61, "cuda")
+    toks = toks.astype(np.int32)
+    line = dict(arch=PALI_ARCH, n_params=sum(x.numel() for x in m.leaves(tp)),
+                batch=f"B{B}, prefix {tcfg.prefix_len}, prompts {min(lens)}-{max(lens)}")
+    # ---- (a) fp32: paged pool = ring pool, and the reference logits ----
+    e32 = m.SpecDecodeEngine(tcfg, dcfg, max_new=16, dtype=f32, device="cuda")
+    e32.load_kernels(paged=True)
+    fp32_toks = {}
+    for route, block in (("ring", None), ("paged", 16)):
+        _, fp32_toks[route], _ = pali_pool(e32, tp, dp, toks, lens, pe, 3, L, block)
+    line["fp32_paged_equals_ring"] = bool(np.array_equal(fp32_toks["ring"], fp32_toks["paged"]))
+    with torch.no_grad():
+        ref_logits = model.prefill(tp, torch.from_numpy(toks).cuda(),
+                                   model.init_cache(B, L, f32, "cuda"),
+                                   torch.from_numpy(lens).cuda(), pe)[0]
+    del e32
+    tp, dp, pe = tree_map(lambda x: x.to(bf16), tp), tree_map(lambda x: x.to(bf16), dp), pe.to(bf16)
+    torch.cuda.empty_cache()
+    nbytes = {name: sum(x.numel() * x.element_size() for x in m.leaves(p))
+              for name, p in (("target", tp), ("draft", dp))}
+    read = nbytes["target"] - tp["embed"].numel() * 2          # a step reads no embed table
+    line.update(weights_gb=nbytes["target"] / 1e9, draft_weights_gb=nbytes["draft"] / 1e9,
+                init_s=time.perf_counter() - t0, weight_floor_ms=1e3 * read / HBM_BYTES_PER_S,
+                draft_floor_ms=1e3 * (nbytes["draft"] - dp["embed"].numel() * 2)
+                / HBM_BYTES_PER_S)
+    # ---- (b) bf16, sampled: generate on rings, then the paged pool ----
+    eng = m.SpecDecodeEngine(tcfg, dcfg, max_new=32, dtype=bf16, device="cuda", sample=True)
+    eng.load_kernels(paged=True)
+    extras = {"prefix_embeds": pe}
+    state = eng.prefill(tp, dp, toks, lens, L, extras)            # warm
+    eng.step(tp, dp, state, 3)
+    del state
+    torch.cuda.synchronize()
+    runs = {}
+    for s in (0, 3):
+        zero_counts(m)
+        t1 = time.perf_counter()
+        out, stats, n_steps = eng.generate(tp, dp, toks, lens, s=s, cache_len=L,
+                                           target_extras=extras, collect_stats=True, key=s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        per_request = sum(st.committed for st in stats)
+        live = [st.committed > 0 for st in stats]
+        runs[f"generate_s{s}"] = dict(
+            wall_s=wall, steps=n_steps, tokens=int(per_request.sum()),
+            tokens_per_s=int(per_request.sum()) / wall,
+            acceptance=(sum(int(st.accepted[lv].sum()) for st, lv in zip(stats, live))
+                        / max(1, s * sum(int(lv.sum()) for lv in live))) if s else None,
+            launches=launch_counts(m),
+            predicted=predicted_launches(tcfg, dcfg, 1, [s] * n_steps, paged=False),
+            tokens_in_vocab=bool(0 <= out.min() and out.max() < tcfg.vocab_size),
+            every_request_done=bool((per_request >= eng.max_new).all()))
+    zero_counts(m)
+    t1 = time.perf_counter()
+    st, out, n_steps = pali_pool(eng, tp, dp, toks, lens, pe, 3, L, block=16,
+                                 rng=torch.Generator(device="cuda").manual_seed(71))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    committed = int(st.n_generated.sum())
+    runs["paged_pool_s3"] = dict(
+        wall_s=wall, steps=n_steps, tokens=committed, tokens_per_s=committed / wall,
+        blocks=st.paged.num_blocks, launches=launch_counts(m),
+        predicted=predicted_launches(tcfg, dcfg, B, [3] * n_steps, paged=True),
+        tokens_in_vocab=bool(0 <= out.min() and out.max() < tcfg.vocab_size),
+        every_request_done=bool((st.n_generated >= eng.max_new).all()),
+        host_rows_count_the_prefix=all(st.paged.tokens(b) == int(st.seq_lens[b])
+                                       for b in range(B)))
+    del st
+    line["runs"] = runs
+    # ---- (c) a B 16 prefill under the profiler, B 16 paged steps ----
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = eng.prefill(tp, dp, toks, lens, L, extras)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t1))
+        del state
+    prof, takes, lost = whole_profile(torch, lambda: eng.prefill(tp, dp, toks, lens, L, extras),
+                                      [ProfilerActivity.CUDA], serving_kinds())
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / 1e3
+    busy = sum(by.values())
+    k1_ms = sum(t for kk, t in by.items() if kernel_name(kk).startswith("verify_kernel"))
+    line["prefill"] = dict(wall_ms=walls, device_busy_ms=busy, k1_ms=k1_ms,
+                           k1_share=k1_ms / busy if busy else None,
+                           k5_ms=sum(t for kk, t in by.items() if "rmsnorm" in kk),
+                           device_kernels=sum(1 for e in prof.events() if e.device_type
+                                              == torch.autograd.DeviceType.CUDA),
+                           top_device_ms={kk[:60]: t for kk, t in sorted(
+                               by.items(), key=lambda kv: kv[1], reverse=True)[:6]},
+                           profile_takes=takes, profile_lost=lost)
+    state, _, _ = pali_pool(eng, tp, dp, toks, lens, pe, 0, L, block=16, step=False)
+    prof_rows = {}
+    for s in (0, 3):
+        keep = []
+        r = profile_step(torch, eng, tp, dp, f"{PALI_ARCH}_paged_b16_s{s}", state, s,
+                         keep=keep, host=False)
+        state = keep[0]
+        b = r["device_busy_ms"]
+        prof_rows[f"paged_b16_s{s}"] = dict(
+            wall_ms=r["wall_ms"], device_busy_ms=b, idle_share=r["idle_share"],
+            device_kernels=r["device_kernels"],
+            top5_device_ms=dict(list(r["top_device_ms"].items())[:5]),
+            k1_share=r["k1_ms"] / b if b else None,
+            k3_share=r["paged_kernel_ms"] / b if b else None,
+            k5_share=r["k5_ms"] / b if b else None,
+            busy_over_weight_floor=b / line["weight_floor_ms"],
+            profile_takes=r["profile_takes"], profile_lost=r["profile_lost"])
+    line["profiles"] = prof_rows
+    del state, eng
+    # ---- (d) prefill_flash against prefill at B 16 ----
+    line["prefill_routes"] = pali_prefill_routes(torch, np, m, tcfg, tp, toks, lens, pe,
+                                                 ref_logits, L)
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del tp, dp, pe, ref_logits
+    torch.cuda.empty_cache()
+    print("  " + json.dumps({"pali_serve": line}, default=float), flush=True)
+    check(line["fp32_paged_equals_ring"],
+          "paligemma fp32: the paged pool's tokens differ from the ring pool's")
+    for name, r in runs.items():
+        check(all(r["launches"][kk] == r["predicted"][kk] for kk in ("k1", "k3", "k5"))
+              and r["launches"]["k4"] == 0 and r["launches"]["plain"] == 0,
+              f"paligemma {name}: launches {r['launches']} differ from {r['predicted']} "
+              "(K4 and plain versions 0)")
+        check(r["tokens_in_vocab"] and r["every_request_done"],
+              f"paligemma {name}: tokens outside the vocabulary, or a request short")
+    check(runs["paged_pool_s3"]["host_rows_count_the_prefix"],
+          "paligemma: a paged slot's host rows do not count its prefix")
+    pr = line["prefill_routes"]
+    check(pr["prefill"]["k1"] == tcfg.n_layers and pr["prefill"]["k4"] == 0
+          and pr["prefill_flash"]["k4"] == tcfg.n_layers and pr["prefill_flash"]["k1"] == 0
+          and pr["prefill"]["plain"] == pr["prefill_flash"]["plain"] == 0,
+          f"paligemma: prefill routes' launches {pr}")
+    check(pr["prefill_flash"]["rel_rms_vs_fp32_prefill"]
+          <= 1.5 * pr["prefill"]["rel_rms_vs_fp32_prefill"],
+          f"paligemma: bf16 prefill_flash is further from fp32 than 1.5x bf16 prefill: {pr}")
+    return line
+
+
+def pali_kernel_rows(rows, prows, trows, pparity, pserve):
+    """The ``kernels`` line's rows at paligemma-3b's head dim 256 (8 heads
+    over 1 kv-head, the 256-row bidirectional prefix): K1 at the B 16, s 3
+    verify in bf16 (its prefill, int8 and split cases beside it) with phase
+    12b's launches (every prefill, ring verify and draft call), K3 at the
+    paged B 16, s 3 verify with 12b's paged pool launches, and K4's forward
+    in bf16 at 12b's ``prefill_flash`` and in fp32 at 12a's forward shape
+    with their launches."""
+    def pick(src, case):
+        return next(r for r in src if r["case"] == case)
+    keys = ("case", "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "n_splits", "device_kernels")
+    k1 = pick(rows, "pali_verify_b16_t4_prefix256_bf16")
+    k3 = pick(prows, "pali_b16_t4_bs16_prefix256_bf16")
+    f16 = pick(trows, "flash_pali_prefill_flash_b16_t384")
+    f32 = pick(trows, "flash_pali_fwd_b2_t384")
+    runs = pserve["runs"]
+    common = {"route": "cuda", "head_dim": 256}
+    return [
+        {"name": "spec_verify_attn_pali", **common,
+         "source": "src/repro_torch/kernels/csrc/spec_verify_attn.cu",
+         "replaces": "src/repro/kernels/spec_verify_attn.py:126",
+         "launches": sum(r["launches"]["k1"] for r in runs.values()),
+         "launches_from": f"phase 12b, {PALI_ARCH}: generate at s 0 and 3 on rings and the "
+                          "paged pool at s 3 (target prefills, ring verifies, draft calls)",
+         **{kk: k1[kk] for kk in keys if kk != "case"}, "library": "SDPA",
+         "shape": f"target verify s=3, {k1['shape']}, bf16",
+         "cases": [{kk: r[kk] for kk in keys} for r in rows
+                   if "pali" in r["case"] and r["case"] != k1["case"]]},
+        {"name": "ragged_paged_verify_attn_pali", **common,
+         "source": "src/repro_torch/kernels/csrc/paged_verify_attn.cu",
+         "replaces": "src/repro/kernels/paged_verify_attn.py:445",
+         "launches": runs["paged_pool_s3"]["launches"]["k3"],
+         "launches_from": f"phase 12b, {PALI_ARCH}'s paged pool served at s 3",
+         **{kk: k3[kk] for kk in keys if kk != "case"}, "dense_ms": k3["dense_ms"],
+         "library": k3["library"], "shape": f"target verify s=3, {k3['shape']}, bf16"},
+        {"name": "flash_attn_fwd_pali_bf16", **common,
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn.py:71",
+         "launches": pserve["prefill_routes"]["prefill_flash"]["k4"],
+         "launches_from": f"phase 12b, {PALI_ARCH}'s prefill_flash at B 16 (one a layer)",
+         "max_abs_err": f16["max_abs_err"], "ms": f16["ms"], "plain_ms": f16["plain_ms"],
+         "bound_ms": f16["bound_ms"], "bound_by": f16["bound_by"],
+         "library_ms": f16["library_ms"], "library_kernels": f16["library_kernels"],
+         "shape": f"{f16['shape']}, bf16"},
+        {"name": "flash_attn_fwd_pali", **common,
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn.py:71",
+         "launches": sum(pparity["launches"][c]["k4"] for c in ("forward", "prefill_flash")),
+         "launches_from": f"phase 12a, {PALI_ARCH} at 2 layers in fp32: forward and "
+                          "prefill_flash on the card",
+         "max_abs_err": f32["max_abs_err"], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+         "bound_ms": f32["bound_ms"],
+         "bound_by": "bytes" if f32["bound_by"] == "bytes" else "operations",
+         "bound_route": "3xTF32", "bound_simt_ms": f32["bound_simt_ms"],
+         "library_ms": f32["library_ms"], "library_kernels": f32["library_kernels"],
+         "shape": f"{f32['shape']}, fp32"}]
+
+
 def seamless_kernel_rows(trows, sserve, strain):
     """The ``kernels`` line's K4 rows at seamless's encoder (16 heads of 64,
     bidirectional): the bf16 forward at phase 11b's prefill (B 16, 1024
@@ -5864,20 +6334,25 @@ def main() -> int:
                       "cuda": torch.version.cuda, "build_s": build_s}), flush=True)
     for ln in ptxas:
         print("  ptxas: " + ln)
-    print("  k2/k3 occupancy (bs 16, MAXB 32): " + json.dumps({
-        f"{dt}{'_int8' if q8 else ''}_hd{hd}": K23.occupancy(
-            getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, 16, 32)
-        for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)}),
-        flush=True)
+    k23_occ = {f"{dt}{'_int8' if q8 else ''}_hd{hd}": K23.occupancy(
+        getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, 16, 32)
+        for dt in ("float32", "bfloat16") for hd in (64, 128, 256) for q8 in (False, True)}
+    print("  k2/k3 occupancy (bs 16, MAXB 32): " + json.dumps(k23_occ), flush=True)
+    # the wrapper's shared-memory check counts what the source asks for
+    check(all(o["smem_bytes"] == K23.smem_bytes(
+        1 if "int8" in name else getattr(torch, name.split("_")[0]).itemsize,
+        int(name.rsplit("hd", 1)[1]), 16, 32) for name, o in k23_occ.items()),
+        f"K2/K3's smem_bytes disagrees with the source's geometry: {k23_occ}")
     print("  k1 occupancy (L 512; row tile 16 / 64): " + json.dumps({
         f"{dt}{'_int8' if q8 else ''}_hd{hd}_rt{rt}": K1.occupancy(
             getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, rt, 512)
-        for dt in ("float32", "bfloat16") for hd in (64, 128) for q8 in (False, True)
+        for dt in ("float32", "bfloat16") for hd in (64, 128, 256) for q8 in (False, True)
         for rt in K1.ROW_TILES}), flush=True)
     k4_pairs = {(dk, dv): f"hd{dk}" if dk == dv else f"dk{dk}_dv{dv}" for dk, dv in K4.HEAD_DIMS}
     print("  k4 forward occupancy: " + json.dumps({
         f"{dt}_{name}": K4.fwd_occupancy(getattr(torch, dt), dk, dv)
-        for dt in ("float32", "bfloat16") for (dk, dv), name in k4_pairs.items()}), flush=True)
+        for dt in ("float32", "bfloat16") for (dk, dv), name in
+        {**k4_pairs, (256, 256): "hd256"}.items()}), flush=True)
     print("  k4 backward occupancy (dq, dkv): " + json.dumps({
         f"{dt}_{name}": K4.bwd_occupancy(getattr(torch, dt), dk, dv)
         for dt in ("float32", "bfloat16") for (dk, dv), name in k4_pairs.items()}), flush=True)
@@ -6070,6 +6545,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     strain = phase_seamless_train(torch, np, R, m, tree_to)
     done("seamless_train")
+    torch.cuda.empty_cache()
+
+    # ---- 12. paligemma-3b (VLM): card vs CPU at 2 layers, then served at full size ----
+    pparity = phase_pali_parity(torch, np, R, m, tree_to)
+    done("pali_parity")
+    torch.cuda.empty_cache()
+    pserve = phase_pali_serve(torch, np, R, m)
+    done("pali_serve")
 
     head = next(r for r in rows if r["case"] == "target_verify_s3_b8_bf16")
     pre = next(r for r in rows if r["case"] == "cont_target_prefill_t256_bf16")
@@ -6142,6 +6625,7 @@ def main() -> int:
                                              mtrain["launches"])
     kernels += mla_kernel_rows(trows, mtrain_mla, dserve)
     kernels += seamless_kernel_rows(trows, sserve, strain)
+    kernels += pali_kernel_rows(rows, prows, trows, pparity, pserve)
     kernels += [ssd_kernel_row(srows, mserve["launches"]["k6"], mlive["launches"]["k6"],
                                mtrain["launches"]["k6_fwd"]),
                 ssd_bwd_kernel_row(brows, mtrain)]

@@ -1,11 +1,12 @@
 """Configuration dataclasses for the families the port covers: dense GQA
 decoders (with Qwen3's per-head q/k norm), mixture-of-experts decoders with
-GQA or MLA (DeepSeek-V2's multi-head latent attention), Mamba-2 (SSD) and
-the encoder-decoder (SeamlessM4T).
+GQA or MLA (DeepSeek-V2's multi-head latent attention), Mamba-2 (SSD), the
+encoder-decoder (SeamlessM4T) and the VLM (PaliGemma: a decoder behind a
+prefix of modality embeddings).
 
-The attention, MoE, SSM and encoder-decoder parts of ``repro.configs.base``,
-cut to the fields the port's models, engine and launchers read (untied
-embeddings, no modality prefix).  The weights' and caches' dtype is the
+The attention, MoE, SSM, encoder-decoder and modality-prefix parts of
+``repro.configs.base``, cut to the fields the port's models, engine and
+launchers read (untied embeddings).  The weights' and caches' dtype is the
 caller's; ``dtype`` is read only where JAX reads it, the cast of an
 encoder's ``src_embeds``.  Configs are frozen dataclasses.
 """
@@ -64,7 +65,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense", "moe", "ssm" or "audio" (the families ported)
+    family: str                    # "dense", "moe", "ssm", "audio" or "vlm" (the families ported)
     n_layers: int
     d_model: int
     d_ff: int
@@ -75,6 +76,10 @@ class ModelConfig:
     # enc-dec only
     enc_layers: int = 0
     cross_attn: bool = False
+    # vlm: number of modality-prefix embedding positions supplied by the
+    # (stubbed) frontend, and whether the prefix mask is bidirectional
+    prefix_len: int = 0
+    bidirectional_prefix: bool = False
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"        # an encoder casts src_embeds to it (JAX's encode)
     # int8 KV cache with per-(row, kv-head) scales (GQA caches only; MLA's

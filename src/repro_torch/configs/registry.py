@@ -1,8 +1,8 @@
 """``--arch <id>`` resolution for the port: the paper's OPT pair, yi-9b,
 yi-34b, qwen3-8b, qwen3-moe-30b-a3b, deepseek-v2-236b (MLA),
-internlm2-1.8b (the training launcher's default), mamba2-1.3b and
-seamless-m4t-large-v2 (encoder-decoder); and ``build_model``, the model
-class for a config's family."""
+internlm2-1.8b (the training launcher's default), mamba2-1.3b,
+seamless-m4t-large-v2 (encoder-decoder) and paligemma-3b (VLM); and
+``build_model``, the model class for a config's family."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +20,7 @@ _MODULES: Dict[str, str] = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 
@@ -43,10 +44,10 @@ def get_draft_config(arch_id: str) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
-    """The model for a config's family: ``DecoderLM`` (dense, moe),
+    """The model for a config's family: ``DecoderLM`` (dense, moe, vlm),
     ``Mamba2LM`` (ssm) or ``EncDecLM`` (encdec, audio), as
     ``repro.configs.registry.build_model``."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg)
     if cfg.family == "ssm":
@@ -57,4 +58,4 @@ def build_model(cfg: ModelConfig):
         return EncDecLM(cfg)
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-        "(ROADMAP queue 1, item 12)")
+        "(ROADMAP queue 1, item 12: recurrentgemma-2b)")

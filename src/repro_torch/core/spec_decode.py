@@ -47,6 +47,17 @@ cache adds the cross K/V ``xk``/``xv`` (slot axis 1) and ``xpos`` (slot
 axis 0), sized by S (``init_slots(..., src_len=S)`` for a slot pool), and
 the step never touches them.
 
+A VLM target (paligemma-3b, ``family="vlm"``) takes it on rings and on
+the paged pool: ``prefill``, ``generate`` and ``prefill_into`` take
+``target_extras={"prefix_embeds": [B, P, d]}`` (P = the config's
+``prefix_len``), which go to the target's prefill alone; its ``seq_lens``
+count the P prefix rows, the text-only draft's lengths do not
+(``prefix_offset``).  A paged pool gives the slot blocks for ``P +
+prompt_len`` rows and counts them from the admission on: JAX's
+``prefill_into`` reserves ``prompt_len`` rows only and so loses the
+prefix's last rows to later writes (``tests/test_torch_vlm.py``).  Chunked
+prefill and the prefix cache carry no prefix embeddings and raise for it.
+
 Paged KV: ``init_slots(block_size=...)`` replaces the per-slot target rings
 with one pool of fixed-size blocks (``DecoderLM.init_paged_cache``) plus a
 block table ``bt [capacity, max_blocks]`` in ``DecodeState.tcache``; the
@@ -209,6 +220,9 @@ class SpecDecodeEngine:
         self.sample = sample
         self.temperature = temperature
         self.annotate: bool = False
+        # the draft is text-only: a VLM target's lengths count its modality
+        # prefix, the draft's do not (JAX's prefix_offset)
+        self.prefix_offset = target_cfg.prefix_len if target_cfg.family == "vlm" else 0
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
@@ -231,12 +245,18 @@ class SpecDecodeEngine:
 
     def _extras(self, target_extras: Optional[Dict]) -> Dict[str, torch.Tensor]:
         """The target's keyword operands (numpy or tensors) on the engine's
-        device; an encoder-decoder target must have ``src_embeds``."""
+        device; an encoder-decoder target must have ``src_embeds``, a VLM
+        target ``prefix_embeds`` (without them the draft's lengths, the
+        target's less ``prefix_offset``, would go negative)."""
         tkw = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
                    ).to(self.device) for k, v in (target_extras or {}).items()}
         if self._encdec() and "src_embeds" not in tkw:
             raise ValueError(f"{self.tcfg.name}: an encoder-decoder target needs "
                              "target_extras={'src_embeds': [B, S, d_model]}")
+        if self.prefix_offset and "prefix_embeds" not in tkw:
+            raise ValueError(f"{self.tcfg.name}: a VLM target needs target_extras="
+                             f"{{'prefix_embeds': [B, {self.prefix_offset}, "
+                             f"{self.tcfg.d_model}]}}")
         return tkw
 
     def prefill(self, tparams, dparams, tokens, prompt_lens,
@@ -245,9 +265,10 @@ class SpecDecodeEngine:
         The target is prefilled with ``prompt_lens - 1`` tokens and the
         draft with ``prompt_lens - 2``; the last two prompt tokens seed the
         first step.  Both models return the committed lengths as they are
-        (an SSM its ``prompt_lens``).  ``target_extras`` (an
-        encoder-decoder's ``src_embeds``, ``src_lens``) go to the target's
-        prefill alone; its cross K/V is sized by ``src_embeds``."""
+        (an SSM its ``prompt_lens``; a VLM ``prompt_lens - 1 + P``).
+        ``target_extras`` (an encoder-decoder's ``src_embeds``,
+        ``src_lens``; a VLM's ``prefix_embeds``) go to the target's prefill
+        alone; an encoder-decoder's cross K/V is sized by ``src_embeds``."""
         lens_host = np.asarray(prompt_lens)
         if int(lens_host.min()) < 3:
             raise ValueError("prompts need >= 3 tokens")
@@ -350,10 +371,11 @@ class SpecDecodeEngine:
         """Inject one new request into row ``slot`` of a live slot pool: a
         B = 1 prefill of the (padded) prompt, then a copy of every cache leaf
         into the slot's row of the pool, in place.  A paged pool allocates
-        ``ceil(prompt_len / block_size)`` blocks and copies the prefill rows
-        of every per-row leaf (k, v, an int8 pool's scales, pos) block by
-        block through the slot's new table row.  ``target_extras`` as in
-        :meth:`prefill`, for this one request (``src_embeds [1, S, d]``)."""
+        ``ceil((prefix_offset + prompt_len) / block_size)`` blocks (a VLM's
+        prefix rows count) and copies the prefill rows of every per-row leaf
+        (k, v, an int8 pool's scales, pos) block by block through the slot's
+        new table row.  ``target_extras`` as in :meth:`prefill`, for this
+        one request (``src_embeds [1, S, d]``, ``prefix_embeds [1, P, d]``)."""
         if warm:
             self.load_kernels(state.paged is not None)
             return state
@@ -364,7 +386,7 @@ class SpecDecodeEngine:
         one = self.prefill(tparams, dparams, tokens,
                            np.array([prompt_len], np.int32), cache_len, target_extras)
         if pk is not None:
-            pk.prefill(slot, prompt_len)
+            pk.prefill(slot, self.prefix_offset + prompt_len)
             self._drain_evicted(state)
         with record_function("repro/inject") if self.annotate else _NULLCTX:
             if pk is None:
@@ -461,6 +483,7 @@ class SpecDecodeEngine:
             raise NotImplementedError(
                 f"chunked prefill is not supported for family "
                 f"'{self.tcfg.family}' (model lacks a prefill_chunk path)")
+        self._refuse_prefix("chunked prefill")
         pk = state.paged
         paged = pk is not None
         tokens = np.asarray(tokens, np.int32).reshape(-1)
@@ -527,6 +550,14 @@ class SpecDecodeEngine:
             with record_function("repro/chunk_commit") if self.annotate else _NULLCTX:
                 self._commit_row(state, slot, total_len, last2)
         return state
+
+    def _refuse_prefix(self, what: str) -> None:
+        """A VLM's prefix rows come from ``prefix_embeds``, which ``what``
+        does not carry (neither does the JAX engine's)."""
+        if self.prefix_offset:
+            raise NotImplementedError(
+                f"{self.tcfg.name}: {what} carries no prefix_embeds for a VLM target; "
+                "admit it whole with prefill_into")
 
     def _commit_row(self, state: DecodeState, slot: int, total_len: int,
                     last2) -> None:
@@ -646,6 +677,7 @@ class SpecDecodeEngine:
         pk = state.paged
         if pk is None:
             raise ValueError("attach_prefix needs a paged slot pool")
+        self._refuse_prefix("the prefix cache")
         if warm:
             self.load_kernels(paged=True)
             return state
@@ -731,8 +763,9 @@ class SpecDecodeEngine:
             zero = np.zeros(B, np.int32)
             return state, StepStats(accepted=zero, committed=zero.copy())
         fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
-                            max_new=self.max_new, paged=pk is not None,
-                            sample=self.sample, temperature=self.temperature)
+                            max_new=self.max_new, prefix_offset=self.prefix_offset,
+                            paged=pk is not None, sample=self.sample,
+                            temperature=self.temperature)
         args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
                 state.last2, state.out, state.n_generated, state.done)
         if pk is not None:
@@ -827,8 +860,8 @@ class SpecDecodeEngine:
         ops = torch.from_numpy(np.concatenate([cu, chunk.tokens, chunk.bt_row])).to(self.device)
         feed_total = chunk.total_len - 1
         fn = make_spec_step(self.target, self.draft, B, s, eos_id=self.eos_id,
-                            max_new=self.max_new, paged=True,
-                            chunk=(chunk.cb, chunk.rows_limit),
+                            max_new=self.max_new, prefix_offset=self.prefix_offset,
+                            paged=True, chunk=(chunk.cb, chunk.rows_limit),
                             sample=self.sample, temperature=self.temperature)
         args = (tparams, dparams, state.tcache, state.dcache, state.seq_lens,
                 state.last2, state.out, state.n_generated, state.done, ops[:B + 1],
@@ -898,7 +931,8 @@ def _sample_draws(rng: torch.Generator, B: int, s: int, V: int, device):
 
 
 def make_spec_step(tgt, drf, B: int, s: int, *,
-                   eos_id: int = -1, max_new: int = 128, paged: bool = False,
+                   eos_id: int = -1, max_new: int = 128, prefix_offset: int = 0,
+                   paged: bool = False,
                    chunk: Optional[Tuple[int, int]] = None,
                    sample: bool = False, temperature: float = 1.0):
     """One speculative step (paper Algorithm 1, batched): the port of
@@ -914,6 +948,8 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
     draft a ``DecoderLM``; the target a ``DecoderLM`` or a ``Mamba2LM``,
     whose ``commit`` picks the state checkpoint at each accept count).  The
     caches are written in place, and nothing is read back to the host.
+    ``prefix_offset`` (a VLM target's ``prefix_len``) is taken off the
+    target's lengths for the text-only draft.
 
     ``chunk = (CB, R)`` (paged only) builds the mixed verify+chunk step:
     ``chunk_ops = (slot, tokens [CB], start, target limit, draft limit,
@@ -954,15 +990,16 @@ def make_spec_step(tgt, drf, B: int, s: int, *,
                                   torch.full((1,), cdl, dtype=torch.int32, device=dev),
                                   rows_limit=chunk[1])
         # ---- 1. draft phase ----
+        dlens = seq_lens - prefix_offset if prefix_offset else seq_lens
         if s > 0:
-            logits, dcache = drf.decode_step(dparams, last2, dcache, seq_lens - 1)
+            logits, dcache = drf.decode_step(dparams, last2, dcache, dlens - 1)
             lg = logits[:, -1]
             drafts = []
             q_probs = []                                  # draft probs, sampled
             for i in range(s):
                 if i > 0:
                     logits, dcache = drf.decode_step(dparams, d[:, None], dcache,
-                                                     seq_lens + i)
+                                                     dlens + i)
                     lg = logits[:, 0]
                 if sample:
                     x = lg / temperature

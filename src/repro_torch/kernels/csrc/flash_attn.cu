@@ -13,7 +13,8 @@
 // q and k share one head dim (dk), v may have another (dv): the output and
 // dO have dv, dQ and dK have dk.  The instantiated (dk, dv) pairs are (64,
 // 64), (128, 128) and (192, 128), the last DeepSeek-V2's MLA attention
-// (128 + 64 RoPE dims of q and k, 128 of v); any other pair is an error.
+// (128 + 64 RoPE dims of q and k, 128 of v), and for the forward alone
+// (256, 256), PaliGemma's heads; any other pair is an error.
 // Softmax is in fp32; a fully masked query row outputs zeros and a
 // logsumexp of -inf.  The backward is FlashAttention-2's: with the forward's
 // logsumexp it recomputes P = exp(S - lse) tile by tile, D = rowsum(dO * O),
@@ -147,22 +148,29 @@ constexpr int FWD_WARPS = 4;
 constexpr int FWD_NT = 32 * FWD_WARPS;  // forward threads per block
 constexpr int FBQ = 16 * FWD_WARPS;     // folded query rows per forward block
 
-// key rows per tile, row padding (elements) of the Q/K and V tiles, and
-// blocks an SM (registers and shared memory allow at hd 128; at (192, 128)
-// shared memory allows one fp32 block an SM and three bf16 ones).  The
-// padding makes the fragment loads free of bank conflicts: fp32 Q/K rows
-// at 8 mod 32 words (float2 per lane), fp32 V rows at 4 mod 16 words (rows
-// 2t and 2t+1 per lane), bf16 rows at 4 mod 32 words (ldmatrix).  bf16
-// reads its Q fragments from shared memory at each step and runs four
-// blocks an SM, within 128 registers a thread: more warps to cover the
-// latency between a tile's softmax and its products.
+// key rows per tile and row padding (elements) of the Q/K and V tiles.
+// The padding makes the fragment loads free of bank conflicts: fp32 Q/K
+// rows at 8 mod 32 words (float2 per lane), fp32 V rows at 4 mod 16 words
+// (rows 2t and 2t+1 per lane), bf16 rows at 4 mod 32 words (ldmatrix).
 template <typename T> struct Fwd;
 template <> struct Fwd<float> {
-  static constexpr int BK = 32, PADK = 8, PADV = 4, MIN_BLOCKS = 2;
+  static constexpr int BK = 32, PADK = 8, PADV = 4;
 };
 template <> struct Fwd<__nv_bfloat16> {
-  static constexpr int BK = 32, PADK = 8, PADV = 8, MIN_BLOCKS = 4;
+  static constexpr int BK = 32, PADK = 8, PADV = 8;
 };
+
+// Blocks an SM the registers are cut for.  Up to dv 128 shared memory
+// allows two fp32 blocks an SM (one at (192, 128)) and bf16 runs four,
+// within 128 registers a thread: it reads its Q fragments from shared
+// memory at each step, and more warps cover the latency between a tile's
+// softmax and its products.  At dv 256 the output accumulator alone is 128
+// fp32 registers a thread, so both types take 255 (two bf16 blocks an SM by
+// shared memory, 101.6 KB each; one fp32 block, 197 KB).
+template <typename T, int DV>
+constexpr int fwd_min_blocks() {
+  return sizeof(T) == 2 && DV <= 128 ? 4 : 2;
+}
 
 template <typename T, int DK, int DV>
 constexpr size_t fwd_smem() {
@@ -176,7 +184,7 @@ constexpr size_t fwd_smem() {
 constexpr int SCAN = 8;
 
 template <typename T, int DK, int DV>
-__global__ void __launch_bounds__(FWD_NT, Fwd<T>::MIN_BLOCKS) fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(FWD_NT, fwd_min_blocks<T, DV>()) fwd_kernel(const Params p) {
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int BK = Fwd<T>::BK;
   constexpr int RK = DK + Fwd<T>::PADK;  // Q and K row stride (elements)
@@ -1280,7 +1288,7 @@ cudaError_t allow_smem(K kern, size_t bytes, bool* configured, int carveout = -1
   return cudaSuccess;
 }
 
-// the forward takes the largest carveout, room for Fwd<T>::MIN_BLOCKS blocks an SM
+// the forward takes the largest carveout, room for fwd_min_blocks blocks an SM
 template <typename T, int DK, int DV>
 cudaError_t fwd_attributes() {
   static bool configured[kMaxDevices] = {};
@@ -1367,16 +1375,21 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t s) {
                           dim3((unsigned)(blocks < 8192 ? blocks : 8192)), dim3(256), 0, s, p, n4);
 }
 
-// The instantiated (dk, dv) pairs: F(DK, DV) for each
+// The instantiated (dk, dv) pairs: F(DK, DV) for each; the forward's
+// (FWD_PAIRS) add (256, 256), which has no backward
 #define FLASH_PAIRS(F) F(64, 64) F(128, 128) F(192, 128)
+#define FWD_PAIRS(F) FLASH_PAIRS(F) F(256, 256)
 
 template <typename T>
 cudaError_t dispatch(const Params& p, int dk, int dv, bool backward, cudaStream_t s) {
-#define FLASH_LAUNCH(DK, DV)                   \
-  if (dk == DK && dv == DV)                     \
-    return backward ? launch_bwd<T, DK, DV>(p, s) : launch_fwd<T, DK, DV>(p, s);
-  FLASH_PAIRS(FLASH_LAUNCH)
-#undef FLASH_LAUNCH
+#define FLASH_LAUNCH_FWD(DK, DV) \
+  if (!backward && dk == DK && dv == DV) return launch_fwd<T, DK, DV>(p, s);
+#define FLASH_LAUNCH_BWD(DK, DV) \
+  if (backward && dk == DK && dv == DV) return launch_bwd<T, DK, DV>(p, s);
+  FWD_PAIRS(FLASH_LAUNCH_FWD)
+  FLASH_PAIRS(FLASH_LAUNCH_BWD)
+#undef FLASH_LAUNCH_BWD
+#undef FLASH_LAUNCH_FWD
   return cudaErrorInvalidValue;
 }
 
@@ -1435,7 +1448,7 @@ extern "C" int flash_attn_fwd_occupancy(int dtype, int dk, int dv, int* blocks,
     return fwd_occupancy<float, DK, DV>(blocks, smem_bytes);    \
   if (dtype == 1 && dk == DK && dv == DV)                       \
     return fwd_occupancy<__nv_bfloat16, DK, DV>(blocks, smem_bytes);
-  FLASH_PAIRS(FLASH_FWD_OCC)
+  FWD_PAIRS(FLASH_FWD_OCC)
 #undef FLASH_FWD_OCC
   return cudaErrorInvalidValue;
 }

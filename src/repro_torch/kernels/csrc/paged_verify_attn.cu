@@ -136,7 +136,10 @@ template <typename KT, int N>
 __device__ __forceinline__ void load_f(const unsigned char* src, float* o) {
   using W = Widen<KT>;
   constexpr int BYTES = N * static_cast<int>(sizeof(KT));
-  if constexpr (BYTES == 16) {
+  if constexpr (BYTES == 32) {       // fp32 P.V dims of a lane at hd 256
+    load_f<KT, N / 2>(src, o);
+    load_f<KT, N / 2>(src + 16, o + N / 2);
+  } else if constexpr (BYTES == 16) {
     const uint4 x = *reinterpret_cast<const uint4*>(src);
     W::word(x.x, o);
     W::word(x.y, o + W::PER);
@@ -204,10 +207,12 @@ constexpr size_t tail_bytes() {
 }
 
 // Blocks an SM the register budget is cut for: fp32 at hd 128 fits two by
-// its shared memory, so it may take up to 255 registers; the others four.
+// its shared memory, so it may take up to 255 registers; so does hd 256,
+// whose accumulators alone are 64 registers a thread (fp32 fits one block
+// an SM, bf16 two, int8 three); the others four.
 template <typename KT, int HD>
 constexpr int min_blocks() {
-  return sizeof(KT) == 4 && HD == 128 ? 2 : 4;
+  return (sizeof(KT) == 4 && HD == 128) || HD == 256 ? 2 : 4;
 }
 
 // QT: query / output type; KT: pool type (QT, or int8_t with ST scales).
@@ -636,6 +641,7 @@ int dispatch(int q_dtype, int kv_dtype, const Params& p, int hd, cudaStream_t s)
 #define PV_HD(QT, KT, ST)                                              \
   if (hd == 64) return launch<QT, KT, ST, 64, RAGGED>(p, s);           \
   if (hd == 128) return launch<QT, KT, ST, 128, RAGGED>(p, s);         \
+  if (hd == 256) return launch<QT, KT, ST, 256, RAGGED>(p, s);         \
   return cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) { PV_HD(float, float, float) }
   if (q_dtype == 1 && kv_dtype == 1) { PV_HD(__nv_bfloat16, __nv_bfloat16, __nv_bfloat16) }
@@ -717,6 +723,7 @@ extern "C" int paged_verify_occupancy(int q_dtype, int kv_dtype, int hd, int bs,
 #define PV_OCC(QT, KT, ST)                                                     \
   if (hd == 64) return occupancy<QT, KT, ST, 64>(p, blocks, smem_bytes);       \
   if (hd == 128) return occupancy<QT, KT, ST, 128>(p, blocks, smem_bytes);     \
+  if (hd == 256) return occupancy<QT, KT, ST, 256>(p, blocks, smem_bytes);     \
   return cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) { PV_OCC(float, float, float) }
   if (q_dtype == 1 && kv_dtype == 1) { PV_OCC(__nv_bfloat16, __nv_bfloat16, __nv_bfloat16) }

@@ -81,16 +81,21 @@ struct Params {
   int has_window, window, prefix_len;
 };
 
-// Blocks of NW warps (16 folded rows each): ring stages, row padding
-// (elements) of the Q/K and V tiles, and the blocks an SM the registers are
-// sized for.  The padding puts fp32 Q/K rows at 8 mod 32 words (float2 per
-// lane), fp32 V rows at 4 mod 16 words, bf16 rows at 4 mod 32 words
-// (ldmatrix).  One-warp blocks take three stages to keep more bytes in
-// flight for the byte-bound decode calls.
-template <typename QT, int NW> struct Cfg {
+// Blocks of NW warps (16 folded rows each) at head dim HD: ring stages,
+// row padding (elements) of the Q/K and V tiles, and the blocks an SM the
+// registers are sized for.  The padding puts fp32 Q/K rows at 8 mod 32
+// words (float2 per lane), fp32 V rows at 4 mod 16 words, bf16 rows at 4
+// mod 32 words (ldmatrix).  One-warp blocks take three stages to keep more
+// bytes in flight for the byte-bound decode calls.  At hd 256 the output
+// accumulator alone is 128 fp32 registers a thread: the four-warp bf16
+// block, which three blocks an SM would cut to 168, takes 255 (shared
+// memory allows two of its 101 KB blocks; the fp32 blocks, 197-213 KB, run
+// one an SM).
+template <typename QT, int NW, int HD> struct Cfg {
   static constexpr int NSTG = NW == 1 ? 3 : 2;
   static constexpr int PADK = 8, PADV = sizeof(QT) == 2 ? 8 : 4;
-  static constexpr int MIN_BLOCKS = NW == 1 ? 4 : (sizeof(QT) == 2 ? 3 : 2);
+  static constexpr int MIN_BLOCKS =
+      NW == 1 ? 4 : (sizeof(QT) == 2 && HD <= 128 ? 3 : 2);
 };
 
 // shared memory: Qs [16 NW][HD+PADK]; Ks [KSTG][BK][HD+PADK], Vs
@@ -99,7 +104,7 @@ template <typename QT, int NW> struct Cfg {
 // [NSTG][BK] positions; VIS/FULL [nwin] tile masks
 template <typename QT, typename KT, int HD, int NW>
 size_t smem_bytes(int L) {
-  using C = Cfg<QT, NW>;
+  using C = Cfg<QT, NW, HD>;
   constexpr bool QUANT = sizeof(KT) == 1;
   constexpr int KSTG = QUANT ? 1 : C::NSTG;
   const int nwin = ((L + BK - 1) / BK + SCAN_TILES - 1) / SCAN_TILES;
@@ -112,9 +117,9 @@ size_t smem_bytes(int L) {
 // tile fold the G query heads of kv-head kvh; warp w owns rows 16w ..
 // 16w + 15 of the tile.
 template <typename QT, typename KT, int HD, int NW>
-__global__ void __launch_bounds__(32 * NW, Cfg<QT, NW>::MIN_BLOCKS)
+__global__ void __launch_bounds__(32 * NW, Cfg<QT, NW, HD>::MIN_BLOCKS)
     verify_kernel(const Params p) {
-  using C = Cfg<QT, NW>;
+  using C = Cfg<QT, NW, HD>;
   constexpr bool kBf16 = sizeof(QT) == 2;
   constexpr bool QUANT = sizeof(KT) == 1;
   constexpr int NT = 32 * NW, FBQ = 16 * NW, NSTG = C::NSTG;
@@ -124,13 +129,17 @@ __global__ void __launch_bounds__(32 * NW, Cfg<QT, NW>::MIN_BLOCKS)
   constexpr int RS8 = HD + 16;            // int8 staging row stride (bytes)
   constexpr int EPC = 16 / sizeof(QT);    // query elements per 16-byte copy
   constexpr int CPR = HD / EPC;           // copies per query row
-  constexpr int RPC = NT / CPR;           // query rows per pass of the block
   constexpr int KCPR = HD * sizeof(KT) / 16;  // copies per K/V row
-  constexpr int KRPC = NT / KCPR;             // K/V rows per pass of the block
+  // a K/V row's copies are taken by KCW threads, KREP each (one, except
+  // where a row has more copies than the block threads: fp32 at hd 256 in
+  // one warp), so a pass of the block covers KRPC rows
+  constexpr int KCW = KCPR < NT ? KCPR : NT;
+  constexpr int KREP = KCPR / KCW;
+  constexpr int KRPC = NT / KCW;
   constexpr int NS = BK / 8;              // n8 tiles of a score row
   constexpr int NO = HD / 8;              // n8 tiles of an output row
-  static_assert(NT % CPR == 0 && FBQ % RPC == 0 && NT % KCPR == 0 && BK % KRPC == 0 &&
-                    NT >= BK,
+  static_assert((FBQ * CPR) % NT == 0 && NT % KCW == 0 && KCPR % KCW == 0 &&
+                    BK % KRPC == 0 && NT >= BK && (!QUANT || KREP == 1),
                 "copy layout");
 
   extern __shared__ __align__(16) unsigned char verify_smem_raw[];
@@ -156,12 +165,11 @@ __global__ void __launch_bounds__(32 * NW, Cfg<QT, NW>::MIN_BLOCKS)
   unsigned* FULL = VIS + nwin;
   const QT* qg = static_cast<const QT*>(p.q);
 
-  // Q, once, zeros past nr
+  // Q, once, zeros past nr: copy tid + i * NT is chunk c of row r
   {
-    const int c = tid % CPR, jr = tid / CPR;
 #pragma unroll
-    for (int i = 0; i < FBQ / RPC; ++i) {
-      const int r = jr + i * RPC;
+    for (int i = 0; i < FBQ * CPR / NT; ++i) {
+      const int r = (tid + i * NT) / CPR, c = (tid + i * NT) % CPR;
       const bool ok = r < nr;
       const int fr = r0 + (ok ? r : 0);
       const long long off =
@@ -229,8 +237,9 @@ __global__ void __launch_bounds__(32 * NW, Cfg<QT, NW>::MIN_BLOCKS)
   };
 
   // K/V rows [jt*BK, jt*BK + BK) and their positions into stage st; rows
-  // past L are zeros (V must be finite where P is 0) at position -1
-  const int kc = tid % KCPR, kjr = tid / KCPR;
+  // past L are zeros (V must be finite where P is 0) at position -1.  This
+  // thread takes chunks kc, kc + KCW, ... of rows kjr, kjr + KRPC, ...
+  const int kc = tid % KCW, kjr = tid / KCW;
   const unsigned char* kbase = static_cast<const unsigned char*>(p.k) +
                                (b * p.k_sb + static_cast<long long>(kvh) * HD) * sizeof(KT) +
                                kc * 16;
@@ -252,8 +261,11 @@ __global__ void __launch_bounds__(32 * NW, Cfg<QT, NW>::MIN_BLOCKS)
 #pragma unroll
     for (int i = 0; i < BK / KRPC; ++i) {
       const bool ok = j0 + i * KRPC < p.L;
-      cp_async16(ks + i * KRPC * KROWB, ok ? kr : kbase, ok);
-      cp_async16(vs + i * KRPC * VROWB, ok ? vr : vbase, ok);
+#pragma unroll
+      for (int x = 0; x < KREP; ++x) {
+        cp_async16(ks + i * KRPC * KROWB + x * KCW * 16, ok ? kr + x * KCW * 16 : kbase, ok);
+        cp_async16(vs + i * KRPC * VROWB + x * KCW * 16, ok ? vr + x * KCW * 16 : vbase, ok);
+      }
       kr += KRPC * k_row;
       vr += KRPC * v_row;
     }
@@ -609,6 +621,8 @@ cudaError_t occupancy(const Params& p, int* blocks, int* smem_bytes_out) {
   if (hd == 64 && p.rt == 64) return F(QT, KT, 64, 4);                      \
   if (hd == 128 && p.rt == 16) return F(QT, KT, 128, 1);                    \
   if (hd == 128 && p.rt == 64) return F(QT, KT, 128, 4);                    \
+  if (hd == 256 && p.rt == 16) return F(QT, KT, 256, 1);                    \
+  if (hd == 256 && p.rt == 64) return F(QT, KT, 256, 4);                    \
   return cudaErrorInvalidValue;
 
 #define SV_LAUNCH(QT, KT, HD, NW) launch<QT, KT, HD, NW>(p, s)

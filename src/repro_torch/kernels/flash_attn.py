@@ -24,7 +24,9 @@ of one dtype, float32 or bfloat16, read in place through their (b, t)
 strides with heads and head dims contiguous; int32 ``q_pos [B,T]`` /
 ``k_pos [B,L]``; ``(dk, dv)`` one of :data:`HEAD_DIMS`: (64, 64), (128,
 128), or (192, 128), DeepSeek-V2's MLA (q and k carry 128 dims and 64 RoPE
-dims, v 128).  The output and its gradient are ``[B,T,H,dv]``; ``dq`` and
+dims, v 128); the forward also (256, 256) (:data:`FWD_HEAD_DIMS`,
+PaliGemma's heads), whose backward raises ``NotImplementedError`` before
+any launch (no path trains at head dim 256 yet).  The output and its gradient are ``[B,T,H,dv]``; ``dq`` and
 ``dk`` have dk, ``dv`` has dv.  The default scale is ``1/sqrt(dk)``.  Both
 directions copy q, k and v rows 16 bytes at a time (and the backward o and
 do), so their addresses and (b, t) strides must be multiples of 16 bytes.
@@ -43,7 +45,8 @@ from repro_torch.kernels.launch import aligned16, invoke, on_one_cuda_device, sm
 from repro_torch.kernels.spec_verify_attn import LaunchCount
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # the instantiated (dk, dv) pairs
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # the (dk, dv) pairs of both directions
+FWD_HEAD_DIMS = HEAD_DIMS + ((256, 256),)         # the forward's
 BWD_ROWS = 64      # backward: folded query rows of a dQ block, keys of a dK/dV block
 BWD_Q_TILE = 32    # dK/dV kernel: folded query rows per tile of its ring
 
@@ -86,14 +89,14 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attn kernel: {msg}")
 
 
-def _check_inputs(q, k, v, q_pos, k_pos, window, prefix_len, extra=()):
+def _check_inputs(q, k, v, q_pos, k_pos, window, prefix_len, extra=(), pairs=FWD_HEAD_DIMS):
     _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q/k/v must be 4-D")
     B, T, H, dk = q.shape
     L, KVH, dv = k.shape[1], k.shape[2], v.shape[3]
     _check(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype} (float32 or bfloat16)")
     _check(k.dtype == q.dtype and v.dtype == q.dtype,
            f"k/v dtype {k.dtype}/{v.dtype} with q {q.dtype}")
-    _check((dk, dv) in HEAD_DIMS, f"head dims (q/k {dk}, v {dv}) not in {HEAD_DIMS}")
+    _check((dk, dv) in pairs, f"head dims (q/k {dk}, v {dv}) not in {pairs}")
     _check(tuple(k.shape) == (B, L, KVH, dk) and tuple(v.shape) == (B, L, KVH, dv),
            f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} for q {tuple(q.shape)}")
     _check(KVH > 0 and H % KVH == 0, f"{H} heads over {KVH} kv-heads")
@@ -175,7 +178,7 @@ def fwd_occupancy(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> dict
     shared memory alone do not give the blocks per SM (register allocation
     granularity, the carveout)."""
     dk, dv = _pair(dk, dv)
-    _check(dtype in _DTYPE_CODE and (dk, dv) in HEAD_DIMS,
+    _check(dtype in _DTYPE_CODE and (dk, dv) in FWD_HEAD_DIMS,
            f"no forward for {dtype}, head dims ({dk}, {dv})")
     n, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib()["occupancy"](_DTYPE_CODE[dtype], dk, dv, ctypes.byref(n), ctypes.byref(smem))
@@ -232,8 +235,13 @@ def flash_attn_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward (two kernels, three when split) on the current
     stream.  ``o`` is the forward's output and ``lse`` its logsumexp; ``do``
     is taken contiguous.  Returns ``(dq [B,T,H,dk], dk [B,L,KVH,dk], dv
-    [B,L,KVH,dv])`` in q's dtype."""
-    _check_inputs(q, k, v, q_pos, k_pos, window, prefix_len, (o, do, lse))
+    [B,L,KVH,dv])`` in q's dtype.  A forward-only pair (head dim 256)
+    raises ``NotImplementedError`` first."""
+    if (q.shape[-1], v.shape[-1]) in set(FWD_HEAD_DIMS) - set(HEAD_DIMS):
+        raise NotImplementedError(
+            f"flash_attn kernel: no backward at head dims ({q.shape[-1]}, {v.shape[-1]}) "
+            "yet; training at head dim 256 waits for it (ROADMAP queue 1, item 13)")
+    _check_inputs(q, k, v, q_pos, k_pos, window, prefix_len, (o, do, lse), HEAD_DIMS)
     B, T, H, hd = q.shape
     L, KVH, vd = k.shape[1], k.shape[2], v.shape[3]
     do = do.contiguous()

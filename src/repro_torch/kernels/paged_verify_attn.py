@@ -24,9 +24,11 @@ Operands: q ``[B,T,H,hd]`` (float32 or bfloat16); the pool k/v
 ``[NB,bs,KVH,hd]`` of q's dtype, or int8 with ``k_scale``/``v_scale``
 ``[NB,bs,KVH]`` in q's dtype; int32 ``q_pos [B,T]``, ``pos [NB,bs]``,
 ``block_tables [B,MAXB]`` (-1 unused) and, for K3, ``cu_blocks [B+1]``
-(``tuning.host_cu_blocks``).  hd is 64 or 128 and ``bs`` divides 64; k
-and v start, and have their (block, row) strides, at multiples of 16
-bytes (the kernels copy them in 16-byte pieces).  Anything else raises.
+(``tuning.host_cu_blocks``).  hd is 64, 128 or 256 and ``bs`` divides
+64; k and v start, and have their (block, row) strides, at multiples of
+16 bytes (the kernels copy them in 16-byte pieces); the block's shared
+memory (:func:`smem_bytes`) must fit the card's 227 KB, which at hd 256
+in fp32 takes ``bs`` at most 32.  Anything else raises.
 """
 from __future__ import annotations
 
@@ -41,10 +43,13 @@ from repro_torch.kernels.launch import aligned16, invoke, on_one_cuda_device, sm
 from repro_torch.kernels.spec_verify_attn import LaunchCount
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _BLOCK_DIVIDES = 64      # the block size must divide it
 ROW_TILE = 8             # folded query rows (G * T) per block
 STAGE_KEYS = 32          # keys per pipeline stage (max(32, bs))
+STAGES = 3               # pipeline stages of the ring
+WARPS = 4                # warps of a block
+MAX_SMEM = 232_448       # shared memory a block may opt into on an H100 (227 KB)
 
 DENSE = LaunchCount()         # launches of K2
 RAGGED = LaunchCount()        # launches of K3
@@ -107,6 +112,20 @@ def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int) -> int:
         return 1
     cap = max(1, min(MAXB, MAXB * bs // STAGE_KEYS))
     return max(1, min(cap, -(-2 * sms // blocks)))
+
+
+def smem_bytes(kv_itemsize: int, hd: int, bs: int, per_split: int) -> int:
+    """The partial kernel's dynamic shared memory (``geometry`` in the
+    source): a ring of ``STAGES`` stages, each ``max(32, bs)`` keys of a
+    padded K row, a V row, a position (and two fp32 scales for int8), or
+    the warps' merge buffers if larger; then the fp32 query tile, the
+    warps' P rows, the row positions and three ints per table entry of a
+    split (``per_split``)."""
+    keys = max(STAGE_KEYS, bs)
+    stage = keys * (2 * hd * kv_itemsize + 16) + 4 * keys + (8 * keys if kv_itemsize == 1 else 0)
+    ring = max(STAGES * stage, 4 * WARPS * ROW_TILE * (hd + 2))
+    tail = 4 * (ROW_TILE * hd + WARPS * ROW_TILE * 8) + 4 * ROW_TILE
+    return ring + tail + 12 * per_split
 
 
 def workspace_floats(B: int, KVH: int, rows: int, hd: int, splits: int) -> int:
@@ -180,6 +199,9 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     rows = (H // KVH) * T
     splits = n_splits(B, KVH, rows, MAXB, bs, sm_count(dev))
+    smem = smem_bytes(k.element_size(), hd, bs, -(-MAXB // splits))
+    _check(smem <= MAX_SMEM, f"a block needs {smem} bytes of shared memory at hd {hd}, "
+                             f"block size {bs} ({k.dtype}); the card gives {MAX_SMEM}")
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     ws = (torch.empty(workspace_floats(B, KVH, rows, hd, splits), dtype=torch.float32,
                       device=dev) if splits > 1 else None)

@@ -25,7 +25,7 @@ depends on the data (and can be captured in a CUDA graph):
 The kernel takes q ``[B,T,H,hd]`` (float32 or bfloat16), k/v
 ``[B,L,KVH,hd]`` of the same dtype or int8 with ``k_scale``/``v_scale``
 ``[B,L,KVH]`` in q's dtype, int32 ``q_pos [B,T]`` / ``k_pos [B,L]``, and
-hd in {64, 128}.  q, k and v are copied 16 bytes at a time, so they must
+hd in {64, 128, 256}.  q, k and v are copied 16 bytes at a time, so they must
 start, and have their (b, t) / (b, l) strides, at multiples of 16 bytes.
 Anything else raises.
 """
@@ -42,7 +42,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.launch import aligned16, invoke, on_one_cuda_device, sm_count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 ROW_TILES = (16, 64)     # folded rows per block: one warp, four warps
 KEY_TILE = 32            # keys per tile of the kernel's ring
 # key tiles of the cache a split must have at least, by row tile: a split

@@ -88,7 +88,8 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"{tcfg.name}: the serving launcher cannot serve the {tcfg.family!r} family "
             "(per-request modality extras); drive SpecDecodeEngine.generate with "
-            "target_extras={'src_embeds': ...} instead")
+            "target_extras={'src_embeds': ...} (an encoder-decoder) or "
+            "{'prefix_embeds': ...} (a VLM) instead")
     if args.layers is not None:
         tcfg = tcfg.with_(n_layers=args.layers)
     dcfg = R.get_draft_config(args.arch)

@@ -60,8 +60,9 @@ def main(argv=None) -> dict:
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
     if cfg.family not in ("dense", "moe", "ssm") and not cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.family} training (VLM) is not "
-                                  "ported yet (ROADMAP queue 1, item 12)")
+        raise NotImplementedError(f"{cfg.family} training (VLM) is not ported yet: it "
+                                  "needs K4's backward at head dim 256 (ROADMAP queue 1, "
+                                  "item 13)")
     device = resolve_device(args.device)
     dtype = _DTYPES[args.dtype]
     model = R.build_model(cfg)

@@ -1,9 +1,18 @@
 """Decoder on a contiguous ring KV cache or a paged KV pool: the port of
 ``repro.models.transformer.DecoderLM``, dense (the OPT pair, the yi family,
-internlm2, qwen3-8b) or mixture-of-experts (qwen3-moe-30b-a3b,
-deepseek-v2-236b; ``models/moe.py``), with Qwen3's per-head q/k RMSNorm
-where the config asks for it (``qk_norm``: after the projections, before
-RoPE).
+internlm2, qwen3-8b), mixture-of-experts (qwen3-moe-30b-a3b,
+deepseek-v2-236b; ``models/moe.py``) or a VLM's language model
+(paligemma-3b), with Qwen3's per-head q/k RMSNorm where the config asks for
+it (``qk_norm``: after the projections, before RoPE).
+
+A VLM's ``forward``, ``prefill`` and ``prefill_flash`` take
+``prefix_embeds [B, P, d]`` (``P = cfg.prefix_len``, the stubbed vision
+tower's patch embeddings), cast to the embedding's dtype and put before the
+tokens at positions ``0 .. P-1``; the prompt follows at ``P ..``.  With
+``bidirectional_prefix`` every query sees the prefix rows (PaliGemma's
+prefix-LM mask): in those three entry points only when ``prefix_embeds``
+is given, and in every cached step always (the config's ``prefix_len``), as
+JAX passes it.
 
 Attention is GQA, or DeepSeek-V2's MLA (``attn.kind == "mla"``): a
 rank-compressed cache of ``ckv`` rows (``kv_lora_rank`` wide, RMS-normed)
@@ -134,15 +143,18 @@ class DecoderLM:
     """Decoder-only LM for one config; parameters and caches are passed in."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe") or cfg.attn is None or (
+        if cfg.family not in ("dense", "moe", "vlm") or cfg.attn is None or (
                 (cfg.family == "moe") != (cfg.moe is not None)) or (
                 cfg.attn.kind not in ("gqa", "mla")):
             raise NotImplementedError(
-                f"{cfg.name}: the port covers dense and MoE decoders with GQA or MLA "
+                f"{cfg.name}: the port covers dense, MoE and VLM decoders with GQA or MLA "
                 "only; the other families are not ported yet (ROADMAP queue 1, item 12)")
         self.cfg = cfg
         self.padded_vocab = pad_vocab(cfg.vocab_size)
         self.mla = cfg.attn.kind == "mla"
+        # the prefix every cached step masks with (JAX's decode_step, paged
+        # step, prefill_chunk and mixed step pass the config's, always)
+        self.step_prefix = cfg.prefix_len if cfg.bidirectional_prefix else 0
 
     # ------------------------------------------------------------------
     # parameters
@@ -285,7 +297,8 @@ class DecoderLM:
     def _attn_decode(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
                      lc: Dict, pos_arr: torch.Tensor, rows: torch.Tensor, rope,
                      valid: Optional[torch.Tensor] = None,
-                     rows_limit: Optional[int] = None) -> torch.Tensor:
+                     rows_limit: Optional[int] = None,
+                     prefix_len: int = 0) -> torch.Tensor:
         """Write the new K/V rows at ``rows`` [B,T] of the layer cache ``lc``
         (``_layer``; in place), then attend.  ``pos_arr`` [B,L] already
         holds the new rows' positions.
@@ -294,10 +307,11 @@ class DecoderLM:
         writes its row's old value back, codes and scales alike
         (``_write_rows``).  ``rows_limit`` bounds the attended rows to the
         first ``rows_limit`` of the ring; the writes still land anywhere.
-        An MLA model attends through :meth:`_attn_mla`."""
+        Keys at positions below ``prefix_len`` are seen by every query.  An
+        MLA model attends through :meth:`_attn_mla`."""
         if self.mla:
             return self._attn_mla(lp, x, positions, lc, pos_arr, rows, rope, valid,
-                                  rows_limit)
+                                  rows_limit, prefix_len)
         a = self.cfg.attn
         B, T, _ = x.shape
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
@@ -305,7 +319,8 @@ class DecoderLM:
         _write_rows(lc, _stored(lc, k_new, v_new), bidx, rows, valid)
         R = pos_arr.shape[1] if rows_limit is None else rows_limit
         out = spec_verify_attn(q, lc["k"][:, :R], lc["v"][:, :R], positions,
-                               pos_arr[:, :R], window=a.window, **_scales(lc, slice(R)))
+                               pos_arr[:, :R], window=a.window, prefix_len=prefix_len,
+                               **_scales(lc, slice(R)))
         return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)
 
     def _mla_proj(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, rope):
@@ -351,7 +366,8 @@ class DecoderLM:
 
     def _attn_mla(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor, lc: Dict,
                   pos_arr: torch.Tensor, rows: torch.Tensor, rope,
-                  valid: Optional[torch.Tensor], rows_limit: Optional[int]) -> torch.Tensor:
+                  valid: Optional[torch.Tensor], rows_limit: Optional[int],
+                  prefix_len: int = 0) -> torch.Tensor:
         """MLA's ring attention (JAX's ``_attn_decode`` MLA branch, product
         for product): write the new ``ckv``/``krope`` rows at ``rows`` of
         ``lc`` (in place, ``valid`` as in :meth:`_attn_decode`), then the
@@ -373,7 +389,7 @@ class DecoderLM:
         s1 = torch.einsum("bthl,bsl->bhts", q_abs, ckv)
         s2 = torch.einsum("bthr,bsr->bhts", q_rope, krope)
         scores = (s1 + s2).float() * self._mla_scale()
-        mask = cm.position_mask(positions, pos_arr[:, :R], a.window)
+        mask = cm.position_mask(positions, pos_arr[:, :R], a.window, prefix_len)
         p = torch.softmax(scores.masked_fill(~mask[:, None], -1e30), dim=-1)
         o_lora = torch.einsum("bhts,bsl->bthl", p.to(ckv.dtype), ckv)
         out = torch.einsum("bthl,lhv->bthv", o_lora, lp["w_uv"])
@@ -400,7 +416,8 @@ class DecoderLM:
         q, k_new, v_new = self._qkv(lp, x, positions, rope)
         for name, t in _stored(lc, k_new, v_new).items():
             lc[name][pb, off] = t
-        kw = dict(window=a.window, cu_blocks=cu_blocks, **_scales(lc))
+        kw = dict(window=a.window, prefix_len=self.step_prefix, cu_blocks=cu_blocks,
+                  **_scales(lc))
         if wide is None:
             out = paged_verify_attn(q, lc["k"], lc["v"], positions, pos, bt, **kw)
         else:
@@ -458,10 +475,30 @@ class DecoderLM:
         return cm.rms_norm(x, params["final_norm"], c.norm_eps)
 
     def _ring_attn(self, cache: Dict, positions: torch.Tensor,
-                   rows: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                   rows: torch.Tensor, prefix_len: int,
+                   valid: Optional[torch.Tensor] = None,
                    rows_limit: Optional[int] = None) -> Callable:
         return lambda lp, hn, i, rope: self._attn_decode(
-            lp, hn, positions, _layer(cache, i), cache["pos"], rows, rope, valid, rows_limit)
+            lp, hn, positions, _layer(cache, i), cache["pos"], rows, rope, valid, rows_limit,
+            prefix_len)
+
+    def _embed(self, params: Dict, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor]) -> Tuple[torch.Tensor, int, int]:
+        """The embedded tokens, after ``prefix_embeds [B, P, d]`` (cast to
+        the embedding's dtype) when given; with the rows the prefix adds to
+        each prompt (``cfg.prefix_len``, as JAX counts them) and the prefix
+        the attention masks with (that many under ``bidirectional_prefix``,
+        else 0; 0 without ``prefix_embeds``)."""
+        x = cm.embed(tokens, params["embed"])
+        if prefix_embeds is None:
+            return x, 0, 0
+        c = self.cfg
+        if prefix_embeds.dim() != 3 or tuple(prefix_embeds.shape) != (
+                tokens.shape[0], c.prefix_len, c.d_model) or not c.prefix_len:
+            raise ValueError(f"{c.name}: prefix_embeds must be [B, {c.prefix_len}, "
+                             f"{c.d_model}], got {tuple(prefix_embeds.shape)}")
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return x, c.prefix_len, c.prefix_len if c.bidirectional_prefix else 0
 
     def _unembed(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         return cm.unembed(x, params["unembed"], self.cfg.vocab_size)
@@ -472,19 +509,19 @@ class DecoderLM:
     def forward(self, params: Dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, T] -> (logits [B, T, V] fp32, aux), ``aux`` the MoE
+        """tokens [B, T] -> (logits [B, P + T, V] fp32, aux), ``aux`` the MoE
         load-balance loss summed over the layers in fp32 (the JAX model's),
-        a zero scalar for a dense model.  No per-layer recompute: every
-        layer's activations are kept for the backward."""
-        if prefix_embeds is not None:
-            raise NotImplementedError(
-                "modality prefixes (VLM) are not ported yet (ROADMAP queue 1, item 12)")
-        B, T = tokens.shape
+        a zero scalar for a dense model.  ``prefix_embeds [B, P, d]`` (a VLM)
+        go before the tokens (``P`` is 0 without them).  No per-layer
+        recompute: every layer's activations are kept for the backward."""
+        x, _, prefix_len = self._embed(params, tokens, prefix_embeds)
+        B, T = x.shape[:2]
         dev = tokens.device
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
         aux = []
-        x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
-                         lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, 0, rope),
+        x = self._layers(params, x, positions,
+                         lambda lp, hn, i, rope: self._attn_full(lp, hn, positions, prefix_len,
+                                                                 rope),
                          aux)
         # summed in layer order from zero, as JAX's scan carries it
         return (self._unembed(params, x),
@@ -495,34 +532,39 @@ class DecoderLM:
 
     def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict,
                 prompt_lens: Optional[torch.Tensor] = None,
+                prefix_embeds: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """Right-padded prompts [B, Tp] -> (last-token logits [B, V], the
         cache written in place, seq_lens [B]).  Padded columns are written
-        with position -1 and so are never attended."""
-        B, T = tokens.shape
+        with position -1 and so are never attended.  ``prefix_embeds [B,
+        P, d]`` (a VLM) fill rows ``0 .. P-1`` first; ``seq_lens`` then
+        counts them (``prompt_lens + P``)."""
+        x, P, prefix_len = self._embed(params, tokens, prefix_embeds)
+        B, T = x.shape[:2]
         dev = tokens.device
         L = cache["pos"].shape[1]
         if prompt_lens is None:
-            prompt_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
-        total_lens = prompt_lens.to(torch.int32)
+            prompt_lens = torch.full((B,), tokens.shape[1], dtype=torch.int32, device=dev)
+        total_lens = prompt_lens.to(torch.int32) + P
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
         rows = (positions % L).long()
         bidx = torch.arange(B, device=dev)[:, None]
         cache["pos"][bidx, rows] = torch.where(positions < total_lens[:, None],
                                                positions, -1)
-        x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
-                         self._ring_attn(cache, positions, rows))
+        x = self._layers(params, x, positions,
+                         self._ring_attn(cache, positions, rows, prefix_len))
         last = x[torch.arange(B, device=dev), (total_lens - 1).long()]
         return self._unembed(params, last), cache, total_lens
 
     def prefill_flash(self, params: Dict, tokens: torch.Tensor, cache: Dict,
                       prompt_lens: Optional[torch.Tensor] = None,
+                      prefix_embeds: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """:meth:`prefill` with the attention of each layer run by K4 over
         the prompt's own K/V (padded rows at position -1, never attended)
         instead of over the cache; the K/V rows are then written to the ring
-        once.  Same contract as :meth:`prefill`, and the same results over an
-        unquantised ring.  Over an int8 ring K4 attends the unquantised rows
+        once.  Same contract as :meth:`prefill` (``prefix_embeds`` too), and
+        the same results over an unquantised ring.  Over an int8 ring K4 attends the unquantised rows
         and the quantised ones are written after it, as JAX's
         ``prefill_flash`` does, while :meth:`prefill` attends the quantised
         rows: the two differ by the quantisation there.  The contiguous ring
@@ -542,12 +584,13 @@ class DecoderLM:
                 "prefill_flash covers the contiguous ring only; the JAX package's "
                 "prefill_flash has no paged form either")
         c = self.cfg
-        B, T = tokens.shape
+        x, P, prefix_len = self._embed(params, tokens, prefix_embeds)
+        B, T = x.shape[:2]
         dev = tokens.device
         L = cache["pos"].shape[1]
         if prompt_lens is None:
-            prompt_lens = torch.full((B,), T, dtype=torch.int32, device=dev)
-        total_lens = prompt_lens.to(torch.int32)
+            prompt_lens = torch.full((B,), tokens.shape[1], dtype=torch.int32, device=dev)
+        total_lens = prompt_lens.to(torch.int32) + P
         positions = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
         qk_pos = torch.where(positions < total_lens[:, None], positions, -1)
         rows = (positions % L).long()
@@ -559,17 +602,18 @@ class DecoderLM:
             if self.mla:
                 q, k, v, ckv, krope = self._mla_qkv(lp, hn, positions, rope)
                 out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window,
-                                 scale=self._mla_scale())
+                                 prefix_len=prefix_len, scale=self._mla_scale())
                 new = {"ckv": ckv.to(lc["ckv"].dtype), "krope": krope.to(lc["krope"].dtype)}
             else:
                 q, k, v = self._qkv(lp, hn, positions, rope)
-                out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window)
+                out = flash_attn(q, k, v, qk_pos, qk_pos, window=c.attn.window,
+                                 prefix_len=prefix_len)
                 new = _stored(lc, k, v)
             for name, t in new.items():
                 lc[name][bidx, rows] = t
             return out.reshape(B, T, -1) @ lp["wo"].reshape(-1, c.d_model)
 
-        x = self._layers(params, cm.embed(tokens, params["embed"]), positions, attn)
+        x = self._layers(params, x, positions, attn)
         last = x[torch.arange(B, device=dev), (total_lens - 1).long()]
         return self._unembed(params, last), cache, total_lens
 
@@ -599,7 +643,7 @@ class DecoderLM:
         rows = (positions % L).long()
         cache["pos"][torch.arange(B, device=dev)[:, None], rows] = positions
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
-                         self._ring_attn(cache, positions, rows))
+                         self._ring_attn(cache, positions, rows, self.step_prefix))
         return self._unembed(params, x), cache
 
     def _decode_step_paged(self, params: Dict, tokens: torch.Tensor,
@@ -807,7 +851,8 @@ class DecoderLM:
         bidx = torch.arange(B, device=tokens.device)[:, None]
         cache["pos"][bidx, rows] = torch.where(valid, positions, cache["pos"][bidx, rows])
         x = self._layers(params, cm.embed(tokens, params["embed"]), positions,
-                         self._ring_attn(cache, positions, rows, valid, rows_limit))
+                         self._ring_attn(cache, positions, rows, self.step_prefix, valid,
+                                         rows_limit))
         return self._unembed(params, x), cache
 
     @staticmethod

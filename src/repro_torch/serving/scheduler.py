@@ -391,7 +391,8 @@ class ContinuousEngineBackend(_PrefixCacheIndex):
             # plumbed through admission, as in the JAX package
             raise NotImplementedError(
                 f"continuous batching does not support family "
-                f"'{engine.tcfg.family}' yet (per-request modality extras)")
+                f"'{engine.tcfg.family}' yet (per-request modality extras); admit "
+                "its requests with SpecDecodeEngine.prefill_into and target_extras")
         if mesh is not None:
             raise _not_ported("a mesh-sharded slot pool", 14)
         self.engine = engine

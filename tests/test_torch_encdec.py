@@ -108,7 +108,7 @@ def test_configs_match_jax():
     assert isinstance(TR.build_model(full), EncDecLM)
     assert isinstance(TR.build_model(full.with_(family="encdec")), EncDecLM)
     with pytest.raises(NotImplementedError):
-        TR.build_model(full.with_(family="vlm"))
+        TR.build_model(full.with_(family="hybrid"))
 
 
 def test_param_trees_match_jax(pair):

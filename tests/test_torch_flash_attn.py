@@ -272,11 +272,11 @@ def test_default_scale_is_inverse_sqrt_head_dim():
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float64, 128), (torch.float32, 96),
-                                      (torch.bfloat16, 256)])
+                                      (torch.float16, 256)])
 def test_forward_occupancy_query_rejects_what_has_no_instantiation(dtype, hd):
     """The forward's occupancy query checks (dtype, hd) before it loads the
-    library; only fp32/bf16 at (64, 64), (128, 128) and (192, 128) have a
-    forward."""
+    library; only fp32/bf16 at (64, 64), (128, 128), (192, 128) and (256,
+    256) have a forward (fp16 has none at any head dim)."""
     with pytest.raises(ValueError, match="no forward"):
         K4.fwd_occupancy(dtype, hd)
 
@@ -303,7 +303,18 @@ def test_head_dim_pairs_are_the_instantiated_ones():
     assert pairs == K4.HEAD_DIMS == ((64, 64), (128, 128), (192, 128))
 
 
-@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (192, 128)])
+def test_forward_pairs_are_the_instantiated_ones():
+    """The forward's pairs are the source's ``FWD_PAIRS``: the pairs of
+    both directions and (256, 256), which the backward lacks."""
+    src = (build.CSRC / "flash_attn.cu").read_text()
+    line = next(ln for ln in src.splitlines() if ln.startswith("#define FWD_PAIRS(F)"))
+    assert line.split(")", 1)[1].split() == ["FLASH_PAIRS(F)", "F(256,", "256)"]
+    assert K4.FWD_HEAD_DIMS == K4.HEAD_DIMS + ((256, 256),)
+    with pytest.raises(ValueError, match="no backward"):
+        K4.bwd_occupancy(torch.bfloat16, 256)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (192, 128), (256, 256)])
 def test_forward_wrapper_hands_the_kernel_both_head_dims(monkeypatch, dk, dv):
     """Through a stand-in for the card: the forward passes (dk, dv) and
     the default scale 1/sqrt(dk), and returns ``out [B,T,H,dv]`` and ``lse

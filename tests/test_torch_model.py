@@ -254,7 +254,17 @@ def test_prefill_flash_takes_the_contiguous_ring_only():
 
 
 def test_forward_rejects_modality_prefixes():
+    """A text model (prefix_len 0) rejects prefix embeddings, and a VLM
+    rejects a prefix of the wrong length, in each entry point that takes
+    them (the VLM's own behaviour: tests/test_torch_vlm.py)."""
     tm = DecoderLM(TR.get_smoke_config("opt-6.7b"))
     tp = tm.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.forward(tp, torch.zeros((1, 4), dtype=torch.int32), prefix_embeds=torch.zeros(1))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="prefix_embeds"):
+        tm.forward(tp, toks, prefix_embeds=torch.zeros((1, 1, tm.cfg.d_model)))
+    vm = DecoderLM(TR.get_smoke_config("paligemma-3b"))
+    vp = vm.init(torch.Generator().manual_seed(0), device="cpu")
+    short = torch.zeros((1, vm.cfg.prefix_len - 1, vm.cfg.d_model))
+    for entry in (vm.prefill, vm.prefill_flash):
+        with pytest.raises(ValueError, match="prefix_embeds"):
+            entry(vp, toks, vm.init_cache(1, 32, device="cpu"), prefix_embeds=short)

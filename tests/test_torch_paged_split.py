@@ -167,6 +167,9 @@ PATTERNS = {
     # prefix the padding rows see the prefix keys, so no tile exits early
     "mixed": ([40, 23, 57], 16, 4, 2, 64, 8, 8, ((0, 1),), None, 0, False),
     "mixed_prefix": ([40, 23, 57], 16, 4, 2, 64, 8, 8, (), None, 5, False),
+    # paligemma-3b's heads (8 over 1 kv-head of 256) after its bidirectional
+    # prefix of 256 rows, 16 blocks of 16 that every row sees, with a hole
+    "hd256_prefix256": ([300, 262], 4, 8, 1, 256, 16, 32, ((0, 20),), None, 256, False),
 }
 REAL = {"mixed": [1, 16, 4], "mixed_prefix": [1, 16, 4]}   # real query columns a slot
 
@@ -361,3 +364,33 @@ def test_both_wrappers_give_the_kernel_the_same_split_count(monkeypatch):
     assert launch.device_kernels(want) == 2 and launch.device_kernels(1) == 1
     assert K23.workspace_floats(B, KVH, (H // KVH) * T, hd, want) == (
         B * KVH * want * K23.row_tiles((H // KVH) * T) * K23.ROW_TILE * (hd + 2))
+
+
+def test_wrapper_refuses_a_block_beyond_shared_memory(monkeypatch):
+    """At hd 256 an fp32 block of 64-row pool blocks would need 397 KB of
+    shared memory: the wrapper raises before the launch; bf16 at 64 rows
+    and fp32 at 16 fit (:func:`smem_bytes`, the source's ``geometry``)."""
+    calls = []
+    monkeypatch.setattr(K23, "on_one_cuda_device", lambda tensors, dev: True)
+    monkeypatch.setattr(K23, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(K23, "invoke", lambda entry, dev, *args: calls.append(args) or 0)
+    monkeypatch.setattr(K23.RAGGED, "launches", K23.RAGGED.launches)
+    assert K23.smem_bytes(4, 256, 64, 4) > K23.MAX_SMEM
+    assert K23.smem_bytes(4, 128, 64, 4) <= K23.MAX_SMEM          # every older shape fits
+    B, T, H, hd = 2, 4, 8, 256
+    for dtype, bs, fits in ((torch.float32, 64, False), (torch.bfloat16, 64, True),
+                            (torch.float32, 16, True)):
+        q = torch.zeros((B, T, H, hd), dtype=dtype)
+        k = torch.zeros((6, bs, 1, hd), dtype=dtype)
+        qp = torch.zeros((B, T), dtype=torch.int32)
+        pos = torch.zeros((6, bs), dtype=torch.int32)
+        bt = torch.zeros((B, 4), dtype=torch.int32)
+        cu = torch.from_numpy(tuning.host_cu_blocks(bt.numpy()))
+        n = len(calls)
+        if fits:
+            K23.ragged_paged_verify_attn_cuda(q, k, k, qp, pos, bt, cu)
+            assert len(calls) == n + 1
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                K23.ragged_paged_verify_attn_cuda(q, k, k, qp, pos, bt, cu)
+            assert len(calls) == n

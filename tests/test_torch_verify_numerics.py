@@ -188,6 +188,14 @@ VARIANTS = {
     "masked_row": (2, 5, 40, 4, 2, dict(n_ctx=35, masked=True)),
     "int8": (2, 5, 64, 8, 2, dict(n_ctx=60, quant=True)),
     "long_ring": (1, 3, 256, 2, 2, dict(n_ctx=700, window=150)),
+    # paligemma-3b's head dim 256 behind its bidirectional prefix of 256
+    # positions, 8 key tiles that rows before them see: a B 1 prefill (the
+    # early row tiles see key tiles past their own positions), a verify
+    # over 512 rows at 8 heads a kv-head, and the same over int8 k/v
+    "hd256_prefill_prefix256": (1, 300, 320, 2, 1, dict(hd=256, n_ctx=1, prefix_len=256)),
+    "hd256_verify_prefix256": (2, 4, 512, 8, 1, dict(hd=256, n_ctx=420, prefix_len=256)),
+    "hd256_int8_prefix256": (1, 4, 512, 8, 1, dict(hd=256, n_ctx=300, prefix_len=256,
+                                                     quant=True)),
 }
 CASES = {**GRID, **VARIANTS}
 
@@ -260,6 +268,23 @@ def test_the_window_case_skips_tiles_and_marks_full_ones():
     assert 0 < sum(vis) < len(vis)
     assert any(full)
     assert all(v for v, f in zip(vis, full) if f)
+
+
+def test_the_prefix_case_loads_the_prefix_tiles_for_every_row_tile():
+    """The premise of the hd 256 prefill: a row tile whose positions lie
+    below the prefix's end still loads every prefix tile (a causal scan
+    would skip those past its last position) and no tile past its rows;
+    no tile with a prefix key it cannot see causally is marked full."""
+    c = case("hd256_prefill_prefix256")
+    kp, qp_all = torch.from_numpy(c["k_pos"][0]), torch.from_numpy(c["q_pos"][0])
+    T, rt = qp_all.shape[0], K1.row_tile(2 * qp_all.shape[0])
+    for r0 in range(0, 2 * T, rt):
+        qp = qp_all[torch.arange(r0, min(r0 + rt, 2 * T)) % T]
+        vis, full = tile_masks(kp, qp, None, 256)
+        last = int(qp.max()) // K1.KEY_TILE
+        assert vis == [t < 8 or t <= last for t in range(len(vis))], r0
+        assert not any(f for t, f in enumerate(full) if t * K1.KEY_TILE + 31 > int(qp.min()))
+    assert K1.row_tile(600) == 64
 
 
 @pytest.mark.parametrize("rows,want", [(1, 16), (9, 16), (16, 16), (17, 64), (28, 64),

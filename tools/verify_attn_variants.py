@@ -22,6 +22,12 @@ anything.  Then a sweep: ``base`` with ``n_splits`` forced to 1, 2, 3, 4,
 rows), bf16, which is what the wrapper's split rule is set from; those
 results are right.  One JSON line per case, the card's name and power
 limit first; everything also goes to ``chiprun_out/verify_attn_variants.log``.
+
+    python3 tools/verify_attn_variants.py --pali   # the sweep at head dim 256 alone
+
+sweeps the split counts at paligemma-3b's shapes (8 heads over 1 kv-head of
+256, a 256-row bidirectional prefix: phase 2's ``pali_*`` cases and B 4-16
+verifies over 512-2048 rows) in bf16 and fp32, and builds no variant.
 """
 from __future__ import annotations
 
@@ -58,6 +64,11 @@ LONG = [("draft_decode_t1_b8_full", dict(B=8, T=1, L=256, n_ctx=250, **DRAFT)),
     (f"b8_verify_t4_l{L}", dict(B=8, T=4, L=L, n_ctx=L - 8, **OPT)) for L in (1024, 4096)] + [
     (f"b1_prefill_t256_l{L}", dict(B=1, T=256, L=L, n_ctx=L - 256, **OPT)) for L in (1024, 4096)]
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+PALI = dict(H=8, KVH=1, hd=256, prefix_len=256)       # paligemma-3b's attention
+PALI_SWEEP = [(f"pali_verify_b{B}_t4_l{L}", dict(B=B, T=4, L=L, n_ctx=L - 92, **PALI))
+              for B in (4, 8, 16) for L in (512, 2048)] + [
+    ("pali_decode_b16_t1_l512", dict(B=16, T=1, L=512, n_ctx=420, **PALI)),
+    ("pali_prefill_b16_t384_l512", dict(B=16, T=384, L=512, n_ctx=1, kv_len=383, **PALI))]
 
 
 def build_variants(build) -> dict:
@@ -96,7 +107,8 @@ def point_wrapper_at(K1, lib: str) -> None:
     K1._fns["launch"] = fn
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    pali = "--pali" in (sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("verify_attn_variants: no CUDA device", file=sys.stderr)
@@ -110,10 +122,10 @@ def main() -> int:
     from repro_torch.kernels import spec_verify_attn as K1
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    log = open(os.path.join(ROOT, "chiprun_out", "verify_attn_variants.log"), "w")
+    log = open(os.path.join(ROOT, "chiprun_out", "verify_attn_variants"
+                            + ("_pali" if pali else "") + ".log"), "w")
     sys.stdout = cs.Tee(sys.stdout, log)
     print(cs.smi(), flush=True)
-    libs = build_variants(build)
     n_splits = K1.n_splits
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -132,11 +144,32 @@ def main() -> int:
                                               v.transpose(1, 2), attn_mask=mask,
                                               enable_gqa=q.shape[2] != k.shape[2])
 
-    def inputs(name, kw, seed):
-        c = cs.make_case(torch, name, dtype="bfloat16", seed=seed, **kw)
+    def inputs(name, kw, seed, dtype="bfloat16"):
+        c = cs.make_case(torch, name, dtype=dtype, seed=seed, **kw)
         args = (c["q"], c["k"], c["v"], c["q_pos"], c["k_pos"])
         return c, [tuple(x.clone() for x in args) for _ in range(16)]   # out of L2
+
+    def sweep(name, kw, seed, dtype="bfloat16"):
+        c, sets = inputs(name, kw, seed, dtype)
+        ntiles = -(-c["k"].shape[1] // K1.KEY_TILE)
+        row = {}
+        for n in SPLITS:
+            if n <= ntiles:
+                K1.n_splits = lambda *a, n=n: n  # noqa: E731
+                row[str(n)] = cs.device_ms(torch, k1_of(c), sets, iters=40)
+        K1.n_splits = n_splits
+        print(json.dumps({"sweep": name, "dtype": dtype, "shape": c["shape"],
+                          "ms_by_splits": row, "rule": splits_of(c),
+                          "bound_ms": cs.bound(torch, c)["bound_ms"]}), flush=True)
     specs = dict(cs.k1_specs())
+    if pali:
+        build.build(["spec_verify_attn"])
+        cases = [(n, kw) for n, kw in cs.k1_specs() if "pali" in n and "int8" not in n]
+        for i, (name, kw) in enumerate(cases + PALI_SWEEP):
+            for dtype in ("bfloat16", "float32"):
+                sweep(name, kw, 300 + i, dtype)
+        return 0
+    libs = build_variants(build)
     for i, name in enumerate(CASES):
         c, sets = inputs(name, specs[name], i)
         row = {}
@@ -154,17 +187,7 @@ def main() -> int:
               flush=True)
     point_wrapper_at(K1, libs["base"])
     for i, (name, kw) in enumerate([(n, specs[n]) for n in SWEEP] + LONG):
-        c, sets = inputs(name, kw, 100 + i)
-        ntiles = -(-c["k"].shape[1] // K1.KEY_TILE)
-        row = {}
-        for n in SPLITS:
-            if n <= ntiles:
-                K1.n_splits = lambda *a, n=n: n  # noqa: E731
-                row[str(n)] = cs.device_ms(torch, k1_of(c), sets, iters=40)
-        K1.n_splits = n_splits
-        print(json.dumps({"sweep": name, "dtype": "bfloat16", "shape": c["shape"],
-                          "ms_by_splits": row, "rule": splits_of(c),
-                          "bound_ms": cs.bound(torch, c)["bound_ms"]}), flush=True)
+        sweep(name, kw, 100 + i)
     return 0
 
 
