@@ -50,6 +50,7 @@ STAGE_KEYS = 32          # keys per pipeline stage (max(32, bs))
 STAGES = 3               # pipeline stages of the ring
 WARPS = 4                # warps of a block
 MAX_SMEM = 232_448       # shared memory a block may opt into on an H100 (227 KB)
+MAX_SPLITS_HD256 = 4     # at hd 256 more splits cost more in the combine than they save
 
 DENSE = LaunchCount()         # launches of K2
 RAGGED = LaunchCount()        # launches of K3
@@ -100,17 +101,28 @@ def row_tiles(rows: int) -> int:
     return -(-rows // ROW_TILE)
 
 
-def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int) -> int:
+def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int,
+             hd: int = 128) -> int:
     """How many blocks share one ``(slot, kv-head, row tile)``'s table row:
     1 when the ``B * KVH * row_tiles(rows)`` blocks already make two waves
     over ``sms`` SMs, else enough splits for two waves, at most ``MAXB``
-    and no more than leaves each split one stage of keys.  A function of
-    the shapes and the SM count only: K2 and K3 get the same count, and
-    the launch shape never depends on the tables."""
+    and no more than leaves each split one stage of keys; at hd 256 at
+    most ``MAX_SPLITS_HD256``.  A function of the shapes and the SM count
+    only: K2 and K3 get the same count, and the launch shape never depends
+    on the tables.
+
+    The hd 256 cap is set from forced split counts at paligemma-3b's
+    paged verify (8 heads over 1 kv-head, B 8-16, T 1 and 4, 16-row
+    blocks, bf16 and fp32): 4 splits were within 7% of the fastest count
+    at every one, where the two-wave rule's 5-16 splits ran up to 1.6x
+    slower, the combine's pass over a row's 256 columns of partials
+    costing more than the shorter walks save."""
     blocks = B * KVH * row_tiles(rows)
     if blocks >= 2 * sms:
         return 1
     cap = max(1, min(MAXB, MAXB * bs // STAGE_KEYS))
+    if hd == 256:
+        cap = min(cap, MAX_SPLITS_HD256)
     return max(1, min(cap, -(-2 * sms // blocks)))
 
 
@@ -198,7 +210,7 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
     _check(on_one_cuda_device(tensors, dev), "every tensor must lie on one CUDA device")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     rows = (H // KVH) * T
-    splits = n_splits(B, KVH, rows, MAXB, bs, sm_count(dev))
+    splits = n_splits(B, KVH, rows, MAXB, bs, sm_count(dev), hd)
     smem = smem_bytes(k.element_size(), hd, bs, -(-MAXB // splits))
     _check(smem <= MAX_SMEM, f"a block needs {smem} bytes of shared memory at hd {hd}, "
                              f"block size {bs} ({k.dtype}); the card gives {MAX_SMEM}")

@@ -47,8 +47,11 @@ ROW_TILES = (16, 64)     # folded rows per block: one warp, four warps
 KEY_TILE = 32            # keys per tile of the kernel's ring
 # key tiles of the cache a split must have at least, by row tile: a split
 # of a 64-row tile writes 64 rows of fp32 partials that the combine reads
-# back, so it pays only over longer caches than a 16-row one
+# back, so it pays only over longer caches than a 16-row one.  At hd 256 a
+# tile carries twice hd 128's bytes and products, and a block (one an SM in
+# fp32) walks it slower, so splits pay over shorter caches
 SPLIT_MIN_TILES = {16: 8, 64: 16}
+SPLIT_MIN_TILES_HD256 = {16: 4, 64: 4}
 
 
 @dataclass
@@ -93,24 +96,28 @@ def row_tiles(rows: int) -> int:
     return -(-rows // rt)
 
 
-def n_splits(B: int, KVH: int, rows: int, L: int, sms: int) -> int:
+def n_splits(B: int, KVH: int, rows: int, L: int, sms: int, hd: int = 128) -> int:
     """How many blocks share one ``(b, kv-head, row tile)``'s visible key
     tiles: 1 when the ``B * KVH * row_tiles(rows)`` blocks already give
     every one of ``sms`` SMs a block, else enough splits for two blocks an
-    SM, at most one per ``SPLIT_MIN_TILES`` key tiles of the cache.  A
-    function of the shapes and the SM count only.
+    SM, at most one per ``SPLIT_MIN_TILES`` key tiles of the cache
+    (``SPLIT_MIN_TILES_HD256`` at head dim 256).  A function of the shapes
+    and the SM count only.
 
     Set from ``tools/verify_attn_variants.py``'s sweep of forced split
     counts on the card: from 64 blocks up over a 256-row cache, and at the
     B = 1 prefills into a 512-row ring, every split made the call slower,
     the combine costing more than the shorter chain of tiles saves; a
     B = 1 decode over 512-4096 rows or a prefill over 1024-4096 rows gains
-    from it."""
+    from it.  At hd 256 (paligemma-3b's one kv-head, ``--pali``) the B
+    4-16, s 3 verifies over 512 rows ran 1.8x (bf16) and 2.7x (fp32)
+    faster at 4 splits than unsplit, the B 1 prefill of 384 rows 1.2x and
+    1.9x, and a B 16 prefill (768 blocks) fastest unsplit."""
     rt = row_tile(rows)
     blocks = B * KVH * row_tiles(rows)
     if blocks >= sms:
         return 1
-    cap = (-(-L // KEY_TILE)) // SPLIT_MIN_TILES[rt]
+    cap = (-(-L // KEY_TILE)) // (SPLIT_MIN_TILES_HD256 if hd == 256 else SPLIT_MIN_TILES)[rt]
     return max(1, min(cap, -(-2 * sms // blocks)))
 
 
@@ -196,7 +203,7 @@ def spec_verify_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "multiples of 16 bytes")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     rows = (H // KVH) * T
-    splits = n_splits(B, KVH, rows, L, sm_count(dev))
+    splits = n_splits(B, KVH, rows, L, sm_count(dev), hd)
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     ws = (torch.empty(workspace_floats(B, KVH, rows, hd, splits), dtype=torch.float32,
                       device=dev) if splits > 1 else None)

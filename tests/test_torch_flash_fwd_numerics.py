@@ -86,8 +86,7 @@ def loaded_tiles(q_pos, k_pos, G, window, prefix_len):
                 may &= kp > qlo - window
             if prefix_len:
                 may |= (kp >= 0) & (kp < prefix_len)
-            tiles = may.view(-1, TILE_KEYS).any(-1) if L % TILE_KEYS == 0 else torch.stack(
-                [may[j:j + TILE_KEYS].any() for j in range(0, L, TILE_KEYS)])
+            tiles = torch.stack([may[j:j + TILE_KEYS].any() for j in range(0, L, TILE_KEYS)])
             out[b, r0:r0 + FBQ] = tiles.repeat_interleave(TILE_KEYS)[:L]
     return out.view(B, G, T, L)
 

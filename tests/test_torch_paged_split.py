@@ -24,6 +24,7 @@ mixed verify+chunk launch pads each slot to the widest slot's columns),
 which writes the partials the walk would have written.
 """
 import inspect
+import itertools
 import math
 
 import numpy as np
@@ -300,30 +301,31 @@ def test_dense_and_ragged_walks_hand_each_split_the_same_blocks(seed):
 
 def test_n_splits_depends_on_shapes_and_sm_count_only():
     assert list(inspect.signature(K23.n_splits).parameters) == [
-        "B", "KVH", "rows", "MAXB", "bs", "sms"]
-    for B in (1, 2, 4, 8, 16, 64):
-        for KVH in (1, 4, 8, 32):
-            for rows in (1, 4, 7, 9, 28, 40):
-                for MAXB in (1, 3, 32, 64, 256):
-                    for bs in (1, 8, 16, 64):
-                        for sms in (66, 132):
-                            n = K23.n_splits(B, KVH, rows, MAXB, bs, sms)
-                            assert 1 <= n <= MAXB
-                            blocks = B * KVH * K23.row_tiles(rows)
-                            if blocks >= 2 * sms:
-                                assert n == 1
-                            else:   # two waves, unless a split would get under a stage
-                                cap = max(1, min(MAXB, MAXB * bs // K23.STAGE_KEYS))
-                                assert n * blocks >= 2 * sms or n == cap
+        "B", "KVH", "rows", "MAXB", "bs", "sms", "hd"]
+    for B, KVH, rows, MAXB, bs, sms, hd in itertools.product(
+            (1, 2, 4, 8, 16, 64), (1, 4, 8, 32), (1, 4, 7, 9, 28, 40), (1, 3, 32, 64, 256),
+            (1, 8, 16, 64), (66, 132), (64, 128, 256)):
+        n = K23.n_splits(B, KVH, rows, MAXB, bs, sms, hd)
+        assert 1 <= n <= MAXB
+        blocks = B * KVH * K23.row_tiles(rows)
+        if blocks >= 2 * sms:
+            assert n == 1
+        else:   # two waves, unless a split would get under a stage (or past hd 256's cap)
+            cap = max(1, min(MAXB, MAXB * bs // K23.STAGE_KEYS))
+            if hd == 256:
+                cap = min(cap, K23.MAX_SPLITS_HD256)
+            assert n * blocks >= 2 * sms or n == cap
 
 
 @pytest.mark.parametrize("shape,want", [
     ((16, 32, 1, 32, 16), 1),     # the paged main path: 512 blocks fill the card
     ((1, 32, 1, 32, 16), 9),      # one slot: only the splits fill it
     ((8, 4, 32, 32, 16), 3),      # yi-9b GQA, T 4: 4 row tiles of 8
+    ((16, 1, 32, 32, 16, 256), 4),  # paligemma-3b's paged verify at s 3 (phase 12b)
+    ((16, 1, 8, 32, 16, 256), 4),   # ... at s 0
 ])
 def test_n_splits_at_phase_2b_shapes(shape, want):
-    assert K23.n_splits(*shape, 132) == want
+    assert K23.n_splits(*shape[:5], 132, *shape[5:]) == want
 
 
 def test_both_wrappers_give_the_kernel_the_same_split_count(monkeypatch):

@@ -22,6 +22,7 @@ stood in for).  Inputs are made with numpy from a seed.
 """
 import functools
 import inspect
+import itertools
 import math
 
 import jax
@@ -124,7 +125,7 @@ def emulate(q, k, v, q_pos, k_pos, window, prefix_len, route, splits=None):
     L, KVH = k.shape[1], k.shape[2]
     G, rows = H // KVH, (H // KVH) * T
     rt = K1.row_tile(rows)
-    n = splits or K1.n_splits(B, KVH, rows, L, SMS)
+    n = splits or K1.n_splits(B, KVH, rows, L, SMS, hd)
     scale = 1.0 / math.sqrt(hd)
     out = torch.zeros(B, T, H, hd)
     for b in range(B):
@@ -295,20 +296,20 @@ def test_row_tile_is_picked_from_the_folded_rows(rows, want):
 
 
 def test_n_splits_depends_on_shapes_and_sm_count_only():
-    assert list(inspect.signature(K1.n_splits).parameters) == ["B", "KVH", "rows", "L", "sms"]
-    for B in (1, 2, 4, 8, 16):
-        for KVH in (1, 4, 8, 12, 32):
-            for rows in (1, 4, 9, 16, 28, 64, 256, 700):
-                for L in (40, 256, 512, 1024, 4096):
-                    for sms in (66, 132):
-                        n = K1.n_splits(B, KVH, rows, L, sms)
-                        blocks = B * KVH * K1.row_tiles(rows)
-                        cap = -(-L // K1.KEY_TILE) // K1.SPLIT_MIN_TILES[K1.row_tile(rows)]
-                        assert 1 <= n <= max(1, cap)
-                        if blocks >= sms:
-                            assert n == 1
-                        elif n < max(1, cap):   # else two blocks an SM
-                            assert n * blocks >= 2 * sms
+    assert list(inspect.signature(K1.n_splits).parameters) == [
+        "B", "KVH", "rows", "L", "sms", "hd"]
+    for B, KVH, rows, L, sms, hd in itertools.product(
+            (1, 2, 4, 8, 16), (1, 4, 8, 12, 32), (1, 4, 9, 16, 28, 64, 256, 700),
+            (40, 256, 512, 1024, 4096), (66, 132), (64, 128, 256)):
+        n = K1.n_splits(B, KVH, rows, L, sms, hd)
+        blocks = B * KVH * K1.row_tiles(rows)
+        table = K1.SPLIT_MIN_TILES_HD256 if hd == 256 else K1.SPLIT_MIN_TILES
+        cap = -(-L // K1.KEY_TILE) // table[K1.row_tile(rows)]
+        assert 1 <= n <= max(1, cap)
+        if blocks >= sms:
+            assert n == 1
+        elif n < max(1, cap):   # else two blocks an SM
+            assert n * blocks >= 2 * sms
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -320,9 +321,13 @@ def test_n_splits_depends_on_shapes_and_sm_count_only():
     ((1, 32, 1, 4096), 9),      # ... of a 4096-row one: two blocks an SM
     ((1, 32, 256, 1024), 2),    # a prefill chunk over 1024 rows
     ((1, 32, 256, 4096), 3),
+    ((16, 1, 32, 512, 256), 4),    # paligemma-3b's verify at s 3 (phase 12b's rings)
+    ((1, 1, 3072, 512, 256), 4),   # its B 1 prefill of 384 rows (prefill_into)
+    ((16, 1, 3072, 512, 256), 1),  # its B 16 prefill: 768 blocks
+    ((1, 1, 8, 2048, 256), 16),    # one request decoding near the end of 2048 rows
 ])
 def test_n_splits_at_phase_2_shapes(shape, want):
-    assert K1.n_splits(*shape, SMS) == want
+    assert K1.n_splits(*shape[:4], SMS, *shape[4:]) == want
 
 
 def test_workspace_and_device_kernels():

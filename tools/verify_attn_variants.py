@@ -131,7 +131,8 @@ def main(argv=None) -> int:
 
     def splits_of(c):
         B, T, H, _ = c["q"].shape
-        return n_splits(B, c["k"].shape[2], (H // c["k"].shape[2]) * T, c["k"].shape[1], sms)
+        return n_splits(B, c["k"].shape[2], (H // c["k"].shape[2]) * T, c["k"].shape[1], sms,
+                        c["q"].shape[3])
 
     def k1_of(c):   # K1 with the case's window and prefix
         def k1(q, k, v, qp, kp):
