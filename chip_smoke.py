@@ -716,7 +716,8 @@ def k1_specs():
     # tiles of a prefill see past their own positions).  prefill_into's B 1
     # prefill of a 128-token prompt (the target fed 127) into a 512-row
     # ring, the B 16, s 3 verify over 16 rings, the same over int8 rings,
-    # and one request decoding near the end of a 2048-row ring (split)
+    # one request decoding near the end of a 2048-row ring (split), and
+    # the B 16 prefill of phase 12b's generate (768 blocks: unsplit)
     specs += [
         ("pali_prefill_b1_t384_prefix256", dict(B=1, T=384, L=512, n_ctx=1, kv_len=383,
                                                 prefix_len=256, **PALI_HEADS)),
@@ -726,6 +727,8 @@ def k1_specs():
                                                    prefix_len=256, quant=True, **PALI_HEADS)),
         ("split_pali_decode_b1_l2048_prefix256", dict(B=1, T=1, L=2048, n_ctx=1900,
                                                       prefix_len=256, **PALI_HEADS)),
+        ("pali_prefill_b16_t384_prefix256", dict(B=16, T=384, L=512, n_ctx=1, kv_len=383,
+                                                 prefix_len=256, **PALI_HEADS)),
     ]
     return specs
 
@@ -745,6 +748,9 @@ def phase_kernels(torch, K1, ref):
     check(all(r["n_splits"] > 1 for r in rows
               if r["case"].startswith(("b1_decode_l512", "split_"))),
           "a case meant to split the key range did not")
+    check(all(r["n_splits"] == 1 for r in rows
+              if r["case"].startswith("pali_prefill_b16_")),
+          "paligemma's B 16 prefill split its key range")
     return rows
 
 
@@ -4962,6 +4968,66 @@ def phase_mla_parity(torch, np, R, m, tree_to):
     return line
 
 
+def prefill_routes(torch, m, model, params, toks, lens, L, dtype, ref_logits=None,
+                   extra=(), timed=False, calls=1):
+    """``prefill`` and ``prefill_flash`` (K4) of ``model`` on the same
+    prompts (``toks``, ``lens`` and the routes' further operands ``extra``,
+    a VLM's ``prefix_embeds``) into fresh caches of ``L`` rows in
+    ``dtype``.  For each route: its last logits over the real vocabulary
+    (the padded ids hold -1e30) against ``ref_logits`` (by default this
+    call's ``prefill``) in relative RMS, whether they are finite, and K1's,
+    K4's and the plain versions' launches in one call.  With ``timed``,
+    also the device's busy ms and attention's (K4's ``fwd_kernel``, K1's
+    ``verify_kernel`` and its combine) a call under the profiler, and the
+    wall ms of ``calls`` calls in turns (prefill, flash, flash, prefill:
+    the host's speed drifts).  Returns the rows and each route's logits
+    and cache from its counted call."""
+    from torch.profiler import ProfilerActivity
+    V = model.cfg.vocab_size
+    routes = {"prefill": model.prefill, "prefill_flash": model.prefill_flash}
+
+    def run(fn, cache=None):
+        cache = model.init_cache(len(lens), L, dtype, "cuda") if cache is None else cache
+        with torch.no_grad():
+            return fn(params, toks, cache, lens, *extra)
+    rows, outs = {}, {}
+    for name, fn in routes.items():
+        zero_counts(m)
+        lg, cache = run(fn)[:2]
+        torch.cuda.synchronize()
+        c = launch_counts(m)
+        outs[name] = (lg[:, :V].float(), cache)
+        rows[name] = dict(k1=c["k1"], k4=c["k4"], plain=c["plain"])
+        del lg, cache
+    ref = outs["prefill"][0] if ref_logits is None else ref_logits[:, :V].float()
+    for name, (lg, _) in outs.items():
+        rows[name].update(rel_rms=rel_rms(lg, ref), finite=bool(torch.isfinite(lg).all()))
+    if not timed:
+        return rows, outs
+    kinds = serving_kinds() + train_kinds(m)[:1]
+    for name, fn in routes.items():
+        prof, takes, lost = whole_profile(torch, lambda fn=fn: [run(fn) for _ in range(calls)],
+                                          [ProfilerActivity.CUDA], kinds)
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in dev) / 1e3 / calls
+        attn = sum(e.device_time_total for e in dev if kernel_name(e.name) in (
+            "fwd_kernel", "verify_kernel", "verify_kernel_combine")) / 1e3 / calls
+        rows[name].update(device_busy_ms=busy, attention_ms=attn,
+                          attention_share=attn / busy if busy else None,
+                          device_kernels=len(dev) / calls, profile_takes=takes,
+                          profile_lost=lost, wall_ms_turns=[])
+    for name in ("prefill", "prefill_flash", "prefill_flash", "prefill"):
+        caches = [model.init_cache(len(lens), L, dtype, "cuda") for _ in range(calls)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for cache in caches:
+            run(routes[name], cache)
+        torch.cuda.synchronize()
+        rows[name]["wall_ms_turns"].append(1e3 * (time.perf_counter() - t0) / calls)
+        del caches
+    return rows, outs
+
+
 def mla_flash_routes(torch, m, tcfg, tp, toks, lens):
     """10a's route comparisons on the card, at the no-drop factor (under a
     capacity that drops, the two routes' padded rows take expert capacity
@@ -4974,24 +5040,18 @@ def mla_flash_routes(torch, m, tcfg, tp, toks, lens):
     f32, bf16 = torch.float32, torch.bfloat16
     model = m.DecoderLM(no_drop(tcfg))
     t, ln = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
-    V = tcfg.vocab_size
-
-    def last(params, route, dtype):
-        with torch.no_grad():
-            lg = getattr(model, route)(params, t, model.init_cache(len(lens), 64, dtype, "cuda"),
-                                       ln)[0]
-        return lg[:, :V].float()
-    ref32, flash32 = last(tp, "prefill", f32), last(tp, "prefill_flash", f32)
+    r32, o32 = prefill_routes(torch, m, model, tp, t, ln, 64, f32)
+    ref32, flash32 = o32["prefill"][0], o32["prefill_flash"][0]
     tp_bf = tree_map(lambda x: x.to(bf16), tp)
-    pre_bf, flash_bf = last(tp_bf, "prefill", bf16), last(tp_bf, "prefill_flash", bf16)
-    del tp_bf
+    rbf, _ = prefill_routes(torch, m, model, tp_bf, t, ln, 64, bf16, ref32)
+    del tp_bf, o32
     torch.cuda.empty_cache()
-    check(all(bool(torch.isfinite(x).all()) for x in (ref32, flash32, pre_bf, flash_bf)),
+    check(all(r[k]["finite"] for r in (r32, rbf) for k in r),
           "MLA: prefill or prefill_flash logits are not finite")
     return dict(fp32_flash_vs_prefill_max_abs=float((flash32 - ref32).abs().max()),
-                fp32_flash_vs_prefill_rel_rms=rel_rms(flash32, ref32),
-                bf16_flash_rel_rms_err=rel_rms(flash_bf, ref32),
-                bf16_prefill_rel_rms_err=rel_rms(pre_bf, ref32))
+                fp32_flash_vs_prefill_rel_rms=r32["prefill_flash"]["rel_rms"],
+                bf16_flash_rel_rms_err=rbf["prefill_flash"]["rel_rms"],
+                bf16_prefill_rel_rms_err=rbf["prefill"]["rel_rms"])
 
 
 def phase_mla_serve(torch, np, R, m):
@@ -5013,36 +5073,29 @@ def phase_mla_serve(torch, np, R, m):
 def mla_prefill_routes(torch, np, m, tcfg, tp, B=16, T=128, L=256, calls=2):
     """``prefill_flash`` (K4 over per-head keys and values) against
     ``prefill`` (absorbed attention over ``ckv``) in bf16 on the same B 16,
-    128-token prompts: layer 0's ``ckv``/``krope`` rows bit for bit (the
-    same projections of the same input), positions equal, the last logits'
-    relative RMS distance (reported), K4's and K1's launches a call; each
-    route's device time under ``torch.profiler`` and its wall time in
-    turns (flash, prefill, prefill, flash: the host's speed drifts)."""
-    from torch.profiler import ProfilerActivity
+    128-token prompts (:func:`prefill_routes`): layer 0's ``ckv``/``krope``
+    rows bit for bit (the same projections of the same input), positions
+    equal, the last logits' relative RMS distance (reported), K4's and K1's
+    launches a call; each route's device time under ``torch.profiler`` and
+    its wall time in turns."""
     bf16 = torch.bfloat16
     model = m.DecoderLM(tcfg)
     toks = torch.from_numpy(np.random.default_rng(41).integers(0, tcfg.vocab_size, (B, T))
                             ).cuda()
     lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
-
-    def run(route):
-        with torch.no_grad():
-            return getattr(model, route)(tp, toks, model.init_cache(B, L, bf16, "cuda"), lens)
-    m.K4.FWD.launches = m.K1.KERNEL.launches = 0
-    lf, cf, _ = run("prefill_flash")
-    torch.cuda.synchronize()
-    k4, k1 = m.K4.FWD.launches, m.K1.KERNEL.launches
-    lp, cp, _ = run("prefill")
+    rows, outs = prefill_routes(torch, m, model, tp, toks, lens, L, bf16, timed=True,
+                                calls=calls)
+    (_, cf), (lp, cp) = outs["prefill_flash"], outs["prefill"]
     written = cp["pos"] >= 0
     V = tcfg.vocab_size
+    flash = rows["prefill_flash"]
     row = dict(shape=f"B{B} T{T} ring {L}, bf16, {tcfg.n_layers} layers",
                layer0_rows_equal=all(bool(torch.equal(cf[k][0][written], cp[k][0][written]))
                                      for k in ("ckv", "krope")),
                pos_equal=bool(torch.equal(cf["pos"], cp["pos"])),
-               logits_rel_rms=rel_rms(lf[:, :V], lp[:, :V].float()),
-               logits_finite=bool(torch.isfinite(lf[:, :V]).all()),
-               k4_launches_per_call=k4, k1_launches_per_call=k1)
-    del lf, cf, lp, cp
+               logits_rel_rms=flash["rel_rms"], logits_finite=flash["finite"],
+               k4_launches_per_call=flash["k4"], k1_launches_per_call=flash["k1"], **rows)
+    del outs, cf, lp, cp
     # the same distance on 4 of the prompts, at the config's factor and at
     # the no-drop factor (under a capacity that drops, a rounding that moves
     # a router's choice also moves which assignments drop); and, as the
@@ -5060,26 +5113,6 @@ def mla_prefill_routes(torch, np, m, tcfg, tp, B=16, T=128, L=256, calls=2):
         l8 = sub.prefill(tp, toks[:n8], sub.init_cache(n8, L, bf16, "cuda"), lens[:n8])[0]
     row["prefill_b4_vs_b8_no_drop"] = rel_rms(lp[:, :V], l8[:4, :V].float())
     del lf, lp, l8
-    walls = {"prefill_flash": [], "prefill": []}
-    for route in ("prefill_flash", "prefill", "prefill", "prefill_flash"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            run(route)
-        torch.cuda.synchronize()
-        walls[route].append(1e3 * (time.perf_counter() - t0) / calls)
-    kinds = serving_kinds() + train_kinds(m)[:1]
-    for route in ("prefill_flash", "prefill"):
-        prof, takes, lost = whole_profile(torch, lambda: [run(route) for _ in range(calls)],
-                                          [ProfilerActivity.CUDA], kinds)
-        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.device_time_total for e in dev) / 1e3 / calls
-        k4_ms = sum(e.device_time_total for e in dev
-                    if kernel_name(e.name) == "fwd_kernel") / 1e3 / calls
-        row[route] = dict(wall_ms_turns=walls[route], device_busy_ms=busy, k4_ms=k4_ms,
-                          k4_share=k4_ms / busy if busy else None,
-                          device_kernels=len(dev) / calls, profile_takes=takes,
-                          profile_lost=lost)
     check(row["logits_finite"], "MLA: bf16 prefill_flash logits are not finite")
     return row
 
@@ -5755,54 +5788,6 @@ def phase_pali_parity(torch, np, R, m, tree_to):
     return line
 
 
-def pali_prefill_routes(torch, np, m, tcfg, tp, toks, lens, pe, ref_logits, L=512):
-    """``prefill_flash`` (K4) against ``prefill`` (K1) at B 16 in bf16: each
-    one's last-token logits over the real vocabulary (the padded ids hold
-    -1e30) against fp32 ``prefill``'s (``ref_logits``) in relative RMS, K1
-    and K4 a call, device ms under the profiler, and walls in turns
-    (prefill, flash, flash, prefill)."""
-    from torch.profiler import ProfilerActivity
-    model = m.DecoderLM(tcfg)
-    t, ln = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
-    routes = {"prefill": model.prefill, "prefill_flash": model.prefill_flash}
-    V = tcfg.vocab_size
-    ref_logits = ref_logits[:, :V]
-    res = {}
-    for name, fn in routes.items():
-        with torch.no_grad():
-            zero_counts(m)
-            lg = fn(tp, t, model.init_cache(len(lens), L, torch.bfloat16, "cuda"), ln, pe)[0]
-            torch.cuda.synchronize()
-            c = launch_counts(m)
-            prof, takes, lost = whole_profile(
-                torch, lambda fn=fn: fn(tp, t, model.init_cache(len(lens), L, torch.bfloat16,
-                                                                "cuda"), ln, pe),
-                [ProfilerActivity.CUDA], serving_kinds() + train_kinds(m)[:1])
-        by = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by[kernel_name(e.name)] = by.get(kernel_name(e.name), 0.0) + \
-                    e.device_time_total / 1e3
-        busy = sum(by.values())
-        attn = by.get("fwd_kernel", 0.0) + by.get("verify_kernel", 0.0) + \
-            by.get("verify_kernel_combine", 0.0)
-        res[name] = dict(rel_rms_vs_fp32_prefill=rel_rms(lg[:, :V], ref_logits),
-                         k1=c["k1"], k4=c["k4"], plain=c["plain"], device_busy_ms=busy,
-                         attention_ms=attn, attention_share=attn / busy if busy else None,
-                         profile_takes=takes, profile_lost=lost, wall_ms=[])
-        del lg
-    for name in ("prefill", "prefill_flash", "prefill_flash", "prefill"):
-        with torch.no_grad():
-            cache = model.init_cache(len(lens), L, torch.bfloat16, "cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            routes[name](tp, t, cache, ln, pe)
-            torch.cuda.synchronize()
-        res[name]["wall_ms"].append(1e3 * (time.perf_counter() - t0))
-        del cache
-    return res
-
-
 def phase_pali_serve(torch, np, R, m):
     """12b: paligemma-3b at full size (18 layers, 3.04 B parameters) with its
     4-layer dense draft, 16 requests of ``PALI_PROMPTS`` tokens, each behind
@@ -5817,8 +5802,9 @@ def phase_pali_serve(torch, np, R, m):
     profiler (device ms, K1's share, walls) and B 16 paged steps at s 0 and
     3 (``profile_step``: busy, wall, idle share, K1/K3/K5 shares); the
     weight floor of a step: the target's layers and unembedding over 3.35
-    TB/s.  (d) ``pali_prefill_routes``: ``prefill_flash`` gated at 1.5x
-    ``prefill``'s relative RMS from fp32, K4 18 a call."""
+    TB/s.  (d) :func:`prefill_routes` at B 16 against (a)'s fp32 logits:
+    ``prefill_flash`` gated at 1.5x ``prefill``'s relative RMS, K4 18 a
+    call."""
     from torch.profiler import ProfilerActivity
     bf16, f32 = torch.bfloat16, torch.float32
     tcfg, dcfg = R.get_config(PALI_ARCH), R.get_draft_config(PALI_ARCH)
@@ -5944,8 +5930,9 @@ def phase_pali_serve(torch, np, R, m):
     line["profiles"] = prof_rows
     del state, eng
     # ---- (d) prefill_flash against prefill at B 16 ----
-    line["prefill_routes"] = pali_prefill_routes(torch, np, m, tcfg, tp, toks, lens, pe,
-                                                 ref_logits, L)
+    line["prefill_routes"], _ = prefill_routes(
+        torch, m, model, tp, torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda(), L,
+        bf16, ref_logits, extra=(pe,), timed=True)
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del tp, dp, pe, ref_logits
     torch.cuda.empty_cache()
@@ -5966,8 +5953,7 @@ def phase_pali_serve(torch, np, R, m):
           and pr["prefill_flash"]["k4"] == tcfg.n_layers and pr["prefill_flash"]["k1"] == 0
           and pr["prefill"]["plain"] == pr["prefill_flash"]["plain"] == 0,
           f"paligemma: prefill routes' launches {pr}")
-    check(0 < pr["prefill_flash"]["rel_rms_vs_fp32_prefill"]
-          <= 1.5 * pr["prefill"]["rel_rms_vs_fp32_prefill"],
+    check(0 < pr["prefill_flash"]["rel_rms"] <= 1.5 * pr["prefill"]["rel_rms"],
           f"paligemma: bf16 prefill_flash is further from fp32 than 1.5x bf16 prefill: {pr}")
     return line
 
@@ -6341,11 +6327,19 @@ def main() -> int:
         getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, 16, 32)
         for dt in ("float32", "bfloat16") for hd in (64, 128, 256) for q8 in (False, True)}
     print("  k2/k3 occupancy (bs 16, MAXB 32): " + json.dumps(k23_occ), flush=True)
-    # the wrapper's shared-memory check counts what the source asks for
-    check(all(o["smem_bytes"] == K23.smem_bytes(
-        1 if "int8" in name else getattr(torch, name.split("_")[0]).itemsize,
-        int(name.rsplit("hd", 1)[1]), 16, 32) for name, o in k23_occ.items()),
-        f"K2/K3's smem_bytes disagrees with the source's geometry: {k23_occ}")
+    # the source refuses a block beyond the card's shared memory (fp32 at
+    # hd 256 with 64-row pool blocks) before it launches
+    try:
+        c = make_paged_case(torch, np, "smem_refused", B=1, T=1, H=8, KVH=1, hd=256, bs=64,
+                            MAXB=2, ctx=[60], dtype="float32")
+        K23.ragged_paged_verify_attn_cuda(c["q"], c["k"], c["v"], c["q_pos"], c["pos"],
+                                          c["bt"], c["cu"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "shared memory" in refused,
+          f"K3 took a block beyond the card's shared memory: {refused}")
+    print(f"  k2/k3 refusal at hd 256, fp32, bs 64: {refused}", flush=True)
     print("  k1 occupancy (L 512; row tile 16 / 64): " + json.dumps({
         f"{dt}{'_int8' if q8 else ''}_hd{hd}_rt{rt}": K1.occupancy(
             getattr(torch, dt), torch.int8 if q8 else getattr(torch, dt), hd, rt, 512)

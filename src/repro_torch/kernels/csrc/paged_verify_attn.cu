@@ -595,6 +595,12 @@ cudaError_t allow_smem(K kern, size_t bytes, size_t* configured) {
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (bytes > configured[dev]) {
+    // a geometry beyond what a block may opt into can never launch (at hd
+    // 256 in fp32, 64-row pool blocks): refuse it by name
+    int most = 0;
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    if (bytes > static_cast<size_t>(most)) return cudaErrorInvalidConfiguration;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     // all of the SM's memory as shared that it can take: blocks, not L1, hold the ring
@@ -671,7 +677,8 @@ int log2_exact(int x) {
 // With n_splits > 1, `ws` is an fp32 workspace of parts * (hd + 2) floats,
 // parts = B * KVH * n_splits * tiles * 8 (8 folded rows per tile); the
 // call then runs the partial kernel and the combine kernel.  Returns a
-// cudaError_t (0 = launched).
+// cudaError_t (0 = launched; cudaErrorInvalidConfiguration when the
+// block's shared memory exceeds what the card lets a block opt into).
 extern "C" int paged_verify_attn(
     int ragged, int q_dtype, int kv_dtype, const void* q, const void* k,
     const void* v, const void* q_pos, const void* pos, const void* bt,

@@ -27,8 +27,9 @@ Operands: q ``[B,T,H,hd]`` (float32 or bfloat16); the pool k/v
 (``tuning.host_cu_blocks``).  hd is 64, 128 or 256 and ``bs`` divides
 64; k and v start, and have their (block, row) strides, at multiples of
 16 bytes (the kernels copy them in 16-byte pieces); the block's shared
-memory (:func:`smem_bytes`) must fit the card's 227 KB, which at hd 256
-in fp32 takes ``bs`` at most 32.  Anything else raises.
+memory must fit what the card lets a block take (227 KB on an H100),
+which at hd 256 in fp32 takes ``bs`` at most 32: the source measures the
+block and refuses it.  Anything else raises.
 """
 from __future__ import annotations
 
@@ -47,15 +48,16 @@ _HEAD_DIMS = (64, 128, 256)
 _BLOCK_DIVIDES = 64      # the block size must divide it
 ROW_TILE = 8             # folded query rows (G * T) per block
 STAGE_KEYS = 32          # keys per pipeline stage (max(32, bs))
-STAGES = 3               # pipeline stages of the ring
-WARPS = 4                # warps of a block
-MAX_SMEM = 232_448       # shared memory a block may opt into on an H100 (227 KB)
 MAX_SPLITS_HD256 = 4     # at hd 256 more splits cost more in the combine than they save
 
 DENSE = LaunchCount()         # launches of K2
 RAGGED = LaunchCount()        # launches of K3
 DENSE_INT8 = LaunchCount()    # those of them over an int8 pool with scales
 RAGGED_INT8 = LaunchCount()
+
+# the C entry's refusal of a block that needs more shared memory than the
+# card lets it opt into
+_SMEM_REFUSED = 9        # cudaErrorInvalidConfiguration
 
 _fn = None
 
@@ -102,7 +104,7 @@ def row_tiles(rows: int) -> int:
 
 
 def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int,
-             hd: int = 128) -> int:
+             hd: int) -> int:
     """How many blocks share one ``(slot, kv-head, row tile)``'s table row:
     1 when the ``B * KVH * row_tiles(rows)`` blocks already make two waves
     over ``sms`` SMs, else enough splits for two waves, at most ``MAXB``
@@ -124,20 +126,6 @@ def n_splits(B: int, KVH: int, rows: int, MAXB: int, bs: int, sms: int,
     if hd == 256:
         cap = min(cap, MAX_SPLITS_HD256)
     return max(1, min(cap, -(-2 * sms // blocks)))
-
-
-def smem_bytes(kv_itemsize: int, hd: int, bs: int, per_split: int) -> int:
-    """The partial kernel's dynamic shared memory (``geometry`` in the
-    source): a ring of ``STAGES`` stages, each ``max(32, bs)`` keys of a
-    padded K row, a V row, a position (and two fp32 scales for int8), or
-    the warps' merge buffers if larger; then the fp32 query tile, the
-    warps' P rows, the row positions and three ints per table entry of a
-    split (``per_split``)."""
-    keys = max(STAGE_KEYS, bs)
-    stage = keys * (2 * hd * kv_itemsize + 16) + 4 * keys + (8 * keys if kv_itemsize == 1 else 0)
-    ring = max(STAGES * stage, 4 * WARPS * ROW_TILE * (hd + 2))
-    tail = 4 * (ROW_TILE * hd + WARPS * ROW_TILE * 8) + 4 * ROW_TILE
-    return ring + tail + 12 * per_split
 
 
 def workspace_floats(B: int, KVH: int, rows: int, hd: int, splits: int) -> int:
@@ -211,9 +199,6 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     rows = (H // KVH) * T
     splits = n_splits(B, KVH, rows, MAXB, bs, sm_count(dev), hd)
-    smem = smem_bytes(k.element_size(), hd, bs, -(-MAXB // splits))
-    _check(smem <= MAX_SMEM, f"a block needs {smem} bytes of shared memory at hd {hd}, "
-                             f"block size {bs} ({k.dtype}); the card gives {MAX_SMEM}")
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     ws = (torch.empty(workspace_floats(B, KVH, rows, hd, splits), dtype=torch.float32,
                       device=dev) if splits > 1 else None)
@@ -230,6 +215,8 @@ def _launch(ragged: bool, q, k, v, q_pos, pos, block_tables, cu_blocks,
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), s_sn, s_sl,
         q_pos.stride(0), pos.stride(0), block_tables.stride(0),
         float(scale), int(window is not None), int(window or 0), int(prefix_len))
+    _check(rc != _SMEM_REFUSED, f"a block needs more shared memory than the card gives "
+                                f"at hd {hd}, block size {bs} ({k.dtype})")
     if rc != 0:
         kind = "ragged" if ragged else "dense"
         raise RuntimeError(f"paged_verify_attn ({kind}) kernel launch failed: "

@@ -96,7 +96,7 @@ def row_tiles(rows: int) -> int:
     return -(-rows // rt)
 
 
-def n_splits(B: int, KVH: int, rows: int, L: int, sms: int, hd: int = 128) -> int:
+def n_splits(B: int, KVH: int, rows: int, L: int, sms: int, hd: int) -> int:
     """How many blocks share one ``(b, kv-head, row tile)``'s visible key
     tiles: 1 when the ``B * KVH * row_tiles(rows)`` blocks already give
     every one of ``sms`` SMs a block, else enough splits for two blocks an

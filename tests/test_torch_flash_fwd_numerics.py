@@ -20,9 +20,10 @@ and MLA's q/k head dim 192 with v head dim 128 (the kernel's (192, 128)
 instantiation: scores over 192 columns, the output over 128); causal, a
 window of 16, and right padding with a fully masked batch entry; and
 paligemma-3b's prefill at hd 256 (B 1, T 288, 8 heads over 1 kv-head)
-behind a bidirectional prefix of 256 positions, where the emulation also
-skips the key tiles the kernel's scan skips for each block of 64 folded
-rows (a block of early positions loads every prefix tile past them).
+behind a bidirectional prefix of 256 positions.  A separate test models
+the kernel's scan of key tiles for each block of 64 folded rows
+(:func:`loaded_tiles`: a block of early positions loads every prefix tile
+past them) and checks that no visible key lies in a tile it skips.
 Inputs are made with numpy from a seed.  The test that a single tf32
 product misses the fp32 tolerance is the recorded reason for the split.
 """
@@ -93,19 +94,17 @@ def loaded_tiles(q_pos, k_pos, G, window, prefix_len):
 
 def emulated_forward(q, k, v, q_pos, k_pos, window, route, prefix_len=0):
     """K4's forward as the kernel computes it, up to summation order: per
-    (b, kv-head) the G heads' rows against the key tiles their block loads
-    (:func:`loaded_tiles`), online softmax with the finite-max guard, ``out
-    = acc / max(l, 1e-30)``, ``lse = m + log l`` (-inf where no key was
-    seen).  q/k have dk columns, v dv: the scores run over dk at scale
-    1/sqrt(dk), the output over dv.  Returns (out [B,T,H,dv], lse
-    [B,H,T])."""
+    (b, kv-head) the G heads' rows against key tiles, online softmax with
+    the finite-max guard, ``out = acc / max(l, 1e-30)``, ``lse = m + log l``
+    (-inf where no key was seen).  q/k have dk columns, v dv: the scores
+    run over dk at scale 1/sqrt(dk), the output over dv.  Returns (out
+    [B,T,H,dv], lse [B,H,T])."""
     B, T, H, hd = q.shape
     L, KVH, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KVH
     scale = 1.0 / math.sqrt(hd)
     qf = q.reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4)            # [B,KVH,G,T,hd]
     ok = ref._visible(q_pos, k_pos, window, prefix_len)[:, None, None]  # [B,1,1,T,L]
-    ok = ok & loaded_tiles(q_pos, k_pos, G, window, prefix_len)[:, None]
     m = torch.full((B, KVH, G, T), -math.inf)
     l = torch.zeros((B, KVH, G, T))
     acc = torch.zeros((B, KVH, G, T, dv))

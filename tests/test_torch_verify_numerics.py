@@ -313,21 +313,21 @@ def test_n_splits_depends_on_shapes_and_sm_count_only():
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((8, 32, 4, 256), 1),       # target verify at s = 3 (phase 4): 256 blocks
-    ((8, 12, 1, 256), 1),       # the draft's decode at B 8: no split pays at L 256
-    ((1, 32, 256, 512), 1),     # phase 6b's largest target prefill
-    ((1, 12, 64, 512), 1),      # phase 6b's smallest draft prefill
-    ((1, 32, 1, 512), 2),       # a B = 1 decode near the end of a 512-row ring
-    ((1, 32, 1, 4096), 9),      # ... of a 4096-row one: two blocks an SM
-    ((1, 32, 256, 1024), 2),    # a prefill chunk over 1024 rows
-    ((1, 32, 256, 4096), 3),
+    ((8, 32, 4, 256, 128), 1),     # target verify at s = 3 (phase 4): 256 blocks
+    ((8, 12, 1, 256, 64), 1),      # the draft's decode at B 8: no split pays at L 256
+    ((1, 32, 256, 512, 128), 1),   # phase 6b's largest target prefill
+    ((1, 12, 64, 512, 64), 1),     # phase 6b's smallest draft prefill
+    ((1, 32, 1, 512, 128), 2),     # a B = 1 decode near the end of a 512-row ring
+    ((1, 32, 1, 4096, 128), 9),    # ... of a 4096-row one: two blocks an SM
+    ((1, 32, 256, 1024, 128), 2),  # a prefill chunk over 1024 rows
+    ((1, 32, 256, 4096, 128), 3),
     ((16, 1, 32, 512, 256), 4),    # paligemma-3b's verify at s 3 (phase 12b's rings)
     ((1, 1, 3072, 512, 256), 4),   # its B 1 prefill of 384 rows (prefill_into)
     ((16, 1, 3072, 512, 256), 1),  # its B 16 prefill: 768 blocks
     ((1, 1, 8, 2048, 256), 16),    # one request decoding near the end of 2048 rows
 ])
 def test_n_splits_at_phase_2_shapes(shape, want):
-    assert K1.n_splits(*shape[:4], SMS, *shape[4:]) == want
+    assert K1.n_splits(*shape[:4], SMS, shape[4]) == want
 
 
 def test_workspace_and_device_kernels():
@@ -365,7 +365,7 @@ def test_wrapper_hands_the_kernel_a_geometry_of_shapes_only(monkeypatch, name, L
         K1.spec_verify_attn_cuda(q, k, v, qp, kpos)
     assert K1.KERNEL.launches == before + 3
     rows = T
-    splits = K1.n_splits(B, 4, rows, L, SMS)
+    splits = K1.n_splits(B, 4, rows, L, SMS, 64)
     # (q_dtype, kv_dtype, 8 pointers, B, T, H, KVH, L, hd, row_tile, n_splits, ws, ...)
     geometry = {tuple(a[10:18]) + (a[18] is not None,) for a in calls}
     assert geometry == {(B, T, 4, 4, L, 64, K1.row_tile(rows), splits, splits > 1)}

@@ -5,8 +5,7 @@
     python3 tools/pali_probe.py            # from the repository root, on a GPU
 
 Builds every kernel, prints the ptxas report of the head-dim-256 instances
-and their occupancy (K1, K2/K3 with the wrapper's ``smem_bytes`` beside the
-source's, K4's forward), runs the ``pali_*`` rows of phases 2, 2b and 2c
+and their occupancy (K1, K2/K3, K4's forward), runs the ``pali_*`` rows of phases 2, 2b and 2c
 (``run_kernel_case``, ``run_paged_case``, ``run_flash_case``), K1's split
 sweep at head dim 256 (``tools/verify_attn_variants.py --pali``), K3's
 forced split counts at paligemma's paged verify (B 8-16, T 1 and 4, bf16
@@ -57,8 +56,7 @@ def main() -> int:
             tag = f"{dt}{'_int8' if q8 else ''}"
             for rt in K1.ROW_TILES:
                 occ[f"k1_{tag}_rt{rt}"] = K1.occupancy(getattr(torch, dt), kv, 256, rt, 512)
-            occ[f"k23_{tag}"] = dict(K23.occupancy(getattr(torch, dt), kv, 256, 16, 32),
-                                     wrapper_smem=K23.smem_bytes(kv.itemsize, 256, 16, 32))
+            occ[f"k23_{tag}"] = K23.occupancy(getattr(torch, dt), kv, 256, 16, 32)
         occ[f"k4_{dt}"] = K4.fwd_occupancy(getattr(torch, dt), 256)
     print("  occupancy hd256: " + json.dumps(occ), flush=True)
     failed = []
